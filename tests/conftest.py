@@ -52,3 +52,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # scans by path — pytest must never collect them (the fixture
 # test_protowire.py would collide with the real module's import name).
 collect_ignore_glob = ["fixtures/*"]
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel of tpumon_torch on an NVIDIA GPU; skips "
+        "with a reason where there is none (python -m pytest -m cuda)")

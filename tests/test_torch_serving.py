@@ -1,0 +1,279 @@
+"""The port's ServingEngine against the JAX reference engine.
+
+On bridged f32 weights, greedy token streams must be IDENTICAL to the
+reference's paged engine (prompts of 1-4 chunks, both schedulers, both
+of the port's decode read paths); the /metrics text must render the
+same families and labels, so the unchanged monitor distills it the same.
+"""
+
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tests.torch_parity import bridged_params  # noqa: E402
+from tpumon.collectors.serving import (  # noqa: E402
+    ServingCollector,
+    distill_serving_metrics,
+)
+from tpumon.loadgen import serving as jax_serving  # noqa: E402
+from tpumon.loadgen.model import ModelConfig as JaxModelConfig  # noqa: E402
+from tpumon_torch.loadgen import serving  # noqa: E402
+from tpumon_torch.loadgen.model import ModelConfig, params_from_jax  # noqa: E402
+from tpumon_torch.loadgen.serving import ServeConfig, ServingEngine  # noqa: E402
+from tpumon_torch.ops.paged_attention import paged_attention  # noqa: E402
+
+SMALL = dict(vocab=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+             d_ff=128, max_seq=64, compute_dtype="float32")
+PS = 8
+_rng = np.random.default_rng(11)
+# 1, 2, 3 and 4 prefill chunks of 8, plus a one-token prompt.
+PROMPTS = [[int(t) for t in _rng.integers(0, 128, n)]
+           for n in (5, 12, 27, 8, 17, 1, 30)]
+MAX_NEW = [6, 9, 4, 10, 7, 5, 8]
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return bridged_params(JaxModelConfig(**SMALL), seed=5)
+
+
+def port_engine(tree, **kw):
+    cfg = ServeConfig(model=ModelConfig(**SMALL), slots=2, prefill_len=PS,
+                      **kw)
+    return ServingEngine(cfg=cfg, params=params_from_jax(tree), device="cpu")
+
+
+def jax_engine(jparams, **kw):
+    cfg = jax_serving.ServeConfig(model=JaxModelConfig(**SMALL), slots=2,
+                                  prefill_len=PS, kv_layout="paged", **kw)
+    return jax_serving.ServingEngine(cfg=cfg, params=jparams)
+
+
+def run(engine, prompts=PROMPTS, tenant=""):
+    reqs = [engine.submit(p, max_new=n, tenant=tenant)
+            for p, n in zip(prompts, MAX_NEW)]
+    engine.drain()
+    assert all(r.status == "completed" for r in reqs)
+    return [r.output for r in reqs]
+
+
+@pytest.mark.parametrize("scheduler", ["interleaved", "sequential"])
+def test_greedy_streams_identical_to_reference(weights, scheduler):
+    jparams, tree = weights
+    ref = jax_engine(jparams, scheduler=scheduler)
+    want = run(ref)
+    assert [len(o) for o in want] == [n + 1 for n in MAX_NEW]
+    for paged_attn in ("gather", "kernel"):
+        eng = port_engine(tree, scheduler=scheduler, paged_attn=paged_attn)
+        assert run(eng) == want, paged_attn
+        # Same schedule, step for step.
+        assert eng.decode_steps_total == ref.decode_steps_total
+        assert eng.tokens_total == ref.tokens_total
+        assert eng.allocator.free_pages == ref.allocator.free_pages
+
+
+def test_kernel_path_on_cpu_runs_plain_version_and_counts_nothing(weights):
+    _, tree = weights
+    before = paged_attention.launches
+    run(port_engine(tree, paged_attn="kernel"), prompts=PROMPTS[:2])
+    assert paged_attention.launches == before
+
+
+def _snapshot():
+    now = time.monotonic()
+    return {
+        "tokens": 123, "requests": 9, "completed": 7, "steps": 55,
+        "queue": 2, "rejected": 1, "cancelled": 1, "shed": 0,
+        "requeued": 0, "ttft_counts": [0, 1, 2, 0, 3, 0, 0, 1, 0, 0, 0],
+        "ttft_inf": 1, "ttft_sum": 4.25, "free": 1, "in_prefill": 1,
+        "ttft_recent": [0.01, 0.2, 0.031, 0.5],
+        "tpot_recent": [0.002, 0.0031],
+        "spec_rounds": 0, "spec_proposed": 0, "spec_accepted": 0,
+        "tenant_window_s": 60.0,
+        "tenants": {
+            "chat": {"submitted": 5, "completed": 4, "rejected": 1,
+                     "cancelled": 0, "shed": 0, "tokens": 40,
+                     "ttft": [(now, 0.01), (now - 120.0, 9.0)],
+                     "tpot": [(now, 0.002)]},
+            "batch": {"submitted": 4, "completed": 3, "rejected": 0,
+                      "cancelled": 1, "shed": 0, "tokens": 83,
+                      "ttft": [], "tpot": []},
+        },
+        "weight_bytes": 1 << 20, "kv_pages_total": 24, "kv_pages_free": 11,
+        "prefix": None,
+    }
+
+
+def test_render_is_identical_for_one_snapshot():
+    snap = _snapshot()
+    assert serving._render_serving_metrics(snap) == (
+        jax_serving._render_serving_metrics(snap))
+
+
+def test_live_metrics_distill_to_the_same_keys(weights):
+    jparams, tree = weights
+    ref, eng = jax_engine(jparams), port_engine(tree)
+    run(ref, prompts=PROMPTS[:3], tenant="chat")
+    run(eng, prompts=PROMPTS[:3], tenant="chat")
+    want = distill_serving_metrics(ref.metrics_text(), now=1.0)
+    got = distill_serving_metrics(eng.metrics_text(), now=1.0)
+    assert set(got) == set(want)
+    for key in ("tokens_total", "requests_total"):
+        assert got[key] == want[key]
+    text = eng.metrics_text()
+    assert 'tpumon_serving_tenant_tokens{tenant="chat"}' in text
+    assert "tpumon_serving_kv_pages_free" in text
+
+
+def test_weight_bytes_reports_the_resident_dtype(weights):
+    _, tree = weights
+    eng = port_engine(tree)
+    n = sum(p.numel() for p in jax_leaves(eng.params))
+    assert eng._stats_snapshot()["weight_bytes"] == 4 * n
+
+
+def jax_leaves(params):
+    if isinstance(params, dict):
+        return [x for v in params.values() for x in jax_leaves(v)]
+    if isinstance(params, list):
+        return [x for v in params for x in jax_leaves(v)]
+    return [params]
+
+
+def test_engine_without_device_raises_when_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the engine would rightly serve on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg=ServeConfig(model=ModelConfig(**SMALL), slots=2,
+                                      prefill_len=PS))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.main(["--duration", "0.01", "--port", "0"])
+
+
+@pytest.mark.parametrize("over", [
+    {"kv_layout": "dense"}, {"decode_block": 4}, {"spec_len": 2},
+    {"prefix_cache_entries": 4}, {"kv_dtype": "int8"}, {"quantize": "int8"},
+    {"mesh_tp": 2}, {"ring_stripes": 2}, {"paged_attn": "ring"},
+])
+def test_outside_the_slice_raises_not_yet_ported(over):
+    cfg = ServeConfig(model=ModelConfig(**SMALL), slots=2, prefill_len=PS,
+                      **over)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ServingEngine(cfg=cfg, device="cpu")
+
+
+def test_moe_family_and_sampling_raise_not_yet_ported(weights):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ModelConfig(**dict(SMALL, n_experts=4))
+    eng = port_engine(weights[1])
+    with pytest.raises(NotImplementedError, match="keyed sampling"):
+        eng.submit([1, 2, 3], temperature=0.7)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--kv-layout", "dense"], ["--paged-attn", "ring"], ["--spec-len", "2"],
+    ["--temperature", "0.8"], ["--quant", "int8"], ["--mesh", "1,2"],
+    ["--decode-block", "4"], ["--prefix-cache", "8"], ["--experts", "4"],
+])
+def test_cli_flags_outside_the_slice_exit(flags, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serving.main(flags + ["--device", "cpu"])
+    assert exc.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_backpressure_cancel_and_metrics_endpoint(weights):
+    """Pool pressure blocks admission instead of failing; a cancelled
+    request frees its pages; /metrics serves the scrapeable families."""
+    _, tree = weights
+    eng = port_engine(tree, pool_pages=6)  # 5 usable pages
+    big = eng.submit(PROMPTS[6], max_new=8)  # 38 rows -> 5 pages
+    small = eng.submit(PROMPTS[0], max_new=2)  # must wait for pages
+    gone = eng.submit(PROMPTS[1], max_new=2)
+    gone.cancel()
+    eng.step()
+    assert small.status == "" and eng.allocator.free_pages == 0
+    eng.drain()
+    assert big.status == small.status == "completed"
+    assert gone.status == "cancelled" and eng.cancelled_total == 1
+    assert eng.allocator.free_pages == 5
+    server, port = serving.start_metrics_server(eng, port=0)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+            text = resp.read().decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+    for fam in ("jetstream_generate_tokens", "tpumon_serving_ttft_p50_ms",
+                "tpumon_serving_decode_steps",
+                "jetstream_time_to_first_token_bucket"):
+        assert fam in text
+
+
+def test_generate_endpoint_streams_greedy_tokens(weights):
+    _, tree = weights
+    eng = port_engine(tree)
+    stop = threading.Event()
+    loop = threading.Thread(
+        target=lambda: serving.ArrivalPump(eng, []).run(stop), daemon=True)
+    loop.start()
+    server, port = serving.start_metrics_server(eng, port=0)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/generate?prompt=1,2,3&max_new=4",
+                timeout=30) as resp:
+            body = json.loads(resp.read())
+    finally:
+        stop.set()
+        loop.join(timeout=10)
+        server.shutdown()
+        server.server_close()
+    assert not loop.is_alive()
+    assert len(body["tokens"]) == 5
+    ref = port_engine(tree)
+    r = ref.submit([1, 2, 3], max_new=4)
+    ref.drain()
+    assert body["tokens"] == r.output
+
+
+def test_unchanged_monitor_scrapes_the_port_cli_over_http():
+    """The port's CLI runs as its own process (on the CPU here, as the
+    tests ask); the reference's unchanged ServingCollector scrapes its
+    /metrics over HTTP, as it scrapes the JAX loadgen, and sees tokens."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpumon_torch.loadgen.serving", "--device",
+         "cpu", "--port", "0", "--rps", "20", "--max-new", "4",
+         "--duration", "60"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=str(root),
+                           OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        banner = proc.stdout.readline()
+        assert "/metrics on :" in banner, proc.stderr.read()
+        port = int(banner.split("/metrics on :")[1].split()[0])
+        coll = ServingCollector(targets=(f"127.0.0.1:{port}",))
+        deadline = time.monotonic() + 60
+        while True:
+            row = asyncio.run(coll.collect()).data[0]
+            assert row["ok"], row
+            if row["tokens_total"] > 0 or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        assert row["tokens_total"] > 0
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=30)
+    assert proc.returncode is not None

@@ -1,0 +1,70 @@
+"""Shared inputs for the port's parity tests (tests/test_torch_*.py).
+
+Every input is made once with numpy from a seed and handed to both
+packages, so the JAX reference and ``tpumon_torch`` see identical bits.
+JAX runs on the CPU (interpret mode for its Pallas kernels), torch on
+the CPU, where every port kernel wrapper runs its plain version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# The suite runs in parallel worker processes: one intra-op thread keeps
+# these tiny cases from crowding out other workers' timing-bound tests.
+torch.set_num_threads(1)
+
+
+def paged_case(b=3, nh=4, nkv=2, hd=16, num_pages=12, page_size=8,
+               max_pages=4, lengths=(5, 17, 32), seed=0):
+    """numpy inputs of one paged-attention call, the layout of
+    tests/test_paged_attention.py::make_case: distinct pages per
+    sequence from a seeded permutation; unused table entries hold page
+    0. Returns (q, k_pages, v_pages, table, lengths) as f32/int32."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, nh, hd), np.float32)
+    k_pages = rng.standard_normal((nkv, num_pages, page_size, hd), np.float32)
+    v_pages = rng.standard_normal((nkv, num_pages, page_size, hd), np.float32)
+    perm = iter(rng.permutation(num_pages))
+    table = np.zeros((b, max_pages), np.int32)
+    for i, n in enumerate(lengths):
+        for j in range(-(-n // page_size)):
+            table[i, j] = next(perm)
+    return q, k_pages, v_pages, table, np.asarray(lengths, np.int32)
+
+
+def to_jax(arrays, dtype=None):
+    import jax.numpy as jnp
+
+    out = [jnp.asarray(a) for a in arrays]
+    if dtype is not None:
+        out = [a.astype(dtype) if a.dtype == jnp.float32 else a for a in out]
+    return out
+
+
+def to_torch(arrays, dtype=None):
+    out = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if dtype is not None:
+        out = [t.to(dtype) if t.dtype == torch.float32 else t for t in out]
+    return out
+
+
+def jax_f32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def torch_f32(t) -> np.ndarray:
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def bridged_params(jax_cfg, seed=0):
+    """(JAX params, the same weights as a numpy tree) for one JAX
+    ModelConfig; ``tpumon_torch.loadgen.model.params_from_jax`` turns
+    the numpy tree into the port's params."""
+    import jax
+
+    from tpumon.loadgen.model import init_params
+
+    params = init_params(jax_cfg, jax.random.PRNGKey(seed))
+    return params, jax.tree.map(np.asarray, params)

@@ -1,0 +1,16 @@
+"""tpumon_torch — the PyTorch/CUDA port of tpumon's workload stack.
+
+``tpumon/`` (JAX, Pallas kernels for the TPU) stays the reference; this
+package mirrors its layout path for path so each module's counterpart is
+found at the same relative path (``tpumon_torch/loadgen/serving.py`` ↔
+``tpumon/loadgen/serving.py``). It imports ``torch`` and never ``jax`` or
+``tpumon``: a GPU host need not have either. Pure-Python pieces it needs
+from the reference (the Prometheus writer, ``quantiles``, the page
+allocator) are copied, not imported.
+
+What is ported so far is the paged serving path: the continuous-batching
+engine over a paged KV pool whose decode attention runs through a
+hand-written CUDA kernel for Hopper (``tpumon_torch.ops.paged_attention``).
+Entry points run on CUDA unless the caller passes ``device="cpu"``; on a
+CPU tensor every kernel wrapper runs its plain PyTorch version instead.
+"""
