@@ -30,6 +30,26 @@ Phases, each of which exits non-zero on failure:
    pump, answers a /generate call with the greedy tokens a direct
    submission gives, and serves the /metrics families the monitor
    scrapes.
+7. flash kernels vs plain: the causal flash forward (out, lse), dQ and
+   dK/dV kernels against their plain PyTorch versions in bf16 and f32 at
+   the production training shape (BH 128 = batch 8 x 16 heads, T 1024,
+   hd 128), the seq-8k shape (BH 16, T 8192) and small shapes (hd 32 and
+   64, T 128 and 384).
+8. trainer: the trainer at production width (bench.py's d2048/L6 flash
+   schedule: vocab 4096, d_model 2048, 6 layers, 16/16 heads, d_ff 8192,
+   attn_block_k 512, batch 8, seq 1024, bf16 over f32 master weights,
+   random weights from a seed) runs a few steps through run_train with
+   TrainMetrics and a checkpoint at its last step; each flash kernel's
+   launch count must equal n_layers x steps; one step's loss and grads on
+   the flash path are held to the naive path's (bf16 at 6 layers, f32 at
+   2); a small f32 trainer's losses on the card equal the CPU's; the
+   port's serving engine serves the checkpoint.
+9. times: each flash kernel, its plain version, SDPA's causal forward or
+   backward (library yardstick, never called by the port) and its bound;
+   the train step (flash and naive) in ms, tokens/s and MFU; seq 8192 with
+   flash beside remat + chunked; where a step's device time goes and the
+   device's idle share.
+10. trainer /metrics: the tpumon_train_* families the monitor scrapes.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -68,18 +88,16 @@ def card_line() -> str:
 
 
 def card_peaks(name: str) -> tuple[str, float, dict]:
-    """(variant, memory bytes/s, peak op/s by dtype) from NVIDIA's data
-    sheets, dense rates: bf16 on tensor cores, f32 on CUDA cores."""
-    n = name.upper()
-    if "H200" in n:
-        return "H200 SXM", 4.8e12, {"bfloat16": 989e12, "float32": 67e12}
-    if "H100" in n and "PCIE" in n:
-        return "H100 PCIe", 2.0e12, {"bfloat16": 756e12, "float32": 51e12}
-    if "H100" in n and "NVL" in n:
-        return "H100 NVL", 3.9e12, {"bfloat16": 835e12, "float32": 60e12}
-    if "H100" in n:
-        return "H100 SXM", 3.35e12, {"bfloat16": 989e12, "float32": 67e12}
-    fail(f"unknown card {name!r}: no peak rates on record")
+    """(variant, memory bytes/s, peak op/s by dtype) from the port's table
+    of NVIDIA's data sheets (tpumon_torch.loadgen.train.NVIDIA_PEAKS),
+    dense rates: bf16 on tensor cores, f32 on CUDA cores."""
+    from tpumon_torch.loadgen.train import card_peaks as port_card_peaks
+
+    peaks = port_card_peaks(name)
+    if peaks is None:
+        fail(f"unknown card {name!r}: no peak rates on record")
+    variant, bf16, f32, bw = peaks
+    return variant, bw, {"bfloat16": bf16, "float32": f32}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -485,6 +503,481 @@ def check_server(eng) -> None:
         fail(f"/metrics lacks {missing}")
 
 
+# --- the training path: causal flash attention and the trainer -----------
+
+FLASH_KERNELS = ("flash_attention_tri_fwd", "flash_attention_tri_bwd_dq",
+                 "flash_attention_tri_bwd_dkv")
+# Kernel vs plain, max abs. f32: the reference test's own bounds (out
+# 1e-5, grads 2e-4) for sums taken in another order. bf16: its 6e-2 (P
+# and dS round to bf16 at other block boundaries than the plain version's
+# one block per row; outputs carry bf16's 2^-8). lse is f32 either way:
+# 1e-4, the log of a sum of up to 8192 terms taken in another order.
+FLASH_TOL = {"float32": {"out": 1e-5, "lse": 1e-4, "grad": 2e-4},
+             "bfloat16": {"out": 6e-2, "lse": 1e-4, "grad": 6e-2}}
+# One train step, flash path vs naive path on the same params and tokens:
+# loss max abs, grads relative L2 per param. bf16 at 6 layers: the naive
+# path rounds normalised probabilities to bf16 and the flash path
+# unnormalised ones per 32-key tile, and six layers of bf16 activations
+# carry the difference, so 2e-2 on a loss near 8.3 and 5e-2 on grads. f32
+# at 2 layers: summation order only, 1e-4 and 1e-4.
+STEP_TOL = {"bfloat16": (2e-2, 5e-2), "float32": (1e-4, 1e-4)}
+TRAIN_STEPS = 4
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
+
+def flash_counts() -> dict:
+    from tpumon_torch.ops import flash_attention as fa
+
+    return {n: getattr(fa, n).launches for n in FLASH_KERNELS}
+
+
+def set_flash_counts(counts: dict) -> None:
+    from tpumon_torch.ops import flash_attention as fa
+
+    for n in FLASH_KERNELS:
+        getattr(fa, n).launches = counts[n]
+
+
+def flash_inputs(gen, bh, t, hd, dtype):
+    """q, k, v, dout at random; lse and D from the plain forward."""
+    import torch
+
+    from tpumon_torch.ops.flash_attention import (
+        flash_attention_tri_fwd_reference,
+    )
+
+    q, k, v, g = (torch.randn(bh, t, hd, generator=gen,
+                              device=gen.device).to(dtype) for _ in range(4))
+    out, lse = flash_attention_tri_fwd_reference(q, k, v)
+    dvec = (g.float() * out.float()).sum(-1)
+    return q, k, v, g, out, lse, dvec
+
+
+def check_flash_kernels(gen) -> dict:
+    """Each flash kernel against its plain version; returns the worst max
+    abs error per kernel at the production shape in bf16."""
+    import torch
+
+    from tpumon_torch.ops import flash_attention as fa
+
+    cases = [("production", 128, 1024, 128), ("seq8k", 16, 8192, 128),
+             ("hd64_t384", 6, 384, 64), ("hd32_t128", 6, 128, 32),
+             ("hd64_t128", 6, 128, 64), ("hd32_t384", 6, 384, 32)]
+    worst = {}
+    for name, bh, t, hd in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            q, k, v, g, want_out, want_lse, dvec = flash_inputs(
+                gen, bh, t, hd, dtype)
+            got = {}
+            got["out"], got["lse"] = fa.flash_attention_tri_fwd(q, k, v)
+            got["dq"] = fa.flash_attention_tri_bwd_dq(q, k, v, g, want_lse,
+                                                      dvec)
+            got["dk"], got["dv"] = fa.flash_attention_tri_bwd_dkv(
+                q, k, v, g, want_lse, dvec)
+            torch.cuda.synchronize()
+            want = {"out": want_out, "lse": want_lse}
+            want["dq"] = fa.flash_attention_tri_bwd_dq_reference(
+                q, k, v, g, want_lse, dvec)
+            want["dk"], want["dv"] = fa.flash_attention_tri_bwd_dkv_reference(
+                q, k, v, g, want_lse, dvec)
+            errs, ok = {}, True
+            for key in got:
+                tol = FLASH_TOL[dname][key if key in ("out", "lse")
+                                       else "grad"]
+                a, b = got[key].float(), want[key].float()
+                errs[key] = (a - b).abs().max().item()
+                ok &= bool(torch.isfinite(a).all().item()) and (
+                    errs[key] <= tol)
+            print(f"flash_kernel_vs_plain {name} BH{bh}/T{t}/hd{hd} {dname} "
+                  f"max_abs_err={errs} tol={FLASH_TOL[dname]} "
+                  f"{'ok' if ok else 'MISS'}", flush=True)
+            if not ok:
+                fail(f"flash kernels disagree with their plain versions "
+                     f"({name}, {dname})")
+            if name == "production" and dtype == torch.bfloat16:
+                worst = {
+                    "flash_attention_tri_fwd": max(errs["out"], errs["lse"]),
+                    "flash_attention_tri_bwd_dq": errs["dq"],
+                    "flash_attention_tri_bwd_dkv": max(errs["dk"],
+                                                       errs["dv"])}
+            del q, k, v, g, want_out, want_lse, dvec, got, want
+            torch.cuda.empty_cache()
+    return worst
+
+
+def train_model(dtype="bfloat16", **over):
+    """bench.py's production training width (d2048/L6, flash, block 512)."""
+    from tpumon_torch.loadgen.model import ModelConfig
+
+    cfg = dict(vocab=4096, d_model=2048, n_layers=6, n_heads=16,
+               n_kv_heads=16, d_ff=8192, max_seq=1024, attention="flash",
+               attn_block_k=512, compute_dtype=dtype)
+    cfg.update(over)
+    return ModelConfig(**cfg)
+
+
+def run_trainer() -> dict:
+    """The main path: run_train at production width on the card, with
+    TrainMetrics and a checkpoint at the last step. Each flash kernel must
+    launch n_layers x steps times."""
+    import shutil
+
+    import torch
+
+    from tpumon_torch.loadgen.train import (
+        TrainConfig,
+        TrainMetrics,
+        detect_peak_flops,
+        flops_per_token,
+        run_train,
+    )
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    cfg = TrainConfig(model=train_model(), steps=TRAIN_STEPS, batch=8,
+                      seq=1024, ckpt_dir=str(CKPT_DIR),
+                      ckpt_every=TRAIN_STEPS)
+    metrics = TrainMetrics(flops_per_token=flops_per_token(cfg.model, cfg.seq),
+                           peak_flops=detect_peak_flops())
+    torch.cuda.synchronize()
+    set_flash_counts(dict.fromkeys(FLASH_KERNELS, 0))  # the main path only
+    t0 = time.perf_counter()
+    out = run_train(cfg, "cuda", metrics=metrics)
+    wall = time.perf_counter() - t0
+    launches = flash_counts()
+    want = cfg.model.n_layers * cfg.steps
+    print(f"trainer steps={cfg.steps} loss={out['loss']!r} "
+          f"metrics_loss={metrics.loss!r} launches={launches} "
+          f"want={want} wall_s={wall!r} (checkpoint save included) "
+          f"tokens_per_s={out['tokens_per_sec']!r} "
+          f"mfu_pct={metrics.mfu_pct!r}", flush=True)
+    if not (out["loss"] is not None and torch.isfinite(
+            torch.tensor(out["loss"])) and metrics.loss == out["loss"]):
+        fail("the trainer's loss is not finite")
+    if any(n != want for n in launches.values()):
+        fail(f"flash launches {launches} != n_layers x steps ({want})")
+    return {"launches": launches, "metrics": metrics, "params": out["params"],
+            "cfg": cfg}
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30)).item()
+
+
+def compare_flash_naive() -> None:
+    """One step's loss and grads, flash path vs naive path, on the same
+    params and tokens: bf16 at production width, f32 at 2 layers."""
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen.model import init_params, value_and_grad
+
+    before = flash_counts()
+    for dtype, layers in (("bfloat16", 6), ("float32", 2)):
+        cfg = train_model(dtype, n_layers=layers)
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        params = init_params(cfg, gen)
+        tokens = torch.randint(0, cfg.vocab, (8, 1024), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        loss, grads = {}, {}
+        for att in ("flash", "naive"):
+            loss[att], grads[att] = value_and_grad(
+                dataclasses.replace(cfg, attention=att), params, tokens)
+            torch.cuda.synchronize()
+        dl = abs(float(loss["flash"]) - float(loss["naive"]))
+        dg = max(rel_l2(a, b) for a, b in zip(grads["flash"], grads["naive"]))
+        finite = all(bool(torch.isfinite(g).all().item())
+                     for g in grads["flash"])
+        tl, tg = STEP_TOL[dtype]
+        ok = finite and dl <= tl and dg <= tg
+        print(f"train_step_flash_vs_naive {dtype} layers={layers} "
+              f"loss_flash={float(loss['flash'])!r} "
+              f"loss_naive={float(loss['naive'])!r} loss_abs_err={dl!r} "
+              f"grad_max_rel_l2={dg!r} tol=({tl}, {tg}) finite={finite} "
+              f"{'ok' if ok else 'MISS'}", flush=True)
+        if not ok:
+            fail(f"one train step, flash vs naive ({dtype})")
+        del params, grads
+        torch.cuda.empty_cache()
+    set_flash_counts(before)
+
+
+def check_small_trainer_against_cpu() -> None:
+    """A small f32 trainer (flash, hd 32, T 100 padded to 128): three SGD
+    steps on the card (kernels) give the CPU's losses (plain versions),
+    same weights and tokens."""
+    import torch
+
+    from tpumon_torch.loadgen.model import (
+        ModelConfig,
+        init_params,
+        map_params,
+        sgd_train_step,
+    )
+    from tpumon_torch.loadgen.train import TrainConfig, synthetic_batch
+
+    before = flash_counts()
+    cfg = TrainConfig(model=ModelConfig(
+        vocab=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=256, max_seq=128, compute_dtype="float32", attention="flash",
+        attn_block_k=128), batch=2, seq=101, lr=0.05)
+    init = init_params(cfg.model, torch.Generator().manual_seed(3))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        params = map_params(init, lambda t: t.to(dev, copy=True))
+        losses[dev] = [float(sgd_train_step(
+            cfg.model, params, synthetic_batch(cfg, step, dev),
+            lr=cfg.lr)[1]) for step in range(3)]
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    launched = flash_counts()["flash_attention_tri_fwd"] - before[
+        "flash_attention_tri_fwd"]
+    ok = err <= 1e-5 and launched == 3 * cfg.model.n_layers
+    print(f"small_trainer_cuda_vs_cpu f32 losses_cpu={losses['cpu']} "
+          f"losses_cuda={losses['cuda']} max_abs_err={err!r} tol=1e-05 "
+          f"fwd_launches={launched} {'ok' if ok else 'MISS'}", flush=True)
+    set_flash_counts(before)
+    if not ok:
+        fail("small trainer: card losses differ from the CPU's")
+
+
+def check_served_checkpoint(trained: dict) -> None:
+    """The port's serving engine serves the trainer's last checkpoint."""
+    import shutil
+
+    import torch
+
+    from tpumon_torch.loadgen.model import param_leaves
+    from tpumon_torch.loadgen.serving import ServeConfig, ServingEngine
+
+    cfg = trained["cfg"]
+    eng = ServingEngine(cfg=ServeConfig(model=cfg.model, slots=2,
+                                        prefill_len=128),
+                        ckpt_dir=str(CKPT_DIR), device="cuda")
+    same = all(torch.equal(a.to(b.dtype), b) for a, b in zip(
+        param_leaves(trained["params"]), param_leaves(eng.params)))
+    prompt = [random.Random(6).randrange(cfg.model.vocab) for _ in range(40)]
+    req = eng.submit(prompt, max_new=4)
+    eng.drain()
+    print(f"serve_checkpoint ckpt_step={eng.ckpt_step} "
+          f"weights_equal_trained={same} tokens={req.output}", flush=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if (eng.ckpt_step != cfg.steps - 1 or not same
+            or req.status != "completed" or len(req.output) != 5):
+        fail("the serving engine did not serve the trainer's checkpoint")
+
+
+def library_flash(q, k, v, dout=None):
+    """torch's SDPA, causal, on the folded [BH, T, D] inputs viewed as
+    [8, BH/8, T, D] (batch 8 of the training shape): the library
+    yardstick (timed here only). With dout it runs forward and backward."""
+    import torch.nn.functional as F
+
+    bh, t, d = q.shape
+    shape = (8, bh // 8, t, d)
+    qs, ks, vs = (x.view(shape) for x in (q, k, v))
+    if dout is None:
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    qs, ks, vs = (x.detach().requires_grad_(True) for x in (qs, ks, vs))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    out.backward(dout.view(shape))
+    return out
+
+
+def flash_bounds(bh, t, hd, elem, bw, peak) -> dict:
+    """Least time per kernel: the larger of its bytes (each input read
+    once, each output written once) over the memory rate and its causal
+    products (T(T+1)/2 pairs per bh, 2 * hd FLOPs per pair per product)
+    over the peak rate."""
+    pairs = bh * t * (t + 1) // 2
+    tensor, row = bh * t * hd * elem, bh * t * 4
+    work = {  # (products, bytes)
+        "flash_attention_tri_fwd": (2, 4 * tensor + row),
+        "flash_attention_tri_bwd_dq": (3, 5 * tensor + 2 * row),
+        "flash_attention_tri_bwd_dkv": (4, 6 * tensor + 2 * row),
+    }
+    out = {}
+    for name, (products, nbytes) in work.items():
+        t_bytes = nbytes / bw * 1e3
+        t_ops = products * 2 * hd * pairs / peak * 1e3
+        out[name] = max((t_bytes, "bytes"), (t_ops, "operations"))
+    return out
+
+
+def time_flash_kernels(gen, bw: float, peaks: dict) -> dict:
+    """Kernel, plain and library times at the production training shape,
+    bf16, with their bounds."""
+    import torch
+
+    from tpumon_torch.ops import flash_attention as fa
+
+    bh, t, hd = 128, 1024, 128
+    before = flash_counts()
+    q, k, v, g, out, lse, dvec = flash_inputs(gen, bh, t, hd, torch.bfloat16)
+    bounds = flash_bounds(bh, t, hd, 2, bw, peaks["bfloat16"])
+    calls = {
+        "flash_attention_tri_fwd": (
+            lambda: fa.flash_attention_tri_fwd(q, k, v),
+            lambda: fa.flash_attention_tri_fwd_reference(q, k, v)),
+        "flash_attention_tri_bwd_dq": (
+            lambda: fa.flash_attention_tri_bwd_dq(q, k, v, g, lse, dvec),
+            lambda: fa.flash_attention_tri_bwd_dq_reference(
+                q, k, v, g, lse, dvec)),
+        "flash_attention_tri_bwd_dkv": (
+            lambda: fa.flash_attention_tri_bwd_dkv(q, k, v, g, lse, dvec),
+            lambda: fa.flash_attention_tri_bwd_dkv_reference(
+                q, k, v, g, lse, dvec)),
+    }
+    lib_fwd = cuda_ms(lambda: library_flash(q, k, v), reps=20)
+    lib_fwd_bwd = cuda_ms(lambda: library_flash(q, k, v, g), reps=20)
+    lib_bwd = lib_fwd_bwd - lib_fwd
+    times = {}
+    for name, (kernel, plain) in calls.items():
+        ms = cuda_ms(kernel, reps=10)
+        plain_ms = cuda_ms(plain, reps=3)
+        bound_ms, bound_by = bounds[name]
+        lib = lib_fwd if name == "flash_attention_tri_fwd" else lib_bwd
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib}
+        print(f"time_{name} shape=BH128/T1024/hd128 bf16 kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r} library_sdpa_ms={lib!r} "
+              f"bound_ms={bound_ms!r} ({bound_by}) "
+              f"kernel_over_bound={ms / bound_ms!r}", flush=True)
+    q, k, v, g = (x.float() for x in (q, k, v, g))
+    for name, f32_call in (
+            ("flash_attention_tri_fwd",
+             lambda: fa.flash_attention_tri_fwd(q, k, v)),
+            ("flash_attention_tri_bwd_dq",
+             lambda: fa.flash_attention_tri_bwd_dq(q, k, v, g, lse, dvec)),
+            ("flash_attention_tri_bwd_dkv",
+             lambda: fa.flash_attention_tri_bwd_dkv(q, k, v, g, lse, dvec))):
+        print(f"time_{name} shape=BH128/T1024/hd128 f32 (CUDA cores) "
+              f"kernel_ms={cuda_ms(f32_call, reps=5)!r}", flush=True)
+    print(f"time_sdpa causal bf16 fwd_ms={lib_fwd!r} "
+          f"fwd_bwd_ms={lib_fwd_bwd!r} bwd_ms={lib_bwd!r} (the library's "
+          f"backward computes dq, dk and dv in one call)", flush=True)
+    set_flash_counts(before)
+    del q, k, v, g, out, lse, dvec
+    torch.cuda.empty_cache()
+    return times
+
+
+def trace_step(fn, reps: int = 3):
+    """device_busy plus where the device time of one call goes: the flash
+    kernels, matrix products, and the rest, from one torch.profiler
+    trace; None without device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    parts = {"flash_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        name = e.name.lower()
+        ms = e.time_range.elapsed_us() / 1e3 / reps
+        part = ("flash_kernels" if "flash_tri" in name else
+                "matmul" if any(w in name for w in (
+                    "gemm", "cutlass", "xmma", "nvjet", "matmul")) else "other")
+        parts[part] += ms
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
+    busy = sum(parts.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share":
+            1 - busy / wall_ms, "kernels_per_step": len(kernels) / reps,
+            **parts, "top_ms": [(n, round(ms, 3)) for n, ms in top]}
+
+
+def time_trainer(trained: dict) -> None:
+    """Train-step times: flash beside naive at the production width, seq
+    8192 flash beside remat + chunked, and one step's trace."""
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen.model import init_params, sgd_train_step
+    from tpumon_torch.loadgen.train import TrainConfig, fused_train_bench
+
+    before = flash_counts()
+    model = train_model()
+    runs = [
+        ("seq1024_flash", TrainConfig(model=model, batch=8, seq=1024), 5),
+        ("seq1024_naive", TrainConfig(
+            model=dataclasses.replace(model, attention="naive"), batch=8,
+            seq=1024), 5),
+        ("seq8192_flash", TrainConfig(model=train_model(
+            max_seq=8192, attn_block_k=1024), batch=1, seq=8192), 3),
+        ("seq8192_remat_chunked", TrainConfig(model=train_model(
+            max_seq=8192, attention="chunked", attn_block_k=512, remat=True),
+            batch=1, seq=8192), 3),
+    ]
+    for name, cfg, steps in runs:
+        torch.cuda.reset_peak_memory_stats()
+        r = fused_train_bench(cfg, steps=steps, device="cuda")
+        step_ms = r["seconds"] / steps * 1e3
+        print(f"train_step {name} steps={steps} step_ms={step_ms!r} "
+              f"tokens_per_s={r['tokens_per_sec']!r} mfu_pct={r['mfu_pct']!r} "
+              f"loss={r['loss']!r} peak_mem_GB="
+              f"{torch.cuda.max_memory_allocated() / 1e9!r}", flush=True)
+        if not torch.isfinite(torch.tensor(r["loss"])):
+            fail(f"train step {name}: loss not finite")
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for name, cfg, reps in (("seq1024_flash", runs[0][1], 3),
+                            ("seq1024_naive", runs[1][1], 3),
+                            ("seq8192_remat_chunked", runs[3][1], 1)):
+        params = (trained["params"] if name == "seq1024_flash" else
+                  init_params(cfg.model, gen))
+        tokens = torch.randint(0, model.vocab, (cfg.batch, cfg.seq),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        tr = trace_step(lambda: sgd_train_step(cfg.model, params, tokens),
+                        reps=reps)
+        if tr is None:
+            print(f"train_step_trace {name} device_busy=not measured (the "
+                  f"profiler recorded no device activity)", flush=True)
+        else:
+            print(f"train_step_trace {name} " + " ".join(
+                f"{k}={v!r}" for k, v in tr.items()), flush=True)
+        del params
+        torch.cuda.empty_cache()
+    set_flash_counts(before)
+
+
+def check_train_metrics(trained: dict) -> None:
+    """The trainer's /metrics serves the families the monitor scrapes."""
+    from tpumon_torch.loadgen.train import start_metrics_server
+
+    httpd, url = start_metrics_server(trained["metrics"], port=0)
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            text = resp.read().decode()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    want = ("tpumon_train_step", "tpumon_train_loss",
+            "tpumon_train_tokens_total", "tpumon_train_step_time_seconds",
+            "tpumon_train_goodput_pct", "tpumon_train_mfu_pct")
+    missing = [f for f in want if f"\n{f} " not in "\n" + text]
+    print("train_metrics " + " ".join(
+        ln for ln in text.splitlines() if not ln.startswith("#"))
+        + f" missing={missing}", flush=True)
+    if missing:
+        fail(f"trainer /metrics lacks {missing}")
+
+
 def main() -> int:
     import torch
 
@@ -508,6 +1001,10 @@ def main() -> int:
     print(f"build: nvcc {built} in {time.perf_counter() - t0!r} s "
           f"-> {_build.BUILD_DIR}", flush=True)
 
+    print("ptxas: " + " | ".join(
+        ln for n in _build.sources() for ln in _build.ptxas_report(n)
+        if "flash" in n), flush=True)
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = check_kernel(gen)
     eng, stats, snap = run_engine()
@@ -516,13 +1013,40 @@ def main() -> int:
     times = time_kernel(gen, bw, peaks)
     time_engine(eng, snap, stats)
     check_server(eng)
+    del eng, snap
+    torch.cuda.empty_cache()
 
-    row = {"name": "paged_attention", "route": "cuda",
-           "source": "tpumon_torch/ops/csrc/paged_attention.cu",
-           "replaces": "tpumon/ops/paged_attention.py:65",
-           "launches": stats["launches"], "max_abs_err": worst["bfloat16"],
-           **times}
-    print(json.dumps({"kernels": [row]}))
+    flash_worst = check_flash_kernels(gen)
+    trained = run_trainer()
+    compare_flash_naive()
+    check_small_trainer_against_cpu()
+    check_served_checkpoint(trained)
+    flash_times = time_flash_kernels(gen, bw, peaks)
+    time_trainer(trained)
+    check_train_metrics(trained)
+
+    rows = [{"name": "paged_attention", "route": "cuda",
+             "source": "tpumon_torch/ops/csrc/paged_attention.cu",
+             "replaces": "tpumon/ops/paged_attention.py:65",
+             "launches": stats["launches"], "max_abs_err": worst["bfloat16"],
+             **times}]
+    sources = {"flash_attention_tri_fwd": (
+        "tpumon_torch/ops/csrc/flash_attention_tri_fwd.cu",
+        "tpumon/ops/flash_attention.py:170"),
+        "flash_attention_tri_bwd_dq": (
+            "tpumon_torch/ops/csrc/flash_attention_tri_bwd.cu",
+            "tpumon/ops/flash_attention.py:308"),
+        "flash_attention_tri_bwd_dkv": (
+            "tpumon_torch/ops/csrc/flash_attention_tri_bwd.cu",
+            "tpumon/ops/flash_attention.py:341")}
+    for kernel in FLASH_KERNELS:
+        source, replaces = sources[kernel]
+        rows.append({"name": kernel, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": trained["launches"][kernel],
+                     "max_abs_err": flash_worst[kernel],
+                     **flash_times[kernel]})
+    print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -78,3 +78,117 @@ def test_kernel_reads_a_parked_slots_repeated_trash_page(cuda_device):
     ref = paged_attention_reference(*args)
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=3e-2, rtol=0)
+
+
+# --- the causal flash-attention kernels (training path) -------------------
+
+# Kernel vs plain version, max abs. f32: the reference test's own bounds
+# (out 1e-5, grads 2e-4) for sums taken in another order; lse 1e-5 for the
+# same reason. bf16: the reference test's 6e-2 for every output (P and dS
+# are rounded to bf16 at other block boundaries than the plain version's
+# one block per row, and outputs carry bf16's 2^-8); lse stays f32, 1e-4.
+FLASH_TOL = {torch.float32: {"out": 1e-5, "lse": 1e-5, "grad": 2e-4},
+             torch.bfloat16: {"out": 6e-2, "lse": 1e-4, "grad": 6e-2}}
+FLASH_CASES = [(hd, t) for hd in (32, 64, 128) for t in (128, 384)]
+
+
+def flash_inputs(device, dtype, hd, t, bh=3, seed=7):
+    """q, k, v, dout from a seed; out, lse and D from the plain forward."""
+    from tpumon_torch.ops.flash_attention import (
+        flash_attention_tri_fwd_reference,
+    )
+
+    gen = torch.Generator().manual_seed(seed + hd + t)
+    q, k, v, g = (torch.randn(bh, t, hd, generator=gen).to(device, dtype)
+                  for _ in range(4))
+    out, lse = flash_attention_tri_fwd_reference(q, k, v)
+    dvec = (g.float() * out.float()).sum(-1)
+    return q, k, v, g, out, lse, dvec
+
+
+def _close(got, want, atol):
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,t", FLASH_CASES)
+def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
+    from tpumon_torch.ops import flash_attention as fa
+
+    q, k, v, _, want, want_lse, _ = flash_inputs(cuda_device, dtype, hd, t)
+    before = fa.flash_attention_tri_fwd.launches
+    out, lse = fa.flash_attention_tri_fwd(q, k, v, block=128)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_tri_fwd.launches == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _close(out, want, FLASH_TOL[dtype]["out"])
+    _close(lse, want_lse, FLASH_TOL[dtype]["lse"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,t", FLASH_CASES)
+def test_flash_dq_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
+    from tpumon_torch.ops import flash_attention as fa
+
+    q, k, v, g, _, lse, dvec = flash_inputs(cuda_device, dtype, hd, t)
+    before = fa.flash_attention_tri_bwd_dq.launches
+    dq = fa.flash_attention_tri_bwd_dq(q, k, v, g, lse, dvec)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_tri_bwd_dq.launches == before + 1
+    want = fa.flash_attention_tri_bwd_dq_reference(q, k, v, g, lse, dvec)
+    _close(dq, want, FLASH_TOL[dtype]["grad"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,t", FLASH_CASES)
+def test_flash_dkv_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
+    from tpumon_torch.ops import flash_attention as fa
+
+    q, k, v, g, _, lse, dvec = flash_inputs(cuda_device, dtype, hd, t)
+    before = fa.flash_attention_tri_bwd_dkv.launches
+    dk, dv = fa.flash_attention_tri_bwd_dkv(q, k, v, g, lse, dvec)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_tri_bwd_dkv.launches == before + 1
+    want_dk, want_dv = fa.flash_attention_tri_bwd_dkv_reference(
+        q, k, v, g, lse, dvec)
+    _close(dk, want_dk, FLASH_TOL[dtype]["grad"])
+    _close(dv, want_dv, FLASH_TOL[dtype]["grad"])
+
+
+def test_flash_kernels_reject_unsupported_sizes_on_card(cuda_device):
+    from tpumon_torch.ops.flash_attention import flash_attention_tri_fwd
+
+    q = torch.randn(2, 128, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_tri_fwd(q, q, q)
+    q = torch.randn(2, 96, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flash_attention_tri_fwd(q, q, q, block=32)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_launch_counts_on_card(cuda_device, remat):
+    """One flash train step launches each backward kernel once per layer
+    and the forward kernel once per layer, twice under remat (the
+    checkpointed layer recomputes its forward in the backward pass)."""
+    from tpumon_torch.loadgen.model import ModelConfig, init_params
+    from tpumon_torch.loadgen.model import sgd_train_step
+    from tpumon_torch.ops import flash_attention as fa
+
+    cfg = ModelConfig(vocab=128, d_model=128, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_ff=256, max_seq=128,
+                      compute_dtype="bfloat16", attention="flash",
+                      attn_block_k=128, remat=remat)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = init_params(cfg, gen)
+    tokens = torch.randint(0, 128, (2, 65), generator=gen,
+                           device=cuda_device)
+    kernels = (fa.flash_attention_tri_fwd, fa.flash_attention_tri_bwd_dq,
+               fa.flash_attention_tri_bwd_dkv)
+    before = [k.launches for k in kernels]
+    _, loss = sgd_train_step(cfg, params, tokens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    assert got == [cfg.n_layers * (2 if remat else 1), cfg.n_layers,
+                   cfg.n_layers]

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``tpumon_torch/`` (nor chip_smoke.py)
-imports ``jax`` or the ``tpumon`` package, and importing the serving
-entry point loads neither."""
+imports ``jax`` or the ``tpumon`` package, and importing the serving and
+training entry points loads neither."""
 
 import ast
 import os
@@ -54,7 +54,9 @@ def test_importing_the_port_loads_neither_jax_nor_tpumon():
     code = (
         "import sys\n"
         "import tpumon_torch.loadgen.serving\n"
+        "import tpumon_torch.loadgen.train\n"
         "import tpumon_torch.ops.paged_attention\n"
+        "import tpumon_torch.ops.flash_attention\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpumon'))\n"
         "print(','.join(bad))\n"

@@ -68,3 +68,30 @@ def bridged_params(jax_cfg, seed=0):
 
     params = init_params(jax_cfg, jax.random.PRNGKey(seed))
     return params, jax.tree.map(np.asarray, params)
+
+
+def assert_trees_close(jax_tree, torch_tree, rtol: float, atol: float,
+                       path: str = "") -> None:
+    """np.testing.assert_allclose over two param trees of one structure
+    (dicts and lists): a JAX tree (arrays or numpy) against the port's
+    tensors."""
+    if isinstance(jax_tree, dict):
+        assert set(jax_tree) == set(torch_tree), path
+        for k in jax_tree:
+            assert_trees_close(jax_tree[k], torch_tree[k], rtol, atol,
+                               f"{path}/{k}")
+    elif isinstance(jax_tree, (list, tuple)):
+        assert len(jax_tree) == len(torch_tree), path
+        for i, (a, b) in enumerate(zip(jax_tree, torch_tree)):
+            assert_trees_close(a, b, rtol, atol, f"{path}/{i}")
+    else:
+        np.testing.assert_allclose(torch_f32(torch_tree), jax_f32(jax_tree),
+                                   rtol=rtol, atol=atol, err_msg=path)
+
+
+def grads_tree(params, grads):
+    """The port's flat grads (``param_leaves`` order) as params' tree."""
+    from tpumon_torch.loadgen.model import map_params
+
+    it = iter(grads)
+    return map_params(params, lambda _: next(it))

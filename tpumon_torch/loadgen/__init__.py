@@ -1,3 +1,5 @@
 """Workloads the monitor watches, in PyTorch: the Llama-style model
-(``model``), the paged KV pool (``paged_kv``) and the continuous-batching
-serving engine with its ``/metrics`` endpoint (``serving``)."""
+(``model``), the paged KV pool (``paged_kv``), the continuous-batching
+serving engine with its ``/metrics`` endpoint (``serving``), and the
+trainer (``train``) with its checkpoints (``checkpoint``) and the
+online-softmax block update of its chunked schedule (``ring_attention``)."""

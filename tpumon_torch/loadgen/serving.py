@@ -12,8 +12,8 @@ scrapes it over HTTP exactly as it scrapes the JAX loadgen.
 Ported here: the paged layout with both decode read paths (``gather``
 and the CUDA ``kernel``), the interleaved chunked-prefill and the
 sequential schedulers, greedy sampling, cancellation, backpressure,
-per-tenant accounting, the /metrics + /generate server and the arrival
-loop. Everything else the reference engine does (dense layout, fused
+per-tenant accounting, serving a trainer checkpoint (``ckpt_dir``), the
+/metrics + /generate server and the arrival loop. Everything else the reference engine does (dense layout, fused
 block decode, keyed temperature sampling, speculative decoding, prefix
 caching, int8 weights and KV, MoE, the mesh engine, the actuator verbs)
 raises "not yet ported" when asked for (ROADMAP queue 1).
@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import itertools
 import queue
+import sys
 import threading
 import time
 from collections import deque
@@ -35,12 +36,17 @@ from dataclasses import dataclass, field
 import torch
 import torch.nn.functional as F
 
+from tpumon_torch.loadgen.checkpoint import (
+    restore_checkpoint,
+    saved_model_config,
+)
 from tpumon_torch.loadgen.model import (
     ModelConfig,
     _rms_norm,
     init_params,
     map_params,
     param_bytes,
+    resolve_device,
 )
 from tpumon_torch.loadgen.paged_kv import (
     PageAllocator,
@@ -297,16 +303,6 @@ class _PrefillWork:
     table_row: torch.Tensor | None = None  # this slot's table (device)
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port serves on a GPU; pass "
-                "device='cpu' explicitly to run the plain versions")
-        device = "cuda"
-    return torch.device(device)
-
-
 class ServingEngine:
     """Continuous-batching engine over the paged KV pool: submit() from
     any thread, step() (or the arrival loop) drives prefill/decode;
@@ -314,7 +310,16 @@ class ServingEngine:
 
     def __init__(self, cfg: ServeConfig | None = None,
                  params: dict | None = None, seed: int = 0,
-                 max_queue: int = 64, device=None):
+                 max_queue: int = 64, ckpt_dir: str | None = None,
+                 device=None):
+        if cfg is None and ckpt_dir:
+            # No explicit config: adopt the checkpoint's own architecture,
+            # so the engine serves the trained weights instead of falling
+            # back to a mismatched default init.
+            saved = saved_model_config(ckpt_dir)
+            if saved is not None:
+                cfg = ServeConfig(model=saved, slots=4,
+                                  prefill_len=min(16, saved.max_seq // 2))
         self.cfg = cfg or default_engine_config()
         _check_ported(self.cfg)
         if self.cfg.paged_attn not in ("gather", "kernel"):
@@ -333,14 +338,27 @@ class ServingEngine:
             raise ValueError(
                 f"admit_max_skips must be >= 1, got "
                 f"{self.cfg.admit_max_skips}")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         m = self.cfg.model
         dev = self.device
         self._seq_cap = m.max_seq
+        self.ckpt_step: int | None = None
         if params is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(seed)
             params = init_params(m, gen)
+            if ckpt_dir:
+                # Serve trained weights: resume from the trainer's
+                # checkpoint (tpumon_torch.loadgen.train) when the
+                # architecture matches; otherwise keep the fresh init
+                # (best-effort, like the reference), and say so.
+                restored = restore_checkpoint(ckpt_dir, like=params, cfg=m)
+                if restored is not None:
+                    params, self.ckpt_step = restored
+                else:
+                    print(f"serving: no compatible checkpoint in "
+                          f"{ckpt_dir!r}; serving FRESH INIT weights",
+                          file=sys.stderr)
         # Weights are cast to the compute dtype once, here — the same
         # values the reference's per-call ``.astype(dt)`` produces — so
         # the weight_bytes gauge reports what is actually resident.

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, ``build/tpumon_torch/<name>-<hash>.so`` at the repository
-root, loaded with ``ctypes``. The hash covers every source and header in
+root, loaded with ``ctypes``, beside ptxas's resource report
+(``<name>-<hash>.log``). The hash covers every source and header in
 ``csrc/`` and the compiler flags, so a rebuild happens only when one of
 them changed. Nothing is built at import time: ``load`` builds on first
 use, and ``build_all`` starts one ``nvcc`` per source, all at once.
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpumon_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -79,6 +80,8 @@ def _finish(name: str, started) -> None:
         raise RuntimeError(
             f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n"
             f"{stderr}{stdout}")
+    # ptxas's report (registers, shared memory, spills per kernel).
+    out.with_suffix(".log").write_text(stderr + stdout)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
@@ -97,6 +100,18 @@ def build_all() -> list[str]:
                     proc.wait()
                 tmp.unlink(missing_ok=True)
     return sorted(started)
+
+
+def ptxas_report(name: str) -> list[str]:
+    """ptxas's resource lines for ``csrc/<name>.cu`` from its last build
+    (``-Xptxas -v``): one "Used N registers" line per kernel instance,
+    each after the line naming the kernel and its spill stores/loads."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    keep = ("Compiling entry function", "spill stores", "Used ")
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if any(k in ln for k in keep)]
 
 
 def load(name: str) -> ctypes.CDLL:
