@@ -5,9 +5,10 @@ CPU mode). They import no JAX, so they run on a GPU host as they are:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances (max abs vs the plain version on the same inputs): f32 1e-4
-(summation order), bf16 3e-2 (the reference test's own; the plain
-version rounds scores and probabilities to bf16, the kernel keeps f32).
+Paged-attention tolerances (max abs vs the plain version on the same
+inputs): f32 1e-4 (summation order), bf16 3e-2 (the reference test's
+own; the plain version rounds scores and probabilities to bf16, the
+kernel keeps f32). The flash kernels' limits are chip_smoke.py's (below).
 """
 
 import pytest
@@ -16,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 # By bare name, not as ``tests.torch_parity``: a GPU host's site-packages
 # may hold a ``tests`` package of its own, which shadows this directory.
+from chip_smoke import FLASH_TOL, tile_rel_err  # noqa: E402
 from torch_parity import paged_case, to_torch  # noqa: E402
 from tpumon_torch.ops.paged_attention import (  # noqa: E402
     paged_attention,
@@ -82,13 +84,13 @@ def test_kernel_reads_a_parked_slots_repeated_trash_page(cuda_device):
 
 # --- the causal flash-attention kernels (training path) -------------------
 
-# Kernel vs plain version, max abs. f32: the reference test's own bounds
-# (out 1e-5, grads 2e-4) for sums taken in another order; lse 1e-5 for the
-# same reason. bf16: the reference test's 6e-2 for every output (P and dS
-# are rounded to bf16 at other block boundaries than the plain version's
-# one block per row, and outputs carry bf16's 2^-8); lse stays f32, 1e-4.
-FLASH_TOL = {torch.float32: {"out": 1e-5, "lse": 1e-5, "grad": 2e-4},
-             torch.bfloat16: {"out": 6e-2, "lse": 1e-4, "grad": 6e-2}}
+# Kernel vs plain version: chip_smoke.py's limits and metric. out and the
+# gradients are held to their worst relative error over 64-row tiles
+# (causal outputs shrink along the sequence, so one absolute limit would
+# not see the late rows), lse to max abs. The reasons, the kernels'
+# readings and what planted faults read are in chip_smoke.py and PERF.md;
+# tests/test_torch_flash_attention.py checks on the CPU that the faults
+# read over these limits at this file's shapes.
 FLASH_CASES = [(hd, t) for hd in (32, 64, 128) for t in (128, 384)]
 
 
@@ -106,8 +108,15 @@ def flash_inputs(device, dtype, hd, t, bh=3, seed=7):
     return q, k, v, g, out, lse, dvec
 
 
-def _close(got, want, atol):
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+def _close(got, want, key):
+    """got within chip_smoke's limit ``key`` ("out", "grad" or "lse") of
+    want: tile-wise relative for [BH, T, D] outputs, max abs for lse."""
+    tol = FLASH_TOL[str(want.dtype).split(".")[1]][key]
+    assert torch.isfinite(got.float()).all()
+    if key == "lse":
+        torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    else:
+        assert tile_rel_err(got, want) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -121,8 +130,8 @@ def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
     torch.cuda.synchronize()
     assert fa.flash_attention_tri_fwd.launches == before + 1
     assert out.dtype == dtype and lse.dtype == torch.float32
-    _close(out, want, FLASH_TOL[dtype]["out"])
-    _close(lse, want_lse, FLASH_TOL[dtype]["lse"])
+    _close(out, want, "out")
+    _close(lse, want_lse, "lse")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -136,7 +145,8 @@ def test_flash_dq_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
     torch.cuda.synchronize()
     assert fa.flash_attention_tri_bwd_dq.launches == before + 1
     want = fa.flash_attention_tri_bwd_dq_reference(q, k, v, g, lse, dvec)
-    _close(dq, want, FLASH_TOL[dtype]["grad"])
+    assert dq.dtype == dtype
+    _close(dq, want, "grad")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -151,8 +161,8 @@ def test_flash_dkv_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
     assert fa.flash_attention_tri_bwd_dkv.launches == before + 1
     want_dk, want_dv = fa.flash_attention_tri_bwd_dkv_reference(
         q, k, v, g, lse, dvec)
-    _close(dk, want_dk, FLASH_TOL[dtype]["grad"])
-    _close(dv, want_dv, FLASH_TOL[dtype]["grad"])
+    _close(dk, want_dk, "grad")
+    _close(dv, want_dv, "grad")
 
 
 def test_flash_kernels_reject_unsupported_sizes_on_card(cuda_device):

@@ -72,6 +72,37 @@ def test_backward_matches_reference(dtype):
         assert_close(a, b, TOL[dtype]["grad"])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,t", [(d, t) for d in (32, 64, 128)
+                                 for t in (128, 384)])
+def test_planted_faults_read_over_the_card_limits(dtype, d, t):
+    """The limits the CUDA kernels are held to (chip_smoke.FLASH_TOL, also
+    tests/test_torch_cuda.py's, at its shapes) catch every planted fault
+    of a tiled kernel: each reads over its limit here, where the plain
+    versions compute them. Without a fault the model is the plain
+    versions."""
+    import chip_smoke
+
+    q, k, v, g = to_torch(case(t=t, d=d), getattr(torch, dtype))
+    want = {}
+    want["out"], lse = fa.flash_attention_tri_fwd_reference(q, k, v)
+    dvec = (g.float() * want["out"].float()).sum(-1)
+    want["dq"] = fa.flash_attention_tri_bwd_dq_reference(q, k, v, g, lse,
+                                                         dvec)
+    want["dk"], want["dv"] = fa.flash_attention_tri_bwd_dkv_reference(
+        q, k, v, g, lse, dvec)
+    clean = chip_smoke.faulty_plain(q, k, v, g, lse, dvec, None)
+    for name, x in want.items():
+        assert chip_smoke.tile_rel_err(clean[name], x) <= 1e-6
+    readings = chip_smoke.fault_readings(q, k, v, g, lse, dvec, want)
+    caught = {f"{kernel}:{fault}": r / chip_smoke.flash_limit(kernel, dtype)
+              for kernel, faults in readings.items()
+              for fault, r in faults.items()
+              if chip_smoke.fault_required(kernel, fault)}
+    assert len(caught) == (9 if dtype == "float32" else 11)
+    assert min(caught.values()) > 1, caught
+
+
 def test_kernels_reject_bad_shapes_and_types():
     q, k, v, _ = to_torch(case(bh=2, t=200, d=64))
     with pytest.raises(ValueError, match="multiple of block"):

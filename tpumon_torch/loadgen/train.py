@@ -79,7 +79,6 @@ NVIDIA_PEAKS = (
     ("H100 NVL", "H100 NVL", 835.0, 60.0, 3.9),
     ("H100", "H100 SXM", 989.0, 67.0, 3.35),
 )
-PEAK_TFLOPS_BY_KIND = {variant: bf16 for _, variant, bf16, _, _ in NVIDIA_PEAKS}
 
 
 def card_peaks(kind: str) -> tuple[str, float, float, float] | None:
