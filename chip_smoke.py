@@ -14,7 +14,9 @@ Phases, each of which exits non-zero on failure:
    version at the production decode shape (B=16, 32/8 heads, hd 128,
    page 128, 32-page tables drawn from a random permutation of a 513-page
    pool, lengths 0/1/127/128/129/2000/4096 and random), in bf16 and f32,
-   plus group-1 hd-64, the serving CLI's hd-32 and an odd page size.
+   plus group-1 hd-64, the serving CLI's hd-32 and an odd page size; each
+   held to its worst relative error over (sequence, head) rows, with
+   planted faults of a paged kernel read beside under the same limit.
 4. engine: the serving engine at production width (bench.py's paged
    decode shape: vocab 4096, d_model 4096, 2 layers, 32/8 heads, d_ff
    8192, max_seq 4096, 16 slots, page 128, random weights from a seed)
@@ -53,6 +55,26 @@ Phases, each of which exits non-zero on failure:
    flash beside remat + chunked; where a step's device time goes and the
    device's idle share.
 10. trainer /metrics: the tpumon_train_* families the monitor scrapes.
+11. GEMM kernels vs plain: matmul and the int8 weight-only product at the
+    burn's 4096^3 (bf16) and at tests/test_ops.py's shapes (bf16, f32),
+    each held to its worst relative error over 128 x 128 output tiles,
+    with planted faults beside; the scale applied once; the reference's
+    fallback for a shape that does not tile, with no launch.
+12. burn path: the chained burn programs at size 4096 through the kernels
+    and the library (the 3-link chains agree; 64 launches per 64-link
+    call), then mxu_burn and int8_burn for 2 s each way with nvidia-smi's
+    power draw and SM clock read during each; beside them, as a reference
+    point, the same chain kept live (renormalised by sqrt(size)).
+13. kernels phase: bench.py's slope-timed measurements through the port
+    (matmul and int8 matmul, kernel and library; paged attention, kernel
+    and gather; the production engine decode step, gather and kernel), on
+    one line under bench.py's key names (pallas read as kernel).
+14. burn load: validate's verdicts on nvidia-smi's memory.used around
+    hbm_fill(0.3) and utilization.gpu under mxu_burn in a thread.
+15. rectangular flash forward vs plain: causal and not, bf16 and f32, at
+    the training shape and small shapes, with the forward faults that
+    apply; then the times of the GEMM kernels and of the rectangular
+    forward beside their plain versions, library calls and bounds.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -69,7 +91,17 @@ import urllib.request
 from pathlib import Path
 
 PROD_LENGTHS = (0, 1, 127, 128, 129, 2000, 4096)
-TOL = {"bfloat16": 3e-2, "float32": 1e-4}  # kernel vs plain, max abs
+# Paged-attention kernel vs plain version: rows_rel_err, the worst
+# ||got - want|| / ||want|| over the (sequence, head) rows of length > 0;
+# a length-0 row must be exactly zero. A decode row over n keys has an
+# output spread near sqrt(e / n) at random inputs, so an absolute limit
+# fitted to the short rows would pass a fault on the long ones. bf16: the
+# plain version rounds the scores and P to bf16 where the kernel keeps
+# f32. Each limit lies between the kernel's reading and the weakest
+# planted fault's (paged_faulty_plain; PERF.md).
+PAGED_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+PAGED_FAULTS = ("last_page_dropped", "first_page_dropped", "no_rescale",
+                "last_page_unmasked", "wrong_kv_head")
 # Engine logits, kernel path vs gather path on the same pool. bf16: the
 # plain path rounds scores and probabilities to bf16 where the kernel
 # keeps f32, and logits near 4 have a bf16 spacing of 1/32, so 0.25 is
@@ -99,8 +131,8 @@ def card_peaks(name: str) -> tuple[str, float, dict]:
     peaks = port_card_peaks(name)
     if peaks is None:
         fail(f"unknown card {name!r}: no peak rates on record")
-    variant, bf16, f32, bw = peaks
-    return variant, bw, {"bfloat16": bf16, "float32": f32}
+    return peaks.variant, peaks.hbm, {"bfloat16": peaks.bf16,
+                                      "float32": peaks.f32}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -134,6 +166,86 @@ def paged_inputs(gen, b, nh, nkv, hd, ps, max_pages, lengths, dtype):
     return q, k, v, table.contiguous(), lens
 
 
+def rows_rel_err(got, want, lengths) -> float:
+    """The worst relative error over the (sequence, head) rows of
+    [B, n_heads, hd] outputs whose sequence has length > 0."""
+    live = lengths > 0
+    if not bool(live.any()):
+        return 0.0
+    a, b = got[live].float(), want[live].float()
+    return ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max(
+        ).item()
+
+
+def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
+                       fault: str | None):
+    """The plain version (paged_attention_reference's numerics) carrying
+    one fault of a kernel that walks each sequence's pages in table order
+    (None: no fault):
+
+    - last_page_dropped / first_page_dropped: the sequence's last live
+      page, or its first, is skipped;
+    - no_rescale: the accumulator is not rescaled when the running max
+      rises from one page to the next;
+    - last_page_unmasked: the last live page is read whole, past lengths;
+    - wrong_kv_head: each query group reads the next kv head's pages.
+    """
+    import torch
+
+    b, nh, hd = q.shape
+    nkv, _, ps, _ = k_pages.shape
+    s_max = table.shape[1] * ps
+    heads = torch.arange(nkv, device=q.device)
+    if fault == "wrong_kv_head":
+        heads = (heads + 1) % nkv
+    idx = table.long()
+    k, v = (x[heads][:, idx].reshape(nkv, b, s_max, hd).permute(1, 2, 0, 3)
+            for x in (k_pages, v_pages))
+    k = torch.repeat_interleave(k, nh // nkv, dim=2)
+    v = torch.repeat_interleave(v, nh // nkv, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q, k).float() / hd**0.5
+    kpos = torch.arange(s_max, device=q.device)[None, None]
+    n = lengths[:, None, None].long()
+    mask = kpos < n
+    if fault == "last_page_dropped":
+        mask &= kpos < (n - 1) // ps * ps
+    elif fault == "first_page_dropped":
+        mask &= kpos >= ps
+    elif fault == "last_page_unmasked":
+        mask = kpos < (n + ps - 1) // ps * ps
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    el = torch.exp(s - m).sum(-1, keepdim=True)
+    if fault == "no_rescale":  # each page weighed at its running max
+        run = s.unflatten(-1, (-1, ps)).amax(-1).cummax(-1)[0]
+        p = torch.exp(s - run.repeat_interleave(ps, -1))
+    else:
+        p = torch.exp(s - m)
+    probs = torch.where(mask, (p / el).to(q.dtype), 0.0)
+    return torch.einsum("bhk,bkhd->bhd", probs, v)
+
+
+def paged_fault_applies(fault: str, nkv: int, lengths, ps: int) -> bool:
+    """Whether a planted fault changes any live row of this case."""
+    live = [n for n in lengths if n > 0]
+    if fault == "wrong_kv_head":
+        return nkv > 1
+    if fault == "last_page_unmasked":
+        return any(n % ps for n in live)
+    return bool(live)
+
+
+def paged_fault_readings(args, want) -> dict:
+    """{fault: rows_rel_err against the plain version} for every planted
+    fault that applies to the case (``args`` as paged_attention takes)."""
+    q, k_pages, _, _, lengths = args
+    lens = lengths.tolist()
+    return {f: rows_rel_err(paged_faulty_plain(*args, f), want, lengths)
+            for f in PAGED_FAULTS
+            if paged_fault_applies(f, k_pages.shape[0], lens,
+                                   k_pages.shape[2])}
+
+
 def check_kernel(gen) -> dict:
     import torch
 
@@ -159,23 +271,37 @@ def check_kernel(gen) -> dict:
     for name, case in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
+            tol = PAGED_TOL[dname]
             args = paged_inputs(gen, dtype=dtype, **case)
             out = paged_attention(*args)
             torch.cuda.synchronize()
             ref = paged_attention_reference(*args)
             err = (out.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
+            rel = rows_rel_err(out, ref, args[4])
             zero = [i for i, n in enumerate(case["lengths"]) if n == 0]
             zeros_ok = bool((out[zero] == 0).all().item()) if zero else True
             finite = bool(torch.isfinite(out.float()).all().item())
-            ok = err <= TOL[dname] and zeros_ok and finite
+            ok = rel <= tol and zeros_ok and finite
+            faults = paged_fault_readings(args, ref)
+            missed = [f for f, r in faults.items() if not r > tol]
+            # The same faults on the longest sequence's rows alone.
+            long = args[4] == args[4].max()
+            long_faults = {f: rows_rel_err(
+                paged_faulty_plain(*args, f)[long], ref[long], args[4][long])
+                for f in faults}
             print(f"kernel_vs_plain {name} {dname} lengths={case['lengths']} "
-                  f"max_abs_err={err!r} max_rel_err={err / scale!r} "
-                  f"tol_abs={TOL[dname]} zero_rows_zero={zeros_ok} "
-                  f"{'ok' if ok else 'MISS'}", flush=True)
+                  f"rows_rel_err={rel!r} tol={tol} max_abs_err={err!r} "
+                  f"zero_rows_zero={zeros_ok} {'ok' if ok else 'MISS'}",
+                  flush=True)
+            print(f"paged_planted_faults {name} {dname} rows_rel_err="
+                  f"{faults} longest_rows={long_faults} tol={tol} "
+                  f"missed={missed}", flush=True)
             if not ok:
                 fail(f"paged_attention kernel disagrees with its plain "
                      f"version ({name}, {dname})")
+            if missed:
+                fail(f"the paged limit {tol} passes planted faults {missed} "
+                     f"({name}, {dname})")
             if name == "production":
                 worst[dname] = err
     return worst
@@ -601,11 +727,13 @@ def tile_rel_err(got, want) -> float:
         ).item()
 
 
-def faulty_plain(q, k, v, g, lse, dvec, fault: str | None) -> dict:
+def faulty_plain(q, k, v, g, lse, dvec, fault: str | None,
+                 causal: bool = True) -> dict:
     """The plain forward and backward (out, dq, dk, dv), with the plain
     versions' numerics, carrying one fault of a kernel that tiles T by 64
     rows (None: no fault); the backward takes the true lse and D, as the
-    kernels do.
+    kernels do. With ``g`` None only the forward (out) is computed;
+    ``causal=False`` drops the causal mask (the rectangular forward).
 
     - diag_unmasked: the diagonal tile is not masked, so a row also sees
       the later keys of its own tile;
@@ -625,17 +753,18 @@ def faulty_plain(q, k, v, g, lse, dvec, fault: str | None) -> dict:
         return x if fault == "unrounded" else x.to(q.dtype).float()
 
     i = torch.arange(t, device=q.device)
-    mask = i[:, None] >= i[None, :]
+    mask = (i[:, None] >= i[None, :]) | (not causal)
     diag = (i[:, None] // FLASH_TILE) == (i[None, :] // FLASH_TILE)
     if fault == "diag_unmasked":
         mask = mask | diag
     elif fault == "last_diag_dropped":
         mask = mask & ~(diag & (i[:, None] >= t - FLASH_TILE))
-    got = {n: torch.empty_like(q) for n in ("out", "dq", "dk", "dv")}
+    outs = ("out",) if g is None else ("out", "dq", "dk", "dv")
+    got = {n: torch.empty_like(q) for n in outs}
     step = max(1, (1 << 26) // (t * t))
     for lo in range(0, bh, step):
         c = slice(lo, lo + step)
-        qc, kc, vc, gc = (x[c].float() for x in (q, k, v, g))
+        qc, kc, vc = (x[c].float() for x in (q, k, v))
         s = torch.where(mask, torch.matmul(qc, kc.transpose(1, 2)) * scale,
                         -1e30)
         m = s.amax(-1, keepdim=True)
@@ -646,6 +775,9 @@ def faulty_plain(q, k, v, g, lse, dvec, fault: str | None) -> dict:
         else:
             p = torch.exp(s - m)
         got["out"][c] = (torch.matmul(rnd(p), vc) / el).to(q.dtype)
+        if g is None:
+            continue
+        gc = g[c].float()
         pb = torch.exp(s - lse[c][..., None])
         dp = torch.matmul(gc, vc.transpose(1, 2))
         ds = pb * (dp - (0.0 if fault == "no_d" else dvec[c][..., None])
@@ -1116,6 +1248,613 @@ def check_train_metrics(trained: dict) -> None:
         fail(f"trainer /metrics lacks {missing}")
 
 
+# --- the burn path: GEMM kernels, burns, measurements, validate ----------
+
+GEMM_KERNELS = ("matmul", "quantized_matmul_kernel")
+GEMM_TILE = 128  # output tiles the agreement metric runs over
+GEMM_K_STEP = 32  # the tensor-core kernel's K step (the f32 one's is 8)
+# Kernel vs plain version: gemm_tile_rel_err, the worst ||got - want|| /
+# ||want|| over 128 x 128 output tiles. Both versions form each product
+# exactly and sum in f32 (in another order), then round once to the
+# output type: bf16 rounds at 2^-9 relative, and only where the two f32
+# sums fall on either side of a rounding point; f32 differs in summation
+# order only. Each limit lies between the kernels' reading and the
+# weakest planted fault's (gemm_faulty_plain; PERF.md).
+GEMM_TOL = {"bfloat16": 4e-3, "float32": 1e-5}
+GEMM_FAULTS = ("k_block_dropped", "scale_per_k_step", "scale_left_out",
+               "b_transposed")
+# The 3-link burn chains, GEMM kernel vs library (normwise relative): each
+# link rounds to bf16, so a 1-ulp difference in one link carries into the
+# next; 2e-2 is five bf16 half-ulps.
+CHAIN_TOL = 2e-2
+
+
+def gemm_counts() -> dict:
+    from tpumon_torch.ops import matmul as mm
+    from tpumon_torch.ops import quant_matmul as qm
+
+    return {"matmul": mm.matmul.launches,
+            "quantized_matmul_kernel": qm.quantized_matmul_kernel.launches}
+
+
+def set_gemm_counts(counts: dict) -> None:
+    from tpumon_torch.ops import matmul as mm
+    from tpumon_torch.ops import quant_matmul as qm
+
+    mm.matmul.launches = counts["matmul"]
+    qm.quantized_matmul_kernel.launches = counts["quantized_matmul_kernel"]
+
+
+def gemm_tile_rel_err(got, want) -> float:
+    """The worst relative error over 128 x 128 output tiles of [M, N]
+    tensors (the whole tensor where a side is shorter)."""
+    m, n = want.shape
+    tm, tn = min(GEMM_TILE, m), min(GEMM_TILE, n)
+    a, b = (x.float().reshape(m // tm, tm, n // tn, tn) for x in (got, want))
+    num = (a - b).square().sum((1, 3)).sqrt()
+    return (num / b.square().sum((1, 3)).sqrt().clamp_min(1e-30)).max().item()
+
+
+def gemm_faulty_plain(a, b, scale, fault: str | None):
+    """The plain product (f32, rounded once to a's dtype; scaled per
+    column once when ``scale`` is given) carrying one fault of a kernel
+    that steps K by 32 (None: no fault):
+
+    - k_block_dropped: the last 32-deep K step is skipped;
+    - scale_per_k_step: the scale multiplies the accumulator after every
+      K step, not once at store;
+    - scale_left_out: the scale is never applied;
+    - b_transposed: B is read as B^T (square B only).
+    """
+    af, bf = a.float(), b.float()
+    if fault == "b_transposed":
+        bf = bf.t()
+    k = a.shape[1]
+    if fault == "k_block_dropped":
+        c = af[:, :k - GEMM_K_STEP] @ bf[:k - GEMM_K_STEP]
+    elif fault == "scale_per_k_step":
+        c = 0.0
+        for k0 in range(0, k, GEMM_K_STEP):
+            c = (c + af[:, k0:k0 + GEMM_K_STEP] @ bf[k0:k0 + GEMM_K_STEP]
+                 ) * scale.float()
+    else:
+        c = af @ bf
+    if scale is not None and fault not in ("scale_per_k_step",
+                                           "scale_left_out"):
+        c = c * scale.float()
+    return c.to(a.dtype)
+
+
+def gemm_fault_applies(fault: str, b, scale) -> bool:
+    if fault in ("scale_per_k_step", "scale_left_out"):
+        return scale is not None
+    if fault == "b_transposed":
+        return b.shape[0] == b.shape[1]
+    return True
+
+
+def gemm_fault_readings(a, b, scale, want) -> dict:
+    return {f: gemm_tile_rel_err(gemm_faulty_plain(a, b, scale, f), want)
+            for f in GEMM_FAULTS if gemm_fault_applies(f, b, scale)}
+
+
+def gemm_case(gen, m, k, n, dtype, quant: bool, scale=None):
+    """a [m, k] and b [k, n] (int8 q and a per-column scale when
+    ``quant``: N(0, 1) / 127 around 1, unless given) from the card's
+    generator."""
+    import torch
+
+    dev = gen.device
+    a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    if not quant:
+        return a, torch.randn(k, n, generator=gen, device=dev).to(dtype), None
+    q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    if scale is None:
+        scale = (1.0 + 0.25 * torch.randn(n, generator=gen, device=dev)) / 127
+    return a, q, scale
+
+
+def check_gemm_kernels(gen) -> dict:
+    """Phase 11: both GEMM kernels against their plain versions at the
+    burn's 4096^3 and at tests/test_ops.py's shapes, with the planted
+    faults' readings beside each case; the reference's quantized fallback
+    on a shape that does not tile. Returns the worst max abs error per
+    kernel at 4096^3."""
+    import torch
+
+    from tpumon_torch.ops import matmul as mm
+    from tpumon_torch.ops import quant_matmul as qm
+
+    before = gemm_counts()
+    bf16, f32 = torch.bfloat16, torch.float32
+    burn_scale = torch.full((4096,), 1 / 127, device=gen.device)
+    # (name, kernel, m, k, n, blocks (m, n, k), dtypes, scale)
+    cases = [
+        ("burn_4096", "matmul", 4096, 4096, 4096, None, (bf16,), None),
+        ("burn_4096", "quantized_matmul_kernel", 4096, 4096, 4096, None,
+         (bf16,), burn_scale),
+        ("single_tile", "matmul", 128, 64, 128, (128, 128, 64), (bf16, f32),
+         None),
+        ("multi_tile", "matmul", 256, 128, 256, (128, 128, 64), (bf16, f32),
+         None),
+        ("k_major", "matmul", 256, 256, 128, (128, 128, 128), (bf16, f32),
+         None),
+        ("dequant_ref", "quantized_matmul_kernel", 256, 512, 512,
+         (128, 128, 128), (bf16, f32), None),
+        ("two_k_steps", "quantized_matmul_kernel", 128, 256, 128,
+         (128, 128, 128), (bf16, f32), None),
+    ]
+    worst = {}
+    for name, kern, m, k, n, blocks, dtypes, scale in cases:
+        kw = {} if blocks is None else dict(zip(
+            ("block_m", "block_n", "block_k"), blocks))
+        for dtype in dtypes:
+            dname = str(dtype).split(".")[1]
+            tol = GEMM_TOL[dname]
+            quant = kern != "matmul"
+            a, b, sc = gemm_case(gen, m, k, n, dtype, quant, scale)
+            if quant:
+                got = qm.quantized_matmul_kernel(a, b, sc, **kw)
+                want = qm.quantized_matmul_reference(a, b, sc)
+            else:
+                got = mm.matmul(a, b, **kw)
+                want = mm.matmul_reference(a, b)
+            torch.cuda.synchronize()
+            rel = gemm_tile_rel_err(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            finite = bool(torch.isfinite(got.float()).all().item())
+            clean = gemm_tile_rel_err(gemm_faulty_plain(a, b, sc, None), want)
+            faults = gemm_fault_readings(a, b, sc, want)
+            missed = [f for f, r in faults.items() if not r > tol]
+            ok = finite and got.dtype == dtype and rel <= tol
+            print(f"gemm_kernel_vs_plain {kern} {name} {m}x{k}x{n} {dname} "
+                  f"tile_rel_err={rel!r} tol={tol} max_abs_err={err!r} "
+                  f"fault_model_clean={clean!r} {'ok' if ok else 'MISS'}",
+                  flush=True)
+            print(f"gemm_planted_faults {kern} {name} {dname} tile_rel_err="
+                  f"{faults} tol={tol} missed={missed}", flush=True)
+            if not ok:
+                fail(f"{kern} kernel disagrees with its plain version "
+                     f"({name}, {dname})")
+            if missed or clean > 1e-6:
+                fail(f"the GEMM limit {tol} passes planted faults {missed} "
+                     f"or the fault model is off ({name}, {dname})")
+            if name == "burn_4096":
+                worst[kern] = err
+    # The reference's own exact case: ones @ ones over two K steps with a
+    # scale of 0.5 gives 256 * 0.5 everywhere, the scale applied once.
+    for dtype in (bf16, f32):
+        ones = torch.ones(128, 256, device=gen.device, dtype=dtype)
+        out = qm.quantized_matmul_kernel(
+            ones, torch.ones(256, 128, device=gen.device, dtype=torch.int8),
+            torch.full((128,), 0.5, device=gen.device), block_m=128,
+            block_n=128, block_k=128)
+        exact = bool((out.float() == 128.0).all().item())
+        print(f"gemm_scale_once {dtype} all_128={exact}", flush=True)
+        if not exact:
+            fail("the int8 kernel does not apply its scale exactly once")
+    # A decode shape does not tile: the reference's fallback, no launch.
+    a = torch.randn(4, 64, generator=gen, device=gen.device)
+    q = torch.randint(-127, 128, (64, 48), generator=gen, device=gen.device,
+                      dtype=torch.int8)
+    sc = torch.rand(48, generator=gen, device=gen.device) / 127
+    n0 = qm.quantized_matmul_kernel.launches
+    out = qm.quantized_matmul(a, q, sc)
+    same = torch.equal(out, a @ (q.to(a.dtype) * sc.to(a.dtype)))
+    print(f"gemm_fallback 4x64x48 f32 equal_plain={same} launches="
+          f"{qm.quantized_matmul_kernel.launches - n0}", flush=True)
+    if not same or qm.quantized_matmul_kernel.launches != n0:
+        fail("quantized_matmul's fallback launched a kernel or differs")
+    set_gemm_counts(before)
+    return worst
+
+
+def smi(fields: str) -> list[str]:
+    """One nvidia-smi reading of the first card: the fields' values."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return [x.strip() for x in out.stdout.strip().splitlines()[0].split(",")]
+
+
+def while_running(fn, sample, period: float = 0.4):
+    """Run ``fn`` in a thread and call ``sample()`` every ``period`` s
+    until it ends; returns (fn's result, the samples). fn's exception is
+    raised here."""
+    import threading
+
+    box = {}
+
+    def target():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # handed to the caller below
+            box["err"] = e
+
+    t = threading.Thread(target=target)
+    t.start()
+    samples = []
+    while t.is_alive():
+        samples.append(sample())
+        t.join(timeout=period)
+    if "err" in box:
+        raise box["err"]
+    return box["out"], samples
+
+
+def power_clock():
+    """(power draw W, SM clock MHz) now."""
+    p, c = smi("power.draw,clocks.sm")
+    return float(p), float(c)
+
+
+def run_burn_path() -> dict:
+    """Phase 12, the burn slice's main path: the chained programs at size
+    4096 through the GEMM kernels and the library (the 3-link chains held
+    together; 64 kernel launches per 64-link call), then mxu_burn and
+    int8_burn for their default 2 s each way, with power and SM clock read
+    during each. Returns the kernels' launches over the whole phase."""
+    import torch
+
+    from tpumon_torch.loadgen import burn
+    from tpumon_torch.ops.matmul import matmul
+    from tpumon_torch.ops.quant_matmul import quantized_matmul_kernel
+
+    dev = torch.device("cuda")
+    a, b = burn._mxu_inputs(0, 4096, dev)
+    chains = {"mxu": (burn._mxu_chain(a, b, 3, matmul),
+                      burn._mxu_chain(a, b, 3, torch.matmul))}
+    a, q, sc = burn._int8_inputs(0, 4096, dev)
+    chains["int8"] = (burn._int8_chain(a, q, sc, 3, quantized_matmul_kernel),
+                      burn._int8_chain(a, q, sc, 3, burn._dequant_matmul))
+    for name, (kern, lib) in chains.items():
+        rel = gemm_tile_rel_err(kern, lib)
+        scale = lib.float().abs().mean().item()
+        print(f"burn_chain {name} links=3 size=4096 kernel_vs_library "
+              f"tile_rel_err={rel!r} tol={CHAIN_TOL} mean_abs={scale!r}",
+              flush=True)
+        if not rel <= CHAIN_TOL or scale == 0:
+            fail(f"the 3-link {name} chain: kernel and library disagree")
+    del a, b, q, sc, chains
+
+    set_gemm_counts(dict.fromkeys(GEMM_KERNELS, 0))  # the path only
+    t0 = time.perf_counter()
+    for prog, kern in ((burn._mxu_burn_program, "matmul"),
+                       (burn._int8_burn_program, "quantized_matmul_kernel")):
+        n0 = gemm_counts()[kern]
+        total = burn._sync(prog(0, 4096, 64, use_kernel=True))
+        n = gemm_counts()[kern] - n0
+        print(f"burn_program {prog.__name__} size=4096 links=64 "
+              f"launches={n} sum={total!r}", flush=True)
+        if n != 64:
+            fail(f"{prog.__name__}: {n} kernel launches for 64 links")
+    for fn, use_kernel in ((burn.mxu_burn, None), (burn.mxu_burn, True),
+                           (burn.int8_burn, None), (burn.int8_burn, False)):
+        n0 = gemm_counts()
+        out, samples = while_running(
+            lambda: fn(use_kernel=use_kernel), power_clock)
+        launched = {k: v - n0[k] for k, v in gemm_counts().items()}
+        want = 64 * (out["calls"] + 1) if out["kernel"] else 0
+        print(f"burn {fn.__name__} use_kernel={use_kernel} result={out} "
+              f"launches={launched} power_W_sm_MHz={samples}", flush=True)
+        kern = "matmul" if fn is burn.mxu_burn else "quantized_matmul_kernel"
+        if launched[kern] != want or not out["tflops"] > 0:
+            fail(f"{fn.__name__}: {launched[kern]} launches, want {want}")
+    launches = gemm_counts()
+    print(f"burn_path launches={launches} wall_s="
+          f"{time.perf_counter() - t0!r}", flush=True)
+    if not all(launches.values()):
+        fail(f"a GEMM kernel was not launched on the burn path: {launches}")
+    for use_kernel in (False, True):
+        out, samples = while_running(lambda: live_chain(use_kernel),
+                                     power_clock)
+        print(f"live_chain use_kernel={use_kernel} result={out} "
+              f"power_W_sm_MHz={samples}", flush=True)
+    set_gemm_counts(launches)
+    return launches
+
+
+def live_chain(use_kernel: bool, seconds: float = 2.0, size: int = 4096,
+               links: int = 64) -> dict:
+    """A power reference point for the burn, not the burn: its chain at
+    size 4096, renormalised by sqrt(size) in place of the reference's
+    size, so the values stay N(0, 1) through every link where the burn's
+    underflow to zeros after about 22. Run for ``seconds``; returns calls
+    and TFLOP/s."""
+    import torch
+
+    from tpumon_torch.loadgen import burn
+    from tpumon_torch.ops.matmul import matmul
+
+    a, b = burn._mxu_inputs(0, size, torch.device("cuda"))
+    mm = matmul if use_kernel else torch.matmul
+    calls, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        x = a
+        for _ in range(links):
+            x = (mm(x, b) / size**0.5).to(torch.bfloat16)
+        burn._sync(x.float().abs().mean())
+        calls += 1
+    dt = time.perf_counter() - t0
+    return {"calls": calls, "tflops": 2 * size**3 * links * calls / dt / 1e12,
+            "end_mean_abs": float(x.float().abs().mean())}
+
+
+def measure_kernels() -> dict:
+    """Phase 13, bench.py's kernels phase through the port: slope-timed
+    kernel and library rates and the production engine decode step, on
+    one line under bench.py's key names (pallas read as kernel)."""
+    import dataclasses
+
+    from tpumon_torch.loadgen import burn
+    from tpumon_torch.loadgen.model import ModelConfig
+    from tpumon_torch.loadgen.serving import ServeConfig
+
+    t0 = time.perf_counter()
+    before = gemm_counts()
+    mm_k = burn.measure_mxu_tflops(use_kernel=True)
+    mm_x = burn.measure_mxu_tflops(use_kernel=False)
+    i8_k = burn.measure_int8_tflops(use_kernel=True)
+    i8_x = burn.measure_int8_tflops(use_kernel=False)
+    pa_k = burn.measure_paged_gbps(use_kernel=True)
+    pa_x = burn.measure_paged_gbps(use_kernel=False)
+    prod = ServeConfig(
+        model=ModelConfig(vocab=4096, d_model=4096, n_layers=2, n_heads=32,
+                          n_kv_heads=8, d_ff=8192, max_seq=4096),
+        slots=16, prefill_len=128, kv_layout="paged")
+    es_g = burn.measure_paged_engine_step_ms(
+        dataclasses.replace(prod, paged_attn="gather"), inner_steps=16)
+    es_k = burn.measure_paged_engine_step_ms(
+        dataclasses.replace(prod, paged_attn="kernel"), inner_steps=16)
+    set_gemm_counts(before)
+    out = {
+        "mxu_matmul_kernel_tflops": mm_k["tflops"],
+        "mxu_matmul_xla_tflops": mm_x["tflops"],
+        "mxu_matmul_vs_xla": mm_k["tflops"] / mm_x["tflops"],
+        "int8_matmul_kernel_tflops": i8_k["tflops"],
+        "int8_matmul_xla_tflops": i8_x["tflops"],
+        "int8_matmul_vs_xla": i8_k["tflops"] / i8_x["tflops"],
+        "paged_attention_kernel_kv_gbps": pa_k["kv_gbps"],
+        "paged_attention_xla_kv_gbps": pa_x["kv_gbps"],
+        "paged_attention_vs_xla": pa_k["kv_gbps"] / pa_x["kv_gbps"],
+        "paged_engine_step_gather_ms": es_g["ms_per_step"],
+        "paged_engine_step_kernel_ms": es_k["ms_per_step"],
+        "paged_engine_step_kernel_vs_gather":
+            es_g["ms_per_step"] / es_k["ms_per_step"],
+        "kernel_marginal_s": {
+            "mxu_kernel": mm_k["marginal_s"], "mxu_xla": mm_x["marginal_s"],
+            "int8_kernel": i8_k["marginal_s"], "int8_xla": i8_x["marginal_s"],
+            "paged_kernel": pa_k["marginal_s"],
+            "paged_xla": pa_x["marginal_s"],
+            "engine_gather": es_g["marginal_s"],
+            "engine_kernel": es_k["marginal_s"]},
+        "device_rooflines": burn.device_rooflines(),
+    }
+    print("kernels_phase " + json.dumps(out), flush=True)
+    print(f"kernels_phase wall_s={time.perf_counter() - t0!r}", flush=True)
+    return out
+
+
+def check_burn_load() -> None:
+    """Phase 14: the burns load the card, judged by the port's copy of
+    validate's verdicts on nvidia-smi's readings: memory.used before,
+    during and after hbm_fill(0.3), and utilization.gpu under
+    mxu_burn(seconds=0.5, size=2048, iters=16) run in a loop in a thread,
+    as the reference's validate runs it."""
+    import threading
+
+    import torch
+
+    from tpumon_torch.loadgen import burn
+    from tpumon_torch.validate import (
+        classify_hbm_response,
+        classify_mxu_response,
+        summarize,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the caching allocator's reserve is not the fill
+
+    def used() -> float:
+        return float(smi("memory.used")[0]) * 2**20  # MiB
+
+    time.sleep(1.0)
+    hbm0 = used()
+    arrays = burn.hbm_fill(0.3)
+    time.sleep(1.0)
+    hbm_during = used()
+    del arrays
+    torch.cuda.empty_cache()
+    time.sleep(1.0)
+    hbm_after = used()
+    hbm = classify_hbm_response(hbm0, hbm_during, hbm_after, False,
+                                source="nvidia-smi memory.used")
+
+    duty0 = float(smi("utilization.gpu")[0])
+    stop = threading.Event()
+    errors = []
+
+    def loop():
+        try:
+            while not stop.is_set():
+                burn.mxu_burn(seconds=0.5, size=2048, iters=16)
+        except BaseException as e:  # handed to the main thread below
+            errors.append(e)
+
+    t = threading.Thread(target=loop)
+    t.start()
+    duty = []
+    try:
+        time.sleep(2.0)
+        for _ in range(5):
+            duty.append(float(smi("utilization.gpu")[0]))
+            time.sleep(1.0)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    if errors or t.is_alive():
+        fail(f"the mxu burn thread failed: {errors}")
+    mxu = classify_mxu_response(duty0, duty, False,
+                                source="nvidia-smi utilization.gpu")
+    table, code = summarize([hbm, mxu])
+    print(f"burn_load memory_used_bytes={[hbm0, hbm_during, hbm_after]} "
+          f"utilization_pct={duty0} -> {duty} wall_s="
+          f"{time.perf_counter() - t0!r}", flush=True)
+    for line in table.splitlines():
+        print(f"burn_load {line}", flush=True)
+    if code:
+        fail("a burn did not register on the card's counters")
+
+
+FLASH_RECT_FAULTS = ("diag_unmasked", "last_diag_dropped", "no_rescale")
+
+
+def check_flash_rect(gen) -> dict:
+    """Phase 15: the rectangular flash forward against its plain version,
+    causal and not, bf16 and f32, at the training shape and small shapes,
+    under FLASH_TOL's out limits, with the planted forward faults that
+    apply. Returns {"launches", "max_abs_err"} (the launches of this
+    check, the error at the training shape, bf16, causal)."""
+    import torch
+
+    from tpumon_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    fa.flash_attention.launches = 0  # the kernel's own phase only
+    cases = [("production", 128, 1024, 128), ("hd64_t384", 6, 384, 64),
+             ("hd32_t128", 6, 128, 32)]
+    worst = None
+    for name, bh, t, hd in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            tol = FLASH_TOL[dname]["out"]
+            q, k, v = (torch.randn(bh, t, hd, generator=gen,
+                                   device=gen.device).to(dtype)
+                       for _ in range(3))
+            for causal in (True, False):
+                got = fa.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                want = fa.flash_attention_reference(q, k, v, causal)
+                rel = tile_rel_err(got, want)
+                err = (got.float() - want.float()).abs().max().item()
+                finite = bool(torch.isfinite(got.float()).all().item())
+                faults = {f: tile_rel_err(faulty_plain(
+                    q, k, v, None, None, None, f, causal)["out"], want)
+                    for f in FLASH_RECT_FAULTS
+                    if causal or f != "diag_unmasked"}
+                missed = [f for f, r in faults.items() if not r > tol]
+                ok = finite and rel <= tol
+                print(f"flash_rect_vs_plain {name} BH{bh}/T{t}/hd{hd} {dname} "
+                      f"causal={causal} tile_rel_err={rel!r} tol={tol} "
+                      f"max_abs_err={err!r} {'ok' if ok else 'MISS'}",
+                      flush=True)
+                print(f"flash_rect_planted_faults {name} {dname} causal="
+                      f"{causal} tile_rel_err={faults} missed={missed}",
+                      flush=True)
+                if not ok:
+                    fail(f"flash_attention kernel disagrees with its plain "
+                         f"version ({name}, {dname}, causal={causal})")
+                if missed:
+                    fail(f"the flash limit {tol} passes planted faults "
+                         f"{missed} ({name}, {dname}, causal={causal})")
+                if name == "production" and dname == "bfloat16" and causal:
+                    worst = err
+            del q, k, v
+    launches = fa.flash_attention.launches
+    print(f"flash_rect launches={launches} wall_s="
+          f"{time.perf_counter() - t0!r}", flush=True)
+    if launches != 2 * 2 * len(cases):
+        fail(f"flash_attention launched {launches} times")
+    return {"launches": launches, "max_abs_err": worst}
+
+
+def time_gemm_kernels(gen, bw: float, peaks: dict) -> dict:
+    """Kernel, plain and library times of both GEMM kernels at the burn's
+    4096^3 with a bf16 a, with their bounds; the f32 kernels' times
+    beside."""
+    import torch
+
+    from tpumon_torch.loadgen.burn import _dequant_matmul
+    from tpumon_torch.ops import matmul as mm
+    from tpumon_torch.ops import quant_matmul as qm
+
+    before = gemm_counts()
+    n = 4096
+    ops = 2 * n**3
+    a, b, _ = gemm_case(gen, n, n, n, torch.bfloat16, False)
+    _, q, sc = gemm_case(gen, n, n, n, torch.bfloat16, True)
+    calls = {
+        "matmul": (lambda: mm.matmul(a, b), lambda: mm.matmul_reference(a, b),
+                   lambda: torch.matmul(a, b), 3 * n * n * 2),
+        "quantized_matmul_kernel": (
+            lambda: qm.quantized_matmul_kernel(a, q, sc),
+            lambda: qm.quantized_matmul_reference(a, q, sc),
+            lambda: _dequant_matmul(a, q, sc), 2 * n * n * 2 + n * n + 4 * n),
+    }
+    times = {}
+    for name, (kernel, plain, library, nbytes) in calls.items():
+        bound_ms, bound_by = max((nbytes / bw * 1e3, "bytes"),
+                                 (ops / peaks["bfloat16"] * 1e3, "operations"))
+        ms = cuda_ms(kernel, reps=20)
+        plain_ms = cuda_ms(plain, reps=5)
+        lib_ms = cuda_ms(library, reps=20)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms}
+        print(f"time_{name} shape=4096^3 bf16 kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r} library_ms={lib_ms!r} "
+              f"bound_ms={bound_ms!r} ({bound_by}: {nbytes} B, {ops} FLOP) "
+              f"kernel_tflops={ops / ms / 1e9!r} "
+              f"library_tflops={ops / lib_ms / 1e9!r}", flush=True)
+    af, bf = a.float(), b.float()
+    print(f"time_gemm_f32 shape=4096^3 f32 (CUDA cores) matmul_kernel_ms="
+          f"{cuda_ms(lambda: mm.matmul(af, bf), reps=3)!r} "
+          f"quantized_kernel_ms="
+          f"{cuda_ms(lambda: qm.quantized_matmul_kernel(af, q, sc), reps=3)!r}",
+          flush=True)
+    set_gemm_counts(before)
+    return times
+
+
+def time_flash_rect(gen, bw: float, peaks: dict) -> dict:
+    """The rectangular forward's kernel, plain and SDPA times at the
+    training shape, bf16, causal and not, with their bounds; returns the
+    causal ones."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpumon_torch.ops import flash_attention as fa
+
+    before = fa.flash_attention.launches
+    bh, t, hd = 128, 1024, 128
+    q, k, v = (torch.randn(bh, t, hd, generator=gen, device=gen.device).to(
+        torch.bfloat16) for _ in range(3))
+    shape = (8, bh // 8, t, hd)
+    nbytes = 4 * bh * t * hd * 2
+    out = {}
+    for causal in (True, False):
+        pairs = bh * (t * (t + 1) // 2 if causal else t * t)
+        bound_ms, bound_by = max((nbytes / bw * 1e3, "bytes"),
+                                 (2 * 2 * hd * pairs / peaks["bfloat16"] * 1e3,
+                                  "operations"))
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                     reps=20)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v,
+                                                                causal), reps=3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.view(shape), k.view(shape), v.view(shape), is_causal=causal),
+            reps=50)
+        print(f"time_flash_attention shape=BH128/T1024/hd128 bf16 "
+              f"causal={causal} kernel_ms={ms!r} plain_ms={plain_ms!r} "
+              f"library_sdpa_ms={lib_ms!r} bound_ms={bound_ms!r} "
+              f"({bound_by}) kernel_over_bound={ms / bound_ms!r}", flush=True)
+        out[causal] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib_ms}
+    fa.flash_attention.launches = before
+    return out[True]
+
+
 def main() -> int:
     import torch
 
@@ -1141,7 +1880,7 @@ def main() -> int:
 
     print("ptxas: " + " | ".join(
         ln for n in _build.sources() for ln in _build.ptxas_report(n)
-        if "flash" in n), flush=True)
+        if n != "paged_attention"), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = check_kernel(gen)
@@ -1162,6 +1901,20 @@ def main() -> int:
     flash_times = time_flash_kernels(gen, bw, peaks)
     time_trainer(trained)
     check_train_metrics(trained)
+    flash_launches = trained["launches"]
+    del trained
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    gemm_worst = check_gemm_kernels(gen)
+    print(f"phase11 gemm_checks wall_s={time.perf_counter() - t0!r}",
+          flush=True)
+    gemm_launches = run_burn_path()
+    measure_kernels()
+    check_burn_load()
+    rect = check_flash_rect(gen)
+    gemm_times = time_gemm_kernels(gen, bw, peaks)
+    rect_times = time_flash_rect(gen, bw, peaks)
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
@@ -1181,9 +1934,23 @@ def main() -> int:
         source, replaces = sources[kernel]
         rows.append({"name": kernel, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": trained["launches"][kernel],
+                     "launches": flash_launches[kernel],
                      "max_abs_err": flash_worst[kernel],
                      **flash_times[kernel]})
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "tpumon_torch/ops/csrc/flash_attention.cu",
+                 "replaces": "tpumon/ops/flash_attention.py:62",
+                 "launches": rect["launches"],
+                 "max_abs_err": rect["max_abs_err"], **rect_times})
+    for kernel, source, replaces in (
+            ("matmul", "tpumon_torch/ops/csrc/matmul.cu",
+             "tpumon/ops/matmul.py:30"),
+            ("quantized_matmul_kernel", "tpumon_torch/ops/csrc/matmul.cu",
+             "tpumon/ops/quant_matmul.py:37")):
+        rows.append({"name": kernel, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": gemm_launches[kernel],
+                     "max_abs_err": gemm_worst[kernel],
+                     **gemm_times[kernel]})
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

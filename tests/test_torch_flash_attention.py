@@ -1,4 +1,4 @@
-"""The port's causal flash attention against the JAX reference kernels.
+"""The port's flash attention against the JAX reference kernels.
 
 Inputs are made once with numpy from a seed; JAX runs its Pallas kernels
 in interpret mode on the CPU (as tests/test_flash_attention.py does),
@@ -103,6 +103,46 @@ def test_planted_faults_read_over_the_card_limits(dtype, d, t):
     assert min(caught.values()) > 1, caught
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_rect_forward_matches_reference(causal, dtype):
+    """The rectangular forward against the reference's rectangular
+    kernel, 2 x 2 blocks of 128; the reference test's own bounds (f32
+    2e-5, bf16 6e-2)."""
+    q, k, v, _ = case(t=256, d=64)
+    want = jax_fa.flash_attention(*to_jax((q, k, v), jnp.dtype(dtype)),
+                                  causal=causal, interpret=True)
+    got = fa.flash_attention(*to_torch((q, k, v), getattr(torch, dtype)),
+                             causal=causal)
+    assert got.dtype == getattr(torch, dtype)
+    assert_close(got, want, 2e-5 if dtype == "float32" else 6e-2)
+    if causal:  # the triangle forward computes the same function
+        assert torch.equal(got, fa.flash_attention_tri(
+            *to_torch((q, k, v), getattr(torch, dtype))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_rect_planted_faults_read_over_the_card_limit(causal, dtype):
+    """The forward faults that apply to the rectangular kernel read over
+    the out limit (chip_smoke.FLASH_TOL) at the card tests' shapes."""
+    import chip_smoke
+
+    tol = chip_smoke.FLASH_TOL[dtype]["out"]
+    for d, t in ((32, 128), (64, 384), (128, 128)):
+        q, k, v, _ = to_torch(case(t=t, d=d), getattr(torch, dtype))
+        want = fa.flash_attention_reference(q, k, v, causal)
+        clean = chip_smoke.faulty_plain(q, k, v, None, None, None, None,
+                                        causal)["out"]
+        assert chip_smoke.tile_rel_err(clean, want) <= 1e-6
+        for fault in chip_smoke.FLASH_RECT_FAULTS:
+            if fault == "diag_unmasked" and not causal:
+                continue
+            got = chip_smoke.faulty_plain(q, k, v, None, None, None, fault,
+                                          causal)["out"]
+            assert chip_smoke.tile_rel_err(got, want) > tol, (fault, d, t)
+
+
 def test_kernels_reject_bad_shapes_and_types():
     q, k, v, _ = to_torch(case(bh=2, t=200, d=64))
     with pytest.raises(ValueError, match="multiple of block"):
@@ -120,15 +160,21 @@ def test_kernels_reject_bad_shapes_and_types():
                                       torch.zeros(2, 128))
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa.flash_attention_tri_fwd(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError, match="multiple of block=256"):
+        fa.flash_attention(q, k, v, block_q=128, block_k=256)
+    with pytest.raises(AssertionError):  # the reference asserts here
+        jax_fa.flash_attention(*to_jax(case(bh=2, t=128, d=32)[:3]),
+                               block_k=256, interpret=True)
 
 
 def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
     q, k, v, g = to_torch(case(bh=1, t=128, d=32))
     counters = (fa.flash_attention_tri_fwd, fa.flash_attention_tri_bwd_dq,
-                fa.flash_attention_tri_bwd_dkv)
+                fa.flash_attention_tri_bwd_dkv, fa.flash_attention)
     before = [f.launches for f in counters]
     out, lse = fa.flash_attention_tri_fwd(q, k, v)
     fa.flash_attention_tri_bwd(q, k, v, out, lse, g)
+    fa.flash_attention(q, k, v, causal=False)
     assert [f.launches for f in counters] == before
     assert torch.equal(out, fa.flash_attention_tri_fwd_reference(q, k, v)[0])
 

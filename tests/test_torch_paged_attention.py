@@ -18,6 +18,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from tests.torch_parity import (  # noqa: E402
+    PAGED_CARD_CASE,
+    PAGED_CARD_SHAPES,
     jax_f32,
     paged_case,
     to_jax,
@@ -122,3 +124,31 @@ def test_plain_version_matches_jax_oracle_larger_gqa():
     out = torch_f32(paged_attention_reference(*to_torch(case)))
     ref = jax_f32(jax_pa.paged_attention_reference(*to_jax(case)))
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", range(len(PAGED_CARD_SHAPES)))
+def test_planted_faults_read_over_the_card_limits(dtype, shape):
+    """The limits the CUDA kernel is held to (chip_smoke.PAGED_TOL, also
+    tests/test_torch_cuda.py's) catch every planted fault of a paged
+    kernel that applies at the card tests' shapes: each reads over its
+    limit here, where the plain version computes them. Without a fault
+    the model is the plain version."""
+    import chip_smoke
+
+    spec = PAGED_CARD_SHAPES[shape]
+    args = to_torch(paged_case(**PAGED_CARD_CASE, **spec),
+                    getattr(torch, dtype))
+    want = paged_attention_reference(*args)
+    clean = chip_smoke.paged_faulty_plain(*args, None)
+    assert chip_smoke.rows_rel_err(clean, want, args[4]) <= 1e-6
+    # the dropped last page is the plain version over shortened lengths
+    n, ps = args[4], spec["page_size"]
+    short = torch.clamp((n - 1) // ps * ps, min=0).to(torch.int32)
+    assert chip_smoke.rows_rel_err(
+        chip_smoke.paged_faulty_plain(*args, "last_page_dropped"),
+        paged_attention_reference(*args[:4], short), args[4]) <= 1e-6
+    readings = chip_smoke.paged_fault_readings(args, want)
+    assert len(readings) == (5 if spec["nkv"] > 1 else 4)
+    tol = chip_smoke.PAGED_TOL[dtype]
+    assert min(readings.values()) > tol, readings

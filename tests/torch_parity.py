@@ -34,6 +34,26 @@ def paged_case(b=3, nh=4, nkv=2, hd=16, num_pages=12, page_size=8,
     return q, k_pages, v_pages, table, np.asarray(lengths, np.int32)
 
 
+# The paged-attention card tests' cases (tests/test_torch_cuda.py): six
+# sequences over a 40-page pool; the CPU tests check that the planted
+# faults read over the card limits at these shapes.
+PAGED_CARD_CASE = dict(b=6, num_pages=40, max_pages=4, seed=5)
+PAGED_CARD_SHAPES = [
+    {"nh": 8, "nkv": 2, "hd": 128, "page_size": 16,
+     "lengths": (0, 1, 15, 16, 17, 64)},
+    {"nh": 4, "nkv": 4, "hd": 64, "page_size": 40,
+     "lengths": (160, 39, 41, 0, 1, 100)},
+    {"nh": 8, "nkv": 1, "hd": 32, "page_size": 8,
+     "lengths": (32, 31, 9, 8, 7, 2)},
+]
+
+
+# The GEMM card tests' (M, K, N) (tests/test_torch_cuda.py), where the CPU
+# tests check the planted GEMM faults against the card limits too.
+GEMM_CARD_CASES = [(128, 64, 128), (256, 128, 256), (256, 256, 128),
+                   (384, 512, 256)]
+
+
 def to_jax(arrays, dtype=None):
     import jax.numpy as jnp
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import time
 import zlib
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -71,23 +72,36 @@ def synthetic_batch(cfg: TrainConfig, step: int,
 
 # Dense peaks of NVIDIA cards from their data sheets, first match of the
 # device name wins: (name contains, variant, bf16 TFLOP/s on tensor cores,
-# f32 TFLOP/s on CUDA cores, memory TB/s). The basis of MFU; an unknown
-# card reports no MFU unless an explicit peak is passed.
+# f32 TFLOP/s on CUDA cores, memory TB/s, int8 TOP/s on tensor cores). The
+# basis of MFU and of the burns' roofline guards; an unknown card reports
+# no MFU unless an explicit peak is passed.
 NVIDIA_PEAKS = (
-    ("H200", "H200 SXM", 989.0, 67.0, 4.8),
-    ("H100 PCIE", "H100 PCIe", 756.0, 51.0, 2.0),
-    ("H100 NVL", "H100 NVL", 835.0, 60.0, 3.9),
-    ("H100", "H100 SXM", 989.0, 67.0, 3.35),
+    ("H200", "H200 SXM", 989.0, 67.0, 4.8, 1979.0),
+    ("H100 PCIE", "H100 PCIe", 756.0, 51.0, 2.0, 1513.0),
+    ("H100 NVL", "H100 NVL", 835.0, 60.0, 3.9, 1670.0),
+    ("H100", "H100 SXM", 989.0, 67.0, 3.35, 1979.0),
 )
 
 
-def card_peaks(kind: str) -> tuple[str, float, float, float] | None:
-    """(variant, bf16 FLOP/s, f32 FLOP/s, memory bytes/s) of a device
-    name such as ``torch.cuda.get_device_name()``, or None if unknown."""
+class CardPeaks(NamedTuple):
+    """A card's dense peaks, per second: bf16 and f32 FLOP/s, memory
+    bytes/s, int8 OP/s."""
+
+    variant: str
+    bf16: float
+    f32: float
+    hbm: float
+    int8: float
+
+
+def card_peaks(kind: str) -> CardPeaks | None:
+    """The peaks of a device name such as ``torch.cuda.get_device_name()``,
+    or None if unknown."""
     up = kind.upper()
-    for needle, variant, bf16, f32, tbps in NVIDIA_PEAKS:
+    for needle, variant, bf16, f32, tbps, int8 in NVIDIA_PEAKS:
         if needle in up:
-            return variant, bf16 * 1e12, f32 * 1e12, tbps * 1e12
+            return CardPeaks(variant, bf16 * 1e12, f32 * 1e12, tbps * 1e12,
+                             int8 * 1e12)
     return None
 
 
@@ -97,7 +111,7 @@ def detect_peak_flops() -> float | None:
     if not torch.cuda.is_available():
         return None
     peaks = card_peaks(torch.cuda.get_device_name(0))
-    return peaks[1] if peaks else None
+    return peaks.bf16 if peaks else None
 
 
 def flops_per_token(cfg: ModelConfig, seq: int) -> float:

@@ -1,10 +1,14 @@
-"""Causal flash attention, forward and backward: the CUDA kernels' wrappers
-and their plain versions.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers and
+their plain versions.
 
-Counterpart of ``tpumon/ops/flash_attention.py``'s triangle-grid pair,
+Counterpart of ``tpumon/ops/flash_attention.py``: its triangle-grid pair,
 the training schedule's attention (``loadgen.model`` ``attention=
-"flash"``). q/k/v are ``[BH, T, D]`` (batch and heads folded), causal,
-with the reference's scale ``1/sqrt(D)``:
+"flash"``), and its rectangular forward. q/k/v are ``[BH, T, D]`` (batch
+and heads folded), with the reference's scale ``1/sqrt(D)``:
+
+- ``flash_attention`` is the rectangular forward, causal or not
+  (``csrc/flash_attention.cu``): out in q's dtype. It lies on no path of
+  the reference package but its own tests.
 
 - ``flash_attention_tri_fwd`` returns ``(out, lse)``: out in q's dtype and
   the per-row logsumexp of the scaled scores in f32, the residual the
@@ -14,9 +18,9 @@ with the reference's scale ``1/sqrt(D)``:
   ``D = rowsum(dO * O)`` once in plain torch and runs two passes:
   ``flash_attention_tri_bwd_dq`` and ``flash_attention_tri_bwd_dkv``.
 
-Each of the three kernel wrappers launches its CUDA kernel (``csrc/
-flash_attention_tri_fwd.cu``, ``csrc/flash_attention_tri_bwd.cu``) on
-CUDA tensors and counts the launch in its ``launches`` attribute; on CPU
+Each of the four kernel wrappers launches its CUDA kernel (``csrc/
+flash_attention.cu``, ``csrc/flash_attention_tri_fwd.cu``, ``csrc/
+flash_attention_tri_bwd.cu``) on CUDA tensors and counts the launch in its ``launches`` attribute; on CPU
 tensors it runs its plain version (``*_reference``); any other device
 raises. The plain versions mirror the reference kernels' numerics: f32
 scores and softmax, masked scores at -1e30, and the rounding of P and dS
@@ -40,7 +44,7 @@ KERNEL_TILE = 64  # rows a CTA owns: the kernels need T % 64 == 0
 _PLAIN_CHUNK_ELEMS = 1 << 28
 
 
-def _check(q, k, v, block: int, *more) -> None:
+def _check(q, k, v, block: int, *more, block_k: int | None = None) -> None:
     """Reject what neither version computes; raises ValueError."""
     if q.dim() != 3:
         raise ValueError(f"q must be [BH, T, D]; got {tuple(q.shape)}")
@@ -54,8 +58,9 @@ def _check(q, k, v, block: int, *more) -> None:
             raise ValueError(f"mixed dtypes {q.dtype} and {x.dtype}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"q/k/v must be float32 or bfloat16, not {q.dtype}")
-    if block < 1 or t % block:
-        raise ValueError(f"T={t} must be a multiple of block={block}")
+    for b in (block, block if block_k is None else block_k):
+        if b < 1 or t % b:
+            raise ValueError(f"T={t} must be a multiple of block={b}")
     if len({x.device for x in (q, k, v, *more)}) != 1:
         raise ValueError("flash attention's tensors must share one device")
 
@@ -80,25 +85,26 @@ def _on_cuda(*tensors) -> bool:
     return True
 
 
-def _kernel(source: str, symbol: str, n_ptr: int):
+def _kernel(source: str, symbol: str, n_ptr: int, n_int: int):
     """The built library and one launcher of it, with its C signature:
-    ``n_ptr`` pointers, then bh, t, head dim, dtype, scale, stream."""
+    ``n_ptr`` pointers, ``n_int`` ints (bh, t, head dim, dtype, then any
+    flags), scale, stream."""
     lib = _build.load(source)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         i32 = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [i32] * 4
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [i32] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = i32
     return lib, fn
 
 
-def _launch(source: str, symbol: str, tensors, q) -> None:
+def _launch(source: str, symbol: str, tensors, q, *flags: int) -> None:
     bh, t, d = q.shape
-    lib, fn = _kernel(source, symbol, len(tensors))
+    lib, fn = _kernel(source, symbol, len(tensors), 4 + len(flags))
     with torch.cuda.device(q.device):
         err = fn(*(x.data_ptr() for x in tensors), bh, t, d, _DTYPES[q.dtype],
-                 1.0 / d**0.5,
+                 *flags, 1.0 / d**0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"{symbol} launch")
 
@@ -112,20 +118,19 @@ def _causal(t: int, device) -> torch.Tensor:
     return torch.ones(t, t, dtype=torch.bool, device=device).tril()
 
 
-def flash_attention_tri_fwd_reference(q: torch.Tensor, k: torch.Tensor,
-                                      v: torch.Tensor):
-    """Plain version of the forward kernel: (out, lse) of causal softmax
-    attention, as one online-softmax block per row: f32 scores, P =
-    exp(s - rowmax) rounded to v's dtype before P V, divided by the
-    unrounded row sum; lse = rowmax + log(row sum)."""
+def _plain_fwd(q, k, v, causal: bool):
+    """(out, lse) of softmax attention, as one online-softmax block per
+    row: f32 scores, P = exp(s - rowmax) rounded to v's dtype before P V,
+    divided by the unrounded row sum; lse = rowmax + log(row sum)."""
     bh, t, d = q.shape
     scale = 1.0 / d**0.5
-    causal = _causal(t, q.device)
+    mask = _causal(t, q.device) if causal else None
     out = torch.empty_like(q)
     lse = torch.empty(bh, t, dtype=torch.float32, device=q.device)
     for c in _chunks(bh, t):
         s = torch.matmul(q[c].float(), k[c].float().transpose(1, 2)) * scale
-        s = torch.where(causal, s, _NEG_INF)
+        if mask is not None:
+            s = torch.where(mask, s, _NEG_INF)
         m = s.amax(-1, keepdim=True)
         p = torch.exp(s - m)
         el = p.sum(-1, keepdim=True)
@@ -133,6 +138,41 @@ def flash_attention_tri_fwd_reference(q: torch.Tensor, k: torch.Tensor,
         out[c] = o.to(q.dtype)
         lse[c] = (m + torch.log(el))[..., 0]
     return out, lse
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              causal: bool = True) -> torch.Tensor:
+    """Plain version of the rectangular forward kernel."""
+    return _plain_fwd(q, k, v, causal)[0]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """Flash attention forward, causal or not: [BH, T, D] -> [BH, T, D]
+    in q's dtype, T a multiple of block_q and of block_k (the reference's
+    block grid). On a CUDA tensor the kernel tiles T itself (64-row
+    tiles), so the blocks only set the contract, as in the reference.
+    """
+    _check(q, k, v, block_q, block_k=block_k)
+    if not _on_cuda(q, k, v):
+        return flash_attention_reference(q, k, v, causal)
+    out = torch.empty_like(q)
+    _launch("flash_attention", "tpumon_flash_fwd", (q, k, v, out), q,
+            int(bool(causal)))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_tri_fwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor):
+    """Plain version of the triangle forward kernel: (out, lse) of causal
+    softmax attention (``_plain_fwd``)."""
+    return _plain_fwd(q, k, v, True)
 
 
 def flash_attention_tri_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
