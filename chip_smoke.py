@@ -51,15 +51,19 @@ Phases, each of which exits non-zero on failure:
 9. times: each flash kernel, its plain version, SDPA's causal forward or
    backward (autograd.grad of one recorded forward; library yardstick,
    never called by the port) and its bound;
-   the train step (flash and naive) in ms, tokens/s and MFU; seq 8192 with
-   flash beside remat + chunked; where a step's device time goes and the
-   device's idle share.
+   the train step (flash and naive) in ms, tokens/s and MFU, its tokens
+   drawn as the reference's scan draws them (threefry); the batch draw's
+   own host time; seq 8192 with flash beside remat + chunked; where a
+   step's device time goes and the device's idle share.
 10. trainer /metrics: the tpumon_train_* families the monitor scrapes.
 11. GEMM kernels vs plain: matmul and the int8 weight-only product at the
-    burn's 4096^3 (bf16) and at tests/test_ops.py's shapes (bf16, f32),
-    each held to its worst relative error over 128 x 128 output tiles,
-    with planted faults beside; the scale applied once; the reference's
-    fallback for a shape that does not tile, with no launch.
+    burn's 4096^3 (bf16), at tests/test_ops.py's shapes and at the shapes
+    the persistent wgmma kernel adds (more tiles than SMs with a partial
+    last wave, N not a multiple of 256, K not of 64) (bf16, f32), each
+    held to its worst relative error over 128 x 128 output tiles, with
+    planted faults beside (the K and scale faults of a 64-deep K step and
+    two of a persistent tile scheduler); the scale applied once; the
+    reference's fallback for a shape that does not tile, with no launch.
 12. burn path: the chained burn programs at size 4096 through the kernels
     and the library (the 3-link chains agree; 64 launches per 64-link
     call), then mxu_burn and int8_burn for 2 s each way with nvidia-smi's
@@ -73,8 +77,9 @@ Phases, each of which exits non-zero on failure:
     hbm_fill(0.3) and utilization.gpu under mxu_burn in a thread.
 15. rectangular flash forward vs plain: causal and not, bf16 and f32, at
     the training shape and small shapes, with the forward faults that
-    apply; then the times of the GEMM kernels and of the rectangular
-    forward beside their plain versions, library calls and bounds.
+    apply; then the times of the GEMM kernels (their f32 variants beside
+    full-f32 library calls) and of the rectangular forward beside their
+    plain versions, library calls and bounds.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -1178,7 +1183,11 @@ def time_trainer(trained: dict) -> None:
     import torch
 
     from tpumon_torch.loadgen.model import init_params, sgd_train_step
-    from tpumon_torch.loadgen.train import TrainConfig, fused_train_bench
+    from tpumon_torch.loadgen.train import (
+        TrainConfig,
+        fused_train_bench,
+        synthetic_batch,
+    )
 
     before = flash_counts()
     model = train_model()
@@ -1204,6 +1213,17 @@ def time_trainer(trained: dict) -> None:
         if not torch.isfinite(torch.tensor(r["loss"])):
             fail(f"train step {name}: loss not finite")
         torch.cuda.empty_cache()
+    # The batch draw (threefry on the host, then a pinned copy) alone: the
+    # host time the production step's loop spends on it.
+    cfg = runs[0][1]
+    synthetic_batch(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(20):
+        synthetic_batch(cfg, step, "cuda")
+    torch.cuda.synchronize()
+    print(f"train_batch_draw batch=8 seq=1024 vocab={model.vocab} host_ms="
+          f"{(time.perf_counter() - t0) / 20 * 1e3!r}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(12)
     for name, cfg, reps in (("seq1024_flash", runs[0][1], 3),
                             ("seq1024_naive", runs[1][1], 3),
@@ -1252,7 +1272,8 @@ def check_train_metrics(trained: dict) -> None:
 
 GEMM_KERNELS = ("matmul", "quantized_matmul_kernel")
 GEMM_TILE = 128  # output tiles the agreement metric runs over
-GEMM_K_STEP = 32  # the tensor-core kernel's K step (the f32 one's is 8)
+GEMM_K_STEP = 64  # the wgmma kernel's K stage (the f32 kernel's step is 8)
+GEMM_KERNEL_TILE = (128, 256)  # the wgmma kernel's output tile (M, N)
 # Kernel vs plain version: gemm_tile_rel_err, the worst ||got - want|| /
 # ||want|| over 128 x 128 output tiles. Both versions form each product
 # exactly and sum in f32 (in another order), then round once to the
@@ -1262,7 +1283,7 @@ GEMM_K_STEP = 32  # the tensor-core kernel's K step (the f32 one's is 8)
 # weakest planted fault's (gemm_faulty_plain; PERF.md).
 GEMM_TOL = {"bfloat16": 4e-3, "float32": 1e-5}
 GEMM_FAULTS = ("k_block_dropped", "scale_per_k_step", "scale_left_out",
-               "b_transposed")
+               "b_transposed", "tile_from_neighbour", "last_tile_unwritten")
 # The 3-link burn chains, GEMM kernel vs library (normwise relative): each
 # link rounds to bf16, so a 1-ulp difference in one link carries into the
 # next; 2e-2 is five bf16 half-ulps.
@@ -1298,20 +1319,27 @@ def gemm_tile_rel_err(got, want) -> float:
 def gemm_faulty_plain(a, b, scale, fault: str | None):
     """The plain product (f32, rounded once to a's dtype; scaled per
     column once when ``scale`` is given) carrying one fault of a kernel
-    that steps K by 32 (None: no fault):
+    that steps K by GEMM_K_STEP (a zero-filled tail past K) and walks
+    GEMM_KERNEL_TILE output tiles from a persistent scheduler (None: no
+    fault):
 
-    - k_block_dropped: the last 32-deep K step is skipped;
+    - k_block_dropped: the last K step is skipped;
     - scale_per_k_step: the scale multiplies the accumulator after every
       K step, not once at store;
     - scale_left_out: the scale is never applied;
-    - b_transposed: B is read as B^T (square B only).
+    - b_transposed: B is read as B^T (square B only);
+    - tile_from_neighbour: the last output tile (bottom right, the last of
+      the scheduler's order) holds the tile above it, or the one to its
+      left in a single row of tiles;
+    - last_tile_unwritten: the last output tile is left as zeros.
     """
     af, bf = a.float(), b.float()
     if fault == "b_transposed":
         bf = bf.t()
     k = a.shape[1]
+    last = (k - 1) // GEMM_K_STEP * GEMM_K_STEP  # the last K step's start
     if fault == "k_block_dropped":
-        c = af[:, :k - GEMM_K_STEP] @ bf[:k - GEMM_K_STEP]
+        c = af[:, :last] @ bf[:last]
     elif fault == "scale_per_k_step":
         c = 0.0
         for k0 in range(0, k, GEMM_K_STEP):
@@ -1322,20 +1350,34 @@ def gemm_faulty_plain(a, b, scale, fault: str | None):
     if scale is not None and fault not in ("scale_per_k_step",
                                            "scale_left_out"):
         c = c * scale.float()
+    if fault in ("tile_from_neighbour", "last_tile_unwritten"):
+        (tm, tn), (m, n) = GEMM_KERNEL_TILE, c.shape
+        m0, n0 = m - tm, (n - 1) // tn * tn
+        if fault == "last_tile_unwritten":
+            c[m0:, n0:] = 0
+        elif m0 > 0:
+            c[m0:, n0:] = c[m0 - tm:m0, n0:].clone()
+        else:
+            c[m0:, n0:] = c[m0:, n0 - tn:n0 - tn + (n - n0)].clone()
     return c.to(a.dtype)
 
 
-def gemm_fault_applies(fault: str, b, scale) -> bool:
-    if fault in ("scale_per_k_step", "scale_left_out"):
+def gemm_fault_applies(fault: str, a, b, scale) -> bool:
+    if fault == "scale_per_k_step":  # needs a second K step
+        return scale is not None and a.shape[1] > GEMM_K_STEP
+    if fault == "scale_left_out":
         return scale is not None
     if fault == "b_transposed":
         return b.shape[0] == b.shape[1]
+    if fault == "tile_from_neighbour":  # needs a second output tile
+        (tm, tn), m, n = GEMM_KERNEL_TILE, a.shape[0], b.shape[1]
+        return m > tm or n > tn
     return True
 
 
 def gemm_fault_readings(a, b, scale, want) -> dict:
     return {f: gemm_tile_rel_err(gemm_faulty_plain(a, b, scale, f), want)
-            for f in GEMM_FAULTS if gemm_fault_applies(f, b, scale)}
+            for f in GEMM_FAULTS if gemm_fault_applies(f, a, b, scale)}
 
 
 def gemm_case(gen, m, k, n, dtype, quant: bool, scale=None):
@@ -1385,6 +1427,26 @@ def check_gemm_kernels(gen) -> dict:
         ("two_k_steps", "quantized_matmul_kernel", 128, 256, 128,
          (128, 128, 128), (bf16, f32), None),
     ]
+    # What the persistent wgmma kernel adds: more 128 x 256 tiles than SMs
+    # with a partial last wave (17 x 8 = 136 tiles), N a multiple of 128
+    # but not of 256 (a tile half past N), K a multiple of 32 but not of
+    # 64 (a zero-filled K tail).
+    for kern in GEMM_KERNELS:
+        cases += [
+            ("partial_wave", kern, 2176, 192, 2048, (128, 128, 64),
+             (bf16, f32), None),
+            ("n_not_256", kern, 256, 128, 384, (128, 128, 128), (bf16, f32),
+             None),
+            ("k_not_64", kern, 128, 96, 256, (128, 128, 32), (bf16, f32),
+             None),
+        ]
+    sms = torch.cuda.get_device_properties(gen.device).multi_processor_count
+    tiles = (2176 // GEMM_KERNEL_TILE[0]) * (2048 // GEMM_KERNEL_TILE[1])
+    print(f"gemm_partial_wave tiles={tiles} sms={sms} last_wave="
+          f"{tiles % sms}", flush=True)
+    if not (tiles > sms and tiles % sms):
+        fail(f"the partial_wave case has {tiles} tiles on {sms} SMs: no "
+             f"partial last wave")
     worst = {}
     for name, kern, m, k, n, blocks, dtypes, scale in cases:
         kw = {} if blocks is None else dict(zip(
@@ -1807,12 +1869,19 @@ def time_gemm_kernels(gen, bw: float, peaks: dict) -> dict:
               f"bound_ms={bound_ms!r} ({bound_by}: {nbytes} B, {ops} FLOP) "
               f"kernel_tflops={ops / ms / 1e9!r} "
               f"library_tflops={ops / lib_ms / 1e9!r}", flush=True)
+    # The f32 variants (CUDA cores), beside full-f32 library calls (TF32 is
+    # off: main() clears allow_tf32) and the f32 operations bound.
     af, bf = a.float(), b.float()
+    f32_bound = ops / peaks["float32"] * 1e3
     print(f"time_gemm_f32 shape=4096^3 f32 (CUDA cores) matmul_kernel_ms="
           f"{cuda_ms(lambda: mm.matmul(af, bf), reps=3)!r} "
+          f"library_ms={cuda_ms(lambda: torch.matmul(af, bf), reps=5)!r} "
           f"quantized_kernel_ms="
-          f"{cuda_ms(lambda: qm.quantized_matmul_kernel(af, q, sc), reps=3)!r}",
-          flush=True)
+          f"{cuda_ms(lambda: qm.quantized_matmul_kernel(af, q, sc), reps=3)!r} "
+          f"dequant_library_ms="
+          f"{cuda_ms(lambda: _dequant_matmul(af, q, sc), reps=5)!r} "
+          f"bound_ms={f32_bound!r} (operations: {ops} FLOP) "
+          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
     set_gemm_counts(before)
     return times
 

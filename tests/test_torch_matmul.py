@@ -181,5 +181,18 @@ def test_planted_faults_read_over_the_card_limits(quant, dtype):
         clean = chip_smoke.gemm_faulty_plain(a, b, scale, None)
         assert chip_smoke.gemm_tile_rel_err(clean, want) == 0.0
         readings = chip_smoke.gemm_fault_readings(a, b, scale, want)
-        assert len(readings) == (2 + 2 * quant if k == n else 1 + 2 * quant)
+        tiles = (m // 128) * -(-n // 256)  # the wgmma kernel's tiles
+        assert len(readings) == (1 + (k == n) + quant * (1 + (k > 64))
+                                 + 1 + (tiles > 1))
         assert min(readings.values()) > tol, (m, k, n, readings)
+
+
+def test_gemm_variants_apply_to_the_kernel_source():
+    """Every source variant that tpumon_torch.ops.gemm_variants times on
+    the card still finds its substitution targets in csrc/matmul.cu."""
+    from tpumon_torch.ops import gemm_variants
+
+    base = gemm_variants.variant_source(())
+    for name, (subs, _) in gemm_variants.VARIANTS.items():
+        src = gemm_variants.variant_source(subs)
+        assert (src == base) == (not subs), name

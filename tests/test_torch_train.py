@@ -199,10 +199,10 @@ def test_unchanged_monitor_reads_the_trainers_metrics():
 
 
 def test_synthetic_batch_is_deterministic_per_seed_and_step():
-    """Known difference (ROADMAP queue 3): the port draws its tokens from a
-    torch.Generator, not the reference's jax.random, so the two packages'
-    batches differ; each is deterministic per (seed, step), which is what
-    resume needs. The parity tests feed both packages the same tokens."""
+    """The port draws the reference's tokens (tpumon_torch.prng, a copy of
+    jax.random's threefry): equal to jax.random's batch for the same
+    (seed, step), and so deterministic per (seed, step), which resume
+    needs."""
     cfg = train.TrainConfig(model=port_cfg(), batch=3, seq=16, seed=4)
     a = train.synthetic_batch(cfg, 5)
     assert a.dtype == torch.int32 and a.shape == (3, 16)
@@ -213,7 +213,7 @@ def test_synthetic_batch_is_deterministic_per_seed_and_step():
         a, train.synthetic_batch(dataclasses.replace(cfg, seed=5), 5))
     ref = jax_train.synthetic_batch(jax_train.TrainConfig(
         model=jax_model.ModelConfig(**SMALL), batch=3, seq=16, seed=4), 5)
-    assert not np.array_equal(np.asarray(ref), a.numpy())
+    assert np.array_equal(np.asarray(ref), a.numpy())
 
 
 def test_run_train_on_cpu_reports_metrics():

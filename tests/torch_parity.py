@@ -51,7 +51,12 @@ PAGED_CARD_SHAPES = [
 # The GEMM card tests' (M, K, N) (tests/test_torch_cuda.py), where the CPU
 # tests check the planted GEMM faults against the card limits too.
 GEMM_CARD_CASES = [(128, 64, 128), (256, 128, 256), (256, 256, 128),
-                   (384, 512, 256)]
+                   (384, 512, 256),
+                   # the persistent wgmma kernel's edges (128 x 256 tiles,
+                   # 64-deep K stages): more tiles than an H100's 132 SMs
+                   # with a partial last wave, N not a multiple of 256, K
+                   # not of 64
+                   (2176, 192, 2048), (256, 128, 384), (128, 96, 256)]
 
 
 def to_jax(arrays, dtype=None):

@@ -18,12 +18,12 @@ it.
 from __future__ import annotations
 
 import time
-import zlib
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
+from tpumon_torch import prng
 from tpumon_torch.loadgen.checkpoint import restore_checkpoint, save_checkpoint
 from tpumon_torch.loadgen.model import (
     ModelConfig,
@@ -56,18 +56,27 @@ class TrainConfig:
                 "queue 1 item 12)")
 
 
+def _tokens(k, cfg: TrainConfig, device) -> torch.Tensor:
+    """int32 [batch, seq] tokens in [0, vocab) drawn as
+    ``jax.random.randint`` draws them from key ``k``, on ``device``. The
+    draw runs on the host; a CUDA copy goes through pinned memory without
+    blocking, so it overlaps the card's queued work."""
+    tokens = torch.from_numpy(prng.randint(k, (cfg.batch, cfg.seq), 0,
+                                           cfg.model.vocab))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tokens.to(device)
+    return tokens.pin_memory().to(device, non_blocking=True)
+
+
 def synthetic_batch(cfg: TrainConfig, step: int,
                     device: str | torch.device = "cpu") -> torch.Tensor:
     """Deterministic per-(seed, step) int32 token batch, so a resumed run
-    continues the original's data order. Drawn on the CPU from an
-    explicit ``torch.Generator`` (the same tokens whatever the device);
-    not the reference's ``jax.random`` tokens (ROADMAP queue 3)."""
-    # The CPU generator seeds from 32 bits: hash (seed, step) into them.
-    gen = torch.Generator().manual_seed(
-        zlib.crc32(f"{cfg.seed ^ 0x5EED}:{step}".encode()))
-    tokens = torch.randint(0, cfg.model.vocab, (cfg.batch, cfg.seq),
-                           generator=gen, dtype=torch.int32)
-    return tokens.to(device)
+    continues the original's data order: the reference's tokens bit for
+    bit, ``randint`` under ``fold_in(PRNGKey(seed ^ 0x5EED), step)``
+    (``tpumon_torch.prng``)."""
+    return _tokens(prng.fold_in(prng.key(cfg.seed ^ 0x5EED), step), cfg,
+                   device)
 
 
 # Dense peaks of NVIDIA cards from their data sheets, first match of the
@@ -238,9 +247,11 @@ def _sync(device: torch.device) -> None:
 
 def fused_train_bench(cfg: TrainConfig, steps: int, device=None) -> dict:
     """Steady-state train throughput: one untimed step (kernel builds,
-    allocator warm-up), then ``steps`` steps on tokens drawn on the device,
-    timed from a synchronize to a synchronize. The reference fuses the
-    loop into one jitted scan; eager PyTorch runs it as a Python loop.
+    allocator warm-up), then ``steps`` steps, timed from a synchronize to
+    a synchronize. Each step draws its tokens as the reference's scanned
+    loop does, ``randint`` under ``split(PRNGKey(2), steps)``; the
+    reference fuses the loop into one jitted scan, eager PyTorch runs it
+    as a Python loop.
 
     Returns {seconds, tokens_per_sec, mfu_pct (None off a known card),
     loss}.
@@ -249,17 +260,15 @@ def fused_train_bench(cfg: TrainConfig, steps: int, device=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     params = init_params(cfg.model, gen)
 
-    def step():
-        tokens = torch.randint(0, cfg.model.vocab, (cfg.batch, cfg.seq),
-                               generator=gen, device=device,
-                               dtype=torch.int32)
+    def step(k):
+        tokens = _tokens(k, cfg, device)
         return sgd_train_step(cfg.model, params, tokens, lr=cfg.lr)[1]
 
-    step()
+    step(prng.split(prng.key(1), 1)[0])
     _sync(device)
     t0 = time.perf_counter()
-    for _ in range(steps):
-        loss = step()
+    for k in prng.split(prng.key(2), steps):
+        loss = step(k)
     _sync(device)
     dt = time.perf_counter() - t0
     tokens = steps * cfg.batch * cfg.seq

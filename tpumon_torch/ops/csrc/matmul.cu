@@ -1,5 +1,5 @@
-// Tiled GEMM for Hopper (sm_90a): C = A @ B and the int8 weight-only
-// C = A @ (Q * scale), one templated kernel per arithmetic.
+// Matrix products for Hopper (sm_90a): C = A @ B and the int8 weight-only
+// C = A @ (Q * scale).
 //
 // Replaces two Pallas TPU kernels:
 // - tpumon/ops/matmul.py::matmul (body _matmul_kernel): C[M,N] = A[M,K] @
@@ -9,140 +9,396 @@
 //   the per-column scale[N] is applied once, to the f32 accumulator at
 //   store, so Q crosses device memory at 1 byte per weight.
 // The TPU kernels walk a sequential (M/bm, N/bn, K/bk) grid and carry the
-// accumulator in VMEM scratch across the K steps. Here one CTA owns one
-// 128 x 128 output tile and loops over K itself, so the accumulator lives
-// in registers and nothing crosses CTAs.
+// accumulator in VMEM scratch across the K steps. Here a CTA owns whole
+// output tiles and loops over K itself, so the accumulator lives in
+// registers and nothing crosses CTAs.
 //
 // Bound: operations. At the burn's 4096^3 the product is 137.4 GFLOP
 // (139 us at 989 TFLOP/s bf16) against 100.7 MB of bf16 inputs and output
 // (30 us at 3.35 TB/s), or 83.9 MB with int8 weights (25 us).
 //
-// What this design does about it: the simple design, right first. bf16 A
-// runs on tensor cores, mma.sync.m16n8k16 with f32 accumulators
-// (flash_tri_mma.cuh): 4 warps, each a 64 x 64 quarter of the tile; the A
-// and B tiles of one 32-deep K step are staged in shared memory with
-// 16-byte loads (an int8 B tile is widened to bf16 on the way, exact for
-// every int8), A fragments are read as 32-bit words and B fragments with
-// ldmatrix.trans from the row-major B tile. f32 A runs on CUDA cores in
-// f32 (tensor cores would round f32 inputs to TF32): 256 threads, each an
-// 8 x 8 register tile, 8-deep K steps. Loads are synchronous with two
-// barriers per K step; wgmma, TMA and a pipelined ring of tiles are the
-// later redesign.
+// What the design does about it (bf16 A): only wgmma reaches the tensor
+// cores' full rate, and only if its operands arrive while it runs.
+// - Persistent grid: one CTA per SM walks the 128 x 256 output tiles in a
+//   grouped order (16 M tiles per N column), so the A and B panels in
+//   flight stay in the 50 MB L2.
+// - A ring of 4 64-deep K stages in shared memory (48 KB each for bf16 B),
+//   filled by TMA under 128-byte swizzle, with a full and an empty
+//   mbarrier per stage. Warp 0 of warpgroup 0 issues the loads (one thread)
+//   and runs ahead of the arithmetic by up to the ring's depth, across
+//   tiles, so the next tile's loads overlap this tile's epilogue.
+// - Warpgroups 1 and 2 each own 64 rows of the tile: per stage four
+//   wgmma.m64n256k16 (bf16 x bf16 -> f32, 128 accumulators a thread), A
+//   K-major and B read MN-major from its row-major [K, N] tile through the
+//   descriptor and the B-transpose immediate, so B is never transposed.
+//   A stage is released once wgmma.wait_group has passed it; one group
+//   stays in flight.
+// - setmaxnreg moves registers from the loading warpgroup to the two
+//   that hold accumulators.
+// - The epilogue scales (int8) and rounds to bf16 in registers and stores
+//   straight to C, clipped to N.
+// Int8 B: TMA brings Q's stages at 1 byte per weight (4 stages of A and Q,
+// 32 KB each, swizzled). The two arithmetic warpgroups widen the next
+// stage's Q to bf16 (exact for every int8), half each, into one of three
+// swizzled bf16 stages, while the tensor cores run this stage's wgmma;
+// a fence.proxy.async and a 256-thread barrier hand it to the next step's
+// wgmma, and one wgmma group stays in flight as for bf16 B. Widening in
+// the arithmetic warps uses their idle issue slots; three warps of
+// warpgroup 0 widening alone were slower (PERF.md, PR 4).
+// Ragged edges: TMA zero-fills loads past M, N or K (a zero-filled K tail
+// adds exact zeros) and the epilogue clips columns past N.
+//
+// f32 A runs on CUDA cores in f32 (tensor cores would round f32 inputs to
+// TF32): 256 threads, each an 8 x 8 register tile of a 128 x 128 output
+// tile, 8-deep K steps with synchronous loads.
 //
 // Supported: A float32 or bfloat16; B of A's type, or int8 with a float32
 // scale; M and N multiples of 128, K a multiple of 32. The Python wrappers
 // (tpumon_torch/ops/matmul.py, quant_matmul.py) check shapes and types;
 // the launchers re-check what they index by.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
-
-#include "flash_tri_mma.cuh"
 
 namespace {
 
-using tpumon::flash::tc::bf16;
+using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 128;  // output rows and columns per CTA
+constexpr int kTile = 128;  // M and N multiples the launchers accept
 constexpr int kDepth = 32;  // K multiple the launchers accept
 
-// --- bf16 A on tensor cores ---------------------------------------------
+// --- bf16 A on tensor cores: wgmma over a TMA-fed ring --------------------
 
-namespace tc = tpumon::flash::tc;
+constexpr int kBM = 128, kBN = 256, kBK = 64;  // CTA tile and K stage
+constexpr int kGroupM = 16;                    // M tiles per N column
+constexpr int kThreads = 384;                  // 3 warpgroups
+constexpr int kABytes = kBM * kBK * 2;         // 16 KB, [128 m][64 k] swizzled
+constexpr int kBBytes = kBK * kBN * 2;         // 32 KB, 4 x [64 k][64 n] swizzled
+constexpr int kQBytes = kBK * kBN;             // 16 KB, 2 x [64 k][128 n] int8, swizzled
+constexpr int kChunk = 64 * 128;               // bytes of one 64-row, 128-byte box
 
-constexpr int kTcK = 32;                // K per step
-constexpr int kLdA = kTcK + 8;          // shared A row stride (bf16)
-constexpr int kLdB = kTile + 8;         // shared B row stride (bf16)
+template <bool INT8>
+struct Ring {
+  // TMA stages: A with B, or A with Q.
+  static constexpr int kStages = 4;
+  static constexpr int kStageBytes = kABytes + (INT8 ? kQBytes : kBBytes);
+  // INT8: bf16 stages written from Q's by the arithmetic warpgroups: one
+  // read by the products in flight, one by those before them (one wgmma
+  // group stays in flight), one being written.
+  static constexpr int kWide = INT8 ? 3 : 0;
+  static constexpr int kBarBytes = 2 * kStages * 8;
+  // + 1024: the ring starts at the first 1024-byte boundary (128-byte
+  // swizzle repeats every 1024 bytes and wgmma assumes that alignment).
+  static constexpr int kSmem = kStages * kStageBytes + kWide * kBBytes + kBarBytes + 1024;
+};
 
-// Two 8 x 8 b16 matrices from shared memory, transposed: lanes 0-7 give
-// the row addresses of the first, lanes 8-15 those of the second.
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(a));
+// Registers per thread after setmaxnreg: warpgroup 0 (loads), warpgroups
+// 1-2 (accumulators). 128 + 2 x 128 threads fit 65,536: 40 + 2 x 232 <=
+// 3 x 168, the count every thread starts with.
+constexpr int kLoadRegs = 40, kMathRegs = 232;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One K step's B tile, kTcK rows of kTile columns, into sB as bf16.
-__device__ __forceinline__ void stage_b(bf16* sb, const bf16* __restrict__ b, int n) {
-  constexpr int kChunks = kTile / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kTcK * kChunks; i += tc::kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    *reinterpret_cast<uint4*>(sb + r * kLdB + c) =
-        *reinterpret_cast<const uint4*>(b + (size_t)r * n + c);
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void stage_b(bf16* sb, const int8_t* __restrict__ b, int n) {
-  constexpr int kChunks = kTile / 16;  // 16 int8 per 16-byte load
-  for (int i = threadIdx.x; i < kTcK * kChunks; i += tc::kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 16;
-    const uint4 raw = *reinterpret_cast<const uint4*>(b + (size_t)r * n + c);
-    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-    uint32_t w[8];
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One TMA box of a 2-d map, coordinates innermost first, into shared
+// memory; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// A: [128 m][64 k] K-major, 128-byte rows; 8-row groups 1024 bytes apart
+// (the leading offset is unused when K fits one swizzle row).
+__device__ __forceinline__ uint64_t desc_a(const bf16* p) { return smem_desc(p, 16, 1024); }
+
+// B: MN-major, four [64 k][64 n] boxes of 128-byte rows: 64-column chunks
+// kChunk bytes apart (leading), 8-row K groups 1024 bytes apart (stride).
+__device__ __forceinline__ uint64_t desc_b(const bf16* p) { return smem_desc(p, kChunk, 1024); }
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256]; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16\n"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,\n"
+      "  %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,\n"
+      "  %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,\n"
+      "  %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,\n"
+      "  %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,\n"
+      "  %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,\n"
+      "  %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,\n"
+      "  %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,\n"
+      "  %80, %81, %82, %83, %84, %85, %86, %87, %88, %89,\n"
+      "  %90, %91, %92, %93, %94, %95, %96, %97, %98, %99,\n"
+      "  %100, %101, %102, %103, %104, %105, %106, %107, %108, %109,\n"
+      "  %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,\n"
+      "  %120, %121, %122, %123, %124, %125, %126, %127},\n"
+      " %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// Four int8 in a word to two bf16 pairs, exactly: each byte, made unsigned
+// by its sign bit, goes into the mantissa of 2^23, and 2^23 + 128 comes off.
+// The f32 result has at most 8 significant bits, so its low 16 bits are 0
+// and its high half is the bf16: one byte permute packs two.
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) w[j] = tc::pack((float)e[2 * j], (float)e[2 * j + 1]);
-    uint4* d = reinterpret_cast<uint4*>(sb + r * kLdB + c);
-    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  }
+  for (int j = 0; j < 4; ++j)
+    f[j] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) -
+                           8388736.f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
 }
 
-// grid (N / 128, M / 128), 128 threads. Warp w owns rows 64 (w / 2) and
-// columns 64 (w % 2) of the tile: 4 x 8 fragments of 16 x 8.
-template <typename BT, bool SCALE>
-__global__ void __launch_bounds__(tc::kThreads)
-gemm_tc_kernel(const bf16* __restrict__ a, const BT* __restrict__ b,
-               const float* __restrict__ scale, bf16* __restrict__ c, int n, int k) {
-  __shared__ __align__(16) bf16 sa[kTile * kLdA];
-  __shared__ __align__(16) bf16 sb[kTcK * kLdB];
+// The arithmetic warpgroups' bar.sync (id 1; 0 is __syncthreads).
+__device__ __forceinline__ void sync_math() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
 
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+// Warpgroup `half` widens its 128 columns of an int8 Q stage ([64 k][128 n]
+// boxes) into a bf16 stage (four [64 k][64 n] boxes): 16 weights a
+// segment, 4 segments a thread (t < 128), a segment to two 16-byte groups.
+// Both stages are 128-byte swizzled (16-byte group ^ row % 8) and
+// neighbouring threads take neighbouring rows, so each 8-thread phase of
+// a 16-byte access touches 8 distinct banks. Ends with the fence that
+// makes these generic-proxy writes visible to wgmma (async proxy).
+__device__ __forceinline__ void widen_half(const uint8_t* q, uint8_t* b, int half, int t) {
+  uint4 raw[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = t + 128 * u, row = i & 63, seg = i >> 6;  // seg < 8: 16-byte group
+    raw[u] = *reinterpret_cast<const uint4*>(q + half * kChunk + row * 128 +
+                                             ((seg ^ (row & 7)) << 4));
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = t + 128 * u, row = i & 63, seg = i >> 6;
+    const int g = (seg & 3) * 2;  // first 16-byte group in the bf16 box
+    uint8_t* dst = b + (2 * half + (seg >> 2)) * kChunk + row * 128;
+    const uint2 w0 = widen4(raw[u].x), w1 = widen4(raw[u].y);
+    const uint2 w2 = widen4(raw[u].z), w3 = widen4(raw[u].w);
+    *reinterpret_cast<uint4*>(dst + ((g ^ (row & 7)) << 4)) = make_uint4(w0.x, w0.y, w1.x, w1.y);
+    *reinterpret_cast<uint4*>(dst + (((g + 1) ^ (row & 7)) << 4)) =
+        make_uint4(w2.x, w2.y, w3.x, w3.y);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Tile t of the grouped order: kGroupM M tiles down each N column.
+__device__ __forceinline__ void tile_coords(int t, int mtiles, int ntiles, int& mt, int& nt) {
+  const int per_group = kGroupM * ntiles;
+  const int first = (t / per_group) * kGroupM;
+  const int rows = min(mtiles - first, kGroupM);
+  const int r = t % per_group;
+  mt = first + r % rows;
+  nt = r / rows;
+}
+
+// Persistent: gridDim.x CTAs stride over the (M/128) x ceil(N/256) tiles.
+// Warpgroup 0: one thread issues the loads; warpgroups 1-2: the products
+// (and, INT8, the widening) and the epilogue. tma_b maps B (bf16 [K, N],
+// 64 x 64 boxes) or Q (int8 [K, N], 128 x 64 boxes), both swizzled. The
+// stage index walks the ring with a phase bit that flips at every wrap.
+template <bool INT8>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                  const __grid_constant__ CUtensorMap tma_b, const float* __restrict__ scale,
+                  bf16* __restrict__ c, int m, int n, int k) {
+  using R = Ring<INT8>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* wide = ring + R::kStages * R::kStageBytes;  // INT8: widened bf16 stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(wide + R::kWide * kBBytes);
+  uint64_t* empty = full + R::kStages;
+
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 64;
-
-  float acc[4][8][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) tc::zero_frags(acc[i]);
-
-  for (int k0 = 0; k0 < k; k0 += kTcK) {
-    __syncthreads();  // the previous step's tiles are consumed
-    constexpr int kChunks = kTcK / 8;
-    for (int i = threadIdx.x; i < kTile * kChunks; i += tc::kThreads) {
-      const int r = i / kChunks, col = (i % kChunks) * 8;
-      *reinterpret_cast<uint4*>(sa + r * kLdA + col) =
-          *reinterpret_cast<const uint4*>(a + (size_t)(m0 + r) * k + k0 + col);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each arithmetic warp
     }
-    stage_b(sb, b + (size_t)k0 * n + n0, n);
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int kc = 0; kc < kTcK / 16; ++kc) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) tc::load_a<kLdA>(af[i], sa, wm + 16 * i, 16 * kc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t b0, b1;
-        ldsm_x2_trans(b0, b1, sb + (16 * kc + (lane & 15)) * kLdB + wn + 8 * j);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) tc::mma16816(acc[i][j], af[i], b0, b1);
+  const int mtiles = m / kBM, ntiles = (n + kBN - 1) / kBN;
+  const int tiles = mtiles * ntiles, nk = (k + kBK - 1) / kBK;
+  auto stage_a = [&](int s) { return reinterpret_cast<bf16*>(ring + s * R::kStageBytes); };
+  // The second operand of TMA stage s: bf16 B, or int8 Q.
+  auto stage_b = [&](int s) { return ring + s * R::kStageBytes + kABytes; };
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoadRegs));
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int mt, nt;
+        tile_coords(t, mtiles, ntiles, mt, nt);
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(&empty[s], phase ^ 1);
+          mbar_expect_tx(&full[s], R::kStageBytes);
+          tma_load(stage_a(s), &tma_a, &full[s], kb * kBK, mt * kBM);
+          constexpr int kBox = INT8 ? 128 : 64;  // columns per TMA box
+          for (int j = 0; j < kBN / kBox; ++j)
+            tma_load(stage_b(s) + j * kChunk, &tma_b, &full[s], nt * kBN + j * kBox, kb * kBK);
+          if (++s == R::kStages) s = 0, phase ^= 1;
+        }
       }
     }
-  }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMathRegs));
+    const int wg = (warp >> 2) - 1;  // 64-row half of the tile
+    const int t128 = threadIdx.x & 127;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int s = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int mt, nt;
+      tile_coords(t, mtiles, ntiles, mt, nt);
+      if constexpr (INT8) {  // the tile's first bf16 stage
+        sync_math();  // both warpgroups are past the last tile's products
+        mbar_wait(&full[s], phase);
+        widen_half(stage_b(s), wide, wg, t128);
+        sync_math();
+      }
+      for (int kb = 0; kb < nk; ++kb) {
+        if constexpr (!INT8) mbar_wait(&full[s], phase);
+        const bf16* a = stage_a(s) + wg * 64 * kBK;
+        const bf16* b = reinterpret_cast<const bf16*>(INT8 ? wide + (kb % 3) * kBBytes
+                                                           : stage_b(s));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_m64n256k16(acc, desc_a(a + kk * 16), desc_b(b + kk * 16 * 64),
+                           (kb | kk) != 0);
+        wgmma_commit();
+        const int here = s;
+        if (++s == R::kStages) s = 0, phase ^= 1;
+        if constexpr (INT8) {
+          // Widen the next stage while the tensor cores run this one.
+          if (kb + 1 < nk) {
+            mbar_wait(&full[s], phase);
+            widen_half(stage_b(s), wide + ((kb + 1) % 3) * kBBytes, wg, t128);
+          }
+        }
+        wgmma_wait<1>();  // the previous stage's products are done
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = here;
+        // INT8: both warpgroups' halves of the next bf16 stage are written,
+        // and their previous products are done, so that stage is free.
+        if constexpr (INT8) sync_math();
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&empty[prev]);
 
-  const int g = tc::lane_g(), t = tc::lane_t();
+      // Accumulator d[4j + 2i + e] is row 16 (warp % 4) + lane / 4 + 8 i,
+      // column 8 j + 2 (lane % 4) + e of this warpgroup's 64 x 256.
+      const int row = mt * kBM + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+      bf16* out = c + static_cast<size_t>(row) * n;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int col = n0 + wn + 8 * j + 2 * t;
-    const float s0 = SCALE ? scale[col] : 1.f, s1 = SCALE ? scale[col + 1] : 1.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      bf16* row = c + (size_t)(m0 + wm + 16 * i + g) * n + col;
-      *reinterpret_cast<uint32_t*>(row) = tc::pack(acc[i][j][0] * s0, acc[i][j][1] * s1);
-      *reinterpret_cast<uint32_t*>(row + 8 * (size_t)n) =
-          tc::pack(acc[i][j][2] * s0, acc[i][j][3] * s1);
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = nt * kBN + 8 * j + 2 * (lane & 3);
+        if (col < n) {
+          float s0 = 1.f, s1 = 1.f;
+          if constexpr (INT8) {
+            const float2 sc = *reinterpret_cast<const float2*>(scale + col);
+            s0 = sc.x, s1 = sc.y;
+          }
+          *reinterpret_cast<uint32_t*>(out + col) =
+              pack_bf16(acc[4 * j] * s0, acc[4 * j + 1] * s1);
+          *reinterpret_cast<uint32_t*>(out + 8 * static_cast<size_t>(n) + col) =
+              pack_bf16(acc[4 * j + 2] * s0, acc[4 * j + 3] * s1);
+        }
+      }
     }
   }
 }
@@ -231,12 +487,59 @@ cudaError_t launch_f32(const void* a, const void* b, const float* scale, void* c
   return cudaGetLastError();
 }
 
-template <typename BT, bool SCALE>
-cudaError_t launch_tc(const void* a, const void* b, const float* scale, void* c, int m, int n,
-                      int k, cudaStream_t stream) {
-  gemm_tc_kernel<BT, SCALE><<<grid_of(m, n), tc::kThreads, 0, stream>>>(
-      static_cast<const bf16*>(a), static_cast<const BT*>(b), scale, static_cast<bf16*>(c), n,
-      k);
+// cuTensorMapEncodeTiled, a driver-API call, looked up in the driver the
+// CUDA runtime has loaded, so the library links against nothing more.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major [outer, inner] tensor in boxes of [box_outer, box_inner];
+// out-of-bounds elements load as zeros.
+bool tensor_map(CUtensorMap* map, const void* p, CUtensorMapDataType type, int elem_bytes,
+                int inner, int outer, int box_inner, int box_outer, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encoder()(map, type, 2, const_cast<void*>(p), dims, strides, box, elem_strides,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool INT8>
+cudaError_t launch_wgmma(const void* a, const void* b, const float* scale, void* c, int m, int n,
+                         int k, cudaStream_t stream) {
+  if (encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
+  CUtensorMap ta, tb;
+  const bool ok =
+      tensor_map(&ta, a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, m, kBK, kBM,
+                 CU_TENSOR_MAP_SWIZZLE_128B) &&
+      (INT8 ? tensor_map(&tb, b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, n, k, 128, kBK,
+                         CU_TENSOR_MAP_SWIZZLE_128B)
+            : tensor_map(&tb, b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n, k, 64, kBK,
+                         CU_TENSOR_MAP_SWIZZLE_128B));
+  if (!ok) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gemm_wgmma_kernel<INT8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<INT8>::kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (m / kBM) * ((n + kBN - 1) / kBN);
+  gemm_wgmma_kernel<INT8><<<tiles < sms ? tiles : sms, kThreads, Ring<INT8>::kSmem, stream>>>(
+      ta, tb, scale, static_cast<bf16*>(c), m, n, k);
   return cudaGetLastError();
 }
 
@@ -253,7 +556,7 @@ int tpumon_matmul(const void* a, const void* b, void* c, int m, int n, int k, in
   if (!shapes_ok(m, n, k) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? (int)launch_f32<float, false>(a, b, nullptr, c, m, n, k, s)
-                    : (int)launch_tc<bf16, false>(a, b, nullptr, c, m, n, k, s);
+                    : (int)launch_wgmma<false>(a, b, nullptr, c, m, n, k, s);
 }
 
 // The same with b an int8 q [k, n] and a float32 scale [n], applied once
@@ -264,7 +567,7 @@ int tpumon_quantized_matmul(const void* a, const void* q, const void* scale, voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   return dtype == 0 ? (int)launch_f32<int8_t, true>(a, q, sc, c, m, n, k, s)
-                    : (int)launch_tc<int8_t, true>(a, q, sc, c, m, n, k, s);
+                    : (int)launch_wgmma<true>(a, q, sc, c, m, n, k, s);
 }
 
 const char* tpumon_cuda_error_string(int code) {

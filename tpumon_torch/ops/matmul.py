@@ -6,9 +6,11 @@ computes C[M, N] = A[M, K] @ B[K, N] with f32 accumulation, returned in
 a's dtype (float32 or bfloat16). It keeps the reference's contract: M, N
 and K must divide ``block_m``, ``block_n`` and ``block_k``, anything else
 raises ``ValueError``. The blocks only set what is admitted: the kernel
-(``csrc/matmul.cu``) tiles the product its own way, 128 x 128 output
-tiles over 32-deep K steps, so on a CUDA tensor M and N must also be
-multiples of 128 and K of 32.
+(``csrc/matmul.cu``) tiles the product its own way (bf16: a persistent
+grid of 128 x 256 output tiles, ``wgmma`` over a TMA-fed ring of 64-deep
+K stages, ragged N and K edges zero-filled by TMA; f32: 128 x 128 tiles
+on CUDA cores), so on a CUDA tensor M and N must also be multiples of 128
+and K of 32.
 
 On a CUDA tensor the wrapper launches the kernel and counts the launch in
 ``matmul.launches``; on a CPU tensor it runs ``matmul_reference``, the
@@ -26,7 +28,7 @@ import torch
 from tpumon_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_TILE = 128  # the kernel's output tile: M and N multiples of it
+KERNEL_TILE = 128  # M and N multiples of it
 KERNEL_DEPTH = 32  # K a multiple of it
 
 

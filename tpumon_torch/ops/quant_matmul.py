@@ -7,7 +7,8 @@ per output column. The kernel (``csrc/matmul.cu``) reads Q at 1 byte per
 weight, widens it to A's type on chip (exact for every int8) and applies
 the scale once, to each column's f32 accumulator at store; C is in A's
 type. Like the reference kernel it multiplies in A's type: bf16 A on
-tensor cores, f32 A on CUDA cores.
+tensor cores (``wgmma``; Q's stages come by TMA and are widened in shared
+memory), f32 A on CUDA cores.
 
 The reference's ``quantized_matmul_pallas`` is named
 ``quantized_matmul_kernel`` here. It keeps the reference's contract (the
