@@ -36,9 +36,13 @@ Phases, each of which exits non-zero on failure:
    dK/dV kernels against their plain PyTorch versions in bf16 and f32 at
    the production training shape (BH 128 = batch 8 x 16 heads, T 1024,
    hd 128), the seq-8k shape (BH 16, T 8192) and small shapes (hd 32 and
-   64, T 128 and 384), each output held to its worst relative error over
-   64-row tiles; beside each case, planted faults of a tiled kernel,
-   modelled in plain torch, must read over the same limit.
+   64, T 128 and 384; hd 64 and 128, T 192 and 320, where the bf16
+   forward's 128-row tiles reach past T), each output held to its worst
+   relative error over 64-row tiles; beside each case, planted faults of
+   a tiled kernel, modelled in plain torch at the kernel's tiles (the
+   forward's 128 rows, the backward's 64), must read over the same limit
+   where they apply. The bf16 forward's ptxas line, shared memory and
+   registers after setmaxnreg are printed after the build.
 8. trainer: the trainer at production width (bench.py's d2048/L6 flash
    schedule: vocab 4096, d_model 2048, 6 layers, 16/16 heads, d_ff 8192,
    attn_block_k 512, batch 8, seq 1024, bf16 over f32 master weights,
@@ -50,11 +54,13 @@ Phases, each of which exits non-zero on failure:
    port's serving engine serves the checkpoint.
 9. times: each flash kernel, its plain version, SDPA's causal forward or
    backward (autograd.grad of one recorded forward; library yardstick,
-   never called by the port) and its bound;
+   never called by the port) and its bound; the triangle forward at the
+   seq-8k shape beside SDPA's causal forward and its bound;
    the train step (flash and naive) in ms, tokens/s and MFU, its tokens
    drawn as the reference's scan draws them (threefry); the batch draw's
    own host time; seq 8192 with flash beside remat + chunked; where a
-   step's device time goes and the device's idle share.
+   step's device time goes and the device's idle share (seq 1024 and
+   8192).
 10. trainer /metrics: the tpumon_train_* families the monitor scrapes.
 11. GEMM kernels vs plain: matmul and the int8 weight-only product at the
     burn's 4096^3 (bf16), at tests/test_ops.py's shapes and at the shapes
@@ -76,10 +82,11 @@ Phases, each of which exits non-zero on failure:
 14. burn load: validate's verdicts on nvidia-smi's memory.used around
     hbm_fill(0.3) and utilization.gpu under mxu_burn in a thread.
 15. rectangular flash forward vs plain: causal and not, bf16 and f32, at
-    the training shape and small shapes, with the forward faults that
-    apply; then the times of the GEMM kernels (their f32 variants beside
-    full-f32 library calls) and of the rectangular forward beside their
-    plain versions, library calls and bounds.
+    the training shape and small shapes (T 192 and 320 among them), with
+    the forward faults that apply (the tail of keys past T left unmasked
+    among them); then the times of the GEMM kernels (their f32 variants
+    beside full-f32 library calls) and of the rectangular forward beside
+    their plain versions, library calls and bounds.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -656,17 +663,24 @@ FLASH_KERNELS = ("flash_attention_tri_fwd", "flash_attention_tri_bwd_dq",
 # unrounded.
 FLASH_TOL = {"float32": {"out": 1e-4, "grad": 1e-4, "lse": 2e-5},
              "bfloat16": {"out": 1.5e-2, "grad": 1.7e-3, "lse": 2e-5}}
-FLASH_TILE = 64
+FLASH_TILE = 64  # rows of the tiles tile_rel_err runs over (T % 64 == 0)
+# The tiles a kernel's planted faults are modelled at: the bf16 forward's
+# 128-row q and k tiles (csrc/flash_fwd.cuh), the backward's 64-row ones.
+FWD_TILE, BWD_TILE = 128, 64
 # Faults a tiled flash kernel can plausibly carry, modelled in plain
 # torch (faulty_plain) and read against the plain version under the
 # limits above; a fault is caught when one output of its kernel reads
-# over its limit. "unrounded" (P and dS kept in f32 before their bf16
+# over its limit. A fault is required only where it applies
+# (fault_applies). "unrounded" (P and dS kept in f32 before their bf16
 # products) is required of the backward kernels only: in the forward it
 # reads at the kernel's own level (one bf16 rounding of P), so no limit
 # separates it there; it is printed all the same.
 FWD_FAULTS = ("diag_unmasked", "last_diag_dropped", "no_rescale",
-              "unrounded")
+              "unrounded", "stale_stage", "wg1_mask_offset")
 BWD_FAULTS = ("diag_unmasked", "last_diag_dropped", "no_d", "unrounded")
+# T = 64 x odd: the forward's last 128-row q and k tiles reach past T.
+ODD_T_CASES = [(f"hd{hd}_t{t}", 6, t, hd) for hd in (64, 128)
+               for t in (192, 320)]
 FLASH_OUTPUTS = {"flash_attention_tri_fwd": ("out",),
                  "flash_attention_tri_bwd_dq": ("dq",),
                  "flash_attention_tri_bwd_dkv": ("dk", "dv")}
@@ -680,6 +694,19 @@ def flash_limit(kernel: str, dtype: str) -> float:
 def fault_required(kernel: str, fault: str) -> bool:
     """Whether the limit must catch this planted fault (see above)."""
     return not (fault == "unrounded" and kernel.endswith("fwd"))
+
+
+def fault_applies(fault: str, t: int, causal: bool = True) -> bool:
+    """Whether a forward fault changes anything at sequence length t:
+    the mask faults need the causal mask, the tile-to-tile faults a
+    second k tile, the tail fault a last k tile that reaches past T."""
+    if fault in ("diag_unmasked", "wg1_mask_offset"):
+        return causal
+    if fault in ("no_rescale", "stale_stage"):
+        return t > FWD_TILE
+    if fault == "tail_keys_unmasked":
+        return not causal and t % FWD_TILE != 0
+    return True
 
 
 # One train step, flash path vs naive path on the same params and tokens:
@@ -733,12 +760,15 @@ def tile_rel_err(got, want) -> float:
 
 
 def faulty_plain(q, k, v, g, lse, dvec, fault: str | None,
-                 causal: bool = True) -> dict:
+                 causal: bool = True, tile: int = FWD_TILE) -> dict:
     """The plain forward and backward (out, dq, dk, dv), with the plain
-    versions' numerics, carrying one fault of a kernel that tiles T by 64
-    rows (None: no fault); the backward takes the true lse and D, as the
-    kernels do. With ``g`` None only the forward (out) is computed;
-    ``causal=False`` drops the causal mask (the rectangular forward).
+    versions' numerics, carrying one fault of a kernel that tiles T by
+    ``tile`` rows (None: no fault); the backward takes the true lse and D,
+    as the kernels do. With ``g`` None only the forward (out) is computed;
+    ``causal=False`` drops the causal mask (the rectangular forward). The
+    keys are padded with zeros to whole tiles, as TMA fills a last tile
+    that reaches past T; no fault but tail_keys_unmasked lets a row see
+    them.
 
     - diag_unmasked: the diagonal tile is not masked, so a row also sees
       the later keys of its own tile;
@@ -746,6 +776,13 @@ def faulty_plain(q, k, v, g, lse, dvec, fault: str | None,
       dK/dV: the last k tile gets nothing);
     - no_rescale: the forward's accumulator is not rescaled when the
       running max rises from one k tile to the next;
+    - stale_stage: each k tile's P V reads the previous tile's V (a ring
+      stage used before its load landed);
+    - tail_keys_unmasked: without the causal mask, the zero keys past T
+      in a last tile that reaches past T are left in the softmax;
+    - wg1_mask_offset: the diagonal tile's mask for the second 64-row
+      half of each q tile (the second warpgroup) uses the first half's
+      row offset, so those rows lose 64 keys;
     - no_d: dS = P * dP * scale, without subtracting D;
     - unrounded: P and dS enter their products unrounded.
     """
@@ -753,35 +790,49 @@ def faulty_plain(q, k, v, g, lse, dvec, fault: str | None,
 
     bh, t, d = q.shape
     scale = 1.0 / d**0.5
+    n = -(-t // tile) * tile  # keys padded to whole tiles
 
     def rnd(x):
         return x if fault == "unrounded" else x.to(q.dtype).float()
 
-    i = torch.arange(t, device=q.device)
-    mask = (i[:, None] >= i[None, :]) | (not causal)
-    diag = (i[:, None] // FLASH_TILE) == (i[None, :] // FLASH_TILE)
+    i = torch.arange(t, device=q.device)[:, None]
+    j = torch.arange(n, device=q.device)[None, :]
+    real = j < t
+    mask = ((i >= j) | (not causal)) & real
+    diag = (i // tile) == (j // tile)
     if fault == "diag_unmasked":
-        mask = mask | diag
+        mask = mask | (diag & real)
     elif fault == "last_diag_dropped":
-        mask = mask & ~(diag & (i[:, None] >= t - FLASH_TILE))
+        mask = mask & ~(diag & (i // tile == (t - 1) // tile))
+    elif fault == "tail_keys_unmasked":
+        mask = mask | ~real
+    elif fault == "wg1_mask_offset":
+        half = tile // 2
+        wg1 = (i % tile >= half) & (j % tile > i % tile - half)
+        mask = mask & ~(diag & wg1)
     outs = ("out",) if g is None else ("out", "dq", "dk", "dv")
-    got = {n: torch.empty_like(q) for n in outs}
-    step = max(1, (1 << 26) // (t * t))
+    got = {name: torch.empty_like(q) for name in outs}
+    step = max(1, (1 << 26) // (t * n))
+    pad = torch.nn.functional.pad
     for lo in range(0, bh, step):
         c = slice(lo, lo + step)
         qc, kc, vc = (x[c].float() for x in (q, k, v))
-        s = torch.where(mask, torch.matmul(qc, kc.transpose(1, 2)) * scale,
+        kp, vp = (pad(x, (0, 0, 0, n - t)) for x in (kc, vc))
+        s = torch.where(mask, torch.matmul(qc, kp.transpose(1, 2)) * scale,
                         -1e30)
         m = s.amax(-1, keepdim=True)
         el = torch.exp(s - m).sum(-1, keepdim=True)
         if fault == "no_rescale":  # each k tile weighed at its running max
-            run = s.unflatten(-1, (-1, FLASH_TILE)).amax(-1).cummax(-1)[0]
-            p = torch.exp(s - run.repeat_interleave(FLASH_TILE, -1))
+            run = s.unflatten(-1, (-1, tile)).amax(-1).cummax(-1)[0]
+            p = torch.exp(s - run.repeat_interleave(tile, -1))
         else:
             p = torch.exp(s - m)
-        got["out"][c] = (torch.matmul(rnd(p), vc) / el).to(q.dtype)
+        if fault == "stale_stage":
+            vp = torch.cat((vp[:, :tile], vp[:, :-tile]), 1)
+        got["out"][c] = (torch.matmul(rnd(p), vp) / el).to(q.dtype)
         if g is None:
             continue
+        s = s[..., :t]
         gc = g[c].float()
         pb = torch.exp(s - lse[c][..., None])
         dp = torch.matmul(gc, vc.transpose(1, 2))
@@ -796,17 +847,26 @@ def faulty_plain(q, k, v, g, lse, dvec, fault: str | None,
 
 def fault_readings(q, k, v, g, lse, dvec, want: dict) -> dict:
     """{kernel: {fault: the largest tile_rel_err over the kernel's
-    outputs}} for every planted fault; "unrounded" only where the dtype
-    rounds (in f32 it is no fault)."""
+    outputs}} for every planted fault that applies at this T: the
+    forward's modelled at its 128-row tiles, the backward's at 64;
+    "unrounded" only where the dtype rounds (in f32 it is no fault)."""
     import torch
 
-    got = {f: faulty_plain(q, k, v, g, lse, dvec, f)
-           for f in dict.fromkeys(FWD_FAULTS + BWD_FAULTS)
-           if f != "unrounded" or q.dtype != torch.float32}
-    return {kernel: {f: max(tile_rel_err(got[f][o], want[o]) for o in outs)
-                     for f in (FWD_FAULTS if kernel.endswith("fwd")
-                               else BWD_FAULTS) if f in got}
-            for kernel, outs in FLASH_OUTPUTS.items()}
+    t = q.shape[1]
+    rounds = q.dtype != torch.float32
+    got = {}
+    for kernel, outs in FLASH_OUTPUTS.items():
+        fwd = kernel.endswith("fwd")
+        got[kernel] = {}
+        for f in FWD_FAULTS if fwd else BWD_FAULTS:
+            if (f == "unrounded" and not rounds) or (
+                    fwd and not fault_applies(f, t)):
+                continue
+            faulty = (faulty_plain(q, k, v, None, None, None, f) if fwd else
+                      faulty_plain(q, k, v, g, lse, dvec, f, tile=BWD_TILE))
+            got[kernel][f] = max(tile_rel_err(faulty[o], want[o])
+                                 for o in outs)
+    return got
 
 
 def check_flash_kernels(gen) -> dict:
@@ -819,7 +879,8 @@ def check_flash_kernels(gen) -> dict:
 
     cases = [("production", 128, 1024, 128), ("seq8k", 16, 8192, 128),
              ("hd64_t384", 6, 384, 64), ("hd32_t128", 6, 128, 32),
-             ("hd64_t128", 6, 128, 64), ("hd32_t384", 6, 384, 32)]
+             ("hd64_t128", 6, 128, 64), ("hd32_t384", 6, 384, 32),
+             *ODD_T_CASES]
     worst = {}
     for name, bh, t, hd in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -828,11 +889,13 @@ def check_flash_kernels(gen) -> dict:
             q, k, v, g, want_out, want_lse, dvec = flash_inputs(
                 gen, bh, t, hd, dtype)
             got = {}
-            got["out"], got["lse"] = fa.flash_attention_tri_fwd(q, k, v)
+            # block 64: the padding contract T % 64 == 0 (T 192, 320)
+            got["out"], got["lse"] = fa.flash_attention_tri_fwd(
+                q, k, v, block=64)
             got["dq"] = fa.flash_attention_tri_bwd_dq(q, k, v, g, want_lse,
-                                                      dvec)
+                                                      dvec, block=64)
             got["dk"], got["dv"] = fa.flash_attention_tri_bwd_dkv(
-                q, k, v, g, want_lse, dvec)
+                q, k, v, g, want_lse, dvec, block=64)
             torch.cuda.synchronize()
             want = {"out": want_out, "lse": want_lse}
             want["dq"] = fa.flash_attention_tri_bwd_dq_reference(
@@ -1079,6 +1142,23 @@ def flash_bounds(bh, t, hd, elem, bw, peak) -> dict:
     return out
 
 
+def print_fwd_config() -> None:
+    """ptxas's lines for the bf16 forward kernel (registers at launch,
+    spills) beside its shared memory and its registers after setmaxnreg
+    per head dim."""
+    from tpumon_torch.ops import _build
+    from tpumon_torch.ops.flash_attention import fwd_kernel_config
+
+    keep, lines = False, []
+    for ln in _build.ptxas_report("flash_attention_tri_fwd"):
+        if "Compiling entry function" in ln:
+            keep = "wgmma" in ln
+        if keep:
+            lines.append(ln)
+    config = {hd: fwd_kernel_config(hd) for hd in (32, 64, 128)}
+    print(f"flash_fwd_ptxas config={config} " + " | ".join(lines), flush=True)
+
+
 def time_flash_kernels(gen, bw: float, peaks: dict) -> dict:
     """Kernel, plain and library times at the production training shape,
     bf16, with their bounds."""
@@ -1132,16 +1212,36 @@ def time_flash_kernels(gen, bw: float, peaks: dict) -> dict:
     print(f"time_sdpa causal bf16 fwd_ms={lib_fwd!r} bwd_ms={lib_bwd!r} "
           f"(autograd.grad of one recorded forward, 50 reps; the library's "
           f"backward computes dq, dk and dv in one call)", flush=True)
-    set_flash_counts(before)
     del q, k, v, g, out, lse, dvec
+    torch.cuda.empty_cache()
+    # The triangle forward at the seq-8k training shape (batch 1 x 16
+    # heads), beside SDPA's causal forward and the bound.
+    bh, t = 16, 8192
+    q, k, v = (torch.randn(bh, t, hd, generator=gen, device=gen.device).to(
+        torch.bfloat16) for _ in range(3))
+    bound_ms, bound_by = flash_bounds(bh, t, hd, 2, bw, peaks["bfloat16"])[
+        "flash_attention_tri_fwd"]
+    view = (1, bh, t, hd)
+    ms = cuda_ms(lambda: fa.flash_attention_tri_fwd(q, k, v), reps=10)
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.view(view), k.view(view), v.view(view), is_causal=True), reps=10)
+    print(f"time_flash_attention_tri_fwd shape=BH16/T8192/hd128 bf16 "
+          f"kernel_ms={ms!r} library_sdpa_ms={lib!r} bound_ms={bound_ms!r} "
+          f"({bound_by}) kernel_over_bound={ms / bound_ms!r} "
+          f"kernel_tflops={2 * 2 * hd * bh * t * (t + 1) / 2 / ms / 1e9!r}",
+          flush=True)
+    set_flash_counts(before)
+    del q, k, v
     torch.cuda.empty_cache()
     return times
 
 
 def trace_step(fn, reps: int = 3):
-    """device_busy plus where the device time of one call goes: the flash
-    kernels, matrix products, and the rest, from one torch.profiler
-    trace; None without device activity."""
+    """device_busy plus where the device time of one call goes: the port's
+    flash kernels (the forward's ``flash_fwd*`` and the backward's
+    ``flash_tri_bwd*``; ``flash_fwd_ms`` is the forward's part of them),
+    matrix products, and the rest, from one torch.profiler trace; None
+    without device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1159,20 +1259,23 @@ def trace_step(fn, reps: int = 3):
     if not kernels:
         return None
     parts = {"flash_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    flash_fwd_ms = 0.0
     by_name: dict[str, float] = {}
     for e in kernels:
         name = e.name.lower()
         ms = e.time_range.elapsed_us() / 1e3 / reps
-        part = ("flash_kernels" if "flash_tri" in name else
-                "matmul" if any(w in name for w in (
+        part = ("flash_kernels" if "flash_fwd" in name or "flash_tri" in name
+                else "matmul" if any(w in name for w in (
                     "gemm", "cutlass", "xmma", "nvjet", "matmul")) else "other")
         parts[part] += ms
+        flash_fwd_ms += ms if "flash_fwd" in name else 0.0
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
     busy = sum(parts.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share":
             1 - busy / wall_ms, "kernels_per_step": len(kernels) / reps,
-            **parts, "top_ms": [(n, round(ms, 3)) for n, ms in top]}
+            **parts, "flash_fwd_ms": flash_fwd_ms,
+            "top_ms": [(n, round(ms, 3)) for n, ms in top]}
 
 
 def time_trainer(trained: dict) -> None:
@@ -1227,6 +1330,7 @@ def time_trainer(trained: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(12)
     for name, cfg, reps in (("seq1024_flash", runs[0][1], 3),
                             ("seq1024_naive", runs[1][1], 3),
+                            ("seq8192_flash", runs[2][1], 3),
                             ("seq8192_remat_chunked", runs[3][1], 1)):
         params = (trained["params"] if name == "seq1024_flash" else
                   init_params(cfg.model, gen))
@@ -1770,7 +1874,8 @@ def check_burn_load() -> None:
         fail("a burn did not register on the card's counters")
 
 
-FLASH_RECT_FAULTS = ("diag_unmasked", "last_diag_dropped", "no_rescale")
+FLASH_RECT_FAULTS = ("diag_unmasked", "last_diag_dropped", "no_rescale",
+                     "stale_stage", "tail_keys_unmasked", "wg1_mask_offset")
 
 
 def check_flash_rect(gen) -> dict:
@@ -1786,7 +1891,7 @@ def check_flash_rect(gen) -> dict:
     t0 = time.perf_counter()
     fa.flash_attention.launches = 0  # the kernel's own phase only
     cases = [("production", 128, 1024, 128), ("hd64_t384", 6, 384, 64),
-             ("hd32_t128", 6, 128, 32)]
+             ("hd32_t128", 6, 128, 32), *ODD_T_CASES]
     worst = None
     for name, bh, t, hd in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1796,7 +1901,8 @@ def check_flash_rect(gen) -> dict:
                                    device=gen.device).to(dtype)
                        for _ in range(3))
             for causal in (True, False):
-                got = fa.flash_attention(q, k, v, causal=causal)
+                got = fa.flash_attention(q, k, v, causal=causal,
+                                         block_q=64, block_k=64)
                 torch.cuda.synchronize()
                 want = fa.flash_attention_reference(q, k, v, causal)
                 rel = tile_rel_err(got, want)
@@ -1804,8 +1910,7 @@ def check_flash_rect(gen) -> dict:
                 finite = bool(torch.isfinite(got.float()).all().item())
                 faults = {f: tile_rel_err(faulty_plain(
                     q, k, v, None, None, None, f, causal)["out"], want)
-                    for f in FLASH_RECT_FAULTS
-                    if causal or f != "diag_unmasked"}
+                    for f in FLASH_RECT_FAULTS if fault_applies(f, t, causal)}
                 missed = [f for f, r in faults.items() if not r > tol]
                 ok = finite and rel <= tol
                 print(f"flash_rect_vs_plain {name} BH{bh}/T{t}/hd{hd} {dname} "
@@ -1950,6 +2055,7 @@ def main() -> int:
     print("ptxas: " + " | ".join(
         ln for n in _build.sources() for ln in _build.ptxas_report(n)
         if n != "paged_attention"), flush=True)
+    print_fwd_config()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = check_kernel(gen)

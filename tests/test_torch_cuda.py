@@ -101,7 +101,8 @@ def test_kernel_reads_a_parked_slots_repeated_trash_page(cuda_device):
 # readings and what planted faults read are in chip_smoke.py and PERF.md;
 # tests/test_torch_flash_attention.py checks on the CPU that the faults
 # read over these limits at this file's shapes.
-FLASH_CASES = [(hd, t) for hd in (32, 64, 128) for t in (128, 384)]
+FLASH_CASES = [(hd, t) for hd in (32, 64, 128) for t in (128, 384)] + [
+    (hd, t) for hd in (64, 128) for t in (192, 320)]  # T = 64 x odd
 
 
 def flash_inputs(device, dtype, hd, t, bh=3, seed=7):
@@ -136,7 +137,7 @@ def test_flash_fwd_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
 
     q, k, v, _, want, want_lse, _ = flash_inputs(cuda_device, dtype, hd, t)
     before = fa.flash_attention_tri_fwd.launches
-    out, lse = fa.flash_attention_tri_fwd(q, k, v, block=128)
+    out, lse = fa.flash_attention_tri_fwd(q, k, v, block=64)
     torch.cuda.synchronize()
     assert fa.flash_attention_tri_fwd.launches == before + 1
     assert out.dtype == dtype and lse.dtype == torch.float32
@@ -151,7 +152,7 @@ def test_flash_dq_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
 
     q, k, v, g, _, lse, dvec = flash_inputs(cuda_device, dtype, hd, t)
     before = fa.flash_attention_tri_bwd_dq.launches
-    dq = fa.flash_attention_tri_bwd_dq(q, k, v, g, lse, dvec)
+    dq = fa.flash_attention_tri_bwd_dq(q, k, v, g, lse, dvec, block=64)
     torch.cuda.synchronize()
     assert fa.flash_attention_tri_bwd_dq.launches == before + 1
     want = fa.flash_attention_tri_bwd_dq_reference(q, k, v, g, lse, dvec)
@@ -166,7 +167,7 @@ def test_flash_dkv_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
 
     q, k, v, g, _, lse, dvec = flash_inputs(cuda_device, dtype, hd, t)
     before = fa.flash_attention_tri_bwd_dkv.launches
-    dk, dv = fa.flash_attention_tri_bwd_dkv(q, k, v, g, lse, dvec)
+    dk, dv = fa.flash_attention_tri_bwd_dkv(q, k, v, g, lse, dvec, block=64)
     torch.cuda.synchronize()
     assert fa.flash_attention_tri_bwd_dkv.launches == before + 1
     want_dk, want_dv = fa.flash_attention_tri_bwd_dkv_reference(
@@ -223,7 +224,7 @@ def test_flash_rect_kernel_matches_plain_on_card(cuda_device, dtype, hd, t,
 
     q, k, v = flash_inputs(cuda_device, dtype, hd, t)[:3]
     before = fa.flash_attention.launches
-    out = fa.flash_attention(q, k, v, causal=causal)
+    out = fa.flash_attention(q, k, v, causal=causal, block_q=64, block_k=64)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert out.dtype == dtype

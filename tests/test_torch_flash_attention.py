@@ -23,6 +23,7 @@ from tpumon.loadgen import ring_attention as jax_ring  # noqa: E402
 from tpumon.ops import flash_attention as jax_fa  # noqa: E402
 from tpumon_torch.loadgen import ring_attention  # noqa: E402
 from tpumon_torch.ops import flash_attention as fa  # noqa: E402
+from tpumon_torch.ops import flash_variants  # noqa: E402
 
 TOL = {"float32": {"out": 1e-5, "lse": 1e-5, "grad": 2e-4},
        "bfloat16": {"out": 6e-2, "lse": 1e-5, "grad": 6e-2}}
@@ -74,13 +75,15 @@ def test_backward_matches_reference(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,t", [(d, t) for d in (32, 64, 128)
-                                 for t in (128, 384)])
+                                 for t in (128, 384)]
+                         + [(d, t) for d in (64, 128) for t in (192, 320)])
 def test_planted_faults_read_over_the_card_limits(dtype, d, t):
     """The limits the CUDA kernels are held to (chip_smoke.FLASH_TOL, also
     tests/test_torch_cuda.py's, at its shapes) catch every planted fault
-    of a tiled kernel: each reads over its limit here, where the plain
-    versions compute them. Without a fault the model is the plain
-    versions."""
+    of a tiled kernel that applies at this T: each reads over its limit
+    here, where the plain versions compute them. Without a fault the
+    model is the plain versions, at the forward's 128-row tiles and the
+    backward's 64-row ones."""
     import chip_smoke
 
     q, k, v, g = to_torch(case(t=t, d=d), getattr(torch, dtype))
@@ -91,15 +94,22 @@ def test_planted_faults_read_over_the_card_limits(dtype, d, t):
                                                          dvec)
     want["dk"], want["dv"] = fa.flash_attention_tri_bwd_dkv_reference(
         q, k, v, g, lse, dvec)
-    clean = chip_smoke.faulty_plain(q, k, v, g, lse, dvec, None)
-    for name, x in want.items():
-        assert chip_smoke.tile_rel_err(clean[name], x) <= 1e-6
+    for tile in (chip_smoke.FWD_TILE, chip_smoke.BWD_TILE):
+        clean = chip_smoke.faulty_plain(q, k, v, g, lse, dvec, None,
+                                        tile=tile)
+        for name, x in want.items():
+            assert chip_smoke.tile_rel_err(clean[name], x) <= 1e-6
     readings = chip_smoke.fault_readings(q, k, v, g, lse, dvec, want)
     caught = {f"{kernel}:{fault}": r / chip_smoke.flash_limit(kernel, dtype)
               for kernel, faults in readings.items()
               for fault, r in faults.items()
               if chip_smoke.fault_required(kernel, fault)}
-    assert len(caught) == (9 if dtype == "float32" else 11)
+    # Forward: diag_unmasked, last_diag_dropped, wg1_mask_offset, and
+    # past one 128-row k tile no_rescale and stale_stage; each backward
+    # kernel: diag_unmasked, last_diag_dropped, no_d, and in bf16
+    # unrounded.
+    fwd = 3 + (2 if t > chip_smoke.FWD_TILE else 0)
+    assert len(caught) == fwd + 2 * (3 if dtype == "float32" else 4)
     assert min(caught.values()) > 1, caught
 
 
@@ -129,18 +139,42 @@ def test_rect_planted_faults_read_over_the_card_limit(causal, dtype):
     import chip_smoke
 
     tol = chip_smoke.FLASH_TOL[dtype]["out"]
-    for d, t in ((32, 128), (64, 384), (128, 128)):
+    for d, t in ((32, 128), (64, 384), (128, 128), (64, 192), (128, 320)):
         q, k, v, _ = to_torch(case(t=t, d=d), getattr(torch, dtype))
         want = fa.flash_attention_reference(q, k, v, causal)
         clean = chip_smoke.faulty_plain(q, k, v, None, None, None, None,
                                         causal)["out"]
         assert chip_smoke.tile_rel_err(clean, want) <= 1e-6
         for fault in chip_smoke.FLASH_RECT_FAULTS:
-            if fault == "diag_unmasked" and not causal:
+            if not chip_smoke.fault_applies(fault, t, causal):
                 continue
             got = chip_smoke.faulty_plain(q, k, v, None, None, None, fault,
                                           causal)["out"]
             assert chip_smoke.tile_rel_err(got, want) > tol, (fault, d, t)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_at_t_320_matches_reference(causal, dtype):
+    """T = 320 = 5 x 64, where the bf16 kernel's last 128-row q and k
+    tiles reach past T: the plain forward against the reference kernels
+    at 64-row blocks (the triangle forward's out and lse, the rectangular
+    forward's out), at this file's bounds."""
+    q, k, v, _ = case(t=320, d=64)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    jq, jk, jv = to_jax((q, k, v), jdt)
+    tq, tk, tv = to_torch((q, k, v), tdt)
+    want = jax_fa.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                  block_k=64, interpret=True)
+    got = fa.flash_attention(tq, tk, tv, causal=causal, block_q=64,
+                             block_k=64)
+    assert_close(got, want, TOL[dtype]["out"])
+    if causal:
+        jout, jlse = jax_fa.flash_attention_tri_fwd(jq, jk, jv, block=64,
+                                                    interpret=True)
+        out, lse = fa.flash_attention_tri_fwd(tq, tk, tv, block=64)
+        assert_close(out, jout, TOL[dtype]["out"])
+        assert_close(lse, jlse, TOL[dtype]["lse"])
 
 
 def test_kernels_reject_bad_shapes_and_types():
@@ -177,6 +211,16 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
     fa.flash_attention(q, k, v, causal=False)
     assert [f.launches for f in counters] == before
     assert torch.equal(out, fa.flash_attention_tri_fwd_reference(q, k, v)[0])
+
+
+@pytest.mark.parametrize("name", sorted(flash_variants.VARIANTS))
+def test_flash_variants_apply_to_the_kernel_source(name):
+    """Every source variant that tpumon_torch.ops.flash_variants times on
+    the card finds its substitution targets in csrc/flash_fwd.cuh, and
+    only the built kernel is the unchanged source."""
+    subs = flash_variants.VARIANTS[name]
+    src = flash_variants.variant_source(subs)
+    assert (src == flash_variants.variant_source(())) == (not subs)
 
 
 def test_ring_attention_pieces_match_reference():

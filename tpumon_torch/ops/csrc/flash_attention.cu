@@ -7,7 +7,7 @@
 // a rectangular (BH, T/block_q, T/block_k) grid with K innermost, carries
 // its online-softmax state across the K steps in VMEM scratch, and skips
 // the compute (not the DMA) of k blocks above the diagonal. Here one CTA
-// owns one (bh, 64-row q tile) and loops itself over the k tiles: all of
+// owns one (bh, q tile) and loops itself over the k tiles: all of
 // them without the mask, only those at or below its diagonal with it, so
 // those above the diagonal are neither computed nor read.
 //
@@ -18,11 +18,15 @@
 // causal one.
 //
 // What this design does about it: the kernels of the triangle forward
-// (flash_fwd.cuh: bf16 on tensor cores with mma.sync, f32 on CUDA cores),
-// instantiated for either mask and without the logsumexp. They keep Q, the
-// scores, the running max/denominator and the accumulator on chip and
-// read each K/V tile once per q tile; loads are synchronous, the later
-// redesign pipelines them.
+// (flash_fwd.cuh), instantiated for either mask and without the
+// logsumexp. The bf16 kernel keeps the tensor cores fed: TMA brings the
+// next K and V tiles into 2-stage rings while two warpgroups run S = Q
+// K^T and P V with wgmma (P from registers, V read MN-major through the
+// descriptor), in turns (ping-pong), each overlapping one tile's
+// softmax with its previous tile's P V and with the other's products. Q, the scores, the running max and denominator and the
+// accumulator stay on chip, and each K/V tile is read once per 128-row q
+// tile. Without the mask the keys past T of a last tile that reaches past
+// it (T = 64 x odd) are masked; TMA zero-fills them within each bh.
 //
 // Supported: float32 and bfloat16, head dim 32, 64 or 128, T a multiple
 // of 64. The Python wrapper (tpumon_torch/ops/flash_attention.py) checks

@@ -1,5 +1,5 @@
-// Tensor-core pieces of the bf16 causal flash-attention kernels
-// (flash_attention_tri_fwd.cu, flash_attention_tri_bwd.cu): staging of
+// Tensor-core pieces of the bf16 causal flash-attention backward kernels
+// (flash_attention_tri_bwd.cu): staging of
 // bf16 tiles into shared memory and warp-level mma.sync.m16n8k16 products
 // with f32 accumulators.
 //

@@ -38,7 +38,7 @@ from tpumon_torch.ops import _build
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)
-KERNEL_TILE = 64  # rows a CTA owns: the kernels need T % 64 == 0
+KERNEL_TILE = 64  # the kernels need T % 64 == 0 (bf16 forward: 128-row tiles)
 # The plain versions materialise [chunk, T, T] f32 tensors; chunking the
 # folded batch keeps each near 1 GiB at long T.
 _PLAIN_CHUNK_ELEMS = 1 << 28
@@ -152,8 +152,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_k: int = 128) -> torch.Tensor:
     """Flash attention forward, causal or not: [BH, T, D] -> [BH, T, D]
     in q's dtype, T a multiple of block_q and of block_k (the reference's
-    block grid). On a CUDA tensor the kernel tiles T itself (64-row
-    tiles), so the blocks only set the contract, as in the reference.
+    block grid). On a CUDA tensor the kernel tiles T itself (bf16: 128-row
+    tiles, f32: 64), so the blocks only set the contract, as in the
+    reference.
     """
     _check(q, k, v, block_q, block_k=block_k)
     if not _on_cuda(q, k, v):
@@ -181,8 +182,8 @@ def flash_attention_tri_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q/k/v: [BH, T, D] with T % block == 0 (callers pad T; the reference
     kernel's block grid). out: [BH, T, D] in q's dtype; lse: [BH, T] f32.
-    On a CUDA tensor the kernel tiles T itself (64-row tiles), so
-    ``block`` only sets the padding contract, as in the reference.
+    On a CUDA tensor the kernel tiles T itself (bf16: 128-row tiles, f32:
+    64), so ``block`` only sets the padding contract, as in the reference.
     """
     _check(q, k, v, block)
     if not _on_cuda(q, k, v):
@@ -196,6 +197,17 @@ def flash_attention_tri_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_tri_fwd.launches = 0
+
+
+def fwd_kernel_config(head_dim: int) -> dict:
+    """The bf16 forward kernel's dynamic shared-memory bytes, K/V ring
+    stages and registers per thread after setmaxnreg (loading warpgroup,
+    arithmetic warpgroups) at ``head_dim``, from the built library."""
+    lib = _build.load("flash_attention_tri_fwd")
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.tpumon_flash_fwd_config(head_dim, out),
+                 "tpumon_flash_fwd_config")
+    return dict(zip(("smem_bytes", "stages", "load_regs", "math_regs"), out))
 
 
 def flash_attention_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,7 +6,8 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Each variant is ``csrc/matmul.cu`` with textual substitutions
 (``VARIANTS``), built with the package's nvcc flags into
-``build/tpumon_torch/variants/``. Each is run at the burn's 4096^3 with a
+``build/tpumon_torch/variants/<name>/`` (``build_variants``, which
+``flash_variants`` shares). Each is run at the burn's 4096^3 with a
 bf16 A, bf16 B and int8 Q, held to the plain product by
 ``tile_rel_err`` (worst relative error over 128 x 128 output tiles), and
 timed with CUDA events in turns with cuBLAS (``torch.matmul``) and the
@@ -21,6 +22,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import shutil
 import subprocess
 from pathlib import Path
 
@@ -55,24 +57,33 @@ VARIANTS = {
 }
 
 
-def variant_source(subs) -> str:
-    src = (_build.CSRC / "matmul.cu").read_text()
+def variant_source(subs, source: str = "matmul.cu") -> str:
+    """``csrc/<source>`` with the substitutions (old, new) made; each old
+    text must be there."""
+    src = (_build.CSRC / source).read_text()
     for old, new in subs:
         if old not in src:
-            raise ValueError(f"substitution target not in matmul.cu: {old!r}")
+            raise ValueError(f"substitution target not in {source}: {old!r}")
         src = src.replace(old, new)
     return src
 
 
-def build(out_dir: Path) -> dict[str, ctypes.CDLL]:
-    """One nvcc per variant, all started together."""
-    out_dir.mkdir(parents=True, exist_ok=True)
+def build_variants(out_dir: Path, variants, bind, source: str = "matmul.cu",
+                   entry: str | None = None) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """{name: (library, nvcc's output)} for ``variants`` {name:
+    substitutions in ``source``}: one nvcc per variant, all started
+    together, each in ``out_dir/<name>/``. The variant of ``source`` is
+    compiled itself or, given ``entry``, beside a copy of that file, which
+    includes it. ``bind(lib)`` sets the library's argtypes."""
     procs = {}
-    for name, (subs, _) in VARIANTS.items():
-        cu = out_dir / f"matmul_{name}.cu"
-        cu.write_text(variant_source(subs))
+    for name, subs in variants.items():
+        d = out_dir / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / source).write_text(variant_source(subs, source))
+        if entry:
+            shutil.copy(_build.CSRC / entry, d)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-o", str(out_dir / f"{name}.so"), str(cu)]
+               "-o", str(d / "lib.so"), str(d / (entry or source))]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)
     libs = {}
@@ -80,13 +91,17 @@ def build(out_dir: Path) -> dict[str, ctypes.CDLL]:
         out, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{err}{out}")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.tpumon_matmul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        lib.tpumon_quantized_matmul.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
-        libs[name] = lib
+        lib = ctypes.CDLL(str(out_dir / name / "lib.so"))
+        bind(lib)
+        libs[name] = (lib, err + out)
     return libs
+
+
+def bind_matmul(lib: ctypes.CDLL) -> None:
+    lib.tpumon_matmul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.tpumon_quantized_matmul.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def tile_rel_err(got, want, tile: int = 128) -> float:
@@ -117,7 +132,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    libs = build(_build.BUILD_DIR / "variants")
+    libs = build_variants(
+        _build.BUILD_DIR / "variants",
+        {name: subs for name, (subs, _) in VARIANTS.items()}, bind_matmul)
     gen = torch.Generator(device="cuda").manual_seed(0)
     a = torch.randn(N, N, generator=gen, device="cuda").bfloat16()
     b = torch.randn(N, N, generator=gen, device="cuda").bfloat16()
@@ -129,7 +146,7 @@ def main(argv=None) -> int:
     c = torch.empty(N, N, device="cuda", dtype=torch.bfloat16)
     stream = torch.cuda.current_stream().cuda_stream
     lines = []
-    for name, lib in libs.items():
+    for name, (lib, _) in libs.items():
         def mm(lib=lib):
             err = lib.tpumon_matmul(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                     N, N, N, 1, stream)
