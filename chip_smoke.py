@@ -40,9 +40,11 @@ Phases, each of which exits non-zero on failure:
    forward's 128-row tiles reach past T), each output held to its worst
    relative error over 64-row tiles; beside each case, planted faults of
    a tiled kernel, modelled in plain torch at the kernel's tiles (the
-   forward's 128 rows, the backward's 64), must read over the same limit
-   where they apply. The bf16 forward's ptxas line, shared memory and
-   registers after setmaxnreg are printed after the build.
+   forward's 128 rows; each backward kernel's 128 owned rows in two
+   warpgroups of 64, and its 64-row streamed tiles), must read over the
+   same limit where they apply. The bf16 forward's and backward's ptxas
+   lines, shared memory and registers after setmaxnreg are printed after
+   the build.
 8. trainer: the trainer at production width (bench.py's d2048/L6 flash
    schedule: vocab 4096, d_model 2048, 6 layers, 16/16 heads, d_ff 8192,
    attn_block_k 512, batch 8, seq 1024, bf16 over f32 master weights,
@@ -54,8 +56,10 @@ Phases, each of which exits non-zero on failure:
    port's serving engine serves the checkpoint.
 9. times: each flash kernel, its plain version, SDPA's causal forward or
    backward (autograd.grad of one recorded forward; library yardstick,
-   never called by the port) and its bound; the triangle forward at the
-   seq-8k shape beside SDPA's causal forward and its bound;
+   never called by the port) under each pinned backend that runs (flash,
+   cuDNN; the faster is the library time) and its bound; the triangle
+   forward and both backward kernels at the seq-8k shape beside SDPA and
+   their bounds;
    the train step (flash and naive) in ms, tokens/s and MFU, its tokens
    drawn as the reference's scan draws them (threefry); the batch draw's
    own host time; seq 8192 with flash beside remat + chunked; where a
@@ -86,7 +90,8 @@ Phases, each of which exits non-zero on failure:
     the forward faults that apply (the tail of keys past T left unmasked
     among them); then the times of the GEMM kernels (their f32 variants
     beside full-f32 library calls) and of the rectangular forward beside
-    their plain versions, library calls and bounds.
+    their plain versions, library calls (SDPA pinned as in 9) and
+    bounds.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -665,19 +670,24 @@ FLASH_TOL = {"float32": {"out": 1e-4, "grad": 1e-4, "lse": 2e-5},
              "bfloat16": {"out": 1.5e-2, "grad": 1.7e-3, "lse": 2e-5}}
 FLASH_TILE = 64  # rows of the tiles tile_rel_err runs over (T % 64 == 0)
 # The tiles a kernel's planted faults are modelled at: the bf16 forward's
-# 128-row q and k tiles (csrc/flash_fwd.cuh), the backward's 64-row ones.
-FWD_TILE, BWD_TILE = 128, 64
+# 128-row q and k tiles (csrc/flash_fwd.cuh); the backward kernels' (csrc/
+# flash_attention_tri_bwd.cu) owned tile (128 rows, two warpgroups of 64)
+# and streamed tile (64 rows: dQ's k tiles, dK/dV's q tiles).
+FWD_TILE = 128
+BWD_TILES = {"flash_attention_tri_bwd_dq": (128, 64),
+             "flash_attention_tri_bwd_dkv": (128, 64)}
 # Faults a tiled flash kernel can plausibly carry, modelled in plain
-# torch (faulty_plain) and read against the plain version under the
-# limits above; a fault is caught when one output of its kernel reads
-# over its limit. A fault is required only where it applies
+# torch (faulty_plain, faulty_grads) and read against the plain version
+# under the limits above; a fault is caught when one output of its kernel
+# reads over its limit. A fault is required only where it applies
 # (fault_applies). "unrounded" (P and dS kept in f32 before their bf16
 # products) is required of the backward kernels only: in the forward it
 # reads at the kernel's own level (one bf16 rounding of P), so no limit
 # separates it there; it is printed all the same.
 FWD_FAULTS = ("diag_unmasked", "last_diag_dropped", "no_rescale",
               "unrounded", "stale_stage", "wg1_mask_offset")
-BWD_FAULTS = ("diag_unmasked", "last_diag_dropped", "no_d", "unrounded")
+BWD_FAULTS = ("diag_unmasked", "last_diag_dropped", "no_d", "unrounded",
+              "stale_stage", "wg1_mask_offset", "row_stats_offset")
 # T = 64 x odd: the forward's last 128-row q and k tiles reach past T.
 ODD_T_CASES = [(f"hd{hd}_t{t}", 6, t, hd) for hd in (64, 128)
                for t in (192, 320)]
@@ -696,14 +706,20 @@ def fault_required(kernel: str, fault: str) -> bool:
     return not (fault == "unrounded" and kernel.endswith("fwd"))
 
 
-def fault_applies(fault: str, t: int, causal: bool = True) -> bool:
-    """Whether a forward fault changes anything at sequence length t:
-    the mask faults need the causal mask, the tile-to-tile faults a
-    second k tile, the tail fault a last k tile that reaches past T."""
+def fault_applies(fault: str, t: int, causal: bool = True,
+                  kernel: str = "flash_attention_tri_fwd") -> bool:
+    """Whether a fault of ``kernel`` changes anything at sequence length
+    t: the mask faults need the causal mask, the tile-to-tile faults a
+    second streamed tile, the second warpgroup's a second half of an
+    owned tile, the tail fault a last k tile that reaches past T."""
+    if kernel.endswith("fwd"):
+        own = stream = FWD_TILE
+    else:
+        own, stream = BWD_TILES[kernel]
     if fault in ("diag_unmasked", "wg1_mask_offset"):
-        return causal
-    if fault in ("no_rescale", "stale_stage"):
-        return t > FWD_TILE
+        return causal and (fault == "diag_unmasked" or t > own // 2)
+    if fault in ("no_rescale", "stale_stage", "row_stats_offset"):
+        return t > stream
     if fault == "tail_keys_unmasked":
         return not causal and t % FWD_TILE != 0
     return True
@@ -759,23 +775,20 @@ def tile_rel_err(got, want) -> float:
         ).item()
 
 
-def faulty_plain(q, k, v, g, lse, dvec, fault: str | None,
-                 causal: bool = True, tile: int = FWD_TILE) -> dict:
-    """The plain forward and backward (out, dq, dk, dv), with the plain
-    versions' numerics, carrying one fault of a kernel that tiles T by
-    ``tile`` rows (None: no fault); the backward takes the true lse and D,
-    as the kernels do. With ``g`` None only the forward (out) is computed;
-    ``causal=False`` drops the causal mask (the rectangular forward). The
-    keys are padded with zeros to whole tiles, as TMA fills a last tile
-    that reaches past T; no fault but tail_keys_unmasked lets a row see
-    them.
+def faulty_plain(q, k, v, fault: str | None, causal: bool = True,
+                 tile: int = FWD_TILE):
+    """The plain forward's out, with the plain version's numerics,
+    carrying one fault of a forward kernel that tiles T by ``tile`` rows
+    (None: no fault); ``causal=False`` drops the causal mask (the
+    rectangular forward). The keys are padded with zeros to whole tiles,
+    as TMA fills a last tile that reaches past T; no fault but
+    tail_keys_unmasked lets a row see them.
 
     - diag_unmasked: the diagonal tile is not masked, so a row also sees
       the later keys of its own tile;
-    - last_diag_dropped: the last q tile skips its diagonal k tile (for
-      dK/dV: the last k tile gets nothing);
-    - no_rescale: the forward's accumulator is not rescaled when the
-      running max rises from one k tile to the next;
+    - last_diag_dropped: the last q tile skips its diagonal k tile;
+    - no_rescale: the accumulator is not rescaled when the running max
+      rises from one k tile to the next;
     - stale_stage: each k tile's P V reads the previous tile's V (a ring
       stage used before its load landed);
     - tail_keys_unmasked: without the causal mask, the zero keys past T
@@ -783,18 +796,13 @@ def faulty_plain(q, k, v, g, lse, dvec, fault: str | None,
     - wg1_mask_offset: the diagonal tile's mask for the second 64-row
       half of each q tile (the second warpgroup) uses the first half's
       row offset, so those rows lose 64 keys;
-    - no_d: dS = P * dP * scale, without subtracting D;
-    - unrounded: P and dS enter their products unrounded.
+    - unrounded: P enters P V unrounded.
     """
     import torch
 
     bh, t, d = q.shape
     scale = 1.0 / d**0.5
     n = -(-t // tile) * tile  # keys padded to whole tiles
-
-    def rnd(x):
-        return x if fault == "unrounded" else x.to(q.dtype).float()
-
     i = torch.arange(t, device=q.device)[:, None]
     j = torch.arange(n, device=q.device)[None, :]
     real = j < t
@@ -810,8 +818,7 @@ def faulty_plain(q, k, v, g, lse, dvec, fault: str | None,
         half = tile // 2
         wg1 = (i % tile >= half) & (j % tile > i % tile - half)
         mask = mask & ~(diag & wg1)
-    outs = ("out",) if g is None else ("out", "dq", "dk", "dv")
-    got = {name: torch.empty_like(q) for name in outs}
+    out = torch.empty_like(q)
     step = max(1, (1 << 26) // (t * n))
     pad = torch.nn.functional.pad
     for lo in range(0, bh, step):
@@ -829,27 +836,98 @@ def faulty_plain(q, k, v, g, lse, dvec, fault: str | None,
             p = torch.exp(s - m)
         if fault == "stale_stage":
             vp = torch.cat((vp[:, :tile], vp[:, :-tile]), 1)
-        got["out"][c] = (torch.matmul(rnd(p), vp) / el).to(q.dtype)
-        if g is None:
-            continue
-        s = s[..., :t]
-        gc = g[c].float()
-        pb = torch.exp(s - lse[c][..., None])
+        if fault != "unrounded":
+            p = p.to(q.dtype).float()
+        out[c] = (torch.matmul(p, vp) / el).to(q.dtype)
+        del s, p
+    return out
+
+
+def faulty_grads(q, k, v, g, lse, dvec, fault: str | None,
+                 kernel: str) -> dict:
+    """The plain backward's outputs of ``kernel`` (dq, or dk and dv), with
+    the plain versions' numerics and the true lse and D, carrying one
+    fault of that kernel at its tiles (BWD_TILES: a CTA owns ``own`` rows,
+    two warpgroups of own / 2, and streams ``stream``-row tiles of the
+    other side; dQ owns queries and streams keys, dK/dV the reverse).
+    None: no fault. A warpgroup masks its diagonal block, the own / 2
+    rows of its own side against the same rows of the other.
+
+    - diag_unmasked: the diagonal blocks are not masked;
+    - last_diag_dropped: the last q rows skip their diagonal block (for
+      dK/dV: the last keys get nothing from it);
+    - no_d: dS = P * dP * scale, without subtracting D;
+    - unrounded: P and dS enter their products unrounded;
+    - stale_stage: each streamed tile's products read the previous
+      tile's stage (dQ: K and V; dK/dV: Q, dO, lse and D), the mask
+      taken at the true positions;
+    - wg1_mask_offset: the second warpgroup masks its diagonal block with
+      the first's row offset: dQ's later q rows lose the whole block,
+      dK/dV's later keys see the queries before them in it;
+    - row_stats_offset: each q tile's lse and D are read one streamed
+      tile later (the last tile reads its own).
+    """
+    import torch
+
+    bh, t, d = q.shape
+    scale = 1.0 / d**0.5
+    own, stream = BWD_TILES[kernel]
+    half = own // 2
+    dq_kernel = kernel.endswith("dq")
+
+    def shifted(x):  # each streamed tile takes the previous one's rows
+        return torch.cat((x[:, :stream], x[:, :-stream]), 1)
+
+    i = torch.arange(t, device=q.device)[:, None]  # queries
+    j = torch.arange(t, device=q.device)[None, :]  # keys
+    mask = i >= j
+    diag = (i // half) == (j // half)
+    if fault == "diag_unmasked":
+        mask = mask | diag
+    elif fault == "last_diag_dropped":
+        mask = mask & ~(diag & (i // half == (t - 1) // half))
+    elif fault == "wg1_mask_offset" and dq_kernel:
+        mask = mask & ~(diag & (i % own >= half))
+    elif fault == "wg1_mask_offset":
+        mask = mask | (diag & (j % own >= half))
+    if fault == "stale_stage" and dq_kernel:
+        k, v = shifted(k), shifted(v)
+    elif fault == "stale_stage":
+        q, g, lse, dvec = (shifted(x) for x in (q, g, lse, dvec))
+    elif fault == "row_stats_offset":
+        lse, dvec = (torch.cat((x[:, stream:], x[:, -stream:]), 1)
+                     for x in (lse, dvec))
+
+    def rnd(x):
+        return x if fault == "unrounded" else x.to(q.dtype).float()
+
+    outs = ("dq",) if dq_kernel else ("dk", "dv")
+    got = {name: torch.empty_like(q) for name in outs}
+    step = max(1, (1 << 26) // (t * t))
+    for lo in range(0, bh, step):
+        c = slice(lo, lo + step)
+        qc, kc, vc, gc = (x[c].float() for x in (q, k, v, g))
+        s = torch.matmul(qc, kc.transpose(1, 2)) * scale
+        p = torch.where(mask, torch.exp(s - lse[c][..., None]), 0.0)
         dp = torch.matmul(gc, vc.transpose(1, 2))
-        ds = pb * (dp - (0.0 if fault == "no_d" else dvec[c][..., None])
-                   ) * scale
-        got["dq"][c] = torch.matmul(rnd(ds), kc).to(q.dtype)
-        got["dk"][c] = torch.matmul(rnd(ds).transpose(1, 2), qc).to(q.dtype)
-        got["dv"][c] = torch.matmul(rnd(pb).transpose(1, 2), gc).to(q.dtype)
-        del s, p, pb, dp, ds
+        ds = p * (dp - (0.0 if fault == "no_d" else dvec[c][..., None])
+                  ) * scale
+        if dq_kernel:
+            got["dq"][c] = torch.matmul(rnd(ds), kc).to(q.dtype)
+        else:
+            got["dk"][c] = torch.matmul(rnd(ds).transpose(1, 2), qc).to(
+                q.dtype)
+            got["dv"][c] = torch.matmul(rnd(p).transpose(1, 2), gc).to(
+                q.dtype)
+        del s, p, dp, ds
     return got
 
 
 def fault_readings(q, k, v, g, lse, dvec, want: dict) -> dict:
     """{kernel: {fault: the largest tile_rel_err over the kernel's
-    outputs}} for every planted fault that applies at this T: the
-    forward's modelled at its 128-row tiles, the backward's at 64;
-    "unrounded" only where the dtype rounds (in f32 it is no fault)."""
+    outputs}} for every planted fault that applies at this T, each
+    modelled at its kernel's tiles; "unrounded" only where the dtype
+    rounds (in f32 it is no fault)."""
     import torch
 
     t = q.shape[1]
@@ -859,11 +937,11 @@ def fault_readings(q, k, v, g, lse, dvec, want: dict) -> dict:
         fwd = kernel.endswith("fwd")
         got[kernel] = {}
         for f in FWD_FAULTS if fwd else BWD_FAULTS:
-            if (f == "unrounded" and not rounds) or (
-                    fwd and not fault_applies(f, t)):
+            if (f == "unrounded" and not rounds) or not fault_applies(
+                    f, t, kernel=kernel):
                 continue
-            faulty = (faulty_plain(q, k, v, None, None, None, f) if fwd else
-                      faulty_plain(q, k, v, g, lse, dvec, f, tile=BWD_TILE))
+            faulty = ({"out": faulty_plain(q, k, v, f)} if fwd else
+                      faulty_grads(q, k, v, g, lse, dvec, f, kernel))
             got[kernel][f] = max(tile_rel_err(faulty[o], want[o])
                                  for o in outs)
     return got
@@ -1101,67 +1179,151 @@ def check_served_checkpoint(trained: dict) -> None:
         fail("the serving engine did not serve the trainer's checkpoint")
 
 
-def library_flash(q, k, v, dout):
-    """torch's SDPA, causal, on the folded [BH, T, D] inputs viewed as
-    [8, BH/8, T, D] (batch 8 of the training shape): the library
-    yardstick (timed here only). Returns (forward call, backward call):
-    the backward reruns autograd.grad of one recorded forward, so its
-    time holds the library's backward kernels and nothing of autograd's
-    set-up."""
+# The library yardstick's backends, pinned one at a time (torch.nn.
+# attention.SDPBackend names), so that each time names the kernels it
+# ran; the faster is the library time.
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION")
+
+
+def library_flash(q, k, v, dout, backend: str, causal: bool = True,
+                  batch: int = 8):
+    """torch's SDPA under one pinned backend on the folded [BH, T, D]
+    inputs viewed as [batch, BH / batch, T, D] (batch 8 of the training
+    shape): the library yardstick (timed here only). Returns (forward
+    call, backward call or None without dout): the backward reruns
+    autograd.grad of one forward recorded under the backend, so its time
+    holds that backend's backward kernels and nothing of autograd's
+    set-up. Raises RuntimeError where the backend does not take these
+    inputs on this card."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    pinned = getattr(SDPBackend, backend)
     bh, t, d = q.shape
-    shape = (8, bh // 8, t, d)
+    shape = (batch, bh // batch, t, d)
     qs, ks, vs = (x.view(shape) for x in (q, k, v))
+
+    def fwd():
+        with sdpa_kernel(pinned):
+            return F.scaled_dot_product_attention(qs, ks, vs,
+                                                  is_causal=causal)
+
+    fwd()
+    if dout is None:
+        return fwd, None
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (qs, ks, vs))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    with sdpa_kernel(pinned):
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     g = dout.view(shape)
-    return (lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True),
-            lambda: torch.autograd.grad(out, (qg, kg, vg), g,
-                                        retain_graph=True))
+    return fwd, lambda: torch.autograd.grad(out, (qg, kg, vg), g,
+                                            retain_graph=True)
+
+
+def time_sdpa(q, k, v, dout, label: str, causal: bool = True,
+              batch: int = 8, reps: int = 50) -> dict:
+    """{"fwd": {backend: ms}, "bwd": {backend: ms}} of SDPA under each
+    pinned backend that runs these inputs (bwd only with dout), CUDA
+    events over ``reps`` calls after 10 unrecorded ones, printed with the
+    backend each ran and, for the backward, the device time of its
+    kernels per call from a profiler trace (the events read the call as a
+    caller sees it, host included; PERF.md §7); a backend that refuses
+    these inputs is printed as such and left out."""
+    import torch
+
+    times = {"fwd": {}, "bwd": {}}
+    for backend in SDPA_BACKENDS:
+        try:
+            fwd, bwd = library_flash(q, k, v, dout, backend, causal, batch)
+            fwd_ms = cuda_ms(fwd, reps=reps, warmup=10)
+            bwd_ms = None if bwd is None else cuda_ms(bwd, reps=reps,
+                                                      warmup=10)
+            trace = None if bwd is None else trace_step(bwd, reps=5)
+        except RuntimeError as e:
+            print(f"time_sdpa {label} backend={backend} not run: "
+                  f"{str(e).splitlines()[0][:160]}", flush=True)
+            continue
+        finally:
+            fwd = bwd = None
+            torch.cuda.empty_cache()
+        times["fwd"][backend] = fwd_ms
+        if bwd_ms is not None:
+            times["bwd"][backend] = bwd_ms
+        device = trace and trace["busy_ms"]
+        print(f"time_sdpa {label} backend={backend} causal={causal} "
+              f"fwd_ms={fwd_ms!r} bwd_ms={bwd_ms!r} "
+              f"bwd_device_ms={device!r} ({reps} reps; the backward is "
+              f"autograd.grad of one recorded forward, dq, dk and dv in "
+              f"one call)", flush=True)
+    if not times["fwd"]:
+        fail(f"no pinned SDPA backend ran ({label})")
+    return times
+
+
+def fastest(times: dict) -> tuple[float | None, str | None]:
+    """(ms, backend) of the fastest backend in {backend: ms}."""
+    if not times:
+        return None, None
+    backend = min(times, key=times.get)
+    return times[backend], backend
+
+
+# Per flash kernel: (products over the causal pairs, [BH, T, D] tensors
+# and [BH, T] f32 rows read or written).
+FLASH_WORK = {"flash_attention_tri_fwd": (2, 4, 1),
+              "flash_attention_tri_bwd_dq": (3, 5, 2),
+              "flash_attention_tri_bwd_dkv": (4, 6, 2)}
+
+
+def flash_ops(bh, t, hd) -> dict:
+    """FLOPs per kernel: its causal products, T(T+1)/2 pairs per bh and
+    2 * hd FLOPs per pair per product."""
+    pairs = bh * t * (t + 1) // 2
+    return {name: products * 2 * hd * pairs
+            for name, (products, _, _) in FLASH_WORK.items()}
 
 
 def flash_bounds(bh, t, hd, elem, bw, peak) -> dict:
     """Least time per kernel: the larger of its bytes (each input read
-    once, each output written once) over the memory rate and its causal
-    products (T(T+1)/2 pairs per bh, 2 * hd FLOPs per pair per product)
-    over the peak rate."""
-    pairs = bh * t * (t + 1) // 2
+    once, each output written once) over the memory rate and its FLOPs
+    (flash_ops) over the peak rate."""
     tensor, row = bh * t * hd * elem, bh * t * 4
-    work = {  # (products, bytes)
-        "flash_attention_tri_fwd": (2, 4 * tensor + row),
-        "flash_attention_tri_bwd_dq": (3, 5 * tensor + 2 * row),
-        "flash_attention_tri_bwd_dkv": (4, 6 * tensor + 2 * row),
-    }
+    ops = flash_ops(bh, t, hd)
     out = {}
-    for name, (products, nbytes) in work.items():
-        t_bytes = nbytes / bw * 1e3
-        t_ops = products * 2 * hd * pairs / peak * 1e3
-        out[name] = max((t_bytes, "bytes"), (t_ops, "operations"))
+    for name, (_, tensors, rows) in FLASH_WORK.items():
+        t_bytes = (tensors * tensor + rows * row) / bw * 1e3
+        out[name] = max((t_bytes, "bytes"), (ops[name] / peak * 1e3,
+                                             "operations"))
     return out
 
 
-def print_fwd_config() -> None:
-    """ptxas's lines for the bf16 forward kernel (registers at launch,
-    spills) beside its shared memory and its registers after setmaxnreg
-    per head dim."""
+def print_flash_config() -> None:
+    """ptxas's lines for the bf16 forward and backward kernels (registers
+    at launch, spills) beside their shared memory and registers after
+    setmaxnreg per head dim."""
     from tpumon_torch.ops import _build
-    from tpumon_torch.ops.flash_attention import fwd_kernel_config
+    from tpumon_torch.ops.flash_attention import (
+        bwd_kernel_config,
+        fwd_kernel_config,
+    )
 
-    keep, lines = False, []
-    for ln in _build.ptxas_report("flash_attention_tri_fwd"):
-        if "Compiling entry function" in ln:
-            keep = "wgmma" in ln
-        if keep:
-            lines.append(ln)
-    config = {hd: fwd_kernel_config(hd) for hd in (32, 64, 128)}
-    print(f"flash_fwd_ptxas config={config} " + " | ".join(lines), flush=True)
+    for tag, source, config in (
+            ("flash_fwd_ptxas", "flash_attention_tri_fwd", fwd_kernel_config),
+            ("flash_bwd_ptxas", "flash_attention_tri_bwd", bwd_kernel_config)):
+        keep, lines = False, []
+        for ln in _build.ptxas_report(source):
+            if "Compiling entry function" in ln:
+                keep = "wgmma" in ln
+            if keep:
+                lines.append(ln)
+        configs = {hd: config(hd) for hd in (32, 64, 128)}
+        print(f"{tag} config={configs} " + " | ".join(lines), flush=True)
 
 
 def time_flash_kernels(gen, bw: float, peaks: dict) -> dict:
     """Kernel, plain and library times at the production training shape,
-    bf16, with their bounds."""
+    bf16, with their bounds; the triangle forward and both backward
+    kernels at the seq-8k shape beside SDPA and their bounds."""
     import torch
 
     from tpumon_torch.ops import flash_attention as fa
@@ -1170,6 +1332,7 @@ def time_flash_kernels(gen, bw: float, peaks: dict) -> dict:
     before = flash_counts()
     q, k, v, g, out, lse, dvec = flash_inputs(gen, bh, t, hd, torch.bfloat16)
     bounds = flash_bounds(bh, t, hd, 2, bw, peaks["bfloat16"])
+    ops = flash_ops(bh, t, hd)
     calls = {
         "flash_attention_tri_fwd": (
             lambda: fa.flash_attention_tri_fwd(q, k, v),
@@ -1183,22 +1346,29 @@ def time_flash_kernels(gen, bw: float, peaks: dict) -> dict:
             lambda: fa.flash_attention_tri_bwd_dkv_reference(
                 q, k, v, g, lse, dvec)),
     }
-    sdpa_fwd, sdpa_bwd = library_flash(q, k, v, g)
-    lib_fwd = cuda_ms(sdpa_fwd, reps=50)
-    lib_bwd = cuda_ms(sdpa_bwd, reps=50)
-    del sdpa_fwd, sdpa_bwd
+    sdpa = time_sdpa(q, k, v, g, "BH128/T1024/hd128")
+    lib_fwd, fwd_backend = fastest(sdpa["fwd"])
+    lib_bwd, bwd_backend = fastest(sdpa["bwd"])
     times = {}
     for name, (kernel, plain) in calls.items():
         ms = cuda_ms(kernel, reps=10)
         plain_ms = cuda_ms(plain, reps=3)
         bound_ms, bound_by = bounds[name]
-        lib = lib_fwd if name == "flash_attention_tri_fwd" else lib_bwd
+        fwd = name == "flash_attention_tri_fwd"
+        lib = lib_fwd if fwd else lib_bwd
         times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib}
         print(f"time_{name} shape=BH128/T1024/hd128 bf16 kernel_ms={ms!r} "
               f"plain_ms={plain_ms!r} library_sdpa_ms={lib!r} "
+              f"(backend {fwd_backend if fwd else bwd_backend}) "
               f"bound_ms={bound_ms!r} ({bound_by}) "
-              f"kernel_over_bound={ms / bound_ms!r}", flush=True)
+              f"kernel_over_bound={ms / bound_ms!r} "
+              f"kernel_tflops={ops[name] / ms / 1e9!r}", flush=True)
+    dq_ms = times["flash_attention_tri_bwd_dq"]["ms"]
+    dkv_ms = times["flash_attention_tri_bwd_dkv"]["ms"]
+    print(f"time_flash_bwd shape=BH128/T1024/hd128 bf16 dq_plus_dkv_ms="
+          f"{dq_ms + dkv_ms!r} sdpa_bwd_ms={lib_bwd!r} (backend "
+          f"{bwd_backend}) ratio={(dq_ms + dkv_ms) / lib_bwd!r}", flush=True)
     q, k, v, g = (x.float() for x in (q, k, v, g))
     for name, f32_call in (
             ("flash_attention_tri_fwd",
@@ -1209,29 +1379,35 @@ def time_flash_kernels(gen, bw: float, peaks: dict) -> dict:
              lambda: fa.flash_attention_tri_bwd_dkv(q, k, v, g, lse, dvec))):
         print(f"time_{name} shape=BH128/T1024/hd128 f32 (CUDA cores) "
               f"kernel_ms={cuda_ms(f32_call, reps=5)!r}", flush=True)
-    print(f"time_sdpa causal bf16 fwd_ms={lib_fwd!r} bwd_ms={lib_bwd!r} "
-          f"(autograd.grad of one recorded forward, 50 reps; the library's "
-          f"backward computes dq, dk and dv in one call)", flush=True)
     del q, k, v, g, out, lse, dvec
     torch.cuda.empty_cache()
-    # The triangle forward at the seq-8k training shape (batch 1 x 16
-    # heads), beside SDPA's causal forward and the bound.
+    # The seq-8k training shape (batch 1 x 16 heads): the triangle forward
+    # and both backward kernels beside SDPA and their bounds.
     bh, t = 16, 8192
-    q, k, v = (torch.randn(bh, t, hd, generator=gen, device=gen.device).to(
-        torch.bfloat16) for _ in range(3))
-    bound_ms, bound_by = flash_bounds(bh, t, hd, 2, bw, peaks["bfloat16"])[
-        "flash_attention_tri_fwd"]
-    view = (1, bh, t, hd)
-    ms = cuda_ms(lambda: fa.flash_attention_tri_fwd(q, k, v), reps=10)
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q.view(view), k.view(view), v.view(view), is_causal=True), reps=10)
-    print(f"time_flash_attention_tri_fwd shape=BH16/T8192/hd128 bf16 "
-          f"kernel_ms={ms!r} library_sdpa_ms={lib!r} bound_ms={bound_ms!r} "
-          f"({bound_by}) kernel_over_bound={ms / bound_ms!r} "
-          f"kernel_tflops={2 * 2 * hd * bh * t * (t + 1) / 2 / ms / 1e9!r}",
-          flush=True)
+    q, k, v, g = (torch.randn(bh, t, hd, generator=gen, device=gen.device).to(
+        torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention_tri_fwd(q, k, v)
+    dvec = (g.float() * out.float()).sum(-1)
+    bounds = flash_bounds(bh, t, hd, 2, bw, peaks["bfloat16"])
+    ops = flash_ops(bh, t, hd)
+    sdpa = time_sdpa(q, k, v, g, "BH16/T8192/hd128", batch=1, reps=10)
+    for name, call in (
+            ("flash_attention_tri_fwd",
+             lambda: fa.flash_attention_tri_fwd(q, k, v)),
+            ("flash_attention_tri_bwd_dq",
+             lambda: fa.flash_attention_tri_bwd_dq(q, k, v, g, lse, dvec)),
+            ("flash_attention_tri_bwd_dkv",
+             lambda: fa.flash_attention_tri_bwd_dkv(q, k, v, g, lse, dvec))):
+        ms = cuda_ms(call, reps=10)
+        bound_ms, bound_by = bounds[name]
+        lib, backend = fastest(sdpa["fwd" if name.endswith("fwd") else "bwd"])
+        print(f"time_{name} shape=BH16/T8192/hd128 bf16 kernel_ms={ms!r} "
+              f"library_sdpa_ms={lib!r} (backend {backend}) "
+              f"bound_ms={bound_ms!r} ({bound_by}) "
+              f"kernel_over_bound={ms / bound_ms!r} "
+              f"kernel_tflops={ops[name] / ms / 1e9!r}", flush=True)
     set_flash_counts(before)
-    del q, k, v
+    del q, k, v, g, out, lse, dvec
     torch.cuda.empty_cache()
     return times
 
@@ -1239,9 +1415,9 @@ def time_flash_kernels(gen, bw: float, peaks: dict) -> dict:
 def trace_step(fn, reps: int = 3):
     """device_busy plus where the device time of one call goes: the port's
     flash kernels (the forward's ``flash_fwd*`` and the backward's
-    ``flash_tri_bwd*``; ``flash_fwd_ms`` is the forward's part of them),
-    matrix products, and the rest, from one torch.profiler trace; None
-    without device activity."""
+    ``flash_tri_bwd*``; ``flash_fwd_ms`` and ``flash_bwd_ms`` are their
+    parts), matrix products, and the rest, from one torch.profiler trace;
+    None without device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1259,7 +1435,7 @@ def trace_step(fn, reps: int = 3):
     if not kernels:
         return None
     parts = {"flash_kernels": 0.0, "matmul": 0.0, "other": 0.0}
-    flash_fwd_ms = 0.0
+    flash_fwd_ms = flash_bwd_ms = 0.0
     by_name: dict[str, float] = {}
     for e in kernels:
         name = e.name.lower()
@@ -1269,12 +1445,14 @@ def trace_step(fn, reps: int = 3):
                     "gemm", "cutlass", "xmma", "nvjet", "matmul")) else "other")
         parts[part] += ms
         flash_fwd_ms += ms if "flash_fwd" in name else 0.0
+        flash_bwd_ms += ms if "flash_tri_bwd" in name else 0.0
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + ms
     busy = sum(parts.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share":
             1 - busy / wall_ms, "kernels_per_step": len(kernels) / reps,
             **parts, "flash_fwd_ms": flash_fwd_ms,
+            "flash_bwd_ms": flash_bwd_ms,
             "top_ms": [(n, round(ms, 3)) for n, ms in top]}
 
 
@@ -1908,9 +2086,10 @@ def check_flash_rect(gen) -> dict:
                 rel = tile_rel_err(got, want)
                 err = (got.float() - want.float()).abs().max().item()
                 finite = bool(torch.isfinite(got.float()).all().item())
-                faults = {f: tile_rel_err(faulty_plain(
-                    q, k, v, None, None, None, f, causal)["out"], want)
-                    for f in FLASH_RECT_FAULTS if fault_applies(f, t, causal)}
+                faults = {f: tile_rel_err(faulty_plain(q, k, v, f, causal),
+                                          want)
+                          for f in FLASH_RECT_FAULTS
+                          if fault_applies(f, t, causal)}
                 missed = [f for f, r in faults.items() if not r > tol]
                 ok = finite and rel <= tol
                 print(f"flash_rect_vs_plain {name} BH{bh}/T{t}/hd{hd} {dname} "
@@ -1992,11 +2171,10 @@ def time_gemm_kernels(gen, bw: float, peaks: dict) -> dict:
 
 
 def time_flash_rect(gen, bw: float, peaks: dict) -> dict:
-    """The rectangular forward's kernel, plain and SDPA times at the
-    training shape, bf16, causal and not, with their bounds; returns the
-    causal ones."""
+    """The rectangular forward's kernel, plain and SDPA (pinned backends)
+    times at the training shape, bf16, causal and not, with their bounds;
+    returns the causal ones, with the faster backend's time."""
     import torch
-    import torch.nn.functional as F
 
     from tpumon_torch.ops import flash_attention as fa
 
@@ -2004,7 +2182,6 @@ def time_flash_rect(gen, bw: float, peaks: dict) -> dict:
     bh, t, hd = 128, 1024, 128
     q, k, v = (torch.randn(bh, t, hd, generator=gen, device=gen.device).to(
         torch.bfloat16) for _ in range(3))
-    shape = (8, bh // 8, t, hd)
     nbytes = 4 * bh * t * hd * 2
     out = {}
     for causal in (True, False):
@@ -2016,13 +2193,13 @@ def time_flash_rect(gen, bw: float, peaks: dict) -> dict:
                      reps=20)
         plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v,
                                                                 causal), reps=3)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q.view(shape), k.view(shape), v.view(shape), is_causal=causal),
-            reps=50)
+        lib_ms, backend = fastest(time_sdpa(
+            q, k, v, None, "rect BH128/T1024/hd128", causal=causal)["fwd"])
         print(f"time_flash_attention shape=BH128/T1024/hd128 bf16 "
               f"causal={causal} kernel_ms={ms!r} plain_ms={plain_ms!r} "
-              f"library_sdpa_ms={lib_ms!r} bound_ms={bound_ms!r} "
-              f"({bound_by}) kernel_over_bound={ms / bound_ms!r}", flush=True)
+              f"library_sdpa_ms={lib_ms!r} (backend {backend}) "
+              f"bound_ms={bound_ms!r} ({bound_by}) "
+              f"kernel_over_bound={ms / bound_ms!r}", flush=True)
         out[causal] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib_ms}
     fa.flash_attention.launches = before
@@ -2055,7 +2232,7 @@ def main() -> int:
     print("ptxas: " + " | ".join(
         ln for n in _build.sources() for ln in _build.ptxas_report(n)
         if n != "paged_attention"), flush=True)
-    print_fwd_config()
+    print_flash_config()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = check_kernel(gen)

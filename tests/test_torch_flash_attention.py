@@ -55,19 +55,24 @@ def test_forward_and_lse_match_reference(dtype, t, d):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_backward_matches_reference(dtype):
+@pytest.mark.parametrize("t,d,block", [(384, 64, 128), (320, 64, 64)])
+def test_backward_matches_reference(dtype, t, d, block):
     """Both packages' backward on the same q/k/v/out/lse/dout: the
-    reference forward's out and lse, fed to both."""
-    q, k, v, g = case()
+    reference forward's out and lse, fed to both. T = 320 = 5 x 64 at
+    64-row blocks: the bf16 kernels' 128-row owned tiles reach past T
+    there (the CUDA tests hold the kernels to these plain versions)."""
+    q, k, v, g = case(t=t, d=d)
     jq, jk, jv, jg = to_jax((q, k, v, g), jnp.dtype(dtype))
-    jout, jlse = jax_fa.flash_attention_tri_fwd(jq, jk, jv, interpret=True)
+    jout, jlse = jax_fa.flash_attention_tri_fwd(jq, jk, jv, block=block,
+                                                interpret=True)
     want = jax_fa.flash_attention_tri_bwd(jq, jk, jv, jout, jlse, jg,
-                                          interpret=True)
+                                          block=block, interpret=True)
     tdt = getattr(torch, dtype)
     tq, tk, tv, tg = to_torch((q, k, v, g), tdt)
     out = torch.tensor(jax_f32(jout)).to(tdt)
     got = fa.flash_attention_tri_bwd(tq, tk, tv, out,
-                                     torch.tensor(jax_f32(jlse)), tg)
+                                     torch.tensor(jax_f32(jlse)), tg,
+                                     block=block)
     for a, b in zip(got, want):
         assert a.dtype == tdt
         assert_close(a, b, TOL[dtype]["grad"])
@@ -81,9 +86,9 @@ def test_planted_faults_read_over_the_card_limits(dtype, d, t):
     """The limits the CUDA kernels are held to (chip_smoke.FLASH_TOL, also
     tests/test_torch_cuda.py's, at its shapes) catch every planted fault
     of a tiled kernel that applies at this T: each reads over its limit
-    here, where the plain versions compute them. Without a fault the
-    model is the plain versions, at the forward's 128-row tiles and the
-    backward's 64-row ones."""
+    here, where the plain versions compute them. Without a fault each
+    model is the plain versions: the forward's at its 128-row tiles, each
+    backward kernel's at its own (chip_smoke.BWD_TILES)."""
     import chip_smoke
 
     q, k, v, g = to_torch(case(t=t, d=d), getattr(torch, dtype))
@@ -94,11 +99,13 @@ def test_planted_faults_read_over_the_card_limits(dtype, d, t):
                                                          dvec)
     want["dk"], want["dv"] = fa.flash_attention_tri_bwd_dkv_reference(
         q, k, v, g, lse, dvec)
-    for tile in (chip_smoke.FWD_TILE, chip_smoke.BWD_TILE):
-        clean = chip_smoke.faulty_plain(q, k, v, g, lse, dvec, None,
-                                        tile=tile)
-        for name, x in want.items():
-            assert chip_smoke.tile_rel_err(clean[name], x) <= 1e-6
+    clean = chip_smoke.faulty_plain(q, k, v, None)
+    assert chip_smoke.tile_rel_err(clean, want["out"]) <= 1e-6
+    for kernel in chip_smoke.BWD_TILES:
+        clean = chip_smoke.faulty_grads(q, k, v, g, lse, dvec, None, kernel)
+        assert set(clean) == set(chip_smoke.FLASH_OUTPUTS[kernel])
+        for name, x in clean.items():
+            assert chip_smoke.tile_rel_err(x, want[name]) <= 1e-6
     readings = chip_smoke.fault_readings(q, k, v, g, lse, dvec, want)
     caught = {f"{kernel}:{fault}": r / chip_smoke.flash_limit(kernel, dtype)
               for kernel, faults in readings.items()
@@ -106,10 +113,12 @@ def test_planted_faults_read_over_the_card_limits(dtype, d, t):
               if chip_smoke.fault_required(kernel, fault)}
     # Forward: diag_unmasked, last_diag_dropped, wg1_mask_offset, and
     # past one 128-row k tile no_rescale and stale_stage; each backward
-    # kernel: diag_unmasked, last_diag_dropped, no_d, and in bf16
+    # kernel (T > 64 here, so a second streamed tile and a second
+    # warpgroup's rows): diag_unmasked, last_diag_dropped, no_d,
+    # stale_stage, wg1_mask_offset, row_stats_offset, and in bf16
     # unrounded.
     fwd = 3 + (2 if t > chip_smoke.FWD_TILE else 0)
-    assert len(caught) == fwd + 2 * (3 if dtype == "float32" else 4)
+    assert len(caught) == fwd + 2 * (6 if dtype == "float32" else 7)
     assert min(caught.values()) > 1, caught
 
 
@@ -142,14 +151,12 @@ def test_rect_planted_faults_read_over_the_card_limit(causal, dtype):
     for d, t in ((32, 128), (64, 384), (128, 128), (64, 192), (128, 320)):
         q, k, v, _ = to_torch(case(t=t, d=d), getattr(torch, dtype))
         want = fa.flash_attention_reference(q, k, v, causal)
-        clean = chip_smoke.faulty_plain(q, k, v, None, None, None, None,
-                                        causal)["out"]
+        clean = chip_smoke.faulty_plain(q, k, v, None, causal)
         assert chip_smoke.tile_rel_err(clean, want) <= 1e-6
         for fault in chip_smoke.FLASH_RECT_FAULTS:
             if not chip_smoke.fault_applies(fault, t, causal):
                 continue
-            got = chip_smoke.faulty_plain(q, k, v, None, None, None, fault,
-                                          causal)["out"]
+            got = chip_smoke.faulty_plain(q, k, v, fault, causal)
             assert chip_smoke.tile_rel_err(got, want) > tol, (fault, d, t)
 
 
@@ -213,14 +220,20 @@ def test_cpu_tensors_run_the_plain_versions_and_count_nothing():
     assert torch.equal(out, fa.flash_attention_tri_fwd_reference(q, k, v)[0])
 
 
-@pytest.mark.parametrize("name", sorted(flash_variants.VARIANTS))
-def test_flash_variants_apply_to_the_kernel_source(name):
+@pytest.mark.parametrize(
+    "kernel,name",
+    [("fwd", n) for n in sorted(flash_variants.VARIANTS)]
+    + [("bwd", n) for n in sorted(flash_variants.BWD_VARIANTS)],
+    ids=[*sorted(flash_variants.VARIANTS),
+         *(f"bwd-{n}" for n in sorted(flash_variants.BWD_VARIANTS))])
+def test_flash_variants_apply_to_the_kernel_source(kernel, name):
     """Every source variant that tpumon_torch.ops.flash_variants times on
-    the card finds its substitution targets in csrc/flash_fwd.cuh, and
-    only the built kernel is the unchanged source."""
-    subs = flash_variants.VARIANTS[name]
-    src = flash_variants.variant_source(subs)
-    assert (src == flash_variants.variant_source(())) == (not subs)
+    the card finds its substitution targets in its source (the forward's
+    csrc/flash_fwd.cuh, the backward's csrc/flash_attention_tri_bwd.cu),
+    and only the built kernel is the unchanged source."""
+    subs = flash_variants.SOURCES[kernel][2][name]
+    src = flash_variants.variant_source(subs, kernel)
+    assert (src == flash_variants.variant_source((), kernel)) == (not subs)
 
 
 def test_ring_attention_pieces_match_reference():

@@ -10,44 +10,82 @@
 // kernels walk the lower-triangle pairs row-major (dQ) and column-major
 // (dK/dV) through prefetched index arrays and carry each accumulator in
 // VMEM scratch across the sequential grid. Here each output tile is owned
-// by one CTA that loops over its own pairs: dQ by (bh, 64-row q tile)
-// over the k tiles at or below the diagonal, dK/dV by (bh, 64-row k tile)
-// over the q tiles at or above it. No atomics, so the result is
-// deterministic.
+// by one CTA that loops over its own pairs: dQ by (bh, 128-row q tile)
+// over the k tiles up to its diagonal, dK/dV by (bh, 128-row k tile) over
+// the q tiles from its diagonal to T. No atomics, so the result is
+// deterministic; the two passes match the reference's two pallas_calls.
 //
 // Bound: at the training shape (BH 128, T 1024, D 128, bf16) the causal
 // pairs need 3 products in the dQ pass (S, dP, dQ: 51.6 GFLOP) and 4 in
 // the dK/dV pass (S, dP, dV, dK: 68.8 GFLOP) against 169 MB and 202 MB of
 // inputs and outputs, so the bf16 tensor-core rate bounds both (52 us and
-// 70 us at 989 TFLOP/s). The two-pass design recomputes S and dP in both
-// passes: 7 products where a fused backward needs 5.
+// 70 us at 989 TFLOP/s; at BH 16 / T 8192, 417 us and 556 us). The
+// two-pass design recomputes S and dP in both passes: 7 products where a
+// fused backward needs 5.
 //
-// What this design does about it: each K/V (dQ) or Q/dO (dK/dV) tile is
-// read once per owned tile, every intermediate stays on chip, and no pair
-// above the diagonal is touched. As in the forward there are two
-// variants, both with synchronous loads:
-// - bf16 (the training path): the *_tc_kernels, products on tensor cores
-//   with mma.sync.m16n8k16 (flash_tri_mma.cuh). dQ streams 64-row k
-//   tiles; dK/dV streams 32-row q tiles, which keeps its two 16 x D f32
-//   accumulators per warp in registers. P and dS go from the score
-//   accumulators to the next product's operand in registers; the tiles a
-//   product reads along its other axis (K for dQ, Q and dO for dK/dV) are
-//   staged a second time, transposed.
-// - f32: products on CUDA cores in f32 (tensor cores would round f32 to
-//   TF32), 32-row streamed tiles, bound by the f32 FMA rate.
-// wgmma, TMA, double buffering and a fused one-pass backward are the
-// later redesign.
+// What this design does about it (bf16, the training path): only wgmma
+// reaches the tensor cores' full rate, and only if its operands are on
+// chip when it runs. Both kernels have the forward's shape
+// (flash_fwd.cuh): 384 threads, one TMA thread in warpgroup 0 (setmaxnreg
+// hands its registers to the others) and two arithmetic warpgroups of 64
+// owned rows each (wgmma's m64).
+// - The owned tiles (Q and dO for dQ, K and V for dK/dV) are loaded once;
+//   the other side streams through a ring of 3 stages of 64-row tiles
+//   (K and V for dQ; Q, dO and their 64 lse and D values, by a bulk copy,
+//   for dK/dV), each stage with a full and an empty mbarrier, the loading
+//   thread running ahead by the ring's depth.
+// - The score products S = Q K^T and dP = dO V^T (dK/dV: S^T = K Q^T and
+//   dP^T = V dO^T, the owned rows first) are wgmma.m64n64k16 with both
+//   operands K-major in shared memory. P and dS are computed on the f32
+//   accumulators in wgmma's fragment layout, rounded to bf16 pairwise
+//   into register-A fragments, and the gradient products (dQ += dS K;
+//   dV += P^T dO, dK += dS^T Q) are the register-A wgmma.m64n{HD}k16
+//   with the streamed tile read MN-major through the descriptor: nothing
+//   is staged twice or transposed by threads, and P and dS never touch
+//   shared memory.
+// - dQ: a warpgroup issues tile j's score products and tile j-1's
+//   gradient product together, computes P_j and dS_j while the gradient
+//   product runs, and releases tile j-1's stage when it completes; the
+//   two warpgroups take turns issuing (ping-pong over two named
+//   barriers), so one's elementwise work also runs under the other's
+//   products.
+// - dK/dV holds two m64n{HD} accumulators, and its registers (240 after
+//   setmaxnreg) do not also hold a tile's scores while the previous
+//   tile's fragments are in flight: a warpgroup runs tile j-1's gradient
+//   products, then tile j's score products, then P_j and dS_j, so its
+//   elementwise work runs under the other warpgroup's products. The
+//   first k16 slice of each score product overwrites its accumulator
+//   write-only (hopper.cuh), so the last tile's scores die once packed.
+// - Only the warpgroup's diagonal tile is masked. dQ's warpgroup 0 needs
+//   one k tile fewer than warpgroup 1, and dK/dV's warpgroup 1 one q tile
+//   fewer than warpgroup 0 (its keys start 64 rows later); each still
+//   waits for and releases every stage, so the ring's phases stay
+//   balanced.
+// - The grid runs a bh's tiles next to each other, longest first (dQ:
+//   the last q tile; dK/dV: the first k tile), so the CTAs in flight
+//   share few bhs' streamed tiles in L2.
+// - Tiles sit in shared memory as TMA writes them (flash_wgmma.cuh); the
+//   maps are 3-d [BH, T, D], so an owned 128-row tile that reaches past T
+//   (T = 64 x odd) loads zeros there. A streamed 64-row tile never does,
+//   and neither do dK/dV's lse and D copies. dQ's rows past T read lse
+//   and D as 0 (zero rows then give dS = 0). Stores are clipped to T.
+// The f32 kernels run the products on CUDA cores in f32 (tensor cores
+// would round f32 to TF32): 64 owned rows, 32-row streamed tiles with
+// synchronous loads, bound by the f32 FMA rate.
 //
-// Numerics follow the reference: P and dS in f32, rounded to the input
-// type right before their products (`pmat.astype(do.dtype)`,
-// `ds.astype(k.dtype)`), f32 accumulators, outputs in the input type.
+// Numerics follow the reference: S, P, dP and dS in f32, P and dS rounded
+// to the input type right before their products (`pmat.astype(do.dtype)`,
+// `ds.astype(k.dtype)`), f32 accumulators, outputs in the input type. The
+// bf16 kernels take P as ex2.approx of a pre-scaled FFMA (prob; relative
+// error about 2^-22, results below 2^-126 flushed to 0).
 //
 // Supported: float32 and bfloat16, head dim 32, 64 or 128, T a multiple
 // of 64. The Python wrapper (tpumon_torch/ops/flash_attention.py) checks
 // shapes and types; the launchers re-check what they index by.
 
 #include "flash_tri_common.cuh"
-#include "flash_tri_mma.cuh"
+#include "flash_wgmma.cuh"
+
 
 namespace {
 
@@ -228,183 +266,503 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-// bf16: tensor cores. grid (T / 64, BH), 4 warps; warp w owns q rows
-// 16 w.. of the CTA's 64. Per 64-row k tile: S = Q K^T and dP = dO V^T
-// (mma, Q and dO fragments read from shared memory), P and dS in f32, dS
-// repacked as bf16 A fragments, dQ += dS K against K staged transposed.
+// --- bf16: wgmma over TMA-fed rings ---------------------------------------
+
+namespace hop {
+
+using namespace tpumon::flash::wg;
+
+constexpr int kOwn = 128;       // rows a CTA owns, 64 per arithmetic warpgroup
+constexpr int kDqK = 64;        // dQ: key rows per streamed stage
+constexpr int kDqStages = 3;    // dQ: K/V stages
+constexpr int kDkvQ = 64;       // dK/dV: query rows per streamed stage
+constexpr int kDkvStages = 3;   // dK/dV: Q/dO/lse/D stages
+constexpr int kThreads = 384;   // 3 warpgroups
+// Whether the arithmetic warpgroups take turns issuing (Turns): dQ 5-14%
+// faster with, dK/dV 46-62% slower (PERF.md).
+constexpr bool kDqPingPong = true, kDkvPingPong = false;
+// Registers per thread after setmaxnreg: warpgroup 0 (loads), warpgroups
+// 1-2 (the products' accumulators and the P/dS fragments). 24 + 2 x 240
+// <= 3 x 168, the count every thread starts with under
+// __launch_bounds__(384, 1).
+constexpr int kLoadRegs = 24, kMathRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(64 % kDkvQ == 0, "T % 64 == 0: a streamed q tile never reaches past T");
+
+// Shared memory, in order. dQ: Q and dO (kOwn rows each), kDqStages K
+// tiles, as many V tiles, then the mbarriers: Q/dO's, and a full and an
+// empty one per stage. dK/dV: K and V (kOwn rows), kDkvStages Q tiles,
+// as many dO tiles, lse rows and D rows, then the mbarriers: K/V's, a full
+// and an empty one per stage. + 1024: the tiles start at the first
+// 1024-byte boundary (every tile is a multiple of 1024 bytes).
 template <int HD>
-__global__ void __launch_bounds__(tc::kThreads)
-flash_tri_bwd_dq_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
-                           const tc::bf16* __restrict__ v, const tc::bf16* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ dvec,
-                           tc::bf16* __restrict__ dq, int t, float scale) {
-  using namespace tc;
-  constexpr int kBlk = 64;
-  constexpr int LD = ld<HD>(), LDT = ld<kBlk>();
-  constexpr int NS = kBlk / 8, NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_bf16);  // [kBlk][LD]
-  bf16* sdo = sq + kBlk * LD;                     // [kBlk][LD]
-  bf16* sk = sdo + kBlk * LD;                     // [kBlk][LD]
-  bf16* sv = sk + kBlk * LD;                      // [kBlk][LD]
-  bf16* skt = sv + kBlk * LD;                     // [HD][LDT]: K transposed
-
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlk;  // longest rows first
-  const size_t base = (size_t)bh * t * HD;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const int g = lane_g(), tq = lane_t();
-
-  stage_rows<kBlk, HD, LD>(sq, q + base + (size_t)q0 * HD);
-  stage_rows<kBlk, HD, LD>(sdo, dout + base + (size_t)q0 * HD);
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const size_t row = (size_t)bh * t + q0 + r0 + g + 8 * h;
-    lse_r[h] = lse[row];
-    d_r[h] = dvec[row];
-  }
-  float acc[NO][4];
-  zero_frags(acc);
-  for (int k0 = 0; k0 <= q0; k0 += kBlk) {
-    __syncthreads();  // the previous tile is consumed (first pass: sq, sdo staged)
-    stage_rows<kBlk, HD, LD>(sk, k + base + (size_t)k0 * HD);
-    stage_rows<kBlk, HD, LD>(sv, v + base + (size_t)k0 * HD);
-    stage_cols<kBlk, HD, LDT>(skt, k + base + (size_t)k0 * HD);
-    __syncthreads();
-
-    float s[NS][4], dp[NS][4];
-    zero_frags(s);
-    zero_frags(dp);
-    mma_smem<NS, HD / 16, LD, LD>(s, sq, r0, sk);
-    mma_smem<NS, HD / 16, LD, LD>(dp, sdo, r0, sv);
-    const bool diag = k0 == q0;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const bool masked = diag && n * 8 + 2 * tq + (e & 1) > r0 + g + 8 * h;
-        const float p = masked ? 0.f : expf(s[n][e] * scale - lse_r[h]);
-        s[n][e] = p * (dp[n][e] - d_r[h]) * scale;  // dS
-      }
-    uint32_t da[NS / 2][4];
-    to_a(da, s);  // dS rounded to bf16, as the reference's ds.astype(k.dtype)
-    mma_regs<NO, NS / 2, LDT>(acc, da, skt);
-  }
-  store(dq + base + (size_t)q0 * HD, r0, acc);
+constexpr int dq_smem() {
+  return 2 * Tile<HD, kOwn>::kBytes + 2 * kDqStages * Tile<HD, kDqK>::kBytes +
+         (1 + 2 * kDqStages) * 8 + 1024;
+}
+template <int HD>
+constexpr int dkv_smem() {
+  return 2 * Tile<HD, kOwn>::kBytes + 2 * kDkvStages * Tile<HD, kDkvQ>::kBytes +
+         2 * kDkvStages * kDkvQ * 4 + (1 + 2 * kDkvStages) * 8 + 1024;
 }
 
-// bf16: tensor cores. grid (T / 64, BH), 4 warps; warp w owns key rows
-// 16 w.. of the CTA's 64. Per 32-row q tile: S^T = K Q^T and dP^T =
-// V dO^T (rows = keys), P^T and dS^T in f32, repacked as bf16 A fragments,
-// dV += P^T dO and dK += dS^T Q against dO and Q staged transposed.
-template <int HD>
-__global__ void __launch_bounds__(tc::kThreads)
-flash_tri_bwd_dkv_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
-                            const tc::bf16* __restrict__ v, const tc::bf16* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ dvec,
-                            tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv, int t,
-                            float scale) {
-  using namespace tc;
-  constexpr int kOwnRows = 64, kQ = 32;
-  constexpr int LD = ld<HD>(), LDT = ld<kQ>();
-  constexpr int NS = kQ / 8, NO = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  bf16* sk = reinterpret_cast<bf16*>(smem_bf16);  // [kOwnRows][LD]
-  bf16* sv = sk + kOwnRows * LD;                  // [kOwnRows][LD]
-  bf16* sq = sv + kOwnRows * LD;                  // [kQ][LD]
-  bf16* sdo = sq + kQ * LD;                       // [kQ][LD]
-  bf16* sqt = sdo + kQ * LD;                      // [HD][LDT]: Q transposed
-  bf16* sdot = sqt + HD * LDT;                    // [HD][LDT]: dO transposed
-  float* sl = reinterpret_cast<float*>(sdot + HD * LDT);  // [kQ] lse
-  float* sd = sl + kQ;                                    // [kQ] D
+// P = exp(S scale - lse) = 2^(S scale log2(e) - lse log2(e)), as the
+// forward takes it: one FFMA and one EX2 a score (scale log2(e) is
+// loop-invariant, lse log2(e) one FMUL per row or column). expf of the
+// plain version's own steps is 8-21% slower here and agrees no better:
+// where P and dS round to bf16 otherwise than in the plain version, the
+// scores' summation order decides (PERF.md).
+__device__ __forceinline__ float prob(float s, float scale, float lse) {
+  return ex2(fmaf(s, scale * kLog2e, -lse * kLog2e));
+}
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kOwnRows;  // k tile 0 has the most q tiles: first
-  const size_t base = (size_t)bh * t * HD;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const int g = lane_g(), tq = lane_t();
+// dQ's P and dS on this thread's fragments of one k tile, in place: s
+// holds S = Q K^T, dp holds dP = dO V^T; s[4 j + 2 i + e] is query row
+// `rel + 8 i` relative to the tile's first key, key column 8 j + 2 tq + e.
+// P (prob) is 0 at keys past the row when MASK; dS = P (dP - D) scale
+// goes into dp.
+template <bool MASK, int N>
+__device__ __forceinline__ void dscores(const float (&s)[N / 2], float (&dp)[N / 2],
+                                        const float (&lse)[2], const float (&d)[2], float scale,
+                                        int rel, int tq) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * i + e;
+        float p = prob(s[x], scale, lse[i]);
+        if (MASK && 8 * j + 2 * tq + e > rel + 8 * i) p = 0.f;
+        dp[x] = p * (dp[x] - d[i]) * scale;
+      }
+}
 
-  stage_rows<kOwnRows, HD, LD>(sk, k + base + (size_t)k0 * HD);
-  stage_rows<kOwnRows, HD, LD>(sv, v + base + (size_t)k0 * HD);
-  float acc_dk[NO][4], acc_dv[NO][4];
-  zero_frags(acc_dk);
-  zero_frags(acc_dv);
-  for (int q0 = k0; q0 < t; q0 += kQ) {  // q tiles at or above the diagonal
-    __syncthreads();  // the previous tile is consumed (first pass: sk, sv staged)
-    stage_rows<kQ, HD, LD>(sq, q + base + (size_t)q0 * HD);
-    stage_rows<kQ, HD, LD>(sdo, dout + base + (size_t)q0 * HD);
-    stage_cols<kQ, HD, LDT>(sqt, q + base + (size_t)q0 * HD);
-    stage_cols<kQ, HD, LDT>(sdot, dout + base + (size_t)q0 * HD);
-    if (threadIdx.x < kQ) {
-      sl[threadIdx.x] = lse[(size_t)bh * t + q0 + threadIdx.x];
-      sd[threadIdx.x] = dvec[(size_t)bh * t + q0 + threadIdx.x];
+// dK/dV's P^T and dS^T on this thread's fragments of one q tile, in
+// place: rows are keys, columns queries. s[4 j + 2 i + e] is key row
+// `rel + 8 i` relative to the tile's first query, query column
+// 8 j + 2 tq + e, whose lse and D the stage holds in shared memory. P^T
+// goes into s (0 at queries before the key when MASK), dS^T into dp.
+template <bool MASK, int N>
+__device__ __forceinline__ void dscores_t(float (&s)[N / 2], float (&dp)[N / 2],
+                                          const float* lse, const float* d, float scale, int rel,
+                                          int tq) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * tq);
+    const float2 dc = *reinterpret_cast<const float2*>(d + 8 * j + 2 * tq);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float le = e ? l.y : l.x, de = e ? dc.y : dc.x;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int x = 4 * j + 2 * i + e;
+        float p = prob(s[x], scale, le);
+        if (MASK && 8 * j + 2 * tq + e < rel + 8 * i) p = 0.f;
+        s[x] = p;
+        dp[x] = p * (dp[x] - de) * scale;
+      }
     }
-    __syncthreads();
-
-    float s[NS][4], dp[NS][4];
-    zero_frags(s);
-    zero_frags(dp);
-    mma_smem<NS, HD / 16, LD, LD>(s, sk, r0, sq);    // S^T [key, query]
-    mma_smem<NS, HD / 16, LD, LD>(dp, sv, r0, sdo);  // dP^T
-    const bool diag = q0 < k0 + kOwnRows;  // only these tiles hold queries before a key
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * tq + (e & 1);
-        const bool masked = diag && q0 + col < k0 + r0 + g + 8 * (e >> 1);
-        const float p = masked ? 0.f : expf(s[n][e] * scale - sl[col]);
-        s[n][e] = p;                                   // P^T
-        dp[n][e] = p * (dp[n][e] - sd[col]) * scale;  // dS^T
-      }
-    uint32_t pa[NS / 2][4], da[NS / 2][4];
-    to_a(pa, s);   // P^T rounded to bf16 (pmat.astype(do.dtype))
-    to_a(da, dp);  // dS^T rounded to bf16 (ds.astype(q.dtype))
-    mma_regs<NO, NS / 2, LDT>(acc_dv, pa, sdot);
-    mma_regs<NO, NS / 2, LDT>(acc_dk, da, sqt);
   }
-  store(dk + base + (size_t)k0 * HD, r0, acc_dk);
-  store(dv + base + (size_t)k0 * HD, r0, acc_dv);
 }
 
+// Ping-pong: the two arithmetic warpgroups take turns issuing their
+// products, so that one's elementwise work runs under the other's wgmma.
+// Warpgroup w issues once named barrier 1 + w has the other's arrival
+// (mine), then arrives on the other's (theirs). Both take `turns` turns,
+// a tile a warpgroup does not need being an empty turn; warpgroup 0 goes
+// first, and warpgroup 1 leaves out its last arrival, so both barriers
+// end balanced. No-ops unless ON.
+template <bool ON>
+struct Turns {
+  int w, left;
+  __device__ __forceinline__ Turns(int wg, int turns) : w(wg), left(turns) {
+    if (ON && w == 1) named_arrive(1, 256);
+  }
+  __device__ __forceinline__ void mine() const {
+    if (ON) named_sync(1 + w, 256);
+  }
+  __device__ __forceinline__ void theirs() {
+    if (ON && (--left > 0 || w == 0)) named_arrive(2 - w, 256);
+  }
+};
+
+// Rows `row` and + 8 of the CTA's owned tile (starting at row0 of bh's
+// slice) from an m64n{HD} accumulator, rounded to bf16; rows at or past
+// T are not stored.
 template <int HD>
-cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const void* dout,
-                         const float* lse, const float* dvec, void* dq, int bh, int t,
-                         float scale, cudaStream_t stream) {
-  constexpr int smem = (4 * 64 * tc::ld<HD>() + HD * tc::ld<64>()) * (int)sizeof(tc::bf16);
-  cudaError_t err = cudaFuncSetAttribute(flash_tri_bwd_dq_tc_kernel<HD>,
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[HD / 2],
+                                           int bh, int t, int row0, int row, int tq) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + row + 8 * i;
+    if (r >= t) continue;
+    bf16* p = dst + (static_cast<size_t>(bh) * t + r) * HD + 2 * tq;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(p + 8 * jj) =
+          pack_bf16(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+  }
+}
+
+// dQ. grid (ceil(T / 128), BH), 384 threads; maps [BH, T, HD] bf16: Q and
+// dO in kOwn-row boxes, K and V in kDqK-row boxes. The CTA owns q rows
+// q0.. (longest rows first) and streams the k tiles up to its diagonal:
+// warpgroup w, rows q0 + 64 w.., needs those up to its own last row and
+// masks only the last of them. Stage s of the ring is used by tiles s,
+// s + kDqStages, ...: tile j waits on parity (j / kDqStages) & 1.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tri_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
+                              const __grid_constant__ CUtensorMap tma_do,
+                              const __grid_constant__ CUtensorMap tma_k,
+                              const __grid_constant__ CUtensorMap tma_v,
+                              const float* __restrict__ lse, const float* __restrict__ dvec,
+                              bf16* __restrict__ dq, int t, float scale) {
+  using LO = Tile<HD, kOwn>;
+  using LS = Tile<HD, kDqK>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align1024(smem_raw);
+  uint8_t* sdo = sq + LO::kBytes;
+  uint8_t* sk = sdo + LO::kBytes;
+  uint8_t* sv = sk + kDqStages * LS::kBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + kDqStages * LS::kBytes);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + kDqStages;
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kOwn;  // the longest rows first
+  const int tiles = (t + kDqK - 1) / kDqK;
+  // k tiles warpgroup w needs: those up to the diagonal of its last row
+  auto needed = [&](int w) { return min((q0 + 64 * (w + 1) + kDqK - 1) / kDqK, tiles); };
+  const int n_k = needed(1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each arithmetic warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoadRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, 2 * LO::kBytes);
+      load_tile<HD, kOwn>(sq, &tma_q, full_q, q0, bh);
+      load_tile<HD, kOwn>(sdo, &tma_do, full_q, q0, bh);
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j % kDqStages;
+        mbar_wait(&empty[s], ((j / kDqStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * LS::kBytes);
+        load_tile<HD, kDqK>(sk + s * LS::kBytes, &tma_k, &full[s], j * kDqK, bh);
+        load_tile<HD, kDqK>(sv + s * LS::kBytes, &tma_v, &full[s], j * kDqK, bh);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMathRegs));
+    const int w = (warp >> 2) - 1;  // 64-row half of the q tile
+    const int row = w * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's first row
+    const int tq = lane & 3;
+    const int n_w = needed(w);
+    float lse_r[2], dd[2];  // per row; rows past T (padding of the tile) read 0
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + row + 8 * i;
+      const size_t at = static_cast<size_t>(bh) * t + r;
+      lse_r[i] = r < t ? lse[at] : 0.f;
+      dd[i] = r < t ? dvec[at] : 0.f;
+    }
+    float s[kDqK / 2], dp[kDqK / 2];  // S and dP: m64n{kDqK} accumulators
+    float acc[HD / 2];                // dQ: m64n{HD} accumulator
+    uint32_t ds[kDqK / 16][4];        // dS: kDqK / 16 k16 A fragments
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+    auto issue_sdp = [&](int j) {
+      const int st = j % kDqStages;
+      mbar_wait(&full[st], (j / kDqStages) & 1);
+      const uint8_t* kt = sk + st * LS::kBytes;
+      const uint8_t* vt = sv + st * LS::kBytes;
+      wgmma_fence();
+      wgmma_scores<kDqK, HD, kOwn, kDqK>(s, sq, w * 64, kt);
+      wgmma_scores<kDqK, HD, kOwn, kDqK>(dp, sdo, w * 64, vt);
+      wgmma_commit();
+    };
+    auto issue_dq = [&](int j) {
+      const uint8_t* kt = sk + (j % kDqStages) * LS::kBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqK / 16; ++kk) wgmma_rs<HD>(acc, ds[kk], desc_mn<HD, kDqK>(kt, kk));
+      wgmma_commit();
+    };
+    auto release = [&](int j) {
+      if (lane == 0) mbar_arrive(&empty[j % kDqStages]);
+    };
+    auto grads = [&](int j) {  // the warpgroup's last k tile holds its diagonal
+      const int rel = q0 + row - j * kDqK;
+      if (j == n_w - 1)
+        dscores<true, kDqK>(s, dp, lse_r, dd, scale, rel, tq);
+      else
+        dscores<false, kDqK>(s, dp, lse_r, dd, scale, rel, tq);
+    };
+
+    Turns<kDqPingPong> turn(w, n_k + 1);
+    mbar_wait(full_q, 0);
+    turn.mine();
+    issue_sdp(0);
+    turn.theirs();
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    grads(0);
+    pack_frags<kDqK>(ds, dp);
+    for (int j = 1; j < n_w; ++j) {
+      turn.mine();
+      issue_sdp(j);
+      issue_dq(j - 1);
+      turn.theirs();
+      wgmma_wait<1>();  // S_j and dP_j are done; dS_{j-1} K_{j-1} may be in flight
+      fence_operands(s);
+      fence_operands(dp);
+      grads(j);
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_operands(ds);
+      release(j - 1);
+      pack_frags<kDqK>(ds, dp);
+    }
+    turn.mine();
+    issue_dq(n_w - 1);
+    turn.theirs();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    release(n_w - 1);
+    for (int j = n_w; j < n_k; ++j) {  // tiles only the other warpgroup needs
+      turn.mine();
+      turn.theirs();
+      mbar_wait(&full[j % kDqStages], (j / kDqStages) & 1);
+      release(j);
+    }
+    store_rows<HD>(dq, acc, bh, t, q0, row, tq);
+  }
+}
+
+// dK/dV. grid (ceil(T / 128), BH), 384 threads; maps [BH, T, HD] bf16: K
+// and V in kOwn-row boxes, Q and dO in kDkvQ-row boxes; lse and dvec
+// [BH, T] f32. The CTA owns key rows k0.. (the first k tile, which has the
+// most q tiles, first) and streams the q tiles from its diagonal to T:
+// warpgroup w, keys k0 + 64 w.., skips those wholly before its first key
+// (releasing their stages) and masks those that reach before its last.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tri_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
+                               const __grid_constant__ CUtensorMap tma_do,
+                               const __grid_constant__ CUtensorMap tma_k,
+                               const __grid_constant__ CUtensorMap tma_v,
+                               const float* __restrict__ lse, const float* __restrict__ dvec,
+                               bf16* __restrict__ dk, bf16* __restrict__ dv, int t,
+                               float scale) {
+  using LO = Tile<HD, kOwn>;
+  using LS = Tile<HD, kDkvQ>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = align1024(smem_raw);
+  uint8_t* sv = sk + LO::kBytes;
+  uint8_t* sq = sv + LO::kBytes;
+  uint8_t* sdo = sq + kDkvStages * LS::kBytes;
+  float* slse = reinterpret_cast<float*>(sdo + kDkvStages * LS::kBytes);
+  float* sd = slse + kDkvStages * kDkvQ;
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(sd + kDkvStages * kDkvQ);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + kDkvStages;
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kOwn;  // the first k tile, the longest, first
+  const int n_q = (t - k0) / kDkvQ;  // q tiles from the diagonal to T
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each arithmetic warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoadRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_kv, 2 * LO::kBytes);
+      load_tile<HD, kOwn>(sk, &tma_k, full_kv, k0, bh);
+      load_tile<HD, kOwn>(sv, &tma_v, full_kv, k0, bh);
+      for (int j = 0; j < n_q; ++j) {
+        const int s = j % kDkvStages;
+        const int q0 = k0 + j * kDkvQ;
+        const size_t at = static_cast<size_t>(bh) * t + q0;
+        mbar_wait(&empty[s], ((j / kDkvStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * LS::kBytes + 2 * kDkvQ * 4);
+        load_tile<HD, kDkvQ>(sq + s * LS::kBytes, &tma_q, &full[s], q0, bh);
+        load_tile<HD, kDkvQ>(sdo + s * LS::kBytes, &tma_do, &full[s], q0, bh);
+        bulk_load(slse + s * kDkvQ, lse + at, kDkvQ * 4, &full[s]);
+        bulk_load(sd + s * kDkvQ, dvec + at, kDkvQ * 4, &full[s]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMathRegs));
+    const int w = (warp >> 2) - 1;  // 64-row half of the k tile
+    const int row = w * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's first key row
+    const int tq = lane & 3;
+    // q tiles wholly before the warpgroup's first key: nothing to add
+    const int first = min(64 * w / kDkvQ, n_q);
+    float s[kDkvQ / 2], dp[kDkvQ / 2];  // S^T and dP^T: m64n{kDkvQ} accumulators
+    float acc_dk[HD / 2], acc_dv[HD / 2];  // m64n{HD} accumulators
+    uint32_t pf[kDkvQ / 16][4], dsf[kDkvQ / 16][4];  // P^T, dS^T: k16 A fragments
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+    auto release = [&](int j) {
+      if (lane == 0) mbar_arrive(&empty[j % kDkvStages]);
+    };
+    auto issue_sdp = [&](int j) {
+      const int st = j % kDkvStages;
+      mbar_wait(&full[st], (j / kDkvStages) & 1);
+      const uint8_t* qt = sq + st * LS::kBytes;
+      const uint8_t* dot = sdo + st * LS::kBytes;
+      wgmma_fence();
+      wgmma_scores<kDkvQ, HD, kOwn, kDkvQ>(s, sk, w * 64, qt);
+      wgmma_scores<kDkvQ, HD, kOwn, kDkvQ>(dp, sv, w * 64, dot);
+      wgmma_commit();
+    };
+    auto issue_dkv = [&](int j) {
+      const int st = j % kDkvStages;
+      const uint8_t* qt = sq + st * LS::kBytes;
+      const uint8_t* dot = sdo + st * LS::kBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDkvQ / 16; ++kk)
+        wgmma_rs<HD>(acc_dv, pf[kk], desc_mn<HD, kDkvQ>(dot, kk));
+#pragma unroll
+      for (int kk = 0; kk < kDkvQ / 16; ++kk)
+        wgmma_rs<HD>(acc_dk, dsf[kk], desc_mn<HD, kDkvQ>(qt, kk));
+      wgmma_commit();
+    };
+    auto grads = [&](int j) {  // tiles that start before the warpgroup's last key are masked
+      const int st = j % kDkvStages;
+      const int rel = row - j * kDkvQ;
+      if (j * kDkvQ < 64 * w + 64)
+        dscores_t<true, kDkvQ>(s, dp, slse + st * kDkvQ, sd + st * kDkvQ, scale, rel, tq);
+      else
+        dscores_t<false, kDkvQ>(s, dp, slse + st * kDkvQ, sd + st * kDkvQ, scale, rel, tq);
+    };
+    auto pack = [&] {
+      pack_frags<kDkvQ>(pf, s);
+      pack_frags<kDkvQ>(dsf, dp);
+    };
+
+    Turns<kDkvPingPong> turn(w, n_q + 1);
+    for (int j = 0; j < first; ++j) {
+      turn.mine();
+      turn.theirs();
+      mbar_wait(&full[j % kDkvStages], (j / kDkvStages) & 1);
+      release(j);
+    }
+    mbar_wait(full_kv, 0);
+    for (int j = first; j < n_q; ++j) {
+      turn.mine();
+      if (j > first) {  // tile j-1's dK/dV products, then its stage back
+        issue_dkv(j - 1);
+        wgmma_wait<0>();
+        fence_operands(acc_dk);
+        fence_operands(acc_dv);
+        release(j - 1);
+      }
+      issue_sdp(j);
+      turn.theirs();
+      wgmma_wait<0>();
+      fence_operands(s);
+      fence_operands(dp);
+      grads(j);
+      pack();
+    }
+    turn.mine();
+    if (first < n_q) issue_dkv(n_q - 1);
+    turn.theirs();
+    if (first < n_q) {
+      wgmma_wait<0>();
+      fence_operands(acc_dk);
+      fence_operands(acc_dv);
+      release(n_q - 1);
+    }
+    store_rows<HD>(dk, acc_dk, bh, t, k0, row, tq);
+    store_rows<HD>(dv, acc_dv, bh, t, k0, row, tq);
+  }
+}
+
+}  // namespace hop
+
+template <int HD>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* dvec, void* dq, int bh, int t,
+                            float scale, cudaStream_t stream) {
+  using namespace hop;
+  constexpr int smem = dq_smem<HD>();
+  if (encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
+  CUtensorMap maps[4];
+  if (!tile_map<HD, kOwn>(&maps[0], q, bh, t) || !tile_map<HD, kOwn>(&maps[1], dout, bh, t) ||
+      !tile_map<HD, kDqK>(&maps[2], k, bh, t) || !tile_map<HD, kDqK>(&maps[3], v, bh, t))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_tri_bwd_dq_wgmma_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_tri_bwd_dq_tc_kernel<HD><<<dim3(t / 64, bh), tc::kThreads, smem, stream>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout), lse, dvec,
-      static_cast<tc::bf16*>(dq), t, scale);
+  const dim3 grid((t + kOwn - 1) / kOwn, bh);  // a bh's tiles together
+  flash_tri_bwd_dq_wgmma_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dvec, static_cast<bf16*>(dq), t, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* dvec, void* dk, void* dv, int bh, int t,
-                          float scale, cudaStream_t stream) {
-  constexpr int smem =
-      (2 * 64 * tc::ld<HD>() + 2 * 32 * tc::ld<HD>() + 2 * HD * tc::ld<32>()) *
-          (int)sizeof(tc::bf16) +
-      2 * 32 * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_tri_bwd_dkv_tc_kernel<HD>,
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* dvec, void* dk, void* dv, int bh,
+                             int t, float scale, cudaStream_t stream) {
+  using namespace hop;
+  constexpr int smem = dkv_smem<HD>();
+  if (encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
+  CUtensorMap maps[4];
+  if (!tile_map<HD, kDkvQ>(&maps[0], q, bh, t) || !tile_map<HD, kDkvQ>(&maps[1], dout, bh, t) ||
+      !tile_map<HD, kOwn>(&maps[2], k, bh, t) || !tile_map<HD, kOwn>(&maps[3], v, bh, t))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_tri_bwd_dkv_wgmma_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_tri_bwd_dkv_tc_kernel<HD><<<dim3(t / 64, bh), tc::kThreads, smem, stream>>>(
-      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k),
-      static_cast<const tc::bf16*>(v), static_cast<const tc::bf16*>(dout), lse, dvec,
-      static_cast<tc::bf16*>(dk), static_cast<tc::bf16*>(dv), t, scale);
+  const dim3 grid((t + kOwn - 1) / kOwn, bh);  // a bh's tiles together
+  flash_tri_bwd_dkv_wgmma_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dvec, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), t, scale);
   return cudaGetLastError();
+}
+
+// The bf16 kernels' configuration at head_dim (32, 64 or 128), into
+// out[8]: dynamic shared-memory bytes (dQ, dK/dV), streamed stages (dQ,
+// dK/dV), streamed tile rows (dQ's k tiles, dK/dV's q tiles), and the
+// registers per thread after setmaxnreg (loads, arithmetic). Returns
+// cudaErrorInvalidValue for another head dim.
+template <int HD>
+cudaError_t bwd_config(int* out) {
+  using namespace hop;
+  const int v[8] = {dq_smem<HD>(), dkv_smem<HD>(), kDqStages, kDkvStages,
+                    kDqK,          kDkvQ,          kLoadRegs, kMathRegs};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Return LAUNCH##_F32(HD) (f32, CUDA cores) or LAUNCH##_TC(HD) (bf16,
+// Return LAUNCH##_F32(HD) (f32, CUDA cores) or LAUNCH##_WGMMA(HD) (bf16,
 // tensor cores) for the (dtype, head_dim) of the enclosing launcher, or
 // cudaErrorInvalidValue for any other pair.
 #define TPUMON_DISPATCH(LAUNCH)                                     \
@@ -416,11 +774,11 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const voi
     case 128:                                                       \
       return (int)LAUNCH##_F32(128);                                \
     case 1032:                                                      \
-      return (int)LAUNCH##_TC(32);                                  \
+      return (int)LAUNCH##_WGMMA(32);                                  \
     case 1064:                                                      \
-      return (int)LAUNCH##_TC(64);                                  \
+      return (int)LAUNCH##_WGMMA(64);                                  \
     case 1128:                                                      \
-      return (int)LAUNCH##_TC(128);                                 \
+      return (int)LAUNCH##_WGMMA(128);                                 \
     default:                                                        \
       return (int)cudaErrorInvalidValue;                            \
   }
@@ -440,10 +798,10 @@ int tpumon_flash_tri_bwd_dq(const void* q, const void* k, const void* v, const v
   const float* d = static_cast<const float*>(dvec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TPUMON_DQ_F32(HD) launch_dq_f32<HD>(q, k, v, dout, l, d, dq, bh, t, scale, s)
-#define TPUMON_DQ_TC(HD) launch_dq_tc<HD>(q, k, v, dout, l, d, dq, bh, t, scale, s)
+#define TPUMON_DQ_WGMMA(HD) launch_dq_wgmma<HD>(q, k, v, dout, l, d, dq, bh, t, scale, s)
   TPUMON_DISPATCH(TPUMON_DQ);
 #undef TPUMON_DQ_F32
-#undef TPUMON_DQ_TC
+#undef TPUMON_DQ_WGMMA
 }
 
 int tpumon_flash_tri_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -455,10 +813,26 @@ int tpumon_flash_tri_bwd_dkv(const void* q, const void* k, const void* v, const 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TPUMON_DKV_F32(HD) \
   launch_dkv_f32<HD>(q, k, v, dout, l, d, dk, dv, bh, t, scale, s)
-#define TPUMON_DKV_TC(HD) launch_dkv_tc<HD>(q, k, v, dout, l, d, dk, dv, bh, t, scale, s)
+#define TPUMON_DKV_WGMMA(HD) \
+  launch_dkv_wgmma<HD>(q, k, v, dout, l, d, dk, dv, bh, t, scale, s)
   TPUMON_DISPATCH(TPUMON_DKV);
 #undef TPUMON_DKV_F32
-#undef TPUMON_DKV_TC
+#undef TPUMON_DKV_WGMMA
+}
+
+// The bf16 kernels' shared-memory bytes, stages, streamed tile rows and
+// registers after setmaxnreg at head_dim, into out[8] (bwd_config).
+int tpumon_flash_bwd_config(int head_dim, int* out) {
+  switch (head_dim) {
+    case 32:
+      return (int)bwd_config<32>(out);
+    case 64:
+      return (int)bwd_config<64>(out);
+    case 128:
+      return (int)bwd_config<128>(out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* tpumon_cuda_error_string(int code) {

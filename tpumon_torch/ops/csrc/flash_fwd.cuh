@@ -36,11 +36,10 @@
 //   scores of each, and a row's max and sum reduce over its quad of
 //   lanes. The scores of 16 columns, rounded to bf16 pairwise, are the
 //   A fragment of those columns for P V, in place.
-// - Tiles sit in shared memory as TMA writes them: 128 rows of 64-column,
-//   128-byte swizzled boxes (head dim 64: one box, 128: two), or of
-//   64-byte swizzled rows (head dim 32). The tensor maps are 3-d [BH, T,
-//   D], so a tile that reaches past T (T = 64 x odd) loads zeros there,
-//   not the next bh's rows; out and lse are stored for rows below T only,
+// - Tiles of 128 rows sit in shared memory as TMA writes them
+//   (flash_wgmma.cuh, shared with the backward). The tensor maps are 3-d
+//   [BH, T, D], so a tile that reaches past T (T = 64 x odd) loads zeros
+//   there, not the next bh's rows; out and lse are stored for rows below T only,
 //   and without the mask the keys at or past T are masked (with it, no
 //   real row sees them).
 //
@@ -59,10 +58,8 @@
 // of 64. lse may be null (no logsumexp written).
 #pragma once
 
-#include <cuda_bf16.h>
-
 #include "flash_tri_common.cuh"
-#include "hopper.cuh"
+#include "flash_wgmma.cuh"
 
 namespace tpumon {
 namespace flash {
@@ -159,9 +156,6 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* ou
 
 namespace wg {
 
-using bf16 = __nv_bfloat16;
-using namespace hopper;
-
 constexpr int kBM = 128;        // q rows per CTA, 64 per arithmetic warpgroup
 constexpr int kBN = 128;        // k rows per stage
 constexpr int kStages = 2;      // K stages, and as many V stages
@@ -172,67 +166,15 @@ constexpr int kThreads = 384;   // 3 warpgroups
 constexpr int kLoadRegs = 40, kMathRegs = 232;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory layout of one 128-row tile of Q, K or V at head dim HD.
 template <int HD>
-struct Tile {
-  static constexpr int kRowBytes = HD >= 64 ? 128 : 64;  // swizzled row of a box
-  static constexpr int kBoxCols = kRowBytes / 2;         // bf16 columns per TMA box
-  static constexpr int kBoxes = HD / kBoxCols;
-  static constexpr int kBoxBytes = kBN * kRowBytes;
-  static constexpr int kBytes = kBoxes * kBoxBytes;
-  static constexpr int kGroupBytes = 8 * kRowBytes;  // 8-row group: the descriptors' stride
-  static constexpr uint64_t kLayout = HD >= 64 ? kSwizzle128B : kSwizzle64B;
-  static constexpr CUtensorMapSwizzle kSwizzle =
-      HD >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  // Q, kStages K tiles, kStages V tiles, then the mbarriers: Q's, and a
-  // full and an empty one per K and per V stage. + 1024: the tiles start
-  // at the first 1024-byte boundary.
-  static constexpr int kSmem = (1 + 2 * kStages) * kBytes + (1 + 4 * kStages) * 8 + 1024;
-};
+using L128 = Tile<HD, kBN>;  // Q, K and V tiles
 
-// Q (A) or K (B), K-major: the 16 columns of head-dim slice kk, rows
-// row0.. of the tile (the leading offset is unused when K-major).
+// Q, kStages K tiles, kStages V tiles, then the mbarriers: Q's, and a
+// full and an empty one per K and per V stage. + 1024: the tiles start at
+// the first 1024-byte boundary.
 template <int HD>
-__device__ __forceinline__ uint64_t desc_kmajor(const uint8_t* tile, int row0, int kk) {
-  using L = Tile<HD>;
-  const int col = kk * 16;
-  return smem_desc(tile + (col / L::kBoxCols) * L::kBoxBytes + row0 * L::kRowBytes +
-                       (col % L::kBoxCols) * 2,
-                   16, L::kGroupBytes, L::kLayout);
-}
-
-// V (B), MN-major: rows 16 kk.. of the tile (K of P V), all HD columns:
-// 64-column boxes kBoxBytes apart (leading), 8-row groups (stride).
-template <int HD>
-__device__ __forceinline__ uint64_t desc_v(const uint8_t* tile, int kk) {
-  using L = Tile<HD>;
-  return smem_desc(tile + kk * 16 * L::kRowBytes, L::kBoxBytes, L::kGroupBytes, L::kLayout);
-}
-
-// One 128-row tile starting at `row` of bh's [T, HD] slice; its bytes
-// complete on `bar`.
-template <int HD>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
-                                          int row, int bh) {
-  using L = Tile<HD>;
-#pragma unroll
-  for (int b = 0; b < L::kBoxes; ++b)
-    tma_load_3d(dst + b * L::kBoxBytes, map, bar, b * L::kBoxCols, row, bh);
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&p)[4],
-                                         uint64_t db) {
-  if constexpr (HD == 128) wgmma_m64n128k16_rs(o, p, db, 1);
-  else if constexpr (HD == 64) wgmma_m64n64k16_rs(o, p, db, 1);
-  else wgmma_m64n32k16_rs(o, p, db, 1);
-}
-
-// 2^x, flushing denormal results to 0 (one MUFU.EX2).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+constexpr int fwd_smem() {
+  return (1 + 2 * kStages) * L128<HD>::kBytes + (1 + 4 * kStages) * 8 + 1024;
 }
 
 // The online-softmax step on this thread's S fragment: s[4 j + 2 i + e]
@@ -287,15 +229,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
   }
 }
 
-// P as the A fragments of P V's 8 k16 slices: the accumulators of score
-// columns 16 kk.. rounded to bf16 pairwise (the reference's p.astype).
-__device__ __forceinline__ void pack_p(uint32_t (&p)[8][4], const float (&s)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-}
-
 // grid (ceil(T / 128), BH), 384 threads; tma_q/k/v map [BH, T, HD] bf16
 // in 128-row boxes. Stage s of a ring is used by tiles s, s + kStages,
 // ...: tile j waits on parity (j / kStages) & 1.
@@ -305,7 +238,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
                        const __grid_constant__ CUtensorMap tma_k,
                        const __grid_constant__ CUtensorMap tma_v, bf16* __restrict__ out,
                        float* __restrict__ lse, int t, float scale_log2) {
-  using L = Tile<HD>;
+  using L = L128<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = align1024(smem_raw);
   uint8_t* sk = sq + L::kBytes;
@@ -339,19 +272,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoadRegs));
     if (threadIdx.x == 0) {
       mbar_expect_tx(full_q, L::kBytes);
-      load_tile<HD>(sq, &tma_q, full_q, q0, bh);
+      load_tile<HD, kBN>(sq, &tma_q, full_q, q0, bh);
       for (int j = 0; j <= n_k; ++j) {
         if (j < n_k) {  // K_j
           const int s = j % kStages;
           mbar_wait(&empty_k[s], ((j / kStages) & 1) ^ 1);
           mbar_expect_tx(&full_k[s], L::kBytes);
-          load_tile<HD>(sk + s * L::kBytes, &tma_k, &full_k[s], j * kBN, bh);
+          load_tile<HD, kBN>(sk + s * L::kBytes, &tma_k, &full_k[s], j * kBN, bh);
         }
         if (j > 0) {  // V_{j-1}
           const int i = j - 1, s = i % kStages;
           mbar_wait(&empty_v[s], ((i / kStages) & 1) ^ 1);
           mbar_expect_tx(&full_v[s], L::kBytes);
-          load_tile<HD>(sv + s * L::kBytes, &tma_v, &full_v[s], i * kBN, bh);
+          load_tile<HD, kBN>(sv + s * L::kBytes, &tma_v, &full_v[s], i * kBN, bh);
         }
       }
     }
@@ -377,8 +310,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_m64n128k16_ss(s, desc_kmajor<HD>(sq, wg * 64, kk), desc_kmajor<HD>(kt, 0, kk),
-                            kk != 0);
+        wgmma_m64n128k16_ss(s, desc_kmajor<HD, kBN>(sq, wg * 64, kk),
+                            desc_kmajor<HD, kBN>(kt, 0, kk), kk != 0);
       wgmma_commit();
     };
     auto issue_pv = [&](int j) {
@@ -387,7 +320,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       const uint8_t* vt = sv + st * L::kBytes;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) wgmma_pv<HD>(o, p[kk], desc_v<HD>(vt, kk));
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_rs<HD>(o, p[kk], desc_mn<HD, kBN>(vt, kk));
       wgmma_commit();
     };
     auto release = [&](uint64_t* bar) {
@@ -416,7 +350,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
     fence_operands(s);
     release(&empty_k[0]);
     softmax(n_k == 1);
-    pack_p(p, s);  // O is 0: nothing to rescale
+    pack_frags<kBN>(p, s);  // O is 0: nothing to rescale
     for (int j = 1; j < n_k; ++j) {
       my_turn();
       issue_s(j);
@@ -436,7 +370,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
           o[4 * jj + 2 * i] *= alpha[i];
           o[4 * jj + 2 * i + 1] *= alpha[i];
         }
-      pack_p(p, s);
+      pack_frags<kBN>(p, s);
     }
     my_turn();
     issue_pv(n_k - 1);
@@ -467,19 +401,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
 template <int HD, bool CAUSAL>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                              int bh, int t, float scale, cudaStream_t stream) {
-  using L = wg::Tile<HD>;
+  constexpr int smem = wg::fwd_smem<HD>();
   if (hopper::encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
   CUtensorMap maps[3];
   const void* src[3] = {q, k, v};
   for (int i = 0; i < 3; ++i)
-    if (!hopper::tensor_map_3d(&maps[i], src[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, HD, t, bh,
-                               L::kBoxCols, wg::kBM, L::kSwizzle))
-      return cudaErrorInvalidValue;
+    if (!wg::tile_map<HD, wg::kBN>(&maps[i], src[i], bh, t)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(wg::flash_fwd_wgmma_kernel<HD, CAUSAL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + wg::kBM - 1) / wg::kBM, bh);
-  wg::flash_fwd_wgmma_kernel<HD, CAUSAL><<<grid, wg::kThreads, L::kSmem, stream>>>(
+  wg::flash_fwd_wgmma_kernel<HD, CAUSAL><<<grid, wg::kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<wg::bf16*>(out), lse, t,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
@@ -490,9 +422,9 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
 // the registers per thread after setmaxnreg (loads, arithmetic). Returns
 // cudaErrorInvalidValue for another head dim.
 inline cudaError_t fwd_config(int head_dim, int* out) {
-  const int smem = head_dim == 32   ? wg::Tile<32>::kSmem
-                   : head_dim == 64 ? wg::Tile<64>::kSmem
-                   : head_dim == 128 ? wg::Tile<128>::kSmem
+  const int smem = head_dim == 32    ? wg::fwd_smem<32>()
+                   : head_dim == 64  ? wg::fwd_smem<64>()
+                   : head_dim == 128 ? wg::fwd_smem<128>()
                                      : 0;
   if (smem == 0) return cudaErrorInvalidValue;
   out[0] = smem;

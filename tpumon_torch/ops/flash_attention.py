@@ -210,6 +210,20 @@ def fwd_kernel_config(head_dim: int) -> dict:
     return dict(zip(("smem_bytes", "stages", "load_regs", "math_regs"), out))
 
 
+def bwd_kernel_config(head_dim: int) -> dict:
+    """The bf16 backward kernels' dynamic shared-memory bytes, streamed
+    stages and streamed tile rows (dQ: k tiles, dK/dV: q tiles), and the
+    registers per thread after setmaxnreg at ``head_dim``, from the built
+    library."""
+    lib = _build.load("flash_attention_tri_bwd")
+    out = (ctypes.c_int * 8)()
+    _build.check(lib, lib.tpumon_flash_bwd_config(head_dim, out),
+                 "tpumon_flash_bwd_config")
+    return dict(zip(("dq_smem_bytes", "dkv_smem_bytes", "dq_stages",
+                     "dkv_stages", "dq_k_tile", "dkv_q_tile", "load_regs",
+                     "math_regs"), out))
+
+
 def flash_attention_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block: int = 128) -> torch.Tensor:
     """Forward-only view of ``flash_attention_tri_fwd``: [BH, T, D]."""
