@@ -13,10 +13,14 @@ Phases, each of which exits non-zero on failure:
 3. kernel vs plain: the paged-attention kernel against its plain PyTorch
    version at the production decode shape (B=16, 32/8 heads, hd 128,
    page 128, 32-page tables drawn from a random permutation of a 513-page
-   pool, lengths 0/1/127/128/129/2000/4096 and random), in bf16 and f32,
+   pool, lengths 0/1/127/128/129/2000/4096 and random; and at batch 4,
+   lengths 2000/4096/129/0, over 4 and 8 splits), in bf16 and f32,
    plus group-1 hd-64, the serving CLI's hd-32 and an odd page size; each
-   held to its worst relative error over (sequence, head) rows, with
-   planted faults of a paged kernel read beside under the same limit.
+   held to its worst relative error over (sequence, head) rows and run
+   twice to the same bits, with planted faults of a paged kernel and of
+   its split design (at the wrapper's pages_per_split) read beside under
+   the same limit. The kernel's ptxas lines and shared memory are printed
+   after the build.
 4. engine: the serving engine at production width (bench.py's paged
    decode shape: vocab 4096, d_model 4096, 2 layers, 32/8 heads, d_ff
    8192, max_seq 4096, 16 slots, page 128, random weights from a seed)
@@ -25,9 +29,12 @@ Phases, each of which exits non-zero on failure:
    step of the kernel path is held to the gather path in bf16 and f32;
    a small f32 engine's streams on the card equal the CPU's.
 5. times: kernel, plain version, torch's SDPA on the gathered context
-   (library yardstick, never called by the port) and the bytes bound;
-   engine decode step (kernel and gather), tokens/s, TTFT p50, and where
-   a decode step's time goes.
+   with and without the gather (library yardsticks, never called by the
+   port) and the bytes bound, with every table full and at phase 3's
+   production lengths, each beside a table of the kernel at other pages
+   per split and ring depths (each held to the plain version); engine
+   decode step (kernel and gather), tokens/s, TTFT p50, and where a
+   decode step's time goes.
 6. server: the engine behind its HTTP server, stepped by the arrival
    pump, answers a /generate call with the greedy tokens a direct
    submission gives, and serves the /metrics families the monitor
@@ -117,8 +124,12 @@ PROD_LENGTHS = (0, 1, 127, 128, 129, 2000, 4096)
 # f32. Each limit lies between the kernel's reading and the weakest
 # planted fault's (paged_faulty_plain; PERF.md).
 PAGED_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# The faults of the split design (paged_split_plain) after those of a
+# kernel that walks a sequence's pages in order.
+SPLIT_FAULTS = ("split_partial_dropped", "merge_no_rescale",
+                "split_boundary_row_twice", "stale_stage")
 PAGED_FAULTS = ("last_page_dropped", "first_page_dropped", "no_rescale",
-                "last_page_unmasked", "wrong_kv_head")
+                "last_page_unmasked", "wrong_kv_head", *SPLIT_FAULTS)
 # Engine logits, kernel path vs gather path on the same pool. bf16: the
 # plain path rounds scores and probabilities to bf16 where the kernel
 # keeps f32, and logits near 4 have a bf16 spacing of 1/32, so 0.25 is
@@ -194,6 +205,76 @@ def rows_rel_err(got, want, lengths) -> float:
         ).item()
 
 
+def paged_split_plain(q, k_pages, v_pages, table, lengths, pages: int,
+                      fault: str | None = None, tile: int = 0):
+    """The kernel's split and merge in plain torch, in f32: each split of
+    ``pages`` table entries keeps its own softmax state (m_i, l_i, acc_i)
+    over its live keys, and the live splits merge in split order, out =
+    sum_i acc_i e^(m_i - m) / sum_i l_i e^(m_i - m) with m = max_i m_i.
+    Carries one fault of the split design (None: no fault):
+
+    - split_partial_dropped: the middle live split (n_live // 2, of at
+      least 3) is missing from the merge;
+    - merge_no_rescale: the partials are summed without their
+      e^(m_i - m) weights;
+    - split_boundary_row_twice: the first row of each split after the
+      first is counted twice;
+    - stale_stage: the first ``tile`` rows (one ring stage) of each split
+      after the first read the K and V of the tile before them.
+    """
+    import torch
+
+    b, nh, hd = q.shape
+    nkv, _, ps, _ = k_pages.shape
+    max_pages = table.shape[1]
+    span, n_split = pages * ps, -(-max_pages // pages)
+    s_max = n_split * span
+    pos = torch.arange(s_max, device=q.device)
+    idx = table.long()
+    # [B, S, nkv, hd], padded with zeros to whole splits
+    k, v = (torch.nn.functional.pad(
+        x[:, idx].reshape(nkv, b, max_pages * ps, hd).permute(1, 2, 0, 3),
+        (0, 0, 0, 0, 0, s_max - max_pages * ps)).float()
+        for x in (k_pages, v_pages))
+    if fault == "stale_stage":
+        src = torch.where((pos >= span) & (pos % span < tile), pos - tile, pos)
+        k, v = k[:, src], v[:, src]
+    n = lengths.long().clamp(0, max_pages * ps)
+    live = pos[None] < n[:, None]  # [B, S]
+    qg = q.float().reshape(b, nkv, nh // nkv, hd)
+    s = torch.einsum("bngd,bknd->bngk", qg, k) / hd**0.5
+    s = torch.where(live[:, None, None], s, -1e30).unflatten(-1, (n_split, span))
+    m = s.amax(-1)  # [B, nkv, group, splits]
+    p = torch.exp(s - m[..., None]) * live.unflatten(-1, (n_split, span))[
+        :, None, None]
+    if fault == "split_boundary_row_twice":
+        p = p * (1 + ((pos % span == 0) & (pos > 0))).unflatten(
+            -1, (n_split, span))
+    el = p.sum(-1)
+    acc = torch.einsum("bngik,biknd->bngid", p, v.unflatten(1, (n_split, span)))
+    n_live = torch.tensor(paged_split_n_live(lengths.tolist(), ps, pages,
+                                             max_pages), device=q.device)
+    split_live = torch.arange(n_split, device=q.device)[None] < n_live[:, None]
+    weight = torch.exp(m - torch.where(split_live[:, None, None], m, -1e30
+                                       ).amax(-1, keepdim=True))
+    weight = weight * split_live[:, None, None]
+    if fault == "split_partial_dropped":
+        mid = torch.arange(n_split, device=q.device)[None] == (n_live // 2)[:, None]
+        weight = weight * ~(mid & (n_live[:, None] >= 3))[:, None, None]
+    elif fault == "merge_no_rescale":
+        weight = split_live[:, None, None].float().expand_as(weight)
+    total = (weight * el).sum(-1)[..., None]
+    out = (weight[..., None] * acc).sum(-2) / total.clamp_min(1e-30)
+    return torch.where(total > 0, out, 0.0).reshape(b, nh, hd).to(q.dtype)
+
+
+def paged_split_n_live(lengths, ps: int, pages: int, max_pages: int) -> list:
+    """The live splits of each sequence: splits of ``pages`` table entries
+    that start below its (clamped) length."""
+    pages_live = [-(-min(max(n, 0), max_pages * ps) // ps) for n in lengths]
+    return [-(-n // pages) for n in pages_live]
+
+
 def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
                        fault: str | None):
     """The plain version (paged_attention_reference's numerics) carrying
@@ -205,11 +286,22 @@ def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
     - no_rescale: the accumulator is not rescaled when the running max
       rises from one page to the next;
     - last_page_unmasked: the last live page is read whole, past lengths;
-    - wrong_kv_head: each query group reads the next kv head's pages.
+    - wrong_kv_head: each query group reads the next kv head's pages;
+
+    or one fault of the split design (SPLIT_FAULTS), modelled by
+    paged_split_plain at the wrapper's own pages_per_split and ring stage.
     """
     import torch
 
+    from tpumon_torch.ops.paged_attention import STAGE_ROWS, pages_per_split
+
     b, nh, hd = q.shape
+    if fault in SPLIT_FAULTS:
+        nkv, _, ps, _ = k_pages.shape
+        return paged_split_plain(
+            q, k_pages, v_pages, table, lengths,
+            pages_per_split(b, nkv, table.shape[1], ps), fault,
+            min(STAGE_ROWS[q.dtype], ps))
     nkv, _, ps, _ = k_pages.shape
     s_max = table.shape[1] * ps
     heads = torch.arange(nkv, device=q.device)
@@ -242,25 +334,59 @@ def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
     return torch.einsum("bhk,bkhd->bhd", probs, v)
 
 
-def paged_fault_applies(fault: str, nkv: int, lengths, ps: int) -> bool:
-    """Whether a planted fault changes any live row of this case."""
+def paged_fault_applies(fault: str, nkv: int, lengths, ps: int,
+                        n_live=()) -> bool:
+    """Whether a planted fault changes any live row of this case;
+    ``n_live``: each sequence's live splits at the wrapper's rule (the
+    split faults need two, a dropped middle split three)."""
     live = [n for n in lengths if n > 0]
     if fault == "wrong_kv_head":
         return nkv > 1
     if fault == "last_page_unmasked":
         return any(n % ps for n in live)
+    if fault in SPLIT_FAULTS:
+        return max(n_live, default=0) >= (
+            3 if fault == "split_partial_dropped" else 2)
     return bool(live)
 
 
 def paged_fault_readings(args, want) -> dict:
     """{fault: rows_rel_err against the plain version} for every planted
     fault that applies to the case (``args`` as paged_attention takes)."""
-    q, k_pages, _, _, lengths = args
+    from tpumon_torch.ops.paged_attention import pages_per_split
+
+    q, k_pages, _, table, lengths = args
     lens = lengths.tolist()
+    nkv, _, ps, _ = k_pages.shape
+    n_live = paged_split_n_live(
+        lens, ps, pages_per_split(q.shape[0], nkv, table.shape[1], ps),
+        table.shape[1])
     return {f: rows_rel_err(paged_faulty_plain(*args, f), want, lengths)
             for f in PAGED_FAULTS
-            if paged_fault_applies(f, k_pages.shape[0], lens,
-                                   k_pages.shape[2])}
+            if paged_fault_applies(f, nkv, lens, ps, n_live)}
+
+
+def prod_lengths() -> list:
+    """The production case's 16 lengths: PROD_LENGTHS, then random ones
+    from a seed."""
+    rng = random.Random(1)
+    return list(PROD_LENGTHS) + [
+        rng.randint(1, 4096) for _ in range(16 - len(PROD_LENGTHS))]
+
+
+def print_paged_config() -> None:
+    """ptxas's lines for the paged kernel's instances (registers, spills)
+    beside its dynamic shared memory, default ring depth and stage rows
+    at page 128 per type."""
+    import torch
+
+    from tpumon_torch.ops import _build
+    from tpumon_torch.ops.paged_attention import kernel_config
+
+    configs = {f"{str(dt)[6:]}_hd{hd}": kernel_config(hd, dt, 128)
+               for dt in (torch.bfloat16, torch.float32) for hd in (32, 64, 128)}
+    print(f"paged_ptxas config={configs} "
+          + " | ".join(_build.ptxas_report("paged_attention")), flush=True)
 
 
 def check_kernel(gen) -> dict:
@@ -271,12 +397,12 @@ def check_kernel(gen) -> dict:
         paged_attention_reference,
     )
 
-    rng = random.Random(1)
-    prod_lengths = list(PROD_LENGTHS) + [
-        rng.randint(1, 4096) for _ in range(16 - len(PROD_LENGTHS))]
     cases = [
         ("production", dict(b=16, nh=32, nkv=8, hd=128, ps=128, max_pages=32,
-                            lengths=prod_lengths)),
+                            lengths=prod_lengths())),
+        # production widths at batch 4, where the rule splits a table in 8
+        ("production_b4", dict(b=4, nh=32, nkv=8, hd=128, ps=128,
+                               max_pages=32, lengths=[2000, 4096, 129, 0])),
         ("group1_hd64", dict(b=8, nh=8, nkv=8, hd=64, ps=128, max_pages=8,
                              lengths=[0, 1, 127, 128, 129, 500, 1024, 777])),
         ("cli_hd32", dict(b=4, nh=8, nkv=4, hd=32, ps=32, max_pages=8,
@@ -291,6 +417,7 @@ def check_kernel(gen) -> dict:
             tol = PAGED_TOL[dname]
             args = paged_inputs(gen, dtype=dtype, **case)
             out = paged_attention(*args)
+            again = paged_attention(*args)
             torch.cuda.synchronize()
             ref = paged_attention_reference(*args)
             err = (out.float() - ref.float()).abs().max().item()
@@ -298,7 +425,8 @@ def check_kernel(gen) -> dict:
             zero = [i for i, n in enumerate(case["lengths"]) if n == 0]
             zeros_ok = bool((out[zero] == 0).all().item()) if zero else True
             finite = bool(torch.isfinite(out.float()).all().item())
-            ok = rel <= tol and zeros_ok and finite
+            same = torch.equal(out, again)  # the merge is in split order
+            ok = rel <= tol and zeros_ok and finite and same
             faults = paged_fault_readings(args, ref)
             missed = [f for f, r in faults.items() if not r > tol]
             # The same faults on the longest sequence's rows alone.
@@ -308,7 +436,8 @@ def check_kernel(gen) -> dict:
                 for f in faults}
             print(f"kernel_vs_plain {name} {dname} lengths={case['lengths']} "
                   f"rows_rel_err={rel!r} tol={tol} max_abs_err={err!r} "
-                  f"zero_rows_zero={zeros_ok} {'ok' if ok else 'MISS'}",
+                  f"zero_rows_zero={zeros_ok} repeat_identical={same} "
+                  f"{'ok' if ok else 'MISS'}",
                   flush=True)
             print(f"paged_planted_faults {name} {dname} rows_rel_err="
                   f"{faults} longest_rows={long_faults} tol={tol} "
@@ -451,63 +580,129 @@ def check_small_engine_against_cpu() -> None:
         fail("small engine: card streams differ from the CPU's")
 
 
-def library_attention(q, k_pages, v_pages, table, lengths):
-    """torch's SDPA over the gathered context, gather included: the
-    library yardstick for paged_attention (timed here only)."""
+def gather_dense(k_pages, v_pages, table, lengths):
+    """The gathered context of a paged call, as SDPA takes it: K and V
+    [B, n_kv_heads, S, hd] and the key mask [B, 1, 1, S]."""
     import torch
-    import torch.nn.functional as F
 
-    b, nh, hd = q.shape
-    nkv, _, ps, _ = k_pages.shape
-    s = table.shape[1] * ps
+    nkv, _, ps, hd = k_pages.shape
+    b, max_pages = table.shape
+    s = max_pages * ps
     idx = table.long()
     k = k_pages[:, idx].reshape(nkv, b, s, hd).transpose(0, 1)
     v = v_pages[:, idx].reshape(nkv, b, s, hd).transpose(0, 1)
-    kpos = torch.arange(s, device=q.device)
-    mask = (kpos[None] < lengths[:, None])[:, None, None, :]
+    kpos = torch.arange(s, device=k_pages.device)
+    return k, v, (kpos[None] < lengths[:, None])[:, None, None, :]
+
+
+def sdpa_dense(q, k, v, mask):
+    """torch's SDPA of one query token per sequence over a gathered
+    context (gather_dense)."""
+    import torch.nn.functional as F
+
     out = F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
                                          enable_gqa=True)
     return out[:, :, 0]
 
 
-def time_kernel(gen, bw: float, peaks: dict) -> dict:
-    """Kernel, plain and library times at the production decode shape
-    with every table full (4096 rows per sequence), bf16."""
+def library_attention(q, k_pages, v_pages, table, lengths):
+    """torch's SDPA over the gathered context, gather included: the
+    library yardstick for paged_attention (timed here only)."""
+    return sdpa_dense(q, *gather_dense(k_pages, v_pages, table, lengths))
+
+
+PAGED_VARIANT_PAGES = (1, 2, 4, 8, 16, 32)  # 32: one split (the table's length)
+PAGED_VARIANT_STAGES = (2, 3, 4)
+
+
+def time_paged_case(args, label: str, bw: float, peaks: dict) -> dict:
+    """Kernel (and the host's time to enqueue it), plain version, gather +
+    SDPA and SDPA on the gathered context alone (the cost of a dense
+    layout; both library calls are yardsticks, never called by the port)
+    at one bf16 case, beside the bound of the bytes these lengths need;
+    then the kernel at each (pages per split, ring stages) of
+    PAGED_VARIANT_*, as a table."""
     import torch
 
-    from tpumon_torch.ops.paged_attention import (
-        paged_attention,
-        paged_attention_reference,
-    )
+    from tpumon_torch.ops import paged_attention as pa
 
-    b, nh, nkv, hd, ps, mp = 16, 32, 8, 128, 128, 32
-    args = paged_inputs(gen, b, nh, nkv, hd, ps, mp, [mp * ps] * b,
-                        torch.bfloat16)
-    lens = args[4]
-    elem = 2
-    kv_bytes = 2 * int(lens.sum().item()) * nkv * hd * elem
-    io_bytes = (2 * b * nh * hd * elem + args[3].numel() * 4 + b * 4)
-    ops = 4 * int(lens.sum().item()) * nh * hd
-    t_bytes = (kv_bytes + io_bytes) / bw * 1e3
-    t_ops = ops / peaks["bfloat16"] * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    before = paged_attention.launches
-    ms = cuda_ms(lambda: paged_attention(*args), reps=50)
-    plain_ms = cuda_ms(lambda: paged_attention_reference(*args), reps=10)
+    q, k_pages, _, table, lens = args
+    b, nh, hd = q.shape
+    nkv, _, ps, _ = k_pages.shape
+    elem = q.element_size()
+    rows = int(lens.clamp(0, table.shape[1] * ps).sum().item())
+    kv_bytes = 2 * rows * nkv * hd * elem
+    io_bytes = 2 * b * nh * hd * elem + table.numel() * 4 + b * 4
+    ops = 4 * rows * nh * hd
+    bound_ms, bound_by = max(((kv_bytes + io_bytes) / bw * 1e3, "bytes"),
+                             (ops / peaks["bfloat16"] * 1e3, "operations"))
+    ms = cuda_ms(lambda: pa.paged_attention(*args), reps=50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the host's time to enqueue a call
+    for _ in range(200):
+        pa.paged_attention(*args)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: pa.paged_attention_reference(*args), reps=10)
     lib_ms = cuda_ms(lambda: library_attention(*args), reps=10)
-    paged_attention.launches = before  # timing launches are not the path's
-    ref = paged_attention_reference(*args).float()
+    dense = gather_dense(*args[1:])
+    sdpa_ms = cuda_ms(lambda: sdpa_dense(q, *dense), reps=20)
+    ref = pa.paged_attention_reference(*args).float()
     lib_err = (library_attention(*args).float() - ref).abs().max().item()
-    ker_err = (paged_attention(*args).float() - ref).abs().max().item()
-    paged_attention.launches = before
-    print(f"time_paged_attention shape=B16/h32/kv8/hd128/page128/len4096 "
-          f"bf16 kernel_ms={ms!r} plain_ms={plain_ms!r} "
-          f"library_sdpa_ms={lib_ms!r} bound_ms={bound_ms!r} ({bound_by}: "
-          f"{kv_bytes + io_bytes} B, {ops} op) "
-          f"achieved_GBps={(kv_bytes + io_bytes) / ms / 1e6!r} "
+    ker_err = (pa.paged_attention(*args).float() - ref).abs().max().item()
+    del dense
+    pages = pa.pages_per_split(b, nkv, table.shape[1], ps)
+    print(f"time_paged_attention {label} bf16 pages_per_split={pages} "
+          f"kernel_ms={ms!r} host_enqueue_us={host_us!r} plain_ms={plain_ms!r} "
+          f"library_gather_sdpa_ms={lib_ms!r} library_sdpa_gathered_ms="
+          f"{sdpa_ms!r} bound_ms={bound_ms!r} ({bound_by}: "
+          f"{kv_bytes + io_bytes} B, {ops} op) kernel_over_bound="
+          f"{ms / bound_ms!r} achieved_GBps={(kv_bytes + io_bytes) / ms / 1e6!r} "
           f"kernel_err={ker_err!r} library_err={lib_err!r}", flush=True)
+    stages = pa.kernel_config(hd, q.dtype, ps)["default_stages"]
+    table_ms, worst = {}, 0.0
+    for st in PAGED_VARIANT_STAGES:
+        for pg in PAGED_VARIANT_PAGES:
+            if pg <= table.shape[1]:
+                table_ms[(pg, st)] = cuda_ms(
+                    lambda: pa._launch(*args, pages=pg, stages=st), reps=50)
+                worst = max(worst, rows_rel_err(
+                    pa._launch(*args, pages=pg, stages=st), ref, lens))
+    print(f"paged_variants {label} (pages per split x ring stages, µs; the "
+          f"rule: {pages} x {stages}) worst rows_rel_err={worst!r} "
+          f"tol={PAGED_TOL['bfloat16']}", flush=True)
+    if not worst <= PAGED_TOL["bfloat16"]:
+        fail(f"a paged kernel variant disagrees with the plain version ({label})")
+    for pg in sorted({p for p, _ in table_ms}):
+        cells = " ".join(f"{table_ms[(pg, st)] * 1e3:9.2f}"
+                         for st in PAGED_VARIANT_STAGES)
+        print(f"paged_variants {label} pages={pg:3d} splits="
+              f"{-(-table.shape[1] // pg):3d} stages {PAGED_VARIANT_STAGES}: "
+              f"{cells}", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_kernel(gen, bw: float, peaks: dict) -> dict:
+    """The paged kernel's times (time_paged_case) at the production decode
+    shape with every table full (4096 rows per sequence), then at
+    check_kernel's production lengths; returns the full-table ones."""
+    import torch
+
+    from tpumon_torch.ops.paged_attention import paged_attention
+
+    before = paged_attention.launches
+    shape = dict(b=16, nh=32, nkv=8, hd=128, ps=128, max_pages=32)
+    full = time_paged_case(
+        paged_inputs(gen, **shape, lengths=[32 * 128] * 16,
+                     dtype=torch.bfloat16),
+        "shape=B16/h32/kv8/hd128/page128/len4096", bw, peaks)
+    time_paged_case(
+        paged_inputs(gen, **shape, lengths=prod_lengths(),
+                     dtype=torch.bfloat16),
+        "shape=B16/h32/kv8/hd128/page128/prod_lengths", bw, peaks)
+    paged_attention.launches = before  # timing launches are not the path's
+    return full
 
 
 def device_busy(fn, reps: int = 5):
@@ -540,7 +735,7 @@ def time_engine(eng, snap, stats: dict) -> None:
     import torch
 
     from tpumon_torch.loadgen.paged_kv import paged_decode_step
-    from tpumon_torch.ops.paged_attention import paged_attention
+    from tpumon_torch.ops.paged_attention import _launch, paged_attention
     from tpumon_torch.tracing import quantiles
 
     before = paged_attention.launches
@@ -571,6 +766,16 @@ def time_engine(eng, snap, stats: dict) -> None:
     lengths = snap["pos"] + 1
     attn_ms = m.n_layers * cuda_ms(lambda: paged_attention(
         q, pool["k"][0], pool["v"][0], snap["tables"], lengths), reps=20)
+    # The same two calls at other pages per split (32: one split), in two
+    # turns, the second in reverse order.
+    attn_pages = {pg: [] for pg in PAGED_VARIANT_PAGES}
+    for turn in (PAGED_VARIANT_PAGES, PAGED_VARIANT_PAGES[::-1]):
+        for pg in turn:
+            attn_pages[pg].append(m.n_layers * cuda_ms(lambda: _launch(
+                q, pool["k"][0], pool["v"][0], snap["tables"], lengths,
+                pages=pg), reps=50))
+    print(f"engine_attention_variants pages_per_split -> ms of the step's "
+          f"{m.n_layers} calls, two turns: {attn_pages}", flush=True)
     # The step's projections alone: 7 per layer plus the LM head.
     x = torch.randn(16, m.d_model, device="cuda", dtype=torch.bfloat16)
     xf = torch.randn(16, m.d_ff, device="cuda", dtype=torch.bfloat16)
@@ -2232,6 +2437,7 @@ def main() -> int:
     print("ptxas: " + " | ".join(
         ln for n in _build.sources() for ln in _build.ptxas_report(n)
         if n != "paged_attention"), flush=True)
+    print_paged_config()
     print_flash_config()
 
     gen = torch.Generator(device="cuda").manual_seed(0)

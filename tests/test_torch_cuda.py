@@ -33,6 +33,7 @@ from torch_parity import (  # noqa: E402
     GEMM_CARD_CASES,
     PAGED_CARD_CASE,
     PAGED_CARD_SHAPES,
+    PAGED_SPLIT_CARD_CASES,
     paged_case,
     to_torch,
 )
@@ -89,6 +90,49 @@ def test_kernel_reads_a_parked_slots_repeated_trash_page(cuda_device):
     torch.cuda.synchronize()
     ref = paged_attention_reference(*args)
     assert torch.isfinite(out.float()).all()
+    assert rows_rel_err(out, ref, args[4]) <= PAGED_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(PAGED_SPLIT_CARD_CASES)))
+def test_split_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    """The page axis split across CTAs at the wrapper's pages_per_split:
+    a sequence over 4 splits ending in a partial page, mixed lengths whose
+    splits end at different points, all rows but one of length 0. One
+    launch; the same bits on a second call (the partials merge in split
+    order, whichever CTA arrives last)."""
+    from tpumon_torch.ops.paged_attention import pages_per_split
+
+    spec = PAGED_SPLIT_CARD_CASES[case]
+    args = [t.to(cuda_device) for t in to_torch(paged_case(**spec), dtype)]
+    assert pages_per_split(spec["b"], spec["nkv"], spec["max_pages"],
+                           spec["page_size"]) < spec["max_pages"]
+    before = paged_attention.launches
+    out = paged_attention(*args)
+    again = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 2
+    ref = paged_attention_reference(*args)
+    assert torch.isfinite(out.float()).all()
+    assert rows_rel_err(out, ref, args[4]) <= PAGED_TOL[str(dtype)[6:]]
+    assert torch.equal(out, again)
+    zero = [i for i, n in enumerate(spec["lengths"]) if n == 0]
+    assert torch.equal(out[zero].float(), torch.zeros_like(out[zero].float()))
+
+
+@pytest.mark.parametrize("pages,stages", [(1, 2), (3, 4), (64, 0), (5, 6)])
+def test_split_kernel_at_other_splits_and_rings_on_card(cuda_device, pages,
+                                                        stages):
+    """The kernel at pages per split and ring depths other than the rule's
+    (3 does not divide the 64-entry table; 64 is one split) agrees with
+    the plain version too."""
+    from tpumon_torch.ops.paged_attention import _launch
+
+    args = [t.to(cuda_device) for t in to_torch(
+        paged_case(**PAGED_SPLIT_CARD_CASES[0]), torch.bfloat16)]
+    out = _launch(*args, pages=pages, stages=stages)
+    torch.cuda.synchronize()
+    ref = paged_attention_reference(*args)
     assert rows_rel_err(out, ref, args[4]) <= PAGED_TOL["bfloat16"]
 
 

@@ -47,6 +47,22 @@ PAGED_CARD_SHAPES = [
      "lengths": (32, 31, 9, 8, 7, 2)},
 ]
 
+# The split kernel's card cases (tests/test_torch_cuda.py), each a whole
+# paged_case: tables long enough that the wrapper's pages_per_split gives
+# several splits per sequence. The longest sequence spans 4 splits and
+# ends in a partial page; a mixed batch whose live splits (5, 2, 3, 0, 1,
+# 4) end at different points; a batch where all but one row have length
+# 0. The CPU tests check that the split design's planted faults read over
+# the card limits here.
+PAGED_SPLIT_CARD_CASES = [
+    dict(b=2, nh=8, nkv=2, hd=128, page_size=16, max_pages=64,
+         num_pages=120, lengths=(1000, 700), seed=11),
+    dict(b=6, nh=4, nkv=4, hd=64, page_size=40, max_pages=32, num_pages=90,
+         lengths=(1280, 281, 561, 0, 1, 999), seed=12),
+    dict(b=4, nh=8, nkv=1, hd=32, page_size=8, max_pages=128,
+         num_pages=100, lengths=(0, 0, 777, 0), seed=13),
+]
+
 
 # The GEMM card tests' (M, K, N) (tests/test_torch_cuda.py), where the CPU
 # tests check the planted GEMM faults against the card limits too.

@@ -4,12 +4,13 @@ Counterpart of ``tpumon/ops/paged_attention.py``. Sequences own lists of
 fixed-size pages from a shared head-major pool ``[n_kv_heads, num_pages,
 page_size, head_dim]``; the per-sequence page table is the indirection.
 ``paged_attention`` is the decode step (one query token per sequence):
-on a CUDA tensor it launches ``csrc/paged_attention.cu``, which walks
-each sequence's pages in place — the gathered ``[B, S]`` context never
-exists in device memory; on a CPU tensor it runs
-``paged_attention_reference``, the plain PyTorch version that mirrors
-the reference's dense-gather oracle step for step (and is the engine's
-``paged_attn="gather"`` read path).
+on a CUDA tensor it launches ``csrc/paged_attention.cu``, which reads
+each sequence's pages in place, split across CTAs of
+``pages_per_split`` table entries whose partial softmax states merge in
+the same launch — the gathered ``[B, S]`` context never exists in device
+memory; on a CPU tensor it runs ``paged_attention_reference``, the plain
+PyTorch version that mirrors the reference's dense-gather oracle step
+for step (and is the engine's ``paged_attn="gather"`` read path).
 """
 
 from __future__ import annotations
@@ -24,6 +25,17 @@ _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_MAX_GROUP = 8
+# The split rule (pages_per_split): about SPLIT_TARGET_CTAS CTAs a call
+# (two resident on each of an H100's 132 SMs), none shorter than
+# SPLIT_MIN_ROWS rows; a call whose tables hold no more than that keeps
+# one split per (sequence, kv head). Measured against 2-8x as many CTAs
+# (PERF.md §6, the paged kernel's variants): more, shorter splits cost
+# each CTA's start and merge.
+SPLIT_TARGET_CTAS = 256
+SPLIT_MIN_ROWS = 256
+# Rows of one ring stage of the kernel (csrc/paged_attention.cu
+# Tile::kRows), at most a page: the tiles a split's pages stream in.
+STAGE_ROWS = {torch.bfloat16: 64, torch.float32: 32}
 
 
 def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
@@ -56,17 +68,60 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     return torch.einsum("bhk,bkhd->bhd", probs, v)
 
 
+def pages_per_split(batch: int, n_kv_heads: int, max_pages: int,
+                    page_size: int) -> int:
+    """Table entries per CTA of the kernel, from static shapes alone (no
+    read of the lengths): enough splits of each (sequence, kv head) for
+    about SPLIT_TARGET_CTAS CTAs, each at least SPLIT_MIN_ROWS rows long.
+    max_pages means one split."""
+    min_pages = -(-SPLIT_MIN_ROWS // page_size)
+    want = -(-SPLIT_TARGET_CTAS // (batch * n_kv_heads))
+    return min(max_pages, max(min_pages, -(-max_pages // want)))
+
+
 def _kernel():
-    """The built library and its launcher, with its C signature set."""
+    """The built library and its two launchers (one split per (sequence,
+    kv head); split), with their C signatures set."""
     lib = _build.load("paged_attention")
-    fn = lib.tpumon_paged_attention
-    if fn.argtypes is None:
+    one, split = lib.tpumon_paged_attention, lib.tpumon_paged_attention_split
+    if one.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         # q, k, v, table, lengths, out; batch, heads, kv heads, pages,
-        # page size, max pages, head dim, dtype; stream.
-        fn.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
-        fn.restype = i32
-    return lib, fn
+        # page size, max pages, head dim, dtype; [pages per split, stages,
+        # partials, counters;] stream.
+        one.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+        split.argtypes = [ptr] * 6 + [i32] * 10 + [ptr] * 3
+        one.restype = split.restype = i32
+    return lib, one, split
+
+
+def kernel_config(head_dim: int, dtype: torch.dtype, page_size: int,
+                  stages: int = 0) -> dict:
+    """The kernel's dynamic shared memory at ``stages`` ring stages (0: its
+    default), its default stages and the rows of a stage at
+    ``page_size``. Builds the library (needs nvcc)."""
+    lib = _build.load("paged_attention")
+    fn = lib.tpumon_paged_attention_config
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    _build.check(lib, fn(head_dim, _DTYPES[dtype], stages, page_size,
+                         ctypes.addressof(out)), "paged_attention config")
+    return {"smem_bytes": out[0], "default_stages": out[1],
+            "stage_rows": out[2]}
+
+
+# Arrival counters of the split kernel, one int32 per (sequence, kv head),
+# per (device, stream): zeroed once when made, left at 0 by every launch.
+_counters: dict[tuple, torch.Tensor] = {}
+
+
+def _arrival_counters(device: torch.device, stream, n: int) -> torch.Tensor:
+    key = (device.index, stream.cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def _check(q, k_pages, v_pages, page_table, lengths) -> None:
@@ -126,8 +181,17 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                          lengths)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cpu or cuda, not {q.device}")
+    return _launch(q, k_pages, v_pages, page_table, lengths)
+
+
+def _launch(q, k_pages, v_pages, page_table, lengths, pages: int = 0,
+            stages: int = 0) -> torch.Tensor:
+    """The kernel on checked CUDA tensors: ``pages`` table entries per
+    split (0: the ``pages_per_split`` rule) and ``stages`` ring stages (0:
+    the kernel's default). One launch; no device-to-host copy."""
     b, nh, hd = q.shape
     nkv, num_pages, page_size, _ = k_pages.shape
+    max_pages = page_table.shape[1]
     if hd not in KERNEL_HEAD_DIMS or nh // nkv > KERNEL_MAX_GROUP:
         raise ValueError(
             f"the CUDA kernel takes head_dim in {KERNEL_HEAD_DIMS} and GQA "
@@ -138,13 +202,23 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    lib, launch = _kernel()
+    pages = pages or pages_per_split(b, nkv, max_pages, page_size)
+    lib, one, split = _kernel()
     with torch.cuda.device(q.device):
-        err = launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, nh, nkv, num_pages, page_size, page_table.shape[1], hd,
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device)
+        args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                b, nh, nkv, num_pages, page_size, max_pages, hd,
+                _DTYPES[q.dtype])
+        if pages >= max_pages and stages == 0:
+            err = one(*args, stream.cuda_stream)
+        else:
+            splits = -(-max_pages // pages)
+            partials = torch.empty(b * splits * nh * (hd + 2),
+                                   dtype=torch.float32, device=q.device)
+            counters = _arrival_counters(q.device, stream, b * nkv)
+            err = split(*args, pages, stages, partials.data_ptr(),
+                        counters.data_ptr(), stream.cuda_stream)
     _build.check(lib, err, "paged_attention launch")
     paged_attention.launches += 1
     return out
