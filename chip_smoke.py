@@ -23,8 +23,10 @@ Phases, each of which exits non-zero on failure:
    after the build.
 4. engine: the serving engine at production width (bench.py's paged
    decode shape: vocab 4096, d_model 4096, 2 layers, 32/8 heads, d_ff
-   8192, max_seq 4096, 16 slots, page 128, random weights from a seed)
-   serves 16 greedy requests of 64-3000 prompt tokens to completion; the
+   8192, max_seq 4096, 16 slots, page 128, random weights from a seed),
+   kv_layout="paged" with the kernel read path named explicitly (the
+   defaults are the reference's dense/gather), serves 16 greedy requests
+   of 64-3000 prompt tokens to completion; the
    kernel's launch count must equal n_layers x decode steps; one decode
    step of the kernel path is held to the gather path in bf16 and f32;
    a small f32 engine's streams on the card equal the CPU's.
@@ -81,9 +83,11 @@ Phases, each of which exits non-zero on failure:
     planted faults beside (the K and scale faults of a 64-deep K step and
     two of a persistent tile scheduler); the scale applied once; the
     reference's fallback for a shape that does not tile, with no launch.
-12. burn path: the chained burn programs at size 4096 through the kernels
-    and the library (the 3-link chains agree; 64 launches per 64-link
-    call), then mxu_burn and int8_burn for 2 s each way with nvidia-smi's
+12. burn path: the chained burn programs at size 4096, on the reference's
+    inputs (threefry normals and randint drawn on the card from
+    PRNGKey(0)), through the kernels and the library (the 3-link chains
+    agree; 64 launches per 64-link call), then mxu_burn and int8_burn for
+    2 s each way with nvidia-smi's
     power draw and SM clock read during each; beside them, as a reference
     point, the same chain kept live (renormalised by sqrt(size)).
 13. kernels phase: bench.py's slope-timed measurements through the port
@@ -99,6 +103,20 @@ Phases, each of which exits non-zero on failure:
     beside full-f32 library calls) and of the rectangular forward beside
     their plain versions, library calls (SDPA pinned as in 9) and
     bounds.
+16. dense and fused serving: phase 4's model and traffic, half the
+    requests greedy and half sampled (temperature 0.8, top-k 0 and 50),
+    through the dense engine at decode_block 1 and 8 (and 8 under the
+    sequential scheduler) and the paged engine at block 8 (kernel and
+    gather read paths; the kernel's launches must equal n_layers x decode
+    steps, in-block steps included); each request's stream identical
+    across blocks and schedulers; dense and paged-gather greedy streams
+    equal up to the first near-tie, which is printed; small f32 engines
+    (dense and paged, greedy and sampled) emit the CPU's streams on the
+    card; sample_tokens on [16, 4096] logits agrees with its CPU run
+    outside a 1e-4 margin. Times: the dense decode step at block 1 and 8,
+    one sample_tokens call against the greedy argmax, where a dense
+    step's device time goes and the idle share, tokens/s and TTFT p50 of
+    each run.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -453,7 +471,10 @@ def check_kernel(gen) -> dict:
     return worst
 
 
-def engine_config(paged_attn="kernel", dtype="bfloat16"):
+def engine_config(paged_attn="kernel", dtype="bfloat16", kv_layout="paged",
+                  decode_block=1, scheduler="interleaved"):
+    """bench.py's production serving shape; the paged layout with the
+    kernel read path unless asked otherwise."""
     from tpumon_torch.loadgen.model import ModelConfig
     from tpumon_torch.loadgen.serving import ServeConfig
 
@@ -461,7 +482,22 @@ def engine_config(paged_attn="kernel", dtype="bfloat16"):
         model=ModelConfig(vocab=4096, d_model=4096, n_layers=2, n_heads=32,
                           n_kv_heads=8, d_ff=8192, max_seq=4096,
                           compute_dtype=dtype),
-        slots=16, prefill_len=128, paged_attn=paged_attn)
+        slots=16, prefill_len=128, kv_layout=kv_layout,
+        paged_attn=paged_attn, decode_block=decode_block,
+        scheduler=scheduler)
+
+
+def engine_traffic() -> tuple:
+    """Phase 4's traffic: 16 prompts of 64-3000 tokens (lengths, prompts),
+    and phase 16's sampling settings for them (temperature, top_k): even
+    requests greedy, odd ones at temperature 0.8, half of those over the
+    whole vocab and half over the top 50."""
+    rng = random.Random(2)
+    lens = [64, 3000] + [rng.randint(64, 3000) for _ in range(14)]
+    prompts = [[rng.randrange(4096) for _ in range(n)] for n in lens]
+    sampling = [(0.0, 0) if i % 2 == 0 else (0.8, 0 if i % 4 == 1 else 50)
+                for i in range(len(lens))]
+    return lens, prompts, sampling
 
 
 def run_engine() -> tuple:
@@ -475,9 +511,7 @@ def run_engine() -> tuple:
     from tpumon_torch.ops.paged_attention import paged_attention
 
     eng = ServingEngine(cfg=engine_config(), seed=0, device="cuda")
-    rng = random.Random(2)
-    lens = [64, 3000] + [rng.randint(64, 3000) for _ in range(14)]
-    prompts = [[rng.randrange(4096) for _ in range(n)] for n in lens]
+    lens, prompts, _ = engine_traffic()
     max_new = 32
     torch.cuda.synchronize()
     paged_attention.launches = 0  # count only the main path from here
@@ -563,7 +597,8 @@ def check_small_engine_against_cpu() -> None:
     cfg = ServeConfig(model=ModelConfig(vocab=256, d_model=128, n_layers=2,
                                         n_heads=4, n_kv_heads=2, d_ff=256,
                                         max_seq=128, compute_dtype="float32"),
-                      slots=3, prefill_len=16)
+                      slots=3, prefill_len=16, kv_layout="paged",
+                      paged_attn="kernel")
     gen = torch.Generator().manual_seed(3)
     params = init_params(cfg.model, gen)
     rng = random.Random(4)
@@ -1369,7 +1404,8 @@ def check_served_checkpoint(trained: dict) -> None:
 
     cfg = trained["cfg"]
     eng = ServingEngine(cfg=ServeConfig(model=cfg.model, slots=2,
-                                        prefill_len=128),
+                                        prefill_len=128, kv_layout="paged",
+                                        paged_attn="kernel"),
                         ckpt_dir=str(CKPT_DIR), device="cuda")
     same = all(torch.equal(a.to(b.dtype), b) for a, b in zip(
         param_leaves(trained["params"]), param_leaves(eng.params)))
@@ -2046,15 +2082,16 @@ def run_burn_path() -> dict:
     during each. Returns the kernels' launches over the whole phase."""
     import torch
 
+    from tpumon_torch import prng
     from tpumon_torch.loadgen import burn
     from tpumon_torch.ops.matmul import matmul
     from tpumon_torch.ops.quant_matmul import quantized_matmul_kernel
 
-    dev = torch.device("cuda")
-    a, b = burn._mxu_inputs(0, 4096, dev)
+    key = prng.torch_key(0, torch.device("cuda"))
+    a, b = burn._mxu_inputs(key, 4096)
     chains = {"mxu": (burn._mxu_chain(a, b, 3, matmul),
                       burn._mxu_chain(a, b, 3, torch.matmul))}
-    a, q, sc = burn._int8_inputs(0, 4096, dev)
+    a, q, sc = burn._int8_inputs(key, 4096)
     chains["int8"] = (burn._int8_chain(a, q, sc, 3, quantized_matmul_kernel),
                       burn._int8_chain(a, q, sc, 3, burn._dequant_matmul))
     for name, (kern, lib) in chains.items():
@@ -2072,7 +2109,7 @@ def run_burn_path() -> dict:
     for prog, kern in ((burn._mxu_burn_program, "matmul"),
                        (burn._int8_burn_program, "quantized_matmul_kernel")):
         n0 = gemm_counts()[kern]
-        total = burn._sync(prog(0, 4096, 64, use_kernel=True))
+        total = burn._sync(prog(key, 4096, 64, use_kernel=True))
         n = gemm_counts()[kern] - n0
         print(f"burn_program {prog.__name__} size=4096 links=64 "
               f"launches={n} sum={total!r}", flush=True)
@@ -2113,10 +2150,11 @@ def live_chain(use_kernel: bool, seconds: float = 2.0, size: int = 4096,
     and TFLOP/s."""
     import torch
 
+    from tpumon_torch import prng
     from tpumon_torch.loadgen import burn
     from tpumon_torch.ops.matmul import matmul
 
-    a, b = burn._mxu_inputs(0, size, torch.device("cuda"))
+    a, b = burn._mxu_inputs(prng.torch_key(0, torch.device("cuda")), size)
     mm = matmul if use_kernel else torch.matmul
     calls, t0 = 0, time.perf_counter()
     while time.perf_counter() - t0 < seconds:
@@ -2411,6 +2449,294 @@ def time_flash_rect(gen, bw: float, peaks: dict) -> dict:
     return out[True]
 
 
+# Phase 16: the dense layout, fused block decode and keyed sampling at
+# production width. Sampler agreement between two runs of one draw (card
+# and CPU): tokens equal wherever the winning perturbed logit leads the
+# runner-up by more than SAMPLE_MARGIN; the rows inside it (near-ties)
+# must stay under 1% of the draws (tests/test_torch_sampling.py's rule).
+SAMPLE_MARGIN = 1e-4
+
+
+def sample_margin(logits, key, rids, ctrs, temps, topk):
+    """Per row of one ``sample_tokens`` call, how far the winning
+    perturbed logit (Gumbel + the top-k-masked, temperature-scaled logit)
+    leads the runner-up; inf on greedy rows. The near-tie measure of the
+    sampler checks, on the tensors' device."""
+    import torch
+
+    from tpumon_torch import prng
+
+    v = logits.shape[-1]
+    keys = prng.torch_fold_in(prng.torch_fold_in(key, rids), ctrs)
+    srt = torch.sort(logits, dim=-1, descending=True).values
+    k_idx = (torch.where(topk > 0, topk, v) - 1).clamp(0, v - 1).long()
+    thresh = srt.gather(-1, k_idx[:, None])
+    scaled = torch.where(logits >= thresh, logits, -1e30) / temps.clamp_min(
+        1e-6)[:, None]
+    top2 = torch.topk(prng.gumbel(keys, (v,)) + scaled, 2).values
+    return torch.where(temps > 0, top2[:, 0] - top2[:, 1], float("inf"))
+
+
+def serve_traffic(cfg, label: str, max_new: int = 32) -> tuple:
+    """Phase 4's traffic with phase 16's sampling settings through a fresh
+    engine (random weights from seed 0, as phase 4's) on the card, the
+    paged kernel's count set to 0 just before and read just after.
+    Returns (engine, streams, stats)."""
+    import torch
+
+    from tpumon_torch.loadgen.serving import ServingEngine
+    from tpumon_torch.ops.paged_attention import paged_attention
+    from tpumon_torch.tracing import quantiles
+
+    _, prompts, sampling = engine_traffic()
+    eng = ServingEngine(cfg=cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=max_new, temperature=t, top_k=k)
+            for p, (t, k) in zip(prompts, sampling)]
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_attention.launches
+    steps = eng.decode_steps_total
+    ttft = quantiles([t * 1e3 for t in eng._ttft_recent])
+    stats = {"wall_s": wall, "tokens": eng.tokens_total, "steps": steps,
+             "launches": launches, "tokens_per_s": eng.tokens_total / wall,
+             "ttft_p50_ms": ttft[0], "ttft_p95_ms": ttft[1]}
+    print(f"dense_fused_run {label} " + " ".join(
+        f"{k}={v!r}" for k, v in stats.items()), flush=True)
+    bad = [r.rid for r in reqs
+           if r.status != "completed" or len(r.output) != max_new + 1]
+    if bad:
+        fail(f"{label}: requests {bad} did not complete with "
+             f"{max_new + 1} tokens")
+    want = cfg.model.n_layers * steps if cfg.paged_attn == "kernel" else 0
+    if cfg.kv_layout == "paged" and launches != want:
+        fail(f"{label}: kernel launches {launches} != n_layers x decode "
+             f"steps ({cfg.model.n_layers} x {steps})")
+    return eng, [r.output for r in reqs], stats
+
+
+def greedy_divergence(eng, prompt, a, b) -> str | None:
+    """Where two bf16 greedy streams of one request part: None when equal;
+    else the index and the top-2 margin of the full forward's logits at
+    that prefix (the port's plain training forward, bf16), which must be a
+    near-tie (within the engine paths' logit tolerance, ENGINE_TOL)."""
+    import torch
+
+    from tpumon_torch.loadgen.model import forward
+
+    i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None:
+        return None
+    seq = torch.tensor([prompt + a[:i]], dtype=torch.int32, device="cuda")
+    logits = forward(eng.cfg.model, eng.params, seq)[0, -1]
+    top2 = torch.topk(logits, 2).values
+    margin = float(top2[0] - top2[1])
+    if margin > ENGINE_TOL["bfloat16"]:
+        fail(f"greedy streams part at token {i} where the forward's margin "
+             f"is {margin!r}, not a near-tie")
+    return f"token {i} (forward top-2 margin {margin!r})"
+
+
+def check_dense_and_fused() -> dict:
+    """Phase 16's engine runs and checks: the dense engine at decode_block
+    1 and 8 (and 8 under the sequential scheduler), the paged engine at
+    block 8 (kernel and gather read paths), all on phase 4's traffic with
+    greedy and sampled requests; each request's stream identical across
+    blocks and schedulers; dense and paged-gather greedy streams equal up
+    to the first near-tie. Returns the stats by run and the state the
+    timings start from."""
+    import torch
+
+    runs = {"dense_b1": engine_config("gather", kv_layout="dense"),
+            "dense_b8": engine_config("gather", kv_layout="dense",
+                                      decode_block=8),
+            "dense_b8_sequential": engine_config(
+                "gather", kv_layout="dense", decode_block=8,
+                scheduler="sequential"),
+            "paged_kernel_b8": engine_config("kernel", decode_block=8),
+            "paged_gather_b8": engine_config("gather", decode_block=8)}
+    streams, stats, keep = {}, {}, None
+    for label, cfg in runs.items():
+        eng, streams[label], stats[label] = serve_traffic(cfg, label)
+        if label == "dense_b8":
+            keep = eng
+        else:
+            del eng
+        torch.cuda.empty_cache()
+    _, prompts, sampling = engine_traffic()
+    for label in ("dense_b8", "dense_b8_sequential"):
+        same = streams[label] == streams["dense_b1"]
+        print(f"dense_fused_streams {label}_vs_dense_b1 identical={same}",
+              flush=True)
+        if not same:
+            fail(f"dense streams differ between dense_b1 and {label}")
+    same = streams["paged_kernel_b8"] == streams["paged_gather_b8"]
+    print(f"dense_fused_streams paged_kernel_b8_vs_paged_gather_b8 "
+          f"identical={same} (bf16: not required)", flush=True)
+    for i, (t, _) in enumerate(sampling):
+        if t > 0:
+            continue
+        where = greedy_divergence(keep, prompts[i],
+                                  streams["dense_b8"][i],
+                                  streams["paged_gather_b8"][i])
+        print(f"dense_fused_greedy request={i} dense_vs_paged_gather "
+              f"{'identical' if where is None else 'near-tie at ' + where}",
+              flush=True)
+    return {"stats": stats, "engine": keep}
+
+
+def check_small_engines_sampled_against_cpu() -> None:
+    """A small f32 engine's greedy and sampled streams on the card equal
+    the CPU's, dense (decode_block 1 and 4) and paged (kernel, block 4),
+    same weights."""
+    import torch
+
+    from tpumon_torch.loadgen.model import ModelConfig, init_params
+    from tpumon_torch.loadgen.serving import ServeConfig, ServingEngine
+
+    model = ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, d_ff=256, max_seq=128,
+                        compute_dtype="float32")
+    params = init_params(model, torch.Generator().manual_seed(3))
+    rng = random.Random(4)
+    prompts = [[rng.randrange(256) for _ in range(n)]
+               for n in (5, 40, 17, 64, 9)]
+    sampling = [(0.0, 0), (0.8, 0), (0.8, 50), (1.3, 5), (0.0, 0)]
+    for layout, attn, block in (("dense", "gather", 1),
+                                ("dense", "gather", 4),
+                                ("paged", "kernel", 4)):
+        cfg = ServeConfig(model=model, slots=3, prefill_len=16,
+                          kv_layout=layout, paged_attn=attn,
+                          decode_block=block)
+        streams = {}
+        for dev in ("cpu", "cuda"):
+            eng = ServingEngine(cfg=cfg, params=params, seed=7, device=dev)
+            reqs = [eng.submit(p, max_new=12, temperature=t, top_k=k)
+                    for p, (t, k) in zip(prompts, sampling)]
+            eng.drain()
+            streams[dev] = [r.output for r in reqs]
+        same = streams["cpu"] == streams["cuda"]
+        print(f"small_engine_cuda_vs_cpu f32 {layout}/{attn} "
+              f"decode_block={block} greedy+sampled "
+              f"streams_identical={same}", flush=True)
+        if not same:
+            fail(f"small {layout} engine: card streams differ from the CPU's")
+
+
+def check_sampler(eng) -> dict:
+    """sample_tokens on the card against its CPU run on the same [16,
+    4096] logits (a dense decode step's), over 8 token counters; then its
+    time against the greedy argmax. Returns the logits and the sampler's
+    inputs for the timings."""
+    import torch
+
+    from tpumon_torch import prng
+    from tpumon_torch.loadgen.serving import decode_step, sample_tokens
+
+    _, prompts, _ = engine_traffic()
+    i32 = dict(dtype=torch.int32, device="cuda")
+    last = torch.tensor([p[-1] for p in prompts], **i32)
+    pos = torch.tensor([len(p) for p in prompts], **i32)
+    logits = decode_step(eng.cfg, eng.params, eng.cache, last, pos)
+    temps = torch.tensor([0.0, 0.8, 1.3, 0.8] * 4, device="cuda")
+    topk = torch.tensor([0, 0, 50, 1] * 4, **i32)
+    rids = torch.arange(16, **i32) * 7
+    key = prng.torch_key(0x7A11, "cuda")
+    near = mismatched = 0
+    for ctr in range(8):
+        ctrs = torch.full((16,), ctr, **i32)
+        card = sample_tokens(logits, key, rids, ctrs, temps, topk).cpu()
+        args = [t.cpu() for t in (logits, key, rids, ctrs, temps, topk)]
+        cpu = sample_tokens(*args)
+        tie = sample_margin(*args) <= SAMPLE_MARGIN
+        near += int(tie.sum())
+        mismatched += int(((card != cpu) & ~tie).sum())
+    print(f"sampler_card_vs_cpu shape=[16, 4096] draws=128 "
+          f"mismatched_outside_margin={mismatched} near_ties={near} "
+          f"margin={SAMPLE_MARGIN}", flush=True)
+    if mismatched or near >= 0.01 * 128:
+        fail("sample_tokens on the card disagrees with its CPU run")
+    return {"logits": logits, "args": (key, rids, torch.zeros_like(rids),
+                                       temps, topk)}
+
+
+def time_dense_and_fused(eng, runs: dict, sampler: dict) -> None:
+    """Phase 16's times: the dense decode step at decode_block 1 and 8
+    (greedy and sampled rows, CUDA events; the host's enqueue time), one
+    sample_tokens call against the greedy argmax, where a dense step's
+    device time goes and the idle share, and the runs' tokens/s and TTFT
+    p50 at block 8."""
+    import torch
+
+    from tpumon_torch.loadgen.serving import (
+        _greedy,
+        decode_rounds,
+        decode_step,
+        sample_tokens,
+    )
+
+    _, prompts, _ = engine_traffic()
+    i32 = dict(dtype=torch.int32, device="cuda")
+    last = torch.tensor([p[-1] for p in prompts], **i32)
+    pos = torch.tensor([len(p) for p in prompts], **i32)
+    key, rids, ctrs, temps, topk = sampler["args"]
+    cfg, params, cache = eng.cfg, eng.params, eng.cache
+
+    def step():
+        decode_step(cfg, params, cache, last, pos)
+
+    def block(sampled: bool):
+        decode_rounds(cfg, params, cache, last, pos, key, rids, ctrs,
+                      temps if sampled else None, topk, 8)
+
+    ms = {"step_b1": cuda_ms(step, reps=20),
+          "step_b8_greedy": cuda_ms(lambda: block(False), reps=5) / 8,
+          "step_b8_sampled": cuda_ms(lambda: block(True), reps=5) / 8}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    torch.cuda.synchronize()
+    logits = sampler["logits"]
+    sample_ms = cuda_ms(lambda: sample_tokens(logits, key, rids, ctrs,
+                                              temps, topk), reps=20)
+    greedy_ms = cuda_ms(lambda: _greedy(logits), reps=50)
+    sample_busy = device_busy(lambda: sample_tokens(logits, key, rids, ctrs,
+                                                    temps, topk))
+    print(f"dense_step decoding_slots=16 step_ms_b1={ms['step_b1']!r} "
+          f"step_ms_b8_greedy={ms['step_b8_greedy']!r} step_ms_b8_sampled="
+          f"{ms['step_b8_sampled']!r} host_enqueue_ms_b1={host_ms!r}",
+          flush=True)
+    print(f"sampler shape=[16, 4096] sample_tokens_ms={sample_ms!r} "
+          f"greedy_argmax_ms={greedy_ms!r} device_kernels_per_call="
+          f"{None if sample_busy is None else sample_busy[2]!r} "
+          f"device_busy_ms={None if sample_busy is None else sample_busy[0]!r}",
+          flush=True)
+    for label, fn in (("b1", step), ("b8_sampled", lambda: block(True))):
+        tr = trace_step(fn)
+        if tr is None:
+            print(f"dense_step_trace {label} device_busy=not measured (the "
+                  f"profiler recorded no device activity)", flush=True)
+        else:
+            print(f"dense_step_trace {label} wall_ms={tr['wall_ms']!r} "
+                  f"device_busy_ms={tr['busy_ms']!r} device_idle_share="
+                  f"{tr['idle_share']!r} kernels_per_call="
+                  f"{tr['kernels_per_step']!r} matmul_ms={tr['matmul']!r} "
+                  f"other_ms={tr['other']!r} top={tr['top_ms']}",
+                  flush=True)
+    for label in ("dense_b8", "paged_kernel_b8", "paged_gather_b8",
+                  "dense_b1"):
+        st = runs[label]
+        print(f"dense_fused_times {label} tokens_per_s="
+              f"{st['tokens_per_s']!r} ttft_p50_ms={st['ttft_p50_ms']!r} "
+              f"ttft_p95_ms={st['ttft_p95_ms']!r} decode_steps={st['steps']} "
+              f"paged_kernel_launches={st['launches']}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2473,6 +2799,15 @@ def main() -> int:
     rect = check_flash_rect(gen)
     gemm_times = time_gemm_kernels(gen, bw, peaks)
     rect_times = time_flash_rect(gen, bw, peaks)
+
+    t0 = time.perf_counter()
+    dense = check_dense_and_fused()
+    check_small_engines_sampled_against_cpu()
+    sampler = check_sampler(dense["engine"])
+    time_dense_and_fused(dense["engine"], dense["stats"], sampler)
+    del dense, sampler
+    torch.cuda.empty_cache()
+    print(f"phase16 wall_s={time.perf_counter() - t0!r}", flush=True)
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",

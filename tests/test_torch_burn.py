@@ -9,6 +9,11 @@ normwise relative 1e-2; each link rounds to bf16 (2^-9 relative), and a
 sum that lies near a rounding point may round the other way in one
 package.
 
+The burns' inputs are the reference's draws from PRNGKey(seed) and its
+fold_ins, on seeds 0 and 1 at size 64: bf16 normals and int8 randint bit
+for bit, the paged pool's permutation too, and the programs' sums as
+close as their summation order allows.
+
 ``_guarded_slope`` runs in both packages under one fake clock, over the
 four cases of tests/test_loadgen.py. The burns run at tiny sizes on the
 CPU (``device="cpu"``), where only their control flow and result keys
@@ -28,6 +33,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tests.torch_parity import jax_f32, to_jax, to_torch, torch_f32  # noqa: E402
 from tpumon.loadgen import burn as jax_burn  # noqa: E402
+from tpumon_torch import prng  # noqa: E402
 from tpumon_torch.loadgen import burn  # noqa: E402
 
 SIZE = 128
@@ -197,8 +203,8 @@ def test_burn_programs_launch_nothing_on_the_cpu():
     before = (matmul.launches, quantized_matmul_kernel.launches)
     # The kernel paths at a size the default blocks admit, one link each.
     for prog in (burn._mxu_burn_program, burn._int8_burn_program):
-        assert np.isfinite(burn._sync(prog(0, 1024, 1, use_kernel=True,
-                                           device="cpu")))
+        assert np.isfinite(burn._sync(prog(prng.torch_key(0, "cpu"), 1024,
+                                           1, use_kernel=True)))
     assert (matmul.launches, quantized_matmul_kernel.launches) == before
 
 
@@ -235,3 +241,80 @@ def test_hbm_fill_matches_reference_chunks():
     assert all(t.dtype == torch.float32 for t in got)
     with pytest.raises(ValueError, match="hbm_bytes"):
         burn.hbm_fill(0.5, device="cpu")
+
+
+def _bf16_equal(got: torch.Tensor, want) -> bool:
+    return np.array_equal(torch_f32(got), jax_f32(want))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mxu_and_int8_inputs_are_the_references_draws(seed):
+    key, tkey = jax.random.PRNGKey(seed), prng.torch_key(seed, "cpu")
+    a, b = burn._mxu_inputs(tkey, 64)
+    assert a.dtype == b.dtype == torch.bfloat16
+    assert _bf16_equal(a, jax.random.normal(key, (64, 64), jnp.bfloat16))
+    assert _bf16_equal(b, jax.random.normal(jax.random.fold_in(key, 1),
+                                            (64, 64), jnp.bfloat16))
+    a, q, scale = burn._int8_inputs(tkey, 64)
+    assert _bf16_equal(a, jax.random.normal(key, (64, 64), jnp.bfloat16))
+    want_q = jax.random.randint(jax.random.fold_in(key, 1), (64, 64), -127,
+                                128, jnp.int8)
+    assert q.dtype == torch.int8
+    assert np.array_equal(q.numpy(), np.asarray(want_q))
+    assert torch.equal(scale, torch.full((64,), 1.0 / 127.0))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_paged_pool_and_steps_are_the_references_draws(seed):
+    """The pool (normals), its table (permutation) and the measured
+    program's queries (split(fold_in(key, 3), steps)): the reference's
+    program and the port's sum the same attention outputs."""
+    key, tkey = jax.random.PRNGKey(seed), prng.torch_key(seed, "cpu")
+    shape = dict(batch=2, n_kv_heads=2, head_dim=16, page_size=8, context=32)
+    k_pages, v_pages, table, lengths = burn._paged_pool(tkey, **shape)
+    assert _bf16_equal(k_pages, jax.random.normal(
+        key, (2, 8, 8, 16), jnp.bfloat16))
+    assert _bf16_equal(v_pages, jax.random.normal(
+        jax.random.fold_in(key, 1), (2, 8, 8, 16), jnp.bfloat16))
+    assert np.array_equal(table.numpy(), np.asarray(jax.random.permutation(
+        jax.random.fold_in(key, 2), 8)).reshape(2, 4))
+    assert lengths.tolist() == [32, 32]
+    args = (2, 4, 2, 16, 8, 32, 3)
+    want = float(jax_burn._paged_measure_program(key, *args, False))
+    got = burn._sync(burn._paged_measure_program(tkey, *args, False))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_burn_key_chains_are_the_references(seed):
+    """A burn's call i draws under fold_in(PRNGKey(seed), i) (paged:
+    3 + i, its bursts' steps split into 8): the keys the calls see."""
+    key, tkey = jax.random.PRNGKey(seed), prng.torch_key(seed, "cpu")
+    for i in (0, 1, 5):
+        assert np.array_equal(prng.torch_fold_in(tkey, i).numpy(),
+                              np.asarray(jax.random.fold_in(key, i)))
+    assert np.array_equal(
+        prng.torch_split(prng.torch_fold_in(tkey, 3), 8).numpy(),
+        np.asarray(jax.random.split(jax.random.fold_in(key, 3), 8)))
+    seen = []
+    real = burn._mxu_burn_program
+
+    def spy(k, *a, **kw):
+        seen.append(k.clone())
+        return real(k, *a, **kw)
+
+    with mock.patch.object(burn, "_mxu_burn_program", spy):
+        burn.mxu_burn(seconds=0.01, size=64, iters=1, seed=seed,
+                      device="cpu")
+    assert len(seen) >= 2
+    assert np.array_equal(seen[0].numpy(), np.asarray(key))  # warm-up
+    for i, k in enumerate(seen[1:]):
+        assert np.array_equal(k.numpy(),
+                              np.asarray(jax.random.fold_in(key, i)))
+
+
+def test_burn_module_draws_no_torch_generator():
+    import inspect
+
+    src = inspect.getsource(burn)
+    assert "zlib" not in src and "randn(" not in src

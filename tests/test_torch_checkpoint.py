@@ -89,7 +89,8 @@ def test_mismatched_architecture_cold_starts(tmp_path):
     run_train(cfg(steps=2, ckpt_dir=d), "cpu")
     other = dataclasses.replace(MODEL, n_layers=2)
     engine = ServingEngine(cfg=ServeConfig(model=other, slots=2,
-                                           prefill_len=8),
+                                           prefill_len=8, kv_layout="paged",
+                                           paged_attn="kernel"),
                            ckpt_dir=d, device="cpu")
     assert engine.ckpt_step is None  # cold init, no crash
     assert run_train(cfg(model=other, steps=1),
@@ -97,7 +98,8 @@ def test_mismatched_architecture_cold_starts(tmp_path):
     assert checkpoint.restore_checkpoint(d, like=engine.params) is None
     # A damaged file is no checkpoint either.
     small = ServingEngine(cfg=ServeConfig(model=MODEL, slots=2,
-                                          prefill_len=8), device="cpu")
+                                          prefill_len=8, kv_layout="paged",
+                                          paged_attn="kernel"), device="cpu")
     with open(os.path.join(d, "step_00000001", "params.pt"), "wb") as f:
         f.write(b"not a checkpoint")
     assert checkpoint.restore_checkpoint(d, like=small.params) is None
@@ -107,7 +109,8 @@ def test_serving_engine_serves_trained_checkpoint(tmp_path):
     d = str(tmp_path)
     trained = run_train(cfg(ckpt_dir=d), "cpu")
     engine = ServingEngine(cfg=ServeConfig(model=MODEL, slots=2,
-                                           prefill_len=8),
+                                           prefill_len=8, kv_layout="paged",
+                                           paged_attn="kernel"),
                            ckpt_dir=d, device="cpu")
     assert engine.ckpt_step == 5
     assert same_params(trained["params"], engine.params)

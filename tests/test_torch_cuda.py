@@ -351,17 +351,172 @@ def test_gemm_fallback_and_rejects_on_card(cuda_device):
 
 
 def test_burn_programs_launch_once_per_link_on_card(cuda_device):
+    """One kernel launch per link of a burn program, none on the library
+    path; the two chains (from the program's inputs, the reference's
+    draws) held together by chip_smoke's burn-chain limit, tile by tile
+    (the programs' sums cancel to near zero, a noisy measure of either)."""
+    from chip_smoke import CHAIN_TOL
+
+    from tpumon_torch import prng
     from tpumon_torch.loadgen import burn
     from tpumon_torch.ops.matmul import matmul
     from tpumon_torch.ops.quant_matmul import quantized_matmul_kernel
 
-    for prog, kernel in ((burn._mxu_burn_program, matmul),
-                         (burn._int8_burn_program, quantized_matmul_kernel)):
+    key = prng.torch_key(0, cuda_device)
+    a, b = burn._mxu_inputs(key, 1024)
+    a8, q, scale = burn._int8_inputs(key, 1024)
+    for prog, kernel, chains in (
+            (burn._mxu_burn_program, matmul, (
+                lambda: burn._mxu_chain(a, b, 3, matmul),
+                lambda: burn._mxu_chain(a, b, 3, torch.matmul))),
+            (burn._int8_burn_program, quantized_matmul_kernel, (
+                lambda: burn._int8_chain(a8, q, scale, 3,
+                                         quantized_matmul_kernel),
+                lambda: burn._int8_chain(a8, q, scale, 3,
+                                         burn._dequant_matmul)))):
         before = kernel.launches
-        total = burn._sync(prog(0, 1024, 3, use_kernel=True,
-                                device=cuda_device))
+        assert torch.isfinite(torch.tensor(burn._sync(
+            prog(key, 1024, 3, use_kernel=True))))
         assert kernel.launches == before + 3
-        lib = burn._sync(prog(0, 1024, 3, use_kernel=False,
-                              device=cuda_device))
+        burn._sync(prog(key, 1024, 3, use_kernel=False))
         assert kernel.launches == before + 3
-        assert abs(total - lib) <= 2e-2 * abs(lib) + 1e-6
+        got, want = (f() for f in chains)
+        assert gemm_tile_rel_err(got, want) <= CHAIN_TOL
+
+
+# ---------------------------------------------------------------------------
+# Keyed sampling, the torch threefry and the fused decode blocks on the
+# card, against the same functions' runs on the CPU (which the CPU tests
+# hold to jax.random and the JAX package).
+# ---------------------------------------------------------------------------
+
+
+def test_torch_threefry_on_card_matches_cpu(cuda_device):
+    from tpumon_torch import prng
+
+    for seed in (0, 1, 0x7A11, 2**31 + 5):
+        kc, kg = prng.torch_key(seed, "cpu"), prng.torch_key(seed, cuda_device)
+        ids = torch.tensor([0, 5, -1, 2**31 - 1], dtype=torch.int32)
+        assert torch.equal(prng.torch_fold_in(kg, ids.to(cuda_device)).cpu(),
+                           prng.torch_fold_in(kc, ids))
+        assert torch.equal(prng.torch_random_bits(kg, (3, 1000)).cpu(),
+                           prng.torch_random_bits(kc, (3, 1000)))
+        assert torch.equal(prng.torch_randint(kg, (64, 64), -127, 128,
+                                              torch.int8).cpu(),
+                           prng.torch_randint(kc, (64, 64), -127, 128,
+                                              torch.int8))
+        assert torch.equal(prng.permutation(kg, 2000).cpu(),
+                           prng.permutation(kc, 2000))
+        for dtype in (torch.float32, torch.bfloat16):
+            assert torch.equal(prng.uniform(kg, (4, 999), dtype).cpu(),
+                               prng.uniform(kc, (4, 999), dtype))
+            assert torch.equal(prng.normal(kg, (64, 1024), dtype).cpu(),
+                               prng.normal(kc, (64, 1024), dtype))
+        assert torch.equal(prng.gumbel(kg, (16, 4096)).cpu(),
+                           prng.gumbel(kc, (16, 4096)))
+
+
+def test_sample_tokens_on_card_matches_cpu(cuda_device):
+    """[16, 4096] logits, greedy and sampled rows with top-k 0, 1 and 50:
+    the card's tokens equal the CPU's wherever the winning perturbed
+    logit leads by more than 1e-4 (tests/test_torch_sampling.py's rule);
+    near-ties stay under 1% of the draws."""
+    from tpumon_torch import prng
+    from tpumon_torch.loadgen.serving import sample_tokens
+
+    from chip_smoke import SAMPLE_MARGIN, sample_margin
+
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(16, 4096, generator=gen) * 3
+    temps = torch.tensor([0.0, 0.8, 1.3, 0.8] * 4)
+    topk = torch.tensor([0, 0, 50, 1] * 4, dtype=torch.int32)
+    rids = torch.arange(16, dtype=torch.int32) * 7
+    mismatched, near = 0, 0
+    for ctr in range(8):
+        ctrs = torch.full((16,), ctr, dtype=torch.int32)
+        args = (prng.torch_key(0x7A11, "cpu"), rids, ctrs, temps, topk)
+        cpu = sample_tokens(logits, *args)
+        card = sample_tokens(logits.to(cuda_device),
+                             *(a.to(cuda_device) for a in args)).cpu()
+        tie = sample_margin(logits, *args) <= SAMPLE_MARGIN
+        near += int(tie.sum())
+        mismatched += int(((card != cpu) & ~tie).sum())
+    assert mismatched == 0 and near < 0.01 * 16 * 8
+
+
+def _small_serve(kv_layout, paged_attn="gather"):
+    from tpumon_torch.loadgen.model import ModelConfig, init_params
+    from tpumon_torch.loadgen.serving import ServeConfig
+
+    cfg = ServeConfig(model=ModelConfig(
+        vocab=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=256, max_seq=128, compute_dtype="float32"), slots=3,
+        prefill_len=16, kv_layout=kv_layout, paged_attn=paged_attn)
+    return cfg, init_params(cfg.model, torch.Generator().manual_seed(3))
+
+
+def _rounds_case(device, kv_layout, paged_attn, params):
+    """Prefill two prompts, then 8 fused sampled/greedy steps; returns
+    the tokens [3, 8]."""
+    from tpumon_torch import prng
+    from tpumon_torch.loadgen import paged_kv, serving
+
+    cfg, _ = _small_serve(kv_layout, paged_attn)
+    params = {"embed": params["embed"].to(device),
+              "final_norm": params["final_norm"].to(device),
+              "lm_head": params["lm_head"].to(device),
+              "layers": [{k: v.to(device) for k, v in layer.items()}
+                         for layer in params["layers"]]}
+    i32 = dict(dtype=torch.int32, device=device)
+    prompts = [list(range(5, 40)), list(range(90, 97))]
+    last = torch.tensor([0, 0, 0], **i32)
+    pos = torch.tensor([127, 127, 127], **i32)
+    if kv_layout == "dense":
+        store = serving.init_cache(cfg, device)
+    else:
+        store = paged_kv.init_pool(cfg, 3 * 8 + 1, device)
+        tables = torch.zeros((3, 8), **i32)
+        tables[0, :4] = torch.tensor([3, 9, 1, 20], **i32)
+        tables[1, :2] = torch.tensor([7, 2], **i32)
+    for slot, prompt in enumerate(prompts):
+        for c0 in range(0, len(prompt), 16):
+            chunk = prompt[c0:c0 + 16]
+            toks = torch.tensor(chunk + [0] * (16 - len(chunk)), **i32)
+            if kv_layout == "dense":
+                logits = serving.prefill(cfg, params, store, toks,
+                                         len(chunk), slot, c0)
+            else:
+                logits = paged_kv.paged_prefill(
+                    cfg, params, store, toks, len(chunk),
+                    int(tables[slot, c0 // 16]), tables[slot], c0)
+        last[slot] = int(logits.argmax())
+        pos[slot] = len(prompt)
+    key = prng.torch_key(0x7A11, device)
+    rids = torch.tensor([4, 9, 0], **i32)
+    ctr0 = torch.ones(3, **i32)
+    temps = torch.tensor([0.8, 0.0, 0.0], device=device)
+    topks = torch.tensor([5, 0, 0], **i32)
+    if kv_layout == "dense":
+        _, _, toks = serving.decode_rounds(cfg, params, store, last, pos,
+                                           key, rids, ctr0, temps, topks, 8)
+    else:
+        _, _, toks = paged_kv.paged_decode_rounds(
+            cfg, params, store, last, pos, tables, key, rids, ctr0, temps,
+            topks, 8)
+    return toks.cpu()[:2]
+
+
+@pytest.mark.parametrize("kv_layout,paged_attn", [
+    ("dense", "gather"), ("paged", "gather"), ("paged", "kernel")])
+def test_decode_rounds_on_card_match_cpu(cuda_device, kv_layout,
+                                         paged_attn):
+    """decode_rounds and paged_decode_rounds (both read paths) in f32:
+    the card's tokens equal the CPU's; the kernel route launches the
+    paged kernel once per layer and step."""
+    _, params = _small_serve(kv_layout)
+    before = paged_attention.launches
+    card = _rounds_case(cuda_device, kv_layout, paged_attn, params)
+    launched = paged_attention.launches - before
+    cpu = _rounds_case("cpu", kv_layout, paged_attn, params)
+    assert torch.equal(card, cpu)
+    assert launched == (2 * 8 if paged_attn == "kernel" else 0)

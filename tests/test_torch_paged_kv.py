@@ -5,11 +5,13 @@ prefill chunk's logits and each decode step's logits must agree within
 1e-4 (f32; the two frameworks sum in different orders), and so must
 every page of the resulting pools. Both decode read paths are covered:
 ``gather`` and ``kernel`` (on the CPU the port's kernel wrapper runs its
-plain version; the reference runs its Pallas kernel in interpret mode).
+plain version; the reference runs its Pallas kernel in interpret mode),
+for the single step, the multi-token block and the fused rounds.
 """
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 
@@ -21,6 +23,7 @@ from tests.torch_parity import bridged_params, jax_f32, torch_f32  # noqa: E402
 from tpumon.loadgen import paged_kv as jax_kv  # noqa: E402
 from tpumon.loadgen.model import ModelConfig as JaxModelConfig  # noqa: E402
 from tpumon.loadgen.serving import ServeConfig as JaxServeConfig  # noqa: E402
+from tpumon_torch import prng  # noqa: E402
 from tpumon_torch.loadgen import paged_kv  # noqa: E402
 from tpumon_torch.loadgen.model import ModelConfig, params_from_jax  # noqa: E402
 from tpumon_torch.loadgen.serving import ServeConfig  # noqa: E402
@@ -39,7 +42,8 @@ def configs(paged_attn):
                           prefill_len=PS, kv_layout="paged",
                           paged_attn=paged_attn)
     tcfg = ServeConfig(model=ModelConfig(**SMALL), slots=SLOTS,
-                       prefill_len=PS, paged_attn=paged_attn)
+                       prefill_len=PS, kv_layout="paged",
+                       paged_attn=paged_attn)
     return jcfg, tcfg
 
 
@@ -135,7 +139,7 @@ def test_decode_scatter_keeps_batch_first_when_slots_equal_kv_heads():
     jcfg = JaxServeConfig(model=JaxModelConfig(**small), slots=2,
                           prefill_len=PS, kv_layout="paged")
     tcfg = ServeConfig(model=ModelConfig(**small), slots=2, prefill_len=PS,
-                       paged_attn="gather")
+                       kv_layout="paged", paged_attn="gather")
     jparams, tree = bridged_params(jcfg.model, seed=3)
     tparams = params_from_jax(tree)
     jpool = jax_kv.init_pool(jcfg, 9)
@@ -189,3 +193,108 @@ def test_page_allocator_order_matches_reference():
                 a.release(held[key][arg])
         assert held["j"] == held["t"]
         assert ja.free_pages == ta.free_pages
+
+
+def setup_two_live_slots(pair):
+    """PROMPT_A in pages 5, 9, 2 (slot 0), PROMPT_B in page 7 (slot 2),
+    slot 1 parked on the trash page; returns the tables."""
+    pair.prefill(PROMPT_A, PAGES_A)
+    pair.prefill(PROMPT_B, PAGES_B)
+    tables = np.zeros((SLOTS, MAX_PAGES), np.int32)
+    tables[0, :3] = PAGES_A
+    tables[0, 3] = 11  # slot 0's next page: its block crosses into it
+    tables[2, :1] = PAGES_B
+    tables[2, 1] = 4
+    return tables
+
+
+def assert_live_pages_match(jpool, tpool, pages):
+    for name in ("k", "v"):
+        np.testing.assert_allclose(torch_f32(tpool[name][:, :, pages]),
+                                   jax_f32(jpool[name][:, :, pages]), **TOL)
+
+
+@pytest.mark.parametrize("t_blk", [1, 3, 6])
+def test_paged_decode_block_matches(t_blk):
+    """T tokens a slot, each scattered to its own (page, offset): slot 0
+    at row 19 crosses from page 2 into page 11 at T = 6, slot 2 from page
+    7 into page 4. Logits and every written page agree."""
+    pair = Pair("gather")
+    tables = setup_two_live_slots(pair)
+    tokens = np.random.default_rng(t_blk).integers(0, 128, (SLOTS, t_blk))
+    positions = np.array([len(PROMPT_A) + 2, SMALL["max_seq"] - 1,
+                          len(PROMPT_B) + 1], np.int32)
+    pair.jpool, jl = jax_kv.paged_decode_block(
+        pair.jcfg, pair.jparams, pair.jpool, jnp.asarray(tokens, jnp.int32),
+        jnp.asarray(positions), jnp.asarray(tables))
+    tl = paged_kv.paged_decode_block(
+        pair.tcfg, pair.tparams, pair.tpool,
+        torch.tensor(tokens, dtype=torch.int32), torch.from_numpy(positions),
+        torch.from_numpy(tables))
+    assert tl.shape == (SLOTS, t_blk, SMALL["vocab"])
+    np.testing.assert_allclose(torch_f32(tl)[[0, 2]], jax_f32(jl)[[0, 2]],
+                               **TOL)
+    assert_live_pages_match(pair.jpool, pair.tpool, PAGES_A + [11, 7, 4])
+
+
+def test_paged_decode_block_of_one_is_the_step():
+    pair = Pair("gather")
+    tables = torch.from_numpy(setup_two_live_slots(pair))
+    last = torch.tensor([3, 0, 8], dtype=torch.int32)
+    pos = torch.tensor([19, 63, 5], dtype=torch.int32)
+    pool = {k: v.clone() for k, v in pair.tpool.items()}
+    step = paged_kv.paged_decode_step(pair.tcfg, pair.tparams, pair.tpool,
+                                      last, pos, tables)
+    blk = paged_kv.paged_decode_block(pair.tcfg, pair.tparams, pool,
+                                      last[:, None], pos, tables)
+    torch.testing.assert_close(step, blk[:, 0], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("paged_attn", ["gather", "kernel"])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_paged_decode_rounds_matches(paged_attn, sampled):
+    """Six fused steps over loop-invariant tables (slot 0 crosses into
+    page 11 on the way): the same tokens, positions and written pages as
+    the reference's scan, greedy or with temperature/top-k rows."""
+    pair = Pair(paged_attn)
+    tables = setup_two_live_slots(pair)
+    last = np.array([11, 0, 42], np.int32)
+    positions = np.array([len(PROMPT_A) + 3, SMALL["max_seq"] - 1,
+                          len(PROMPT_B)], np.int32)
+    rids = np.array([3, 0, 8], np.int32)
+    ctr0 = np.array([2, 0, 1], np.int32)
+    temps = np.array([0.8, 0.0, 1.3] if sampled else [0.0] * 3, np.float32)
+    topks = np.array([5, 0, 0], np.int32)
+    pair.jpool, jlast, jpos, jtoks = jax_kv.paged_decode_rounds(
+        pair.jcfg, pair.jparams, pair.jpool, jnp.asarray(last),
+        jnp.asarray(positions), jnp.asarray(tables),
+        jax.random.PRNGKey(0x7A11), jnp.asarray(rids), jnp.asarray(ctr0),
+        jnp.asarray(temps), jnp.asarray(topks), steps=6)
+    tlast, tpos, ttoks = paged_kv.paged_decode_rounds(
+        pair.tcfg, pair.tparams, pair.tpool, torch.from_numpy(last),
+        torch.from_numpy(positions), torch.from_numpy(tables),
+        prng.torch_key(0x7A11, "cpu"), torch.from_numpy(rids),
+        torch.from_numpy(ctr0),
+        torch.from_numpy(temps) if sampled else None,
+        torch.from_numpy(topks), steps=6)
+    live = [0, 2]
+    assert np.array_equal(ttoks.numpy()[live], np.asarray(jtoks)[live])
+    assert np.array_equal(tlast.numpy()[live], np.asarray(jlast)[live])
+    assert np.array_equal(tpos.numpy(), np.asarray(jpos))
+    assert_live_pages_match(pair.jpool, pair.tpool, PAGES_A + [11, 7])
+
+
+def test_paged_decode_rounds_kernel_route_counts_nothing_on_the_cpu():
+    from tpumon_torch.ops.paged_attention import paged_attention
+
+    pair = Pair("kernel")
+    tables = torch.from_numpy(setup_two_live_slots(pair))
+    before = paged_attention.launches
+    paged_kv.paged_decode_rounds(
+        pair.tcfg, pair.tparams, pair.tpool,
+        torch.tensor([1, 2, 3], dtype=torch.int32),
+        torch.tensor([19, 63, 5], dtype=torch.int32), tables,
+        prng.torch_key(0, "cpu"), torch.zeros(3, dtype=torch.int32),
+        torch.zeros(3, dtype=torch.int32), None,
+        torch.zeros(3, dtype=torch.int32), steps=2)
+    assert paged_attention.launches == before

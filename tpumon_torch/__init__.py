@@ -8,10 +8,12 @@ found at the same relative path (``tpumon_torch/loadgen/serving.py`` ↔
 from the reference (the Prometheus writer, ``quantiles``, the page
 allocator) are copied, not imported.
 
-What is ported so far: the paged serving path, the continuous-batching
-engine over a paged KV pool whose decode attention runs through a
-hand-written CUDA kernel for Hopper (``tpumon_torch.ops.paged_attention``);
-and the single-GPU trainer, whose flash schedule runs causal attention
+What is ported so far: the serving engine as the reference builds it by
+default — continuous batching over a dense KV cache or a paged KV pool
+(whose decode attention runs through a hand-written CUDA kernel for
+Hopper, ``tpumon_torch.ops.paged_attention``), fused block decode and
+keyed temperature/top-k sampling on JAX's threefry (``tpumon_torch.prng``);
+the burns and kernel measurements; and the single-GPU trainer, whose flash schedule runs causal attention
 forward and backward through hand-written CUDA kernels
 (``tpumon_torch.ops.flash_attention``), with checkpoints the engine serves.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on a

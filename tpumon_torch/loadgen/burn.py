@@ -15,10 +15,12 @@ What differs from the reference:
   ``ops/quant_matmul.py``, ``ops/paged_attention.py``); the library paths
   run plain torch where the reference runs XLA (``a @ b``, the per-call
   dequantized ``a @ w``, the dense-gather paged read).
-- Inputs come from an explicit ``torch.Generator`` seeded from the int
-  ``seed`` argument, which takes the place of the reference's PRNG key;
-  the reference draws from threefry, so the two packages burn different
-  numbers (ROADMAP queue 3).
+- Inputs are the reference's draws: ``jax.random``'s threefry, normal,
+  randint and permutation, computed on the card by ``tpumon_torch.prng``
+  (bf16 normals and int8 randint bit for bit), from ``PRNGKey(seed)`` and
+  the reference's chain of ``fold_in`` keys, one new key per call, so no
+  host-to-device copy of an input lands inside a timed call. The
+  reference's key is ``PRNGKey(0)``: ``seed`` defaults to 0.
 - A program is a Python loop of eager torch calls (the reference's jitted
   scan) that ends in a scalar; ``_sync`` fetches it with ``.item()``,
   which waits for the card. The timers read the host clock
@@ -31,11 +33,11 @@ What differs from the reference:
 from __future__ import annotations
 
 import time
-import zlib
 
 import numpy as np
 import torch
 
+from tpumon_torch import prng
 from tpumon_torch.loadgen.model import init_params, map_params, resolve_device
 from tpumon_torch.loadgen.paged_kv import init_pool, paged_decode_step
 from tpumon_torch.loadgen.train import card_peaks
@@ -53,15 +55,6 @@ def _sync(x: torch.Tensor) -> float:
     return float(x.item())
 
 
-def _generator(seed: int, device: torch.device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed)
-
-
-def _fold_in(seed: int, i: int) -> int:
-    """A seed per (seed, i): the reference's ``fold_in`` of a call index."""
-    return zlib.crc32(f"{seed}:{i}".encode())
-
-
 def _mxu_chain(a: torch.Tensor, b: torch.Tensor, iters: int,
                mm) -> torch.Tensor:
     """The reference's scan body, ``iters`` times: c = mm(a, b),
@@ -73,19 +66,21 @@ def _mxu_chain(a: torch.Tensor, b: torch.Tensor, iters: int,
     return a
 
 
-def _mxu_inputs(seed: int, size: int, device) -> tuple:
-    """The bf16 burn's (a, b), N(0, 1) from ``seed``."""
-    gen = _generator(seed, device)
-    return tuple(torch.randn(size, size, generator=gen, device=device,
-                             dtype=torch.bfloat16) for _ in range(2))
+def _mxu_inputs(key: torch.Tensor, size: int) -> tuple:
+    """The bf16 burn's (a, b): the reference's bf16 normals under ``key``
+    and fold_in(key, 1), on the key's device."""
+    shape = (size, size)
+    return (prng.normal(key, shape, torch.bfloat16),
+            prng.normal(prng.torch_fold_in(key, 1), shape, torch.bfloat16))
 
 
-def _mxu_burn_program(seed: int, size: int, iters: int,
-                      use_kernel: bool = False,
-                      device=None) -> torch.Tensor:
+def _mxu_burn_program(key: torch.Tensor, size: int, iters: int,
+                      use_kernel: bool = False) -> torch.Tensor:
     """Chained bf16 matrix products, 2*size^3*iters FLOPs, through the
-    GEMM kernel or torch.matmul; returns the chain's f32 sum (0-d)."""
-    a, b = _mxu_inputs(seed, size, resolve_device(device))
+    GEMM kernel or torch.matmul, on inputs drawn from ``key`` (a
+    ``prng.torch_key`` on the device to burn); returns the chain's f32
+    sum (0-d)."""
+    a, b = _mxu_inputs(key, size)
     mm = matmul if use_kernel else torch.matmul
     return _mxu_chain(a, b, iters, mm).float().sum()
 
@@ -98,16 +93,16 @@ def mxu_burn(seconds: float = 2.0, size: int = 4096, iters: int = 64,
     The default, the library path (``torch.matmul``), mirrors the
     reference's default; ``use_kernel=True`` runs the GEMM kernel.
     """
-    dev = resolve_device(device)
+    key = prng.torch_key(seed, resolve_device(device))
     if use_kernel is None:
         use_kernel = False
-    _sync(_mxu_burn_program(seed, size, iters, use_kernel, dev))  # warm up
+    _sync(_mxu_burn_program(key, size, iters, use_kernel))  # warm up
     flops_per_call = 2 * size**3 * iters
     calls = 0
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
-        _sync(_mxu_burn_program(_fold_in(seed, calls), size, iters,
-                                use_kernel, dev))
+        _sync(_mxu_burn_program(prng.torch_fold_in(key, calls), size,
+                                iters, use_kernel))
         calls += 1
     dt = time.perf_counter() - t0
     return {
@@ -136,27 +131,26 @@ def _int8_chain(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return a
 
 
-def _int8_inputs(seed: int, size: int, device) -> tuple:
-    """The int8 burn's (a, q, scale): bf16 N(0, 1) activations, uniform
-    int8 weights in [-127, 127] and a 1/127 per-column scale."""
-    gen = _generator(seed, device)
-    a = torch.randn(size, size, generator=gen, device=device,
-                    dtype=torch.bfloat16)
-    q = torch.randint(-127, 128, (size, size), generator=gen, device=device,
-                      dtype=torch.int8)
+def _int8_inputs(key: torch.Tensor, size: int) -> tuple:
+    """The int8 burn's (a, q, scale), the reference's draws: bf16 normal
+    activations under ``key``, int8 weights randint(-127, 128) under
+    fold_in(key, 1), and a 1/127 per-column scale."""
+    shape = (size, size)
+    a = prng.normal(key, shape, torch.bfloat16)
+    q = prng.torch_randint(prng.torch_fold_in(key, 1), shape, -127, 128,
+                           torch.int8)
     scale = torch.full((size,), 1.0 / 127.0, dtype=torch.float32,
-                       device=device)
+                       device=key.device)
     return a, q, scale
 
 
-def _int8_burn_program(seed: int, size: int, iters: int,
-                       use_kernel: bool = False,
-                       device=None) -> torch.Tensor:
+def _int8_burn_program(key: torch.Tensor, size: int, iters: int,
+                       use_kernel: bool = False) -> torch.Tensor:
     """Chained int8-weight products, the serving engine's quantized hot
     op: bf16 activations, weights streamed as int8 plus a per-column
     scale, through the int8 GEMM kernel or the per-call dequantized
-    ``a @ w``."""
-    a, q, scale = _int8_inputs(seed, size, resolve_device(device))
+    ``a @ w``, on inputs drawn from ``key``."""
+    a, q, scale = _int8_inputs(key, size)
     qmm = quantized_matmul_kernel if use_kernel else _dequant_matmul
     return _int8_chain(a, q, scale, iters, qmm).float().sum()
 
@@ -172,16 +166,17 @@ def int8_burn(seconds: float = 2.0, size: int = 4096, iters: int = 64,
     path otherwise.
     """
     dev = resolve_device(device)
+    key = prng.torch_key(seed, dev)
     if use_kernel is None:
         use_kernel = dev.type == "cuda" and size % 1024 == 0
-    _sync(_int8_burn_program(seed, size, iters, use_kernel, dev))
+    _sync(_int8_burn_program(key, size, iters, use_kernel))
     flops_per_call = 2 * size**3 * iters
     weight_bytes_per_call = size * size * iters  # int8: 1 byte/weight
     calls = 0
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
-        _sync(_int8_burn_program(_fold_in(seed, calls), size, iters,
-                                 use_kernel, dev))
+        _sync(_int8_burn_program(prng.torch_fold_in(key, calls), size,
+                                 iters, use_kernel))
         calls += 1
     dt = time.perf_counter() - t0
     return {
@@ -193,33 +188,36 @@ def int8_burn(seconds: float = 2.0, size: int = 4096, iters: int = 64,
     }
 
 
-def _paged_pool(gen, dev, batch, n_kv_heads, head_dim, page_size, context):
-    """A bf16 pool of batch * context / page_size pages and a shuffled
-    table over it (the fragmented layout a churned pool converges to),
-    every sequence at ``context`` rows."""
+def _paged_pool(key, batch, n_kv_heads, head_dim, page_size, context):
+    """The reference's bf16 pool of batch * context / page_size pages
+    (normals under ``key`` and fold_in(key, 1)) and its shuffled table
+    (permutation under fold_in(key, 2): the fragmented layout a churned
+    pool converges to), every sequence at ``context`` rows."""
     if context <= 0 or context % page_size:
         raise ValueError(f"context={context} must be a positive multiple of "
                          f"page_size={page_size}")
     max_pages = context // page_size
     num_pages = batch * max_pages
     shape = (n_kv_heads, num_pages, page_size, head_dim)
-    k_pages, v_pages = (torch.randn(shape, generator=gen, device=dev,
-                                    dtype=torch.bfloat16) for _ in range(2))
-    table = torch.randperm(num_pages, generator=gen, device=dev).to(
+    k_pages = prng.normal(key, shape, torch.bfloat16)
+    v_pages = prng.normal(prng.torch_fold_in(key, 1), shape, torch.bfloat16)
+    table = prng.permutation(prng.torch_fold_in(key, 2), num_pages).to(
         torch.int32).reshape(batch, max_pages)
-    lengths = torch.full((batch,), context, dtype=torch.int32, device=dev)
+    lengths = torch.full((batch,), context, dtype=torch.int32,
+                         device=key.device)
     return k_pages, v_pages, table, lengths
 
 
-def _paged_steps(gen, fn, pool, batch, n_heads, head_dim,
-                 steps: int) -> torch.Tensor:
-    """``steps`` decode-attention calls, q drawn anew for each (so no
-    result can be reused), summed into one f32 scalar."""
-    dev = pool[0].device
-    total = torch.zeros((), dtype=torch.float32, device=dev)
-    for _ in range(steps):
-        q = torch.randn(batch, n_heads, head_dim, generator=gen, device=dev,
-                        dtype=torch.bfloat16)
+def _paged_steps(step_keys, fn, pool, batch, n_heads,
+                 head_dim) -> torch.Tensor:
+    """One decode-attention call per key of ``step_keys`` [steps, 2], its
+    q drawn under that key (so no result can be reused), summed into one
+    f32 scalar. The steps' queries are drawn in one batched pass, the same
+    bits as one draw per key: a draw of ~220 small launches a step would
+    time the host, not the card."""
+    qs = prng.normal(step_keys, (batch, n_heads, head_dim), torch.bfloat16)
+    total = torch.zeros((), dtype=torch.float32, device=step_keys.device)
+    for q in qs:
         total += fn(q, *pool).float().sum()
     return total
 
@@ -237,20 +235,20 @@ def paged_burn(seconds: float = 2.0, batch: int = 16, n_heads: int = 32,
     dev = resolve_device(device)
     if use_kernel is None:
         use_kernel = dev.type == "cuda"
-    pool = _paged_pool(_generator(seed, dev), dev, batch, n_kv_heads,
-                       head_dim, page_size, context)
+    key = prng.torch_key(seed, dev)
+    pool = _paged_pool(key, batch, n_kv_heads, head_dim, page_size, context)
     fn = paged_attention if use_kernel else paged_attention_reference
     inner_steps = 8
 
-    def burst(call_seed: int) -> float:
-        return _sync(_paged_steps(_generator(call_seed, dev), fn, pool, batch,
-                                  n_heads, head_dim, inner_steps))
+    def burst(call_key) -> float:
+        return _sync(_paged_steps(prng.torch_split(call_key, inner_steps),
+                                  fn, pool, batch, n_heads, head_dim))
 
-    burst(seed)  # warm up
+    burst(key)  # warm up
     calls = 0
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
-        burst(_fold_in(seed, 3 + calls))
+        burst(prng.torch_fold_in(key, 3 + calls))
         calls += 1
     dt = time.perf_counter() - t0
     steps = calls * inner_steps
@@ -393,9 +391,10 @@ def measure_mxu_tflops(size: int = 4096, iters: int = 192,
     """Slope-timed bf16 matmul throughput (the GEMM kernel or
     torch.matmul), noise-floor- and roofline-guarded."""
     dev = resolve_device(device)
+    key = prng.torch_key(seed, dev)
 
     def run(n: int):
-        _sync(_mxu_burn_program(seed, size, n, use_kernel, dev))
+        _sync(_mxu_burn_program(key, size, n, use_kernel))
 
     rate, _, dt = _guarded_slope(
         run,
@@ -422,9 +421,10 @@ def measure_int8_tflops(size: int = 4096, iters: int = 192,
     the bf16 peak.
     """
     dev = resolve_device(device)
+    key = prng.torch_key(seed, dev)
 
     def run(n: int):
-        _sync(_int8_burn_program(seed, size, n, use_kernel, dev))
+        _sync(_int8_burn_program(key, size, n, use_kernel))
 
     rate, _, dt = _guarded_slope(
         run,
@@ -444,18 +444,17 @@ def measure_int8_tflops(size: int = 4096, iters: int = 192,
     }
 
 
-def _paged_measure_program(seed: int, batch: int, n_heads: int,
+def _paged_measure_program(key, batch: int, n_heads: int,
                            n_kv_heads: int, head_dim: int, page_size: int,
-                           context: int, steps: int, use_kernel: bool,
-                           device=None) -> torch.Tensor:
-    """Self-contained paged-decode burst: pool, table and queries all
-    drawn in the program from ``seed``."""
-    dev = resolve_device(device)
-    gen = _generator(seed, dev)
-    pool = _paged_pool(gen, dev, batch, n_kv_heads, head_dim, page_size,
-                       context)
+                           context: int, steps: int,
+                           use_kernel: bool) -> torch.Tensor:
+    """Self-contained paged-decode burst, the reference's draws: pool and
+    table from ``key`` (``_paged_pool``), the steps' queries under
+    split(fold_in(key, 3), steps)."""
+    pool = _paged_pool(key, batch, n_kv_heads, head_dim, page_size, context)
     fn = paged_attention if use_kernel else paged_attention_reference
-    return _paged_steps(gen, fn, pool, batch, n_heads, head_dim, steps)
+    return _paged_steps(prng.torch_split(prng.torch_fold_in(key, 3), steps),
+                        fn, pool, batch, n_heads, head_dim)
 
 
 def measure_paged_gbps(
@@ -476,11 +475,12 @@ def measure_paged_gbps(
     must stream the whole KV pool (268 MB at the defaults), so a rate
     above the card's memory rate is impossible."""
     dev = resolve_device(device)
+    key = prng.torch_key(seed, dev)
 
     def run(n: int):
         _sync(_paged_measure_program(
-            seed, batch, n_heads, n_kv_heads, head_dim, page_size, context,
-            n, use_kernel, dev))
+            key, batch, n_heads, n_kv_heads, head_dim, page_size, context,
+            n, use_kernel))
 
     num_pages = batch * (context // page_size)
     kv_bytes_per_step = 2 * num_pages * page_size * n_kv_heads * head_dim * 2
@@ -539,8 +539,8 @@ def measure_paged_engine_step_ms(cfg, inner_steps: int = 24, reps: int = 3,
     tables = torch.as_tensor(
         perm[: cfg.slots * max_pages].reshape(cfg.slots, max_pages),
         dtype=torch.int32, device=dev)
-    params = map_params(init_params(m, _generator(seed, dev)),
-                        lambda t: t.to(m.torch_dtype))
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = map_params(init_params(m, gen), lambda t: t.to(m.torch_dtype))
     state = {
         "pool": init_pool(cfg, num_pages, dev),
         "last": torch.zeros(cfg.slots, dtype=torch.int32, device=dev),

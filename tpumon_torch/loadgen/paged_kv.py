@@ -9,7 +9,10 @@ int32 device tensor. Decode attention has two read paths, selected by
 attends densely (the plain version); ``"kernel"`` routes the decode step
 through ``tpumon_torch.ops.paged_attention``, the hand-written CUDA kernel
 that reads pages in place. The append is the same batched scatter at
-``(page, offset)`` per slot either way.
+``(page, offset)`` per slot either way. ``paged_decode_block`` (T tokens a
+slot, always the gather read) and ``paged_decode_rounds`` (fused block
+decode: ``steps`` decode steps and samples, no host sync) complete the
+reference's paged functions.
 
 JAX donates the pool to each jitted call and gets it back; here the pool
 dict's tensors are updated IN PLACE, so the paged functions return only
@@ -146,9 +149,7 @@ def paged_decode_step(cfg, params: dict, pool: dict,
 
     m = cfg.model
     ps = cfg.prefill_len
-    nkv, hd = m.n_kv_heads, m.head_dim
-    b, max_pages = tables.shape
-    s_max = max_pages * ps
+    s_max = tables.shape[1] * ps
     dev = tables.device
 
     page = torch.gather(tables, 1, (positions // ps)[:, None].long())[:, 0]
@@ -169,12 +170,7 @@ def paged_decode_step(cfg, params: dict, pool: dict,
 
     def kv_update(li, k, v):
         scatter(li, k, v)
-        idx = tables.long()
-        ck = pool["k"][li][:, idx]  # [nkv, B, max_pages, ps, hd]
-        cv = pool["v"][li][:, idx]
-        ck = ck.reshape(nkv, b, s_max, hd).permute(1, 2, 0, 3)
-        cv = cv.reshape(nkv, b, s_max, hd).permute(1, 2, 0, 3)
-        return ck, cv  # [B, S, nkv, hd]
+        return _gather_context(pool, li, tables)  # [B, S, nkv, hd]
 
     attend = None
     if cfg.paged_attn == "kernel":
@@ -193,3 +189,86 @@ def paged_decode_step(cfg, params: dict, pool: dict,
     x = decoder_forward(cfg, params, last_tokens[:, None], pos, mask,
                         kv_update, attend=attend)
     return (x[:, 0] @ params["lm_head"].to(m.torch_dtype)).float()
+
+
+def _gather_context(pool: dict, li: int, tables: torch.Tensor):
+    """Layer ``li``'s context through the tables: K and V as [B, S, nkv,
+    hd], S = max_pages * page_size."""
+    nkv, _, ps, hd = pool["k"].shape[1:]
+    b, max_pages = tables.shape
+    idx = tables.long()
+    return tuple(
+        pool[name][li][:, idx].reshape(nkv, b, max_pages * ps, hd)
+        .permute(1, 2, 0, 3) for name in ("k", "v"))
+
+
+def paged_decode_block(cfg, params: dict, pool: dict, tokens: torch.Tensor,
+                       positions: torch.Tensor,
+                       tables: torch.Tensor) -> torch.Tensor:
+    """Advance every slot ``T`` tokens in one pass over the paged pool —
+    the paged twin of ``speculative.decode_block``. tokens: [B, T]
+    (tokens[:, 0] is the feed token at row ``positions``); returns f32
+    logits [B, T, vocab], logits[:, t] predicting row positions + t + 1.
+
+    Each token's K/V scatters (in place) to its own (page, offset)
+    through the slot's table, so a block may cross a page boundary; rows
+    clamp at the table's last row, and rows past a request's reservation
+    land on the trash page its table holds there. A multi-token query
+    always takes the gather read, as in the reference.
+    """
+    from tpumon_torch.loadgen.serving import decoder_forward
+
+    m = cfg.model
+    ps = cfg.prefill_len
+    t_blk = tokens.shape[1]
+    s_max = tables.shape[1] * ps
+    dev = tokens.device
+    pos = positions[:, None] + torch.arange(
+        t_blk, dtype=torch.int32, device=dev)[None]
+    pos = torch.clamp(pos, max=s_max - 1)  # [B, T]
+    page = torch.gather(tables, 1, (pos // ps).long()).long()
+    off = (pos % ps).long()
+    row = torch.arange(s_max, dtype=torch.int32, device=dev)
+    mask = (row[None, None] <= pos[:, :, None])[:, None]  # [B, 1, T, S]
+
+    def kv_update(li, k, v):
+        # One batched scatter per block position, in the reference's
+        # order (K's positions, then V's), on the [pages, ps, nkv, hd]
+        # view paged_decode_step writes through.
+        for name, new in (("k", k), ("v", v)):
+            view = pool[name][li].permute(1, 2, 0, 3)
+            for tt in range(t_blk):
+                view[page[:, tt], off[:, tt]] = new[:, tt]
+        return _gather_context(pool, li, tables)
+
+    x = decoder_forward(cfg, params, tokens, pos, mask, kv_update)
+    return (x @ params["lm_head"].to(m.torch_dtype)).float()
+
+
+def paged_decode_rounds(cfg, params: dict, pool: dict,
+                        last_tokens: torch.Tensor, positions: torch.Tensor,
+                        tables: torch.Tensor, base_key: torch.Tensor,
+                        rids: torch.Tensor, ctr0: torch.Tensor,
+                        temps: torch.Tensor | None, topks: torch.Tensor,
+                        steps: int, seq_cap: int = 0) -> tuple:
+    """``steps`` (paged_decode_step -> sample_tokens) pairs with no host
+    sync — the paged twin of ``serving.decode_rounds``, over
+    loop-invariant tables (pages are reserved for the whole request at
+    admission; rows past the reservation land on the trash page).
+    ``cfg.paged_attn="kernel"`` launches the paged-attention kernel once
+    per layer and step. Positions clamp at ``seq_cap`` - 1 (0: max_seq);
+    ``temps`` None: every row greedy. Returns (last tokens, positions,
+    tokens [B, steps])."""
+    from tpumon_torch.loadgen.serving import _greedy, sample_tokens
+
+    cap = seq_cap or cfg.model.max_seq
+    out = []
+    last, pos, ctr = last_tokens, positions, ctr0
+    for _ in range(steps):
+        logits = paged_decode_step(cfg, params, pool, last, pos, tables)
+        last = (_greedy(logits) if temps is None else sample_tokens(
+            logits, base_key, rids, ctr, temps, topks))
+        pos = torch.clamp(pos + 1, max=cap - 1)
+        ctr = ctr + 1
+        out.append(last)
+    return last, pos, torch.stack(out, dim=1)

@@ -1,26 +1,30 @@
-"""JetStream-style serving engine on PyTorch: paged-KV continuous batching
-+ /metrics.
+"""JetStream-style serving engine on PyTorch: continuous batching over a
+dense KV cache or a paged KV pool + /metrics.
 
-Counterpart of ``tpumon/loadgen/serving.py`` for the paged serving path:
-a continuous-batching engine over the paged KV pool
-(``tpumon_torch.loadgen.paged_kv``) that exposes the same JetStream-
-compatible Prometheus families as the reference — TTFT histogram,
-token/request counters, queue and slot gauges, ``tpumon_serving_*``
-latency gauges — so the unchanged monitor (tpumon/collectors/serving.py)
-scrapes it over HTTP exactly as it scrapes the JAX loadgen.
+Counterpart of ``tpumon/loadgen/serving.py``: a continuous-batching
+engine that exposes the same JetStream-compatible Prometheus families as
+the reference — TTFT histogram, token/request counters, queue and slot
+gauges, ``tpumon_serving_*`` latency gauges — so the unchanged monitor
+(tpumon/collectors/serving.py) scrapes it over HTTP exactly as it scrapes
+the JAX loadgen.
 
-Ported here: the paged layout with both decode read paths (``gather``
-and the CUDA ``kernel``), the interleaved chunked-prefill and the
-sequential schedulers, greedy sampling, cancellation, backpressure,
-per-tenant accounting, serving a trainer checkpoint (``ckpt_dir``), the
-/metrics + /generate server and the arrival loop. Everything else the reference engine does (dense layout, fused
-block decode, keyed temperature sampling, speculative decoding, prefix
-caching, int8 weights and KV, MoE, the mesh engine, the actuator verbs)
-raises "not yet ported" when asked for (ROADMAP queue 1).
+Ported here: both KV layouts (the dense cache of this module and the
+paged pool of ``tpumon_torch.loadgen.paged_kv``, with both paged decode
+read paths: ``gather`` and the CUDA ``kernel``), fused block decode
+(``decode_block``), keyed temperature/top-k sampling (the reference's
+threefry draws, computed on the card by ``tpumon_torch.prng``), the
+interleaved chunked-prefill and the sequential schedulers, cancellation,
+backpressure, per-tenant accounting, serving a trainer checkpoint
+(``ckpt_dir``), the /metrics + /generate server and the arrival loop. The
+defaults are the reference's: ``kv_layout="dense"``,
+``paged_attn="gather"``. Everything else the reference engine does
+(speculative decoding, prefix caching, int8 weights and KV, MoE, the mesh
+engine, the actuator verbs) raises "not yet ported" when asked for
+(ROADMAP queue 1).
 
-Host-mirror discipline as in the reference: positions and last tokens
-are mirrored on the host, so a decode step costs exactly ONE
-device→host sync (the sampled tokens' ``.tolist()``).
+Host-mirror discipline as in the reference: positions are mirrored on the
+host, so a decode step (or a fused block of ``decode_block`` steps) costs
+exactly ONE device→host sync (the sampled tokens' ``.tolist()``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.nn.functional as F
 
+from tpumon_torch import prng
 from tpumon_torch.loadgen.checkpoint import (
     restore_checkpoint,
     saved_model_config,
@@ -51,6 +56,7 @@ from tpumon_torch.loadgen.model import (
 from tpumon_torch.loadgen.paged_kv import (
     PageAllocator,
     init_pool,
+    paged_decode_rounds,
     paged_decode_step,
     paged_prefill,
 )
@@ -66,11 +72,9 @@ TTFT_BUCKETS_S = (
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """The reference's ServeConfig, field for field. This slice ports the
-    paged layout only, so its defaults are ``kv_layout="paged"`` and
-    ``paged_attn="kernel"``; every field outside the slice keeps its
-    reference default, and the engine raises "not yet ported" when one
-    is set (``_check_ported``)."""
+    """The reference's ServeConfig, field for field, with its defaults;
+    the engine raises "not yet ported" when a field outside the port is
+    set (``_check_ported``)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     slots: int = 4  # concurrent decode slots (continuous batching)
@@ -82,19 +86,26 @@ class ServeConfig:
     spec_source: str = "draft"
     spec_ngram_window: int = 1024
     prefix_cache_entries: int = 0
-    kv_layout: str = "paged"
+    # KV layout: "dense" reserves slots*max_seq rows (init_cache);
+    # "paged" reserves prefill_len-row pages per request from a shared
+    # pool (tpumon_torch.loadgen.paged_kv).
+    kv_layout: str = "dense"
     pool_pages: int = 0  # 0 = the dense equivalent, slots*max_pages + 1
     # Paged decode read path: "gather" (plain torch: gather the table's
     # pages, attend densely) or "kernel" (tpumon_torch.ops.paged_attention,
     # the CUDA kernel on a GPU; its plain version on the CPU).
-    paged_attn: str = "kernel"
+    paged_attn: str = "gather"
+    # Fused plain decode: this many (decode step -> sample) pairs per
+    # engine step with one device→host sync (decode_rounds /
+    # paged_decode_rounds); 1 = off.
     decode_block: int = 1
     kv_dtype: str = "compute"
     # Admission scheduler: "interleaved" spends at most
     # prefill_chunk_budget prefill chunks per step before the decode
     # batch; "sequential" runs a request's whole chunked prefill inline
-    # at admission (the stop-the-world baseline). Greedy token streams
-    # are identical either way.
+    # at admission (the stop-the-world baseline). Token streams are
+    # identical either way: sampling is keyed per (request id, token
+    # index), never per engine step.
     scheduler: str = "interleaved"
     prefill_chunk_budget: int = 1
     # Paged admission lookahead (0 = strict FIFO) and its aging bound.
@@ -105,15 +116,13 @@ class ServeConfig:
     ring_stripes: int = 0
 
 
-# (field, the value this slice supports, the ROADMAP item that ports it)
+# (field, the value the port serves, the ROADMAP item that ports the rest)
 _NOT_PORTED = (
     ("quantize", None, "queue 1 item 8"),
     ("spec_len", 0, "queue 1 item 8"),
     ("draft_model", None, "queue 1 item 8"),
     ("spec_source", "draft", "queue 1 item 8"),
     ("prefix_cache_entries", 0, "queue 1 item 8"),
-    ("kv_layout", "paged", "queue 1 item 3"),
-    ("decode_block", 1, "queue 1 item 3"),
     ("kv_dtype", "compute", "queue 1 item 8"),
     ("mesh_dp", 1, "queue 1 item 12"),
     ("mesh_tp", 1, "queue 1 item 12"),
@@ -127,7 +136,7 @@ def _check_ported(cfg: ServeConfig) -> None:
         if got != supported:
             raise NotImplementedError(
                 f"ServeConfig.{name}={got!r} is not yet ported (ROADMAP "
-                f"{item}); this slice serves {name}={supported!r}")
+                f"{item}); the port serves {name}={supported!r}")
     if cfg.paged_attn == "ring":
         raise NotImplementedError(
             "paged_attn='ring' is not yet ported (ROADMAP queue 1 item 12)")
@@ -212,14 +221,116 @@ def decoder_forward(cfg: ServeConfig, params: dict, tokens: torch.Tensor,
     return _rms_norm(x, params["final_norm"])
 
 
-def sample_tokens(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy token selection for the batch: argmax over f32 logits [B, V]
-    (first maximal index on ties, as ``jnp.argmax``), as int32 [B].
+def init_cache(cfg: ServeConfig, device) -> dict:
+    """The dense KV cache ``{"k", "v"}``, each ``[layers, slots, max_seq,
+    kv_heads, head_dim]`` in the compute dtype, zeroed, on ``device``."""
+    if cfg.kv_dtype != "compute":
+        raise NotImplementedError(
+            "the int8 KV cache is not yet ported (ROADMAP queue 1 item 8)")
+    m = cfg.model
+    shape = (m.n_layers, cfg.slots, m.max_seq, m.n_kv_heads, m.head_dim)
+    return {"k": torch.zeros(shape, dtype=m.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=m.torch_dtype, device=device)}
 
-    The reference's temperature/top-k draws are keyed by threefry
-    (request id, token index) and cannot match yet; the engine refuses
-    temperature > 0 at submit (ROADMAP queue 1 item 4)."""
-    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+
+def prefill(cfg: ServeConfig, params: dict, cache: dict,
+            tokens: torch.Tensor, length: int, slot: int,
+            start: int = 0) -> torch.Tensor:
+    """One padded prompt chunk into cache slot ``slot``, in place.
+
+    tokens: [prefill_len] int32 (padded); length: true tokens in this
+    chunk; start: the cache row the chunk begins at. The chunk attends to
+    every row of the slot's cache under ``row <= start + i``, so a long
+    prompt runs as ceil(n/prefill_len) fixed-shape calls. The write is
+    ``lax.dynamic_update_slice``'s: its start clamps to max_seq -
+    prefill_len, so a last chunk that would run past the cache lands
+    shifted back (the reference's rows, exactly). Returns the f32 logits
+    [vocab] at local position length - 1.
+    """
+    m = cfg.model
+    p = cfg.prefill_len
+    dev = tokens.device
+    pos = start + torch.arange(p, dtype=torch.int32, device=dev)[None]
+    row = torch.arange(m.max_seq, dtype=torch.int32, device=dev)
+    mask = (row[None, :] <= pos[0][:, None])[None, None]  # [1,1,P,S]
+    s0 = min(max(start, 0), m.max_seq - p)
+
+    def kv_update(li, k, v):
+        cache["k"][li, slot, s0:s0 + p] = k[0]
+        cache["v"][li, slot, s0:s0 + p] = v[0]
+        return cache["k"][li, slot][None], cache["v"][li, slot][None]
+
+    x = decoder_forward(cfg, params, tokens[None], pos, mask, kv_update)
+    return (x[0, length - 1] @ params["lm_head"].to(m.torch_dtype)).float()
+
+
+def decode_step(cfg: ServeConfig, params: dict, cache: dict,
+                last_tokens: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Advance every slot one token over the dense cache (in place):
+    last_tokens/positions [B] int32, B == slots; returns the f32 logits
+    [B, vocab]. The T == 1 case of ``speculative.decode_block``."""
+    from tpumon_torch.loadgen.speculative import decode_block
+
+    return decode_block(cfg, params, cache, last_tokens[:, None],
+                        positions)[:, 0]
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over [B, V] (the first maximal index, as ``jnp.argmax``)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def decode_rounds(cfg: ServeConfig, params: dict, cache: dict,
+                  last_tokens: torch.Tensor, positions: torch.Tensor,
+                  base_key: torch.Tensor, rids: torch.Tensor,
+                  ctr0: torch.Tensor, temps: torch.Tensor | None,
+                  topks: torch.Tensor, steps: int) -> tuple:
+    """``steps`` (decode_step -> sample_tokens) pairs over the dense cache
+    with no host sync: rids [B] and ctr0 [B] carry each request's (id,
+    next token index), the index advancing by one a step, so the block
+    emits the per-step stream. Positions clamp at max_seq - 1. ``temps``
+    None: every row greedy (the engine's all-greedy batches skip the
+    sampler, whose greedy rows are this argmax). Returns (last tokens,
+    positions, tokens [B, steps] in emission order)."""
+    out = []
+    last, pos, ctr = last_tokens, positions, ctr0
+    for _ in range(steps):
+        logits = decode_step(cfg, params, cache, last, pos)
+        last = (_greedy(logits) if temps is None else sample_tokens(
+            logits, base_key, rids, ctr, temps, topks))
+        pos = torch.clamp(pos + 1, max=cfg.model.max_seq - 1)
+        ctr = ctr + 1
+        out.append(last)
+    return last, pos, torch.stack(out, dim=1)
+
+
+def sample_tokens(logits: torch.Tensor, base_key: torch.Tensor,
+                  rids: torch.Tensor, ctrs: torch.Tensor,
+                  temps: torch.Tensor, topk: torch.Tensor) -> torch.Tensor:
+    """Per-slot token selection for the batch, on the logits' device, with
+    no host sync: the reference's ``sample_tokens`` draw for draw.
+
+    logits [B, V] f32; rids [B] request ids; ctrs [B] per-request token
+    indices; temps [B] (<= 0: greedy argmax); topk [B] (0: the whole
+    vocab). Each row keeps the logits at or above its k-th largest,
+    divides them by max(temp, 1e-6) and draws ``categorical`` under the
+    key fold_in(fold_in(base_key, rid), ctr): JAX's threefry and Gumbel
+    bits (``tpumon_torch.prng``), so a request's stream is a pure
+    function of (seed, prompt, params), whatever the schedule, the slot
+    or ``decode_block``. Returns int32 [B].
+    """
+    v = logits.shape[-1]
+    logits = logits.float()
+    keys = prng.torch_fold_in(prng.torch_fold_in(base_key, rids), ctrs)
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    k_idx = (torch.where(topk > 0, topk, v) - 1).clamp(0, v - 1).long()
+    thresh = sorted_desc.gather(-1, k_idx[:, None])
+    masked = torch.where(logits >= thresh, logits, -1e30)
+    scaled = masked / temps.float().clamp_min(1e-6)[:, None]
+    sampled = prng.categorical(keys, scaled)
+    return torch.where(temps > 0, sampled, torch.argmax(logits, dim=-1)
+                       ).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +344,7 @@ class Request:
     prompt: list[int]
     max_new: int
     enqueued: float
-    temperature: float = 0.0  # 0 = greedy (the only mode ported)
+    temperature: float = 0.0  # 0 = greedy (deterministic)
     top_k: int = 0  # 0 = full vocab
     # Multi-tenant attribution: per-tenant latency/goodput accounting
     # ("" = untagged, excluded from per-tenant metrics).
@@ -292,21 +403,21 @@ class _TenantStats:
 @dataclass
 class _PrefillWork:
     """Per-slot chunked-prefill progress: which chunk runs next, the
-    slot's page reservation and table, and the final chunk's logits. A
-    slot holding one is occupied but not yet decoding."""
+    slot's page reservation and table (paged), and the final chunk's
+    logits. A slot holding one is occupied but not yet decoding."""
 
     req: Request
     n: int                      # prompt length (tokens)
     next_c0: int                # next chunk's start row
     logits: torch.Tensor | None = None   # final-chunk logits
-    pages: list[int] | None = None       # full reservation
-    table_row: torch.Tensor | None = None  # this slot's table (device)
+    pages: list[int] | None = None       # paged: full reservation
+    table_row: torch.Tensor | None = None  # paged: this slot's table
 
 
 class ServingEngine:
-    """Continuous-batching engine over the paged KV pool: submit() from
-    any thread, step() (or the arrival loop) drives prefill/decode;
-    /metrics-ready exposition from metrics_text()."""
+    """Continuous-batching engine over the dense KV cache or the paged KV
+    pool: submit() from any thread, step() (or the arrival loop) drives
+    prefill/decode; /metrics-ready exposition from metrics_text()."""
 
     def __init__(self, cfg: ServeConfig | None = None,
                  params: dict | None = None, seed: int = 0,
@@ -322,8 +433,21 @@ class ServingEngine:
                                   prefill_len=min(16, saved.max_seq // 2))
         self.cfg = cfg or default_engine_config()
         _check_ported(self.cfg)
+        if self.cfg.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_layout {self.cfg.kv_layout!r}")
+        if self.cfg.pool_pages and self.cfg.kv_layout != "paged":
+            raise ValueError(
+                "pool_pages requires kv_layout='paged' (a dense cache "
+                "has no page pool to size)")
+        if self.cfg.decode_block < 1:
+            raise ValueError(
+                f"decode_block must be >= 1, got {self.cfg.decode_block}")
         if self.cfg.paged_attn not in ("gather", "kernel"):
             raise ValueError(f"unknown paged_attn {self.cfg.paged_attn!r}")
+        if self.cfg.paged_attn == "kernel" and self.cfg.kv_layout != "paged":
+            raise ValueError(
+                "paged_attn='kernel' requires kv_layout='paged' (the "
+                "kernel reads pages)")
         if self.cfg.scheduler not in ("interleaved", "sequential"):
             raise ValueError(f"unknown scheduler {self.cfg.scheduler!r}")
         if self.cfg.prefill_chunk_budget < 1:
@@ -334,6 +458,10 @@ class ServingEngine:
             raise ValueError(
                 f"admit_lookahead must be >= 0, got "
                 f"{self.cfg.admit_lookahead}")
+        if self.cfg.admit_lookahead and self.cfg.kv_layout != "paged":
+            raise ValueError(
+                "admit_lookahead requires kv_layout='paged' (dense "
+                "admission never blocks on pages)")
         if self.cfg.admit_max_skips < 1:
             raise ValueError(
                 f"admit_max_skips must be >= 1, got "
@@ -364,31 +492,45 @@ class ServingEngine:
         # the weight_bytes gauge reports what is actually resident.
         self.params = map_params(
             params, lambda t: t.to(device=dev, dtype=m.torch_dtype))
-        p = self.cfg.prefill_len
-        self._max_pages = -(-self._seq_cap // p)
-        pool_pages = self.cfg.pool_pages or (
-            self.cfg.slots * self._max_pages + 1)
-        if pool_pages < 2:
-            raise ValueError("pool_pages must be >= 2")
-        self.pool = init_pool(self.cfg, pool_pages, dev)
-        self.allocator = PageAllocator(pool_pages)
-        # Page 0 is the permanent trash page: freed and mid-prefill
-        # slots' tables point at it so their garbage batched-decode
-        # writes can never corrupt pages reallocated to live requests.
-        trash = self.allocator.alloc(1)
-        assert trash == [0]
-        self._slot_pages: list[list[int]] = [
-            [] for _ in range(self.cfg.slots)]
-        self._tables_host = [
-            [0] * self._max_pages for _ in range(self.cfg.slots)]
-        self._tables_dev = torch.zeros(
-            (self.cfg.slots, self._max_pages), dtype=torch.int32, device=dev)
-        self._tables_dirty = False
-        self.positions = torch.zeros(
-            (self.cfg.slots,), dtype=torch.int32, device=dev)
-        self._host_positions = [0] * self.cfg.slots  # mirror, avoids syncs
-        self.last_tokens = torch.zeros(
-            (self.cfg.slots,), dtype=torch.int32, device=dev)
+        self.paged = self.cfg.kv_layout == "paged"
+        self.cache = None
+        if self.paged:
+            p = self.cfg.prefill_len
+            self._max_pages = -(-self._seq_cap // p)
+            pool_pages = self.cfg.pool_pages or (
+                self.cfg.slots * self._max_pages + 1)
+            if pool_pages < 2:
+                raise ValueError("pool_pages must be >= 2")
+            self.pool = init_pool(self.cfg, pool_pages, dev)
+            self.allocator = PageAllocator(pool_pages)
+            # Page 0 is the permanent trash page: freed and mid-prefill
+            # slots' tables point at it so their garbage batched-decode
+            # writes can never corrupt pages reallocated to live requests.
+            trash = self.allocator.alloc(1)
+            assert trash == [0]
+            self._slot_pages: list[list[int]] = [
+                [] for _ in range(self.cfg.slots)]
+            self._tables_host = [
+                [0] * self._max_pages for _ in range(self.cfg.slots)]
+            self._tables_dev = torch.zeros(
+                (self.cfg.slots, self._max_pages), dtype=torch.int32,
+                device=dev)
+            self._tables_dirty = False
+        else:
+            self.cache = init_cache(self.cfg, dev)
+        slots = self.cfg.slots
+        self.positions = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self._host_positions = [0] * slots  # mirror, avoids syncs
+        self.last_tokens = torch.zeros((slots,), dtype=torch.int32,
+                                       device=dev)
+        # Per-slot sampling state on the device (set at admission): the
+        # settings, and the request id and next token index that key each
+        # draw with _sample_key (sample_tokens), never the engine step.
+        self.temps = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self.topks = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.rids = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.tok_ctrs = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self._sample_key = prng.torch_key(seed ^ 0x7A11, dev)
         self._slots: list[Request | None] = [None] * self.cfg.slots
         self._prefill_work: list[_PrefillWork | None] = (
             [None] * self.cfg.slots)
@@ -440,14 +582,10 @@ class ServingEngine:
                stop_tokens: tuple = (), tenant: str = "",
                rid: int | None = None) -> Request:
         """Enqueue a request. When the queue is full, or the prompt is
-        over the sequence capacity (max_seq-1 rows), or its page
+        over the sequence capacity (max_seq-1 rows), or (paged) its page
         reservation could never fit the pool, the request is rejected
         immediately (status="rejected", done set, output empty).
-        Greedy only: temperature > 0 raises."""
-        if temperature > 0:
-            raise NotImplementedError(
-                "keyed sampling not yet ported (ROADMAP queue 1 item 4); "
-                "this slice serves greedy requests (temperature=0)")
+        temperature 0 = greedy; top_k 0 = the whole vocab."""
         m = self.cfg.model
         max_new = max(0, int(max_new))
         prompt = [t % m.vocab for t in prompt]
@@ -459,8 +597,8 @@ class ServingEngine:
                       stream=queue.Queue() if stream else None,
                       stop_tokens=tuple(int(t) for t in stop_tokens),
                       tenant=str(tenant))
-        infeasible = over_cap or (
-            self._pages_needed(req) > self.allocator.num_pages - 1)
+        infeasible = over_cap or (self.paged and self._pages_needed(
+            req) > self.allocator.num_pages - 1)
         with self._lock:
             # Cancelled entries must not consume queue capacity.
             self._purge_cancelled_locked()
@@ -525,7 +663,7 @@ class ServingEngine:
 
     def _reserve_next_locked(self) -> tuple[Request, list] | None:
         """Pick the next admissible queued request (caller holds the
-        lock): probe the head, then — bounded lookahead — up to
+        lock; paged only): probe the head, then — bounded lookahead — up to
         ``admit_lookahead`` requests behind it, admitting the first whose
         page reservation succeeds. Every queue-jump past a blocked head
         bumps ``_head_skips``; at ``admit_max_skips`` the window
@@ -552,8 +690,8 @@ class ServingEngine:
         return None
 
     def _admit(self) -> None:
-        """Assign queued requests to free slots (reserving pages); the
-        prefill chunks themselves run in ``_prefill_tick``, or inline
+        """Assign queued requests to free slots (paged: reserving pages);
+        the prefill chunks themselves run in ``_prefill_tick``, or inline
         under ``scheduler="sequential"``."""
         with self._lock:
             self._purge_cancelled_locked()
@@ -563,26 +701,31 @@ class ServingEngine:
             with self._lock:
                 if not self._queue:
                     return
-                picked = self._reserve_next_locked()
-                if picked is None:
-                    return  # head (and window) blocked on pages
-                req, pages = picked
+                if self.paged:
+                    picked = self._reserve_next_locked()
+                    if picked is None:
+                        return  # head (and window) blocked on pages
+                    req, pages = picked
+                else:
+                    req, pages = self._queue.popleft(), None
             self._assign_slot(slot, req, pages)
             if self.cfg.scheduler == "sequential":
                 self._drain_prefill_slot(slot)
 
-    def _assign_slot(self, slot: int, req: Request, pages: list) -> None:
+    def _assign_slot(self, slot: int, req: Request,
+                     pages: list | None) -> None:
         """Install ``req`` into ``slot`` in the in-prefill state: page
-        table, prefill work record, and the parking of the slot's
+        table (paged), prefill work record, and the parking of the slot's
         position."""
         work = _PrefillWork(req=req, n=len(req.prompt), next_c0=0,
                             pages=pages)
-        self._slot_pages[slot] = pages
-        trow = self._tables_host[slot]
-        for i in range(self._max_pages):
-            trow[i] = pages[i] if i < len(pages) else 0
-        self._tables_dirty = True
-        work.table_row = self._h2d(trow)
+        if self.paged:
+            self._slot_pages[slot] = pages
+            trow = self._tables_host[slot]
+            for i in range(self._max_pages):
+                trow[i] = pages[i] if i < len(pages) else 0
+            self._tables_dirty = True
+            work.table_row = self._h2d(trow)
         self._slots[slot] = req
         self._prefill_work[slot] = work
         # Park the slot's position on the last row while prefill is in
@@ -636,9 +779,13 @@ class ServingEngine:
         chunk = req.prompt[c0:c0 + p]
         ln = len(chunk)
         toks = self._h2d(chunk + [0] * (p - ln))
-        work.logits = paged_prefill(
-            self.cfg, self.params, self.pool, toks, ln,
-            work.pages[c0 // p], work.table_row, c0)
+        if self.paged:
+            work.logits = paged_prefill(
+                self.cfg, self.params, self.pool, toks, ln,
+                work.pages[c0 // p], work.table_row, c0)
+        else:
+            work.logits = prefill(self.cfg, self.params, self.cache, toks,
+                                  ln, slot, c0)
         work.next_c0 = c0 + p
         if work.next_c0 < work.n:
             return
@@ -647,8 +794,19 @@ class ServingEngine:
 
     def _after_prefill(self, slot: int, req: Request, n: int,
                        logits: torch.Tensor) -> None:
-        """Sample the first token and install the request for decoding."""
-        first = int(sample_tokens(logits[None])[0])
+        """Sample the first token (index 0 of the request's stream, keyed
+        by its rid) and install the request for decoding."""
+        logits = logits[None]
+        if req.temperature > 0:
+            dev = self.device
+            first = sample_tokens(
+                logits, self._sample_key, self._h2d([req.rid]),
+                torch.zeros((1,), dtype=torch.int32, device=dev),
+                torch.tensor([req.temperature]).to(dev, non_blocking=True),
+                self._h2d([req.top_k]))
+        else:
+            first = _greedy(logits)
+        first = int(first[0])
         now = time.monotonic()
         with self._lock:
             req.ttft_s = now - req.enqueued
@@ -663,17 +821,22 @@ class ServingEngine:
         self.positions[slot] = n
         self._host_positions[slot] = n
         self.last_tokens[slot] = first
+        self.temps[slot] = req.temperature
+        self.topks[slot] = req.top_k
+        self.rids[slot] = req.rid
+        self.tok_ctrs[slot] = 1  # index 0 spent
         if len(req.output) >= req.max_new + 1 or req.hit_stop():
             self._complete(slot)
 
     def _release_slot_pages(self, slot: int) -> None:
-        # Free the pages and park the slot's table on the trash page so
-        # its garbage batched-decode writes can't corrupt pages
-        # reallocated to live requests.
-        self.allocator.release(self._slot_pages[slot])
-        self._slot_pages[slot] = []
-        self._tables_host[slot] = [0] * self._max_pages
-        self._tables_dirty = True
+        if self.paged:
+            # Free the pages and park the slot's table on the trash page
+            # so its garbage batched-decode writes can't corrupt pages
+            # reallocated to live requests.
+            self.allocator.release(self._slot_pages[slot])
+            self._slot_pages[slot] = []
+            self._tables_host[slot] = [0] * self._max_pages
+            self._tables_dirty = True
 
     def _complete(self, slot: int) -> None:
         req = self._slots[slot]
@@ -738,12 +901,36 @@ class ServingEngine:
             pending = bool(self._queue)
         return pending or any(s is not None for s in self._slots)
 
+    def _sampling(self) -> bool:
+        """Whether a request in a slot samples (temperature > 0). When
+        none does, every row of the batch that the host reads is greedy,
+        and the argmax stands in for the sampler, whose greedy rows it is
+        (the reference's speculative round skips the sampler the same
+        way)."""
+        return any(r is not None and r.temperature > 0 for r in self._slots)
+
     def _plain_step(self, active: list[int]) -> None:
-        self._sync_tables()
-        logits = paged_decode_step(
-            self.cfg, self.params, self.pool, self.last_tokens,
-            self.positions, self._tables_dev)
-        nxt = sample_tokens(logits)
+        # Fused block decode when configured and every active slot has
+        # cache room for the whole block (else the single step below).
+        n = self.cfg.decode_block
+        if n > 1 and all(self._host_positions[s] <= self._seq_cap - 1 - n
+                         for s in active):
+            self._block_step(active, n)
+            return
+        if self.paged:
+            self._sync_tables()
+            logits = paged_decode_step(
+                self.cfg, self.params, self.pool, self.last_tokens,
+                self.positions, self._tables_dev)
+        else:
+            logits = decode_step(self.cfg, self.params, self.cache,
+                                 self.last_tokens, self.positions)
+        if self._sampling():
+            nxt = sample_tokens(logits, self._sample_key, self.rids,
+                                self.tok_ctrs, self.temps, self.topks)
+        else:
+            nxt = _greedy(logits)
+        self.tok_ctrs = self.tok_ctrs + 1
         self.last_tokens = nxt
         self.positions = torch.clamp(self.positions + 1,
                                      max=self._seq_cap - 1)
@@ -761,6 +948,46 @@ class ServingEngine:
                     or req.hit_stop()
                     or self._host_positions[slot] >= self._seq_cap - 1):
                 self._complete(slot)
+
+    def _block_step(self, active: list[int], n: int) -> None:
+        """One fused block of n decode steps and samples (decode_rounds or
+        paged_decode_rounds), ONE device→host sync. Each slot's tokens
+        replay in order up to its own stop; tokens generated past it are
+        discarded (the block-decode trade), and their sampling indices are
+        never used again by that request."""
+        temps = self.temps if self._sampling() else None
+        if self.paged:
+            self._sync_tables()
+            self.last_tokens, self.positions, toks = paged_decode_rounds(
+                self.cfg, self.params, self.pool, self.last_tokens,
+                self.positions, self._tables_dev, self._sample_key,
+                self.rids, self.tok_ctrs, temps, self.topks, steps=n,
+                seq_cap=self._seq_cap)
+        else:
+            self.last_tokens, self.positions, toks = decode_rounds(
+                self.cfg, self.params, self.cache, self.last_tokens,
+                self.positions, self._sample_key, self.rids,
+                self.tok_ctrs, temps, self.topks, steps=n)
+        self.tok_ctrs = self.tok_ctrs + n
+        toks_host = toks.tolist()  # [B, n]
+        emitted = 0
+        with self._lock:
+            self.decode_steps_total += n
+        for slot in active:
+            req = self._slots[slot]
+            for tok in toks_host[slot]:
+                req.emit([tok])
+                emitted += 1
+                self._host_positions[slot] = min(
+                    self._host_positions[slot] + 1, self._seq_cap - 1)
+                if (len(req.output) >= req.max_new + 1
+                        or req.hit_stop()
+                        or self._host_positions[slot]
+                        >= self._seq_cap - 1):
+                    self._complete(slot)
+                    break
+        with self._lock:
+            self.tokens_total += emitted
 
     def drain(self, max_steps: int = 10_000) -> None:
         for _ in range(max_steps):
@@ -808,9 +1035,12 @@ class ServingEngine:
                     }
                     for name, st in self.tenants.items()
                 },
-                "kv_pages_total": self.allocator.num_pages - 1,
-                "kv_pages_free": self.allocator.free_pages,
             }
+            if self.paged:
+                snap["kv_pages_total"] = self.allocator.num_pages - 1
+                snap["kv_pages_free"] = self.allocator.free_pages
+            else:
+                snap["kv_pages_total"] = snap["kv_pages_free"] = None
         snap["weight_bytes"] = param_bytes(self.params)
         snap["prefix"] = None
         return snap
@@ -1001,8 +1231,9 @@ def start_metrics_server(engine: ServingEngine, port: int = 0,
       GET /generate?prompt=1,2,3&max_new=8&stream=1   → SSE, one
           ``data: <token>`` event per token as it is emitted, then
           ``event: done``.
-    Greedy only: a temperature > 0 gets 501. Runs in a daemon thread;
-    call server.shutdown() THEN server.server_close() to stop."""
+    ``temperature``, ``top_k`` and ``stop`` (comma-separated token ids)
+    are optional query parameters. Runs in a daemon thread; call
+    server.shutdown() THEN server.server_close() to stop."""
     import json as _json
     import urllib.parse
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -1036,10 +1267,6 @@ def start_metrics_server(engine: ServingEngine, port: int = 0,
             except (KeyError, ValueError):
                 self._send(400, b'{"error": "bad prompt/max_new"}',
                            "application/json")
-                return
-            if temp > 0:
-                self._send(501, b'{"error": "keyed sampling not yet '
-                           b'ported; greedy only"}', "application/json")
                 return
             streaming = q.get("stream", ["0"])[0] not in ("0", "")
             req = engine.submit(prompt, max_new=max_new, temperature=temp,
@@ -1154,7 +1381,8 @@ class ArrivalPump:
 
 def _arrival_loop(engine: ServingEngine, rps: float, max_new: int,
                   stop: threading.Event, duration: float = 0.0,
-                  seed: int = 0) -> None:
+                  seed: int = 0, temperature: float = 0.0,
+                  top_k: int = 0) -> None:
     """Poisson-ish synthetic request arrivals + engine stepping until
     ``stop`` is set (or ``duration`` seconds elapse, if nonzero). The
     RNG draw order per arrival (prompt length, tail tokens, then the
@@ -1167,7 +1395,8 @@ def _arrival_loop(engine: ServingEngine, rps: float, max_new: int,
     def fire(_rel: float) -> None:
         n = rng.randint(2, engine.cfg.prefill_len)
         tail = [rng.randrange(engine.cfg.model.vocab) for _ in range(n)]
-        engine.submit(tail, max_new=max_new)
+        engine.submit(tail, max_new=max_new, temperature=temperature,
+                      top_k=top_k)
 
     src = ArrivalSource(rate=lambda _t: rps, fire=fire,
                         interval=rng.expovariate)
@@ -1177,10 +1406,10 @@ def _arrival_loop(engine: ServingEngine, rps: float, max_new: int,
 def main(argv: list[str] | None = None) -> int:
     """``python -m tpumon_torch.loadgen.serving`` — run the serving
     loadgen on the GPU: synthetic request arrivals + /metrics for tpumon
-    to scrape. Same flags as ``python -m tpumon.loadgen.serving``; this
-    slice ports the paged layout only, so the defaults are --kv-layout
-    paged --paged-attn kernel, and a flag asking for anything outside
-    the slice exits with "not yet ported"."""
+    to scrape. Same flags and defaults as ``python -m
+    tpumon.loadgen.serving`` (dense layout, gather read path); a flag
+    asking for anything the port does not have yet exits with "not yet
+    ported"."""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -1189,11 +1418,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--quant", choices=["int8"], default=None,
                     help="weight-only quantization (not yet ported)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="sampling temperature (0 = greedy; keyed "
-                         "sampling is not yet ported)")
+                    help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
-                    help="top-k sampling cutoff (0 = full vocab; only "
-                         "meaningful with --temperature > 0)")
+                    help="top-k sampling cutoff (0 = full vocab)")
     ap.add_argument("--rps", type=float, default=2.0,
                     help="synthetic request arrival rate")
     ap.add_argument("--max-new", type=int, default=32)
@@ -1212,20 +1439,22 @@ def main(argv: list[str] | None = None) -> int:
                     default="compute",
                     help="KV cache element type (int8 not yet ported)")
     ap.add_argument("--decode-block", type=int, default=1,
-                    help="fused block decode (not yet ported; 1 = off)")
+                    help="fuse N plain-decode steps into one block with "
+                         "one device->host sync (dense or paged KV; "
+                         "1 = off)")
     ap.add_argument("--kv-layout", choices=["dense", "paged"],
-                    default="paged",
-                    help="KV layout; this port serves paged only "
-                         "(dense not yet ported)")
+                    default="dense",
+                    help="paged: per-request page reservation from a "
+                         "shared pool instead of slots*max_seq rows")
     ap.add_argument("--pool-pages", type=int, default=0,
                     help="paged pool size in pages (0 = dense "
                          "equivalent; smaller = real memory savings "
                          "with admission backpressure)")
     ap.add_argument("--paged-attn", choices=["gather", "kernel", "ring"],
-                    default="kernel",
-                    help="paged decode read path: the hand-written CUDA "
-                         "paged-attention kernel (default) or the plain "
-                         "torch gather ('ring' not yet ported)")
+                    default="gather",
+                    help="paged decode read path: the plain torch gather "
+                         "or the hand-written CUDA paged-attention "
+                         "kernel ('ring' not yet ported)")
     ap.add_argument("--mesh", default=None, metavar="DP,TP",
                     help="dp×tp mesh serving (not yet ported)")
     ap.add_argument("--ring-attn", type=int, default=0, metavar="N",
@@ -1253,14 +1482,11 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
     not_ported = [
         (args.quant is not None, "--quant"),
-        (args.temperature > 0, "--temperature > 0 (keyed sampling)"),
         (args.spec_len != 0, "--spec-len"),
         (args.spec_draft_layers != 0, "--spec-draft-layers"),
         (args.spec_source != "draft", "--spec-source"),
         (args.prefix_cache != 0, "--prefix-cache"),
         (args.kv_dtype != "compute", "--kv-dtype int8"),
-        (args.decode_block != 1, "--decode-block"),
-        (args.kv_layout != "paged", "--kv-layout dense"),
         (args.paged_attn == "ring", "--paged-attn ring"),
         (args.mesh is not None, "--mesh"),
         (args.ring_attn != 0, "--ring-attn"),
@@ -1269,15 +1495,24 @@ def main(argv: list[str] | None = None) -> int:
     for asked, flag in not_ported:
         if asked:
             ap.error(f"{flag} is not yet ported (ROADMAP queue 1)")
+    if args.pool_pages and args.kv_layout != "paged":
+        ap.error("--pool-pages requires --kv-layout paged")
     if args.prefill_budget < 1:
         ap.error("--prefill-budget must be >= 1")
+    if args.admit_lookahead and args.kv_layout != "paged":
+        ap.error("--admit-lookahead requires --kv-layout paged (dense "
+                 "admission never blocks on pages)")
+    if args.paged_attn == "kernel" and args.kv_layout != "paged":
+        ap.error("--paged-attn kernel requires --kv-layout paged (the "
+                 "kernel reads pages)")
 
     model = ModelConfig(vocab=2048, d_model=256, n_layers=4, n_heads=8,
                         n_kv_heads=4, d_ff=1024, max_seq=256)
     try:
         engine = ServingEngine(cfg=ServeConfig(
             model=model, slots=args.slots, prefill_len=32,
-            pool_pages=args.pool_pages, paged_attn=args.paged_attn,
+            kv_layout=args.kv_layout, pool_pages=args.pool_pages,
+            decode_block=args.decode_block, paged_attn=args.paged_attn,
             scheduler=args.scheduler,
             prefill_chunk_budget=args.prefill_budget,
             admit_lookahead=args.admit_lookahead,
@@ -1290,7 +1525,8 @@ def main(argv: list[str] | None = None) -> int:
           flush=True)
     try:
         _arrival_loop(engine, args.rps, args.max_new, threading.Event(),
-                      duration=args.duration)
+                      duration=args.duration, temperature=args.temperature,
+                      top_k=args.top_k)
     except KeyboardInterrupt:
         pass
     finally:
