@@ -27,7 +27,10 @@ Phases, each of which exits non-zero on failure:
    kv_layout="paged" with the kernel read path named explicitly (the
    defaults are the reference's dense/gather), serves 16 greedy requests
    of 64-3000 prompt tokens to completion; the
-   kernel's launch count must equal n_layers x decode steps; one decode
+   kernel's launch count must equal n_layers x decode steps, and the
+   fused draws' (phase 17) the sampler's: one categorical and two key
+   launches per sampled token (each decode step and each first token,
+   greedy rows drawn too, as the reference draws them); one decode
    step of the kernel path is held to the gather path in bf16 and f32;
    a small f32 engine's streams on the card equal the CPU's.
 5. times: kernel, plain version, torch's SDPA on the gathered context
@@ -85,8 +88,9 @@ Phases, each of which exits non-zero on failure:
     reference's fallback for a shape that does not tile, with no launch.
 12. burn path: the chained burn programs at size 4096, on the reference's
     inputs (threefry normals and randint drawn on the card from
-    PRNGKey(0)), through the kernels and the library (the 3-link chains
-    agree; 64 launches per 64-link call), then mxu_burn and int8_burn for
+    PRNGKey(0) by the fused draws of phase 17, one draw launch per input),
+    through the kernels and the library (the 3-link chains agree; 64
+    launches per 64-link call), then mxu_burn and int8_burn for
     2 s each way with nvidia-smi's
     power draw and SM clock read during each; beside them, as a reference
     point, the same chain kept live (renormalised by sqrt(size)).
@@ -106,17 +110,25 @@ Phases, each of which exits non-zero on failure:
 16. dense and fused serving: phase 4's model and traffic, half the
     requests greedy and half sampled (temperature 0.8, top-k 0 and 50),
     through the dense engine at decode_block 1 and 8 (and 8 under the
-    sequential scheduler) and the paged engine at block 8 (kernel and
-    gather read paths; the kernel's launches must equal n_layers x decode
-    steps, in-block steps included); each request's stream identical
-    across blocks and schedulers; dense and paged-gather greedy streams
-    equal up to the first near-tie, which is printed; small f32 engines
-    (dense and paged, greedy and sampled) emit the CPU's streams on the
-    card; sample_tokens on [16, 4096] logits agrees with its CPU run
-    outside a 1e-4 margin. Times: the dense decode step at block 1 and 8,
-    one sample_tokens call against the greedy argmax, where a dense
-    step's device time goes and the idle share, tokens/s and TTFT p50 of
-    each run.
+    sequential scheduler) and the paged kernel engine at block 1 and 8
+    and the paged gather engine at block 8 (the kernel's launches must
+    equal n_layers x decode steps, in-block steps included; the fused
+    draws' the sampler's); each request's stream identical across blocks
+    and schedulers, the paged kernel's included; dense and paged-gather
+    greedy streams equal up to the first near-tie, which is printed;
+    small f32 engines (dense and paged, greedy and sampled) emit the
+    CPU's streams on the card; sample_tokens on [16, 4096] logits agrees
+    with its CPU run outside a 1e-4 margin. Times: the dense decode step
+    at block 1 and 8, one sample_tokens call against the greedy argmax
+    (with its launches and device time), where a dense step's device
+    time goes and the idle share, tokens/s and TTFT p50 of each run.
+17. fused threefry draws: the key, draw and categorical kernels
+    (csrc/threefry.cu) against their plain PyTorch versions
+    (tpumon_torch/prng.py) at the shapes the paths give them (the
+    sampler's keys and [16, 4096] categorical, the burns' 4096^2 bf16
+    normals and int8 randint, the paged burn's pool, queries and table),
+    every element equal; then each kernel's time beside its plain
+    version's and its bound.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -507,14 +519,32 @@ def run_engine() -> tuple:
     slots)."""
     import torch
 
-    from tpumon_torch.loadgen.serving import ServingEngine
+    from tpumon_torch.loadgen.serving import ServingEngine, sample_tokens
+    from tpumon_torch.ops import threefry
     from tpumon_torch.ops.paged_attention import paged_attention
 
     eng = ServingEngine(cfg=engine_config(), seed=0, device="cuda")
     lens, prompts, _ = engine_traffic()
     max_new = 32
-    torch.cuda.synchronize()
+    # The sampler's first calls on the card, timed apart from the traffic:
+    # the fused draws' first launches, then the first sample_tokens (the
+    # first sort among them).
+    zeros = torch.zeros(eng.cfg.slots, eng.cfg.model.vocab, device="cuda")
+    first = {}
+    for what, fn in (
+            ("fused_draws", lambda: threefry.categorical(
+                threefry.fold_in(eng._sample_key, eng.rids), zeros)),
+            ("sample_tokens", lambda: sample_tokens(
+                zeros, eng._sample_key, eng.rids, eng.tok_ctrs, eng.temps,
+                eng.topks))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        first[what] = time.perf_counter() - t0
+    print(f"engine first_call_s={first}", flush=True)
     paged_attention.launches = 0  # count only the main path from here
+    threefry.set_launch_counts(0)
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new=max_new) for p in prompts]
     snap, best = None, 0
@@ -537,9 +567,11 @@ def run_engine() -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = paged_attention.launches
+    draws = threefry.launch_counts()
     steps = eng.decode_steps_total
     print(f"engine prompts={lens} max_new={max_new} decode_steps={steps} "
-          f"kernel_launches={launches} wall_s={wall!r}", flush=True)
+          f"kernel_launches={launches} threefry_launches={draws} "
+          f"wall_s={wall!r}", flush=True)
     bad = [r.rid for r in reqs
            if r.status != "completed" or len(r.output) != max_new + 1]
     if bad:
@@ -547,9 +579,20 @@ def run_engine() -> tuple:
     if launches != eng.cfg.model.n_layers * steps or steps == 0:
         fail(f"kernel launches {launches} != n_layers x decode steps "
              f"({eng.cfg.model.n_layers} x {steps})")
+    check_sampler_draws(draws, steps + len(reqs), "engine")
     stats = {"wall_s": wall, "tokens": eng.tokens_total, "steps": steps,
-             "launches": launches}
+             "launches": launches, "threefry": draws}
     return eng, stats, snap
+
+
+def check_sampler_draws(draws: dict, samples: int, label: str) -> None:
+    """The fused draws of ``samples`` sample_tokens calls: one categorical
+    and two key launches each, no other draw."""
+    want = {"threefry_keys": 2 * samples, "threefry_draw": 0,
+            "threefry_categorical": samples}
+    if draws != want or samples == 0:
+        fail(f"{label}: threefry launches {draws} != {want} for {samples} "
+             f"sampled tokens")
 
 
 def compare_paths(eng, snap) -> None:
@@ -2084,6 +2127,7 @@ def run_burn_path() -> dict:
 
     from tpumon_torch import prng
     from tpumon_torch.loadgen import burn
+    from tpumon_torch.ops import threefry
     from tpumon_torch.ops.matmul import matmul
     from tpumon_torch.ops.quant_matmul import quantized_matmul_kernel
 
@@ -2105,16 +2149,28 @@ def run_burn_path() -> dict:
     del a, b, q, sc, chains
 
     set_gemm_counts(dict.fromkeys(GEMM_KERNELS, 0))  # the path only
+    threefry.set_launch_counts(0)
     t0 = time.perf_counter()
-    for prog, kern in ((burn._mxu_burn_program, "matmul"),
-                       (burn._int8_burn_program, "quantized_matmul_kernel")):
-        n0 = gemm_counts()[kern]
+    # Inputs: two normals (a; b under fold_in(key, 1)), or a normal and an
+    # int8 randint (under fold_in(key, 1), after its split).
+    for prog, kern, want_draws in (
+            (burn._mxu_burn_program, "matmul",
+             {"threefry_keys": 1, "threefry_draw": 2}),
+            (burn._int8_burn_program, "quantized_matmul_kernel",
+             {"threefry_keys": 2, "threefry_draw": 2})):
+        n0, d0 = gemm_counts()[kern], threefry.launch_counts()
         total = burn._sync(prog(key, 4096, 64, use_kernel=True))
         n = gemm_counts()[kern] - n0
+        drawn = {k: v - d0[k] for k, v in threefry.launch_counts().items()
+                 if k != "threefry_categorical"}
         print(f"burn_program {prog.__name__} size=4096 links=64 "
-              f"launches={n} sum={total!r}", flush=True)
+              f"launches={n} threefry_launches={drawn} sum={total!r}",
+              flush=True)
         if n != 64:
             fail(f"{prog.__name__}: {n} kernel launches for 64 links")
+        if drawn != want_draws:
+            fail(f"{prog.__name__}: threefry launches {drawn}, want "
+                 f"{want_draws}")
     for fn, use_kernel in ((burn.mxu_burn, None), (burn.mxu_burn, True),
                            (burn.int8_burn, None), (burn.int8_burn, False)):
         n0 = gemm_counts()
@@ -2128,17 +2184,20 @@ def run_burn_path() -> dict:
         if launched[kern] != want or not out["tflops"] > 0:
             fail(f"{fn.__name__}: {launched[kern]} launches, want {want}")
     launches = gemm_counts()
-    print(f"burn_path launches={launches} wall_s="
-          f"{time.perf_counter() - t0!r}", flush=True)
+    draws = threefry.launch_counts()
+    print(f"burn_path launches={launches} threefry_launches={draws} "
+          f"wall_s={time.perf_counter() - t0!r}", flush=True)
     if not all(launches.values()):
         fail(f"a GEMM kernel was not launched on the burn path: {launches}")
+    if not draws["threefry_draw"] or not draws["threefry_keys"]:
+        fail(f"the fused draws were not launched on the burn path: {draws}")
     for use_kernel in (False, True):
         out, samples = while_running(lambda: live_chain(use_kernel),
                                      power_clock)
         print(f"live_chain use_kernel={use_kernel} result={out} "
               f"power_W_sm_MHz={samples}", flush=True)
     set_gemm_counts(launches)
-    return launches
+    return {**launches, **draws}
 
 
 def live_chain(use_kernel: bool, seconds: float = 2.0, size: int = 4096,
@@ -2480,11 +2539,12 @@ def sample_margin(logits, key, rids, ctrs, temps, topk):
 def serve_traffic(cfg, label: str, max_new: int = 32) -> tuple:
     """Phase 4's traffic with phase 16's sampling settings through a fresh
     engine (random weights from seed 0, as phase 4's) on the card, the
-    paged kernel's count set to 0 just before and read just after.
-    Returns (engine, streams, stats)."""
+    paged kernel's and the fused draws' counts set to 0 just before and
+    read just after. Returns (engine, streams, stats)."""
     import torch
 
     from tpumon_torch.loadgen.serving import ServingEngine
+    from tpumon_torch.ops import threefry
     from tpumon_torch.ops.paged_attention import paged_attention
     from tpumon_torch.tracing import quantiles
 
@@ -2492,6 +2552,7 @@ def serve_traffic(cfg, label: str, max_new: int = 32) -> tuple:
     eng = ServingEngine(cfg=cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     paged_attention.launches = 0
+    threefry.set_launch_counts(0)
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new=max_new, temperature=t, top_k=k)
             for p, (t, k) in zip(prompts, sampling)]
@@ -2499,11 +2560,13 @@ def serve_traffic(cfg, label: str, max_new: int = 32) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = paged_attention.launches
+    draws = threefry.launch_counts()
     steps = eng.decode_steps_total
     ttft = quantiles([t * 1e3 for t in eng._ttft_recent])
     stats = {"wall_s": wall, "tokens": eng.tokens_total, "steps": steps,
              "launches": launches, "tokens_per_s": eng.tokens_total / wall,
-             "ttft_p50_ms": ttft[0], "ttft_p95_ms": ttft[1]}
+             "ttft_p50_ms": ttft[0], "ttft_p95_ms": ttft[1],
+             "threefry": draws}
     print(f"dense_fused_run {label} " + " ".join(
         f"{k}={v!r}" for k, v in stats.items()), flush=True)
     bad = [r.rid for r in reqs
@@ -2515,6 +2578,7 @@ def serve_traffic(cfg, label: str, max_new: int = 32) -> tuple:
     if cfg.kv_layout == "paged" and launches != want:
         fail(f"{label}: kernel launches {launches} != n_layers x decode "
              f"steps ({cfg.model.n_layers} x {steps})")
+    check_sampler_draws(draws, steps + len(reqs), label)
     return eng, [r.output for r in reqs], stats
 
 
@@ -2542,12 +2606,13 @@ def greedy_divergence(eng, prompt, a, b) -> str | None:
 
 def check_dense_and_fused() -> dict:
     """Phase 16's engine runs and checks: the dense engine at decode_block
-    1 and 8 (and 8 under the sequential scheduler), the paged engine at
-    block 8 (kernel and gather read paths), all on phase 4's traffic with
-    greedy and sampled requests; each request's stream identical across
-    blocks and schedulers; dense and paged-gather greedy streams equal up
-    to the first near-tie. Returns the stats by run and the state the
-    timings start from."""
+    1 and 8 (and 8 under the sequential scheduler), the paged engine with
+    the kernel read path at block 1 and 8 and with the gather read path at
+    block 8, all on phase 4's traffic with greedy and sampled requests;
+    each request's stream identical across blocks and schedulers (the
+    paged kernel's too: it is deterministic); dense and paged-gather
+    greedy streams equal up to the first near-tie. Returns the stats by
+    run and the state the timings start from."""
     import torch
 
     runs = {"dense_b1": engine_config("gather", kv_layout="dense"),
@@ -2556,6 +2621,7 @@ def check_dense_and_fused() -> dict:
             "dense_b8_sequential": engine_config(
                 "gather", kv_layout="dense", decode_block=8,
                 scheduler="sequential"),
+            "paged_kernel_b1": engine_config("kernel"),
             "paged_kernel_b8": engine_config("kernel", decode_block=8),
             "paged_gather_b8": engine_config("gather", decode_block=8)}
     streams, stats, keep = {}, {}, None
@@ -2567,12 +2633,14 @@ def check_dense_and_fused() -> dict:
             del eng
         torch.cuda.empty_cache()
     _, prompts, sampling = engine_traffic()
-    for label in ("dense_b8", "dense_b8_sequential"):
-        same = streams[label] == streams["dense_b1"]
-        print(f"dense_fused_streams {label}_vs_dense_b1 identical={same}",
+    for label, base in (("dense_b8", "dense_b1"),
+                        ("dense_b8_sequential", "dense_b1"),
+                        ("paged_kernel_b8", "paged_kernel_b1")):
+        same = streams[label] == streams[base]
+        print(f"dense_fused_streams {label}_vs_{base} identical={same}",
               flush=True)
         if not same:
-            fail(f"dense streams differ between dense_b1 and {label}")
+            fail(f"streams differ between {base} and {label}")
     same = streams["paged_kernel_b8"] == streams["paged_gather_b8"]
     print(f"dense_fused_streams paged_kernel_b8_vs_paged_gather_b8 "
           f"identical={same} (bf16: not required)", flush=True)
@@ -2665,18 +2733,18 @@ def check_sampler(eng) -> dict:
 
 def time_dense_and_fused(eng, runs: dict, sampler: dict) -> None:
     """Phase 16's times: the dense decode step at decode_block 1 and 8
-    (greedy and sampled rows, CUDA events; the host's enqueue time), one
-    sample_tokens call against the greedy argmax, where a dense step's
-    device time goes and the idle share, and the runs' tokens/s and TTFT
-    p50 at block 8."""
+    (CUDA events; the host's enqueue time), one sample_tokens call against
+    the greedy argmax, with its fused draws' launches and device time,
+    where a dense step's device time goes and the idle share, and the
+    runs' tokens/s and TTFT p50 at block 8."""
     import torch
 
     from tpumon_torch.loadgen.serving import (
-        _greedy,
         decode_rounds,
         decode_step,
         sample_tokens,
     )
+    from tpumon_torch.ops import threefry
 
     _, prompts, _ = engine_traffic()
     i32 = dict(dtype=torch.int32, device="cuda")
@@ -2688,13 +2756,12 @@ def time_dense_and_fused(eng, runs: dict, sampler: dict) -> None:
     def step():
         decode_step(cfg, params, cache, last, pos)
 
-    def block(sampled: bool):
+    def block():
         decode_rounds(cfg, params, cache, last, pos, key, rids, ctrs,
-                      temps if sampled else None, topk, 8)
+                      temps, topk, 8)
 
     ms = {"step_b1": cuda_ms(step, reps=20),
-          "step_b8_greedy": cuda_ms(lambda: block(False), reps=5) / 8,
-          "step_b8_sampled": cuda_ms(lambda: block(True), reps=5) / 8}
+          "step_b8": cuda_ms(block, reps=5) / 8}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(10):
@@ -2702,21 +2769,32 @@ def time_dense_and_fused(eng, runs: dict, sampler: dict) -> None:
     host_ms = (time.perf_counter() - t0) / 10 * 1e3
     torch.cuda.synchronize()
     logits = sampler["logits"]
-    sample_ms = cuda_ms(lambda: sample_tokens(logits, key, rids, ctrs,
-                                              temps, topk), reps=20)
-    greedy_ms = cuda_ms(lambda: _greedy(logits), reps=50)
-    sample_busy = device_busy(lambda: sample_tokens(logits, key, rids, ctrs,
-                                                    temps, topk))
+    def sample():
+        sample_tokens(logits, key, rids, ctrs, temps, topk)
+
+    sample_ms = cuda_ms(sample, reps=20)
+    greedy_ms = cuda_ms(lambda: torch.argmax(logits, dim=-1), reps=50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sample()
+    sample_host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    before = threefry.launch_counts()
+    sample()
+    draws = {k: v - before[k] for k, v in threefry.launch_counts().items()}
+    sample_busy = device_busy(sample)
     print(f"dense_step decoding_slots=16 step_ms_b1={ms['step_b1']!r} "
-          f"step_ms_b8_greedy={ms['step_b8_greedy']!r} step_ms_b8_sampled="
-          f"{ms['step_b8_sampled']!r} host_enqueue_ms_b1={host_ms!r}",
+          f"step_ms_b8={ms['step_b8']!r} host_enqueue_ms_b1={host_ms!r}",
           flush=True)
     print(f"sampler shape=[16, 4096] sample_tokens_ms={sample_ms!r} "
-          f"greedy_argmax_ms={greedy_ms!r} device_kernels_per_call="
+          f"host_enqueue_ms={sample_host_ms!r} "
+          f"greedy_argmax_ms={greedy_ms!r} threefry_launches={draws} "
+          f"device_kernels_per_call="
           f"{None if sample_busy is None else sample_busy[2]!r} "
           f"device_busy_ms={None if sample_busy is None else sample_busy[0]!r}",
           flush=True)
-    for label, fn in (("b1", step), ("b8_sampled", lambda: block(True))):
+    for label, fn in (("b1", step), ("b8", block)):
         tr = trace_step(fn)
         if tr is None:
             print(f"dense_step_trace {label} device_busy=not measured (the "
@@ -2729,12 +2807,147 @@ def time_dense_and_fused(eng, runs: dict, sampler: dict) -> None:
                   f"other_ms={tr['other']!r} top={tr['top_ms']}",
                   flush=True)
     for label in ("dense_b8", "paged_kernel_b8", "paged_gather_b8",
-                  "dense_b1"):
+                  "dense_b1", "paged_kernel_b1"):
         st = runs[label]
         print(f"dense_fused_times {label} tokens_per_s="
               f"{st['tokens_per_s']!r} ttft_p50_ms={st['ttft_p50_ms']!r} "
               f"ttft_p95_ms={st['ttft_p95_ms']!r} decode_steps={st['steps']} "
               f"paged_kernel_launches={st['launches']}", flush=True)
+
+
+# Phase 17: the fused Threefry draws (csrc/threefry.cu) against their plain
+# versions (tpumon_torch/prng.py's torch functions). A kernel computes
+# what its plain version computes, step for step and rounded alike, so
+# the limit is equality of every element.
+THREEFRY_KERNELS = ("threefry_keys", "threefry_draw", "threefry_categorical")
+# Operations an element, for the bounds: Threefry-2x32 is 77 32-bit
+# integer operations (two key adds, then 5 x (4 x (add, rotate, xor) + 3
+# adds)), 78 with the XOR of its words; a bf16 normal's lookup by its
+# mantissa 3 more (the kernel computes the 128 values once a CTA); a
+# Gumbel's uniform 6 and two logs about 64, its sum and comparison 3.
+# They are counted at the CUDA cores' float32 rate, which no 32-bit
+# integer operation beats, so each bound is still a least time.
+THREEFRY_OPS = {"keys": 77, "normal_bf16": 81, "categorical": 151}
+
+
+def threefry_cases(gen) -> dict:
+    """By kernel, (label, fused call, plain call) at the shapes the paths
+    give it: the sampler's keys and categorical, the burns' inputs."""
+    import torch
+
+    from tpumon_torch import prng
+    from tpumon_torch.ops import threefry
+
+    dev = torch.device("cuda")
+    key = prng.torch_key(0, dev)
+    base = prng.torch_key(0x7A11, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rids = torch.arange(16, **i32) * 7
+    ctrs = torch.arange(16, **i32) + 3
+    rows = prng.torch_fold_in(base, rids)
+    logits = torch.randn(16, 4096, device=dev, generator=gen) * 3
+    logits[::4, 50:] = -1e30  # top-k 50 rows, as the sampler masks them
+    logits = logits / 0.8
+    bf16 = torch.bfloat16
+    n4096 = (4096, 4096)
+    return {
+        "threefry_keys": [
+            ("fold_in [16] rids", lambda f: f(base, rids), "fold_in"),
+            ("fold_in [16, 2] ctrs", lambda f: f(rows, ctrs), "fold_in"),
+            ("fold_in calls", lambda f: f(key, 12345), "fold_in"),
+            ("split 96", lambda f: f(key, 96), "split")],
+        "threefry_draw": [
+            ("normal 4096^2 bf16", lambda f: f(key, n4096, bf16), "normal"),
+            ("randint 4096^2 int8", lambda f: f(key, n4096, -127, 128,
+                                                torch.int8), "randint"),
+            ("normal pool [8, 512, 128, 128] bf16",
+             lambda f: f(key, (8, 512, 128, 128), bf16), "normal"),
+            ("normal queries [96] x [16, 32, 128] bf16",
+             lambda f: f(prng.torch_split(key, 96), (16, 32, 128), bf16),
+             "normal"),
+            ("permutation 512", lambda f: f(key, 512), "permutation")],
+        "threefry_categorical": [
+            ("categorical [16, 4096]",
+             lambda f: f(prng.torch_fold_in(rows, ctrs), logits),
+             "categorical")],
+    }, {"fold_in": (threefry.fold_in, prng.torch_fold_in),
+        "split": (threefry.split, prng.torch_split),
+        "normal": (threefry.normal, prng.normal),
+        "randint": (threefry.randint, prng.torch_randint),
+        "permutation": (threefry.permutation, prng.permutation),
+        "categorical": (threefry.categorical, prng.categorical)}
+
+
+def check_threefry(gen, bw: float, peaks: dict) -> dict:
+    """Phase 17: every case of each fused draw equal to its plain version
+    on the card; then, at the shape each path gives it (the sampler's
+    first fold_in, the burn's 4096^2 bf16 normal, the sampler's
+    categorical), the kernel's time beside the plain version's and the
+    bound. Returns the kernels summary's fields by kernel."""
+    import torch
+
+    from tpumon_torch import prng
+    from tpumon_torch.ops import threefry
+
+    before = threefry.launch_counts()
+    cases, fns = threefry_cases(gen)
+    out = {}
+    for kernel, rows in cases.items():
+        worst = 0.0
+        for label, call, name in rows:
+            fused, plain = fns[name]
+            got, want = call(fused), call(plain)
+            err = float((got.double() - want.double()).abs().max())
+            same = got.dtype == want.dtype and torch.equal(got, want)
+            print(f"threefry_check kernel={kernel} case={label!r} "
+                  f"shape={list(got.shape)} dtype={got.dtype} equal={same} "
+                  f"max_abs_err={err!r}", flush=True)
+            if not same:
+                fail(f"{kernel}: {label} differs from the plain version")
+            worst = max(worst, err)
+        out[kernel] = {"max_abs_err": worst}
+    dev = torch.device("cuda")
+    key = prng.torch_key(0, dev)
+    rids = torch.arange(16, dtype=torch.int32, device=dev) * 7
+    logits = torch.randn(16, 4096, device=dev, generator=gen)
+    keys16 = prng.torch_fold_in(key, rids)
+    f32_rate = peaks["float32"]
+    timed = {
+        "threefry_keys": (
+            lambda: threefry.fold_in(key, rids),
+            lambda: prng.torch_fold_in(key, rids),
+            16 + 16 * 4 + 16 * 16, 16 * THREEFRY_OPS["keys"],
+            "fold_in [16] int32 rids"),
+        "threefry_draw": (
+            lambda: threefry.normal(key, (4096, 4096), torch.bfloat16),
+            lambda: prng.normal(key, (4096, 4096), torch.bfloat16),
+            16 + 4096 * 4096 * 2, 4096 * 4096 * THREEFRY_OPS["normal_bf16"],
+            "normal 4096^2 bf16"),
+        "threefry_categorical": (
+            lambda: threefry.categorical(keys16, logits),
+            lambda: prng.categorical(keys16, logits),
+            16 * 16 + 16 * 4096 * 4 + 16 * 8,
+            16 * 4096 * THREEFRY_OPS["categorical"],
+            "categorical [16, 4096] f32")}
+    for kernel, (fused, plain, nbytes, ops, shape) in timed.items():
+        ms = cuda_ms(fused, reps=50, warmup=3)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        busy = device_busy(fused, reps=20)
+        bytes_ms, ops_ms = nbytes / bw * 1e3, ops / f32_rate * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        print(f"time_threefry kernel={kernel} shape={shape!r} ms={ms!r} "
+              f"plain_ms={plain_ms!r} bound_ms={bound_ms!r} ({bound_by}; "
+              f"bytes {nbytes}, operations {ops}) library_ms=None (no "
+              f"library call draws jax's threefry) kernel_over_bound="
+              f"{ms / bound_ms!r} device_ms="
+              f"{None if busy is None else busy[0]!r} (profiler, all "
+              f"device kernels of a call)", flush=True)
+        out[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+    for name, n in before.items():  # the check's launches are not the paths'
+        getattr(threefry, name).launches = n
+    return out
 
 
 def main() -> int:
@@ -2793,7 +3006,7 @@ def main() -> int:
     gemm_worst = check_gemm_kernels(gen)
     print(f"phase11 gemm_checks wall_s={time.perf_counter() - t0!r}",
           flush=True)
-    gemm_launches = run_burn_path()
+    burn_launches = run_burn_path()
     measure_kernels()
     check_burn_load()
     rect = check_flash_rect(gen)
@@ -2808,6 +3021,10 @@ def main() -> int:
     del dense, sampler
     torch.cuda.empty_cache()
     print(f"phase16 wall_s={time.perf_counter() - t0!r}", flush=True)
+
+    t0 = time.perf_counter()
+    draws = check_threefry(gen, bw, peaks)
+    print(f"phase17 wall_s={time.perf_counter() - t0!r}", flush=True)
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
@@ -2841,9 +3058,23 @@ def main() -> int:
             ("quantized_matmul_kernel", "tpumon_torch/ops/csrc/matmul.cu",
              "tpumon/ops/quant_matmul.py:37")):
         rows.append({"name": kernel, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": gemm_launches[kernel],
+                     "replaces": replaces, "launches": burn_launches[kernel],
                      "max_abs_err": gemm_worst[kernel],
                      **gemm_times[kernel]})
+    # The draws replace no Pallas kernel: each row names the jax.random
+    # call it computes on the path whose launches it counts (phase 4's
+    # sampler, phase 12's burn inputs).
+    for kernel, replaces, launches in (
+            ("threefry_keys", "tpumon/loadgen/serving.py:687",
+             stats["threefry"]["threefry_keys"]),
+            ("threefry_draw", "tpumon/loadgen/burn.py:38",
+             burn_launches["threefry_draw"]),
+            ("threefry_categorical", "tpumon/loadgen/serving.py:694",
+             stats["threefry"]["threefry_categorical"])):
+        rows.append({"name": kernel, "route": "cuda",
+                     "source": "tpumon_torch/ops/csrc/threefry.cu",
+                     "replaces": replaces, "launches": launches,
+                     **draws[kernel]})
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

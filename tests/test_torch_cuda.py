@@ -9,7 +9,9 @@ Every kernel is held to its plain version by chip_smoke.py's metrics
 and limits: the paged kernel by rows_rel_err (worst relative error over
 the (sequence, head) rows of length > 0) under PAGED_TOL, the flash
 kernels by tile_rel_err under FLASH_TOL, the GEMM kernels by
-gemm_tile_rel_err under GEMM_TOL. The reasons, the kernels' readings on
+gemm_tile_rel_err under GEMM_TOL, the fused threefry draws element for
+element (they compute what their plain versions compute, rounded alike).
+The reasons, the kernels' readings on
 the card and what planted faults read are in chip_smoke.py and PERF.md;
 the CPU tests check that the faults read over these limits at this
 file's shapes.
@@ -414,6 +416,56 @@ def test_torch_threefry_on_card_matches_cpu(cuda_device):
                                prng.normal(kc, (64, 1024), dtype))
         assert torch.equal(prng.gumbel(kg, (16, 4096)).cpu(),
                            prng.gumbel(kc, (16, 4096)))
+
+
+def _threefry_case_names():
+    from test_torch_threefry import CASES
+
+    return sorted(CASES)
+
+
+@pytest.mark.parametrize("case", _threefry_case_names())
+def test_threefry_kernel_matches_plain_on_card(cuda_device, case):
+    """Each fused draw (csrc/threefry.cu) equal, element for element, to
+    its plain version on the card and on the CPU, with one launch per
+    launcher as the wrapper counts them."""
+    from test_torch_threefry import CASES, PLAIN
+
+    from tpumon_torch import prng
+    from tpumon_torch.ops import threefry
+
+    call, name, launches = CASES[case]
+    for seed in (0, 1, 0x7A11, 2**31 + 5):
+        k = prng.torch_key(seed, cuda_device)
+        before = threefry.launch_counts()
+        got = call(getattr(threefry, name), k)
+        after = threefry.launch_counts()
+        assert got.device.type == "cuda"
+        assert torch.equal(got, call(PLAIN[name], k))
+        assert torch.equal(got.cpu(), call(PLAIN[name],
+                                           prng.torch_key(seed, "cpu")))
+        assert {n: after[n] - before[n] for n in after} == {
+            n: launches.get(n.removeprefix("threefry_"), 0) for n in after}
+
+
+def test_sample_tokens_launches_the_fused_draws_on_card(cuda_device):
+    """One sampler call: two key launches (rid, then counter) and one
+    categorical launch, whatever the rows' temperatures."""
+    from tpumon_torch import prng
+    from tpumon_torch.loadgen.serving import sample_tokens
+    from tpumon_torch.ops import threefry
+
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    logits = torch.randn(16, 4096, device=cuda_device)
+    for temps in (torch.zeros(16), torch.full((16,), 0.8)):
+        before = threefry.launch_counts()
+        sample_tokens(logits, prng.torch_key(0x7A11, cuda_device),
+                      torch.arange(16, **i32), torch.zeros(16, **i32),
+                      temps.to(cuda_device), torch.zeros(16, **i32))
+        after = threefry.launch_counts()
+        assert {n: after[n] - before[n] for n in after} == {
+            "threefry_keys": 2, "threefry_draw": 0,
+            "threefry_categorical": 1}
 
 
 def test_sample_tokens_on_card_matches_cpu(cuda_device):

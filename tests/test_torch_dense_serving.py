@@ -207,7 +207,7 @@ def test_decode_rounds_matches(sampled):
         pair.tcfg, pair.tparams, pair.tcache, torch.from_numpy(last),
         torch.from_numpy(positions), prng.torch_key(seed, "cpu"),
         torch.from_numpy(rids), torch.from_numpy(ctr0),
-        torch.from_numpy(temps) if sampled else None,
+        torch.from_numpy(temps),
         torch.from_numpy(topks), steps=4)
     assert ttoks.shape == (SLOTS, 4)
     live = [0, 1]

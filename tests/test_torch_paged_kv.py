@@ -275,7 +275,7 @@ def test_paged_decode_rounds_matches(paged_attn, sampled):
         torch.from_numpy(positions), torch.from_numpy(tables),
         prng.torch_key(0x7A11, "cpu"), torch.from_numpy(rids),
         torch.from_numpy(ctr0),
-        torch.from_numpy(temps) if sampled else None,
+        torch.from_numpy(temps),
         torch.from_numpy(topks), steps=6)
     live = [0, 2]
     assert np.array_equal(ttoks.numpy()[live], np.asarray(jtoks)[live])
@@ -295,6 +295,6 @@ def test_paged_decode_rounds_kernel_route_counts_nothing_on_the_cpu():
         torch.tensor([1, 2, 3], dtype=torch.int32),
         torch.tensor([19, 63, 5], dtype=torch.int32), tables,
         prng.torch_key(0, "cpu"), torch.zeros(3, dtype=torch.int32),
-        torch.zeros(3, dtype=torch.int32), None,
+        torch.zeros(3, dtype=torch.int32), torch.zeros(3),
         torch.zeros(3, dtype=torch.int32), steps=2)
     assert paged_attention.launches == before

@@ -242,14 +242,12 @@ def test_torch_normal_bf16(seed):
 
 @pytest.mark.parametrize("seed", SEEDS[:4])
 def test_torch_normal_f32(seed):
-    """float32 normals: equal wherever erf_inv's w < 5 (|x| below about
-    2.03 here); within 2 ulp in the tail, where XLA's CPU sqrt is
-    approximate; at least 99.99% of all draws equal."""
+    """float32 normals: every draw equal, the tail (erf_inv's w >= 5,
+    through its sqrt) included."""
     want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (256, 1024)))
     got = prng.normal(_tkey(seed), (256, 1024))
-    d = _ulps(got, want)
-    assert (d[np.abs(want) < 2.0] == 0).all()
-    assert d.max() <= 2 and (d == 0).mean() >= 0.9999
+    assert (np.abs(want) >= 2.1).any()  # the tail is drawn
+    assert (_ulps(got, want) == 0).all()
 
 
 def test_xla_log_copy_matches_xla_over_every_exponent():

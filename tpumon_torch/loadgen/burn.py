@@ -16,11 +16,12 @@ What differs from the reference:
   run plain torch where the reference runs XLA (``a @ b``, the per-call
   dequantized ``a @ w``, the dense-gather paged read).
 - Inputs are the reference's draws: ``jax.random``'s threefry, normal,
-  randint and permutation, computed on the card by ``tpumon_torch.prng``
-  (bf16 normals and int8 randint bit for bit), from ``PRNGKey(seed)`` and
-  the reference's chain of ``fold_in`` keys, one new key per call, so no
-  host-to-device copy of an input lands inside a timed call. The
-  reference's key is ``PRNGKey(0)``: ``seed`` defaults to 0.
+  randint and permutation, bit for bit, from ``PRNGKey(seed)`` and the
+  reference's chain of ``fold_in`` keys, one new key per call. On the
+  card each draw is one fused launch (``ops.threefry``), as XLA fuses the
+  reference's, so no host-to-device copy of an input lands inside a timed
+  call and a 4096^2 input costs one pass over its bytes. The reference's
+  key is ``PRNGKey(0)``: ``seed`` defaults to 0.
 - A program is a Python loop of eager torch calls (the reference's jitted
   scan) that ends in a scalar; ``_sync`` fetches it with ``.item()``,
   which waits for the card. The timers read the host clock
@@ -47,6 +48,13 @@ from tpumon_torch.ops.paged_attention import (
     paged_attention_reference,
 )
 from tpumon_torch.ops.quant_matmul import quantized_matmul_kernel
+from tpumon_torch.ops.threefry import (
+    fold_in,
+    normal,
+    permutation,
+    randint,
+    split,
+)
 
 
 def _sync(x: torch.Tensor) -> float:
@@ -70,8 +78,8 @@ def _mxu_inputs(key: torch.Tensor, size: int) -> tuple:
     """The bf16 burn's (a, b): the reference's bf16 normals under ``key``
     and fold_in(key, 1), on the key's device."""
     shape = (size, size)
-    return (prng.normal(key, shape, torch.bfloat16),
-            prng.normal(prng.torch_fold_in(key, 1), shape, torch.bfloat16))
+    return (normal(key, shape, torch.bfloat16),
+            normal(fold_in(key, 1), shape, torch.bfloat16))
 
 
 def _mxu_burn_program(key: torch.Tensor, size: int, iters: int,
@@ -101,7 +109,7 @@ def mxu_burn(seconds: float = 2.0, size: int = 4096, iters: int = 64,
     calls = 0
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
-        _sync(_mxu_burn_program(prng.torch_fold_in(key, calls), size,
+        _sync(_mxu_burn_program(fold_in(key, calls), size,
                                 iters, use_kernel))
         calls += 1
     dt = time.perf_counter() - t0
@@ -136,9 +144,8 @@ def _int8_inputs(key: torch.Tensor, size: int) -> tuple:
     activations under ``key``, int8 weights randint(-127, 128) under
     fold_in(key, 1), and a 1/127 per-column scale."""
     shape = (size, size)
-    a = prng.normal(key, shape, torch.bfloat16)
-    q = prng.torch_randint(prng.torch_fold_in(key, 1), shape, -127, 128,
-                           torch.int8)
+    a = normal(key, shape, torch.bfloat16)
+    q = randint(fold_in(key, 1), shape, -127, 128, torch.int8)
     scale = torch.full((size,), 1.0 / 127.0, dtype=torch.float32,
                        device=key.device)
     return a, q, scale
@@ -175,7 +182,7 @@ def int8_burn(seconds: float = 2.0, size: int = 4096, iters: int = 64,
     calls = 0
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
-        _sync(_int8_burn_program(prng.torch_fold_in(key, calls), size,
+        _sync(_int8_burn_program(fold_in(key, calls), size,
                                  iters, use_kernel))
         calls += 1
     dt = time.perf_counter() - t0
@@ -199,9 +206,9 @@ def _paged_pool(key, batch, n_kv_heads, head_dim, page_size, context):
     max_pages = context // page_size
     num_pages = batch * max_pages
     shape = (n_kv_heads, num_pages, page_size, head_dim)
-    k_pages = prng.normal(key, shape, torch.bfloat16)
-    v_pages = prng.normal(prng.torch_fold_in(key, 1), shape, torch.bfloat16)
-    table = prng.permutation(prng.torch_fold_in(key, 2), num_pages).to(
+    k_pages = normal(key, shape, torch.bfloat16)
+    v_pages = normal(fold_in(key, 1), shape, torch.bfloat16)
+    table = permutation(fold_in(key, 2), num_pages).to(
         torch.int32).reshape(batch, max_pages)
     lengths = torch.full((batch,), context, dtype=torch.int32,
                          device=key.device)
@@ -212,10 +219,9 @@ def _paged_steps(step_keys, fn, pool, batch, n_heads,
                  head_dim) -> torch.Tensor:
     """One decode-attention call per key of ``step_keys`` [steps, 2], its
     q drawn under that key (so no result can be reused), summed into one
-    f32 scalar. The steps' queries are drawn in one batched pass, the same
-    bits as one draw per key: a draw of ~220 small launches a step would
-    time the host, not the card."""
-    qs = prng.normal(step_keys, (batch, n_heads, head_dim), torch.bfloat16)
+    f32 scalar. The steps' queries are drawn in one launch before the
+    steps, the same bits as one draw per key."""
+    qs = normal(step_keys, (batch, n_heads, head_dim), torch.bfloat16)
     total = torch.zeros((), dtype=torch.float32, device=step_keys.device)
     for q in qs:
         total += fn(q, *pool).float().sum()
@@ -241,14 +247,14 @@ def paged_burn(seconds: float = 2.0, batch: int = 16, n_heads: int = 32,
     inner_steps = 8
 
     def burst(call_key) -> float:
-        return _sync(_paged_steps(prng.torch_split(call_key, inner_steps),
+        return _sync(_paged_steps(split(call_key, inner_steps),
                                   fn, pool, batch, n_heads, head_dim))
 
     burst(key)  # warm up
     calls = 0
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
-        burst(prng.torch_fold_in(key, 3 + calls))
+        burst(fold_in(key, 3 + calls))
         calls += 1
     dt = time.perf_counter() - t0
     steps = calls * inner_steps
@@ -453,7 +459,7 @@ def _paged_measure_program(key, batch: int, n_heads: int,
     split(fold_in(key, 3), steps)."""
     pool = _paged_pool(key, batch, n_kv_heads, head_dim, page_size, context)
     fn = paged_attention if use_kernel else paged_attention_reference
-    return _paged_steps(prng.torch_split(prng.torch_fold_in(key, 3), steps),
+    return _paged_steps(split(fold_in(key, 3), steps),
                         fn, pool, batch, n_heads, head_dim)
 
 

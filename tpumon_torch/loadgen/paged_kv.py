@@ -249,25 +249,23 @@ def paged_decode_rounds(cfg, params: dict, pool: dict,
                         last_tokens: torch.Tensor, positions: torch.Tensor,
                         tables: torch.Tensor, base_key: torch.Tensor,
                         rids: torch.Tensor, ctr0: torch.Tensor,
-                        temps: torch.Tensor | None, topks: torch.Tensor,
+                        temps: torch.Tensor, topks: torch.Tensor,
                         steps: int, seq_cap: int = 0) -> tuple:
     """``steps`` (paged_decode_step -> sample_tokens) pairs with no host
     sync — the paged twin of ``serving.decode_rounds``, over
     loop-invariant tables (pages are reserved for the whole request at
     admission; rows past the reservation land on the trash page).
     ``cfg.paged_attn="kernel"`` launches the paged-attention kernel once
-    per layer and step. Positions clamp at ``seq_cap`` - 1 (0: max_seq);
-    ``temps`` None: every row greedy. Returns (last tokens, positions,
-    tokens [B, steps])."""
-    from tpumon_torch.loadgen.serving import _greedy, sample_tokens
+    per layer and step. Positions clamp at ``seq_cap`` - 1 (0: max_seq).
+    Returns (last tokens, positions, tokens [B, steps])."""
+    from tpumon_torch.loadgen.serving import sample_tokens
 
     cap = seq_cap or cfg.model.max_seq
     out = []
     last, pos, ctr = last_tokens, positions, ctr0
     for _ in range(steps):
         logits = paged_decode_step(cfg, params, pool, last, pos, tables)
-        last = (_greedy(logits) if temps is None else sample_tokens(
-            logits, base_key, rids, ctr, temps, topks))
+        last = sample_tokens(logits, base_key, rids, ctr, temps, topks)
         pos = torch.clamp(pos + 1, max=cap - 1)
         ctr = ctr + 1
         out.append(last)

@@ -12,7 +12,7 @@ Ported here: both KV layouts (the dense cache of this module and the
 paged pool of ``tpumon_torch.loadgen.paged_kv``, with both paged decode
 read paths: ``gather`` and the CUDA ``kernel``), fused block decode
 (``decode_block``), keyed temperature/top-k sampling (the reference's
-threefry draws, computed on the card by ``tpumon_torch.prng``), the
+threefry draws, fused on the card by ``tpumon_torch.ops.threefry``), the
 interleaved chunked-prefill and the sequential schedulers, cancellation,
 backpressure, per-tenant accounting, serving a trainer checkpoint
 (``ckpt_dir``), the /metrics + /generate server and the arrival loop. The
@@ -61,6 +61,7 @@ from tpumon_torch.loadgen.paged_kv import (
     paged_prefill,
 )
 from tpumon_torch.metrics_text import MetricsWriter
+from tpumon_torch.ops import threefry
 from tpumon_torch.tracing import quantiles
 
 # TTFT histogram bucket upper bounds, seconds (JetStream buckets are
@@ -276,29 +277,21 @@ def decode_step(cfg: ServeConfig, params: dict, cache: dict,
                         positions)[:, 0]
 
 
-def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    """argmax over [B, V] (the first maximal index, as ``jnp.argmax``)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
-
-
 def decode_rounds(cfg: ServeConfig, params: dict, cache: dict,
                   last_tokens: torch.Tensor, positions: torch.Tensor,
                   base_key: torch.Tensor, rids: torch.Tensor,
-                  ctr0: torch.Tensor, temps: torch.Tensor | None,
+                  ctr0: torch.Tensor, temps: torch.Tensor,
                   topks: torch.Tensor, steps: int) -> tuple:
     """``steps`` (decode_step -> sample_tokens) pairs over the dense cache
     with no host sync: rids [B] and ctr0 [B] carry each request's (id,
     next token index), the index advancing by one a step, so the block
-    emits the per-step stream. Positions clamp at max_seq - 1. ``temps``
-    None: every row greedy (the engine's all-greedy batches skip the
-    sampler, whose greedy rows are this argmax). Returns (last tokens,
-    positions, tokens [B, steps] in emission order)."""
+    emits the per-step stream. Positions clamp at max_seq - 1. Returns
+    (last tokens, positions, tokens [B, steps] in emission order)."""
     out = []
     last, pos, ctr = last_tokens, positions, ctr0
     for _ in range(steps):
         logits = decode_step(cfg, params, cache, last, pos)
-        last = (_greedy(logits) if temps is None else sample_tokens(
-            logits, base_key, rids, ctr, temps, topks))
+        last = sample_tokens(logits, base_key, rids, ctr, temps, topks)
         pos = torch.clamp(pos + 1, max=cfg.model.max_seq - 1)
         ctr = ctr + 1
         out.append(last)
@@ -316,19 +309,20 @@ def sample_tokens(logits: torch.Tensor, base_key: torch.Tensor,
     vocab). Each row keeps the logits at or above its k-th largest,
     divides them by max(temp, 1e-6) and draws ``categorical`` under the
     key fold_in(fold_in(base_key, rid), ctr): JAX's threefry and Gumbel
-    bits (``tpumon_torch.prng``), so a request's stream is a pure
-    function of (seed, prompt, params), whatever the schedule, the slot
-    or ``decode_block``. Returns int32 [B].
+    bits (``ops.threefry``: on the card, two key launches and one
+    categorical launch), so a request's stream is a pure function of
+    (seed, prompt, params), whatever the schedule, the slot or
+    ``decode_block``. Returns int32 [B].
     """
     v = logits.shape[-1]
     logits = logits.float()
-    keys = prng.torch_fold_in(prng.torch_fold_in(base_key, rids), ctrs)
+    keys = threefry.fold_in(threefry.fold_in(base_key, rids), ctrs)
     sorted_desc = torch.sort(logits, dim=-1, descending=True).values
     k_idx = (torch.where(topk > 0, topk, v) - 1).clamp(0, v - 1).long()
     thresh = sorted_desc.gather(-1, k_idx[:, None])
     masked = torch.where(logits >= thresh, logits, -1e30)
     scaled = masked / temps.float().clamp_min(1e-6)[:, None]
-    sampled = prng.categorical(keys, scaled)
+    sampled = threefry.categorical(keys, scaled)
     return torch.where(temps > 0, sampled, torch.argmax(logits, dim=-1)
                        ).to(torch.int32)
 
@@ -796,17 +790,12 @@ class ServingEngine:
                        logits: torch.Tensor) -> None:
         """Sample the first token (index 0 of the request's stream, keyed
         by its rid) and install the request for decoding."""
-        logits = logits[None]
-        if req.temperature > 0:
-            dev = self.device
-            first = sample_tokens(
-                logits, self._sample_key, self._h2d([req.rid]),
-                torch.zeros((1,), dtype=torch.int32, device=dev),
-                torch.tensor([req.temperature]).to(dev, non_blocking=True),
-                self._h2d([req.top_k]))
-        else:
-            first = _greedy(logits)
-        first = int(first[0])
+        dev = self.device
+        first = int(sample_tokens(
+            logits[None], self._sample_key, self._h2d([req.rid]),
+            torch.zeros((1,), dtype=torch.int32, device=dev),
+            torch.tensor([req.temperature]).to(dev, non_blocking=True),
+            self._h2d([req.top_k]))[0])
         now = time.monotonic()
         with self._lock:
             req.ttft_s = now - req.enqueued
@@ -901,14 +890,6 @@ class ServingEngine:
             pending = bool(self._queue)
         return pending or any(s is not None for s in self._slots)
 
-    def _sampling(self) -> bool:
-        """Whether a request in a slot samples (temperature > 0). When
-        none does, every row of the batch that the host reads is greedy,
-        and the argmax stands in for the sampler, whose greedy rows it is
-        (the reference's speculative round skips the sampler the same
-        way)."""
-        return any(r is not None and r.temperature > 0 for r in self._slots)
-
     def _plain_step(self, active: list[int]) -> None:
         # Fused block decode when configured and every active slot has
         # cache room for the whole block (else the single step below).
@@ -925,11 +906,8 @@ class ServingEngine:
         else:
             logits = decode_step(self.cfg, self.params, self.cache,
                                  self.last_tokens, self.positions)
-        if self._sampling():
-            nxt = sample_tokens(logits, self._sample_key, self.rids,
-                                self.tok_ctrs, self.temps, self.topks)
-        else:
-            nxt = _greedy(logits)
+        nxt = sample_tokens(logits, self._sample_key, self.rids,
+                            self.tok_ctrs, self.temps, self.topks)
         self.tok_ctrs = self.tok_ctrs + 1
         self.last_tokens = nxt
         self.positions = torch.clamp(self.positions + 1,
@@ -955,19 +933,18 @@ class ServingEngine:
         replay in order up to its own stop; tokens generated past it are
         discarded (the block-decode trade), and their sampling indices are
         never used again by that request."""
-        temps = self.temps if self._sampling() else None
         if self.paged:
             self._sync_tables()
             self.last_tokens, self.positions, toks = paged_decode_rounds(
                 self.cfg, self.params, self.pool, self.last_tokens,
                 self.positions, self._tables_dev, self._sample_key,
-                self.rids, self.tok_ctrs, temps, self.topks, steps=n,
+                self.rids, self.tok_ctrs, self.temps, self.topks, steps=n,
                 seq_cap=self._seq_cap)
         else:
             self.last_tokens, self.positions, toks = decode_rounds(
                 self.cfg, self.params, self.cache, self.last_tokens,
                 self.positions, self._sample_key, self.rids,
-                self.tok_ctrs, temps, self.topks, steps=n)
+                self.tok_ctrs, self.temps, self.topks, steps=n)
         self.tok_ctrs = self.tok_ctrs + n
         toks_host = toks.tolist()  # [B, n]
         emitted = 0

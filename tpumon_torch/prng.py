@@ -21,13 +21,14 @@ wraps mod 2**32 as the reference's does; no import of ``jax``.
   product and sum mod 2**32, with s = hi - lo and m = (2**16 mod s)**2
   mod 2**32 mod s (so m = 0 for every s above 2**16).
 
-The same construction on device tensors follows, for the draws that run
-on the card (keyed sampling, the burns' inputs): ``torch_key``,
+The same construction on torch tensors follows: ``torch_key``,
 ``torch_fold_in``, ``torch_split``, ``torch_random_bits`` and
 ``torch_randint``, with jax's ``uniform``, ``gumbel``, ``categorical``,
 ``normal`` and ``permutation`` on top. A key is an int64 tensor
 ``[..., 2]`` of uint32 words on the caller's device; no draw reads
-anything back to the host.
+anything back to the host. These are the plain versions of the fused
+draws in ``tpumon_torch.ops.threefry`` (one CUDA launch a draw), which
+the keyed sampler and the burns call.
 """
 
 from __future__ import annotations
@@ -176,12 +177,11 @@ def torch_random_bits(k: torch.Tensor, shape, width: int = 32
     return ((y0 ^ y1) & ((1 << width) - 1)).reshape(*k.shape[:-1], *shape)
 
 
-def torch_randint(k: torch.Tensor, shape, lo: int, hi: int,
-                  dtype: torch.dtype = torch.int32) -> torch.Tensor:
-    """``jax.random.randint(k, shape, lo, hi, dtype)``: ``randint``'s two
-    32-bit draws and modulus on the card. A narrower integer type is drawn
-    at int32 between bounds clipped to the type (``hi`` to its maximum +
-    1) and cast, as jax draws it."""
+def randint_consts(lo: int, hi: int,
+                   dtype: torch.dtype) -> tuple[int, int, int]:
+    """``randint``'s (lo, span, multiplier) for ``dtype``: a narrower
+    integer type is drawn at int32 between bounds clipped to the type
+    (``hi`` to its maximum + 1), as jax draws it."""
     if dtype != torch.int32:
         info = torch.iinfo(dtype)
         lo = min(max(lo, info.min), info.max)
@@ -189,7 +189,14 @@ def torch_randint(k: torch.Tensor, shape, lo: int, hi: int,
     if not -2**31 <= lo < hi <= 2**31 - 1:
         raise ValueError(f"need int32 bounds lo < hi; got {lo}, {hi}")
     span = hi - lo
-    mult = (2**16 % span) ** 2 % 2**32 % span
+    return lo, span, (2**16 % span) ** 2 % 2**32 % span
+
+
+def torch_randint(k: torch.Tensor, shape, lo: int, hi: int,
+                  dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """``jax.random.randint(k, shape, lo, hi, dtype)``: ``randint``'s two
+    32-bit draws and modulus on tensors, drawn at int32 and cast."""
+    lo, span, mult = randint_consts(lo, hi, dtype)
     keys = torch_split(k, 2)
     higher = torch_random_bits(keys[..., 0, :], shape)
     lower = torch_random_bits(keys[..., 1, :], shape)
@@ -218,8 +225,16 @@ def uniform(k: torch.Tensor, shape, dtype: torch.dtype = torch.float32,
     nmant, drawn, itype, one = _FLOAT_BITS[dtype]
     bits = torch_random_bits(k, shape, drawn)
     floats = ((bits >> (drawn - nmant)) | one).to(itype).view(dtype) - 1
+    lo, scale = uniform_consts(minval, maxval, dtype)
+    return (floats * scale + lo).clamp_min(lo)
+
+
+def uniform_consts(minval: float, maxval: float,
+                   dtype: torch.dtype) -> tuple[float, float]:
+    """``uniform``'s lo and scale (maxval - minval), each rounded to
+    ``dtype``."""
     lo, hi = _as(minval, dtype), _as(maxval, dtype)
-    return (floats * _as(hi - lo, dtype) + lo).clamp_min(lo)
+    return lo, _as(hi - lo, dtype)
 
 
 # XLA's CPU emitter computes f32 log, log1p and erf_inv by polynomials of
@@ -301,7 +316,10 @@ def _xla_erf_inv(x: torch.Tensor) -> torch.Tensor:
     polynomial in w - 2.5 below 5 and sqrt(w) - 3 above, times x."""
     w = -_xla_log1p(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # XLA's f32 sqrt is correctly rounded; torch's vectorised CPU sqrt is
+    # not always (1 ulp off on some inputs). float64's, rounded once to
+    # float32, is.
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = _fma(p, w, torch.where(lt, a, b))
@@ -323,13 +341,17 @@ def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(gumbel(k, logits.shape[-1:]) + logits, dim=-1)
 
 
+def normal_lo(dtype: torch.dtype) -> float:
+    """The open interval's lower end: -1 plus ``dtype``'s epsilon at 1."""
+    return -1.0 + (2.0**-24 if dtype == torch.float32 else 2.0**-8)
+
+
 def normal(k: torch.Tensor, shape,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``jax.random.normal``: sqrt(2) * erf_inv(u), u uniform on the open
     interval (-1, 1) of ``dtype``; erf_inv in float32, as XLA computes
     it for bfloat16 too, and the product rounded to ``dtype``."""
-    lo = -1.0 + (2.0**-24 if dtype == torch.float32 else 2.0**-8)
-    u = uniform(k, shape, dtype, lo, 1.0)
+    u = uniform(k, shape, dtype, normal_lo(dtype), 1.0)
     return _xla_erf_inv(u.float()).to(dtype) * _as(math.sqrt(2.0), dtype)
 
 
