@@ -129,6 +129,28 @@ Phases, each of which exits non-zero on failure:
     normals and int8 randint, the paged burn's pool, queries and table),
     every element equal; then each kernel's time beside its plain
     version's and its bound.
+18. serving features: phase 4's model. Prefix caching (16 requests behind
+    a 2048-token system prompt, tails of 64-512 tokens, half sampled;
+    dense with 4 entries and paged kernel at block 8 with the admission
+    lookahead): every stream equal to the same engine's with the cache
+    off, 15 hits, TTFT p50 cold against hit. Speculative decoding (dense
+    self at spec_len 3, a 1-of-2-layer draft, prompt lookup at spec_len 15
+    on periodic prompts, paged kernel self at 3; sequential scheduler):
+    acceptance, target dispatches and tokens/s against plain decode,
+    bf16 greedy streams equal plain decode's up to the first near-tie.
+    int8 KV (dense block 8, paged gather), int8 weights (dense block 8)
+    and both: every run completes, agreement with bf16 printed, resident
+    weight and KV bytes and the dense decode step against bf16, with where
+    each dense step's device time goes. Small f32
+    engines of each kind emit the CPU's streams on the card (self
+    speculation accepting every proposal). The actuator verbs: set_shed
+    sheds half a tenant's submissions, a slice drained mid-flight
+    requeues with streams equal to the undrained run's, evict_all then
+    adopt on a second engine gives the same streams, nudge_capacity acts
+    on the next step. A two-tenant TrafficSim behind /metrics serves the
+    tenant families. The paged kernel's launches equal n_layers x plain
+    decode steps in every run (in-block steps included, speculative
+    rounds excluded: their verify block reads by gather).
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -2950,6 +2972,540 @@ def check_threefry(gen, bw: float, peaks: dict) -> dict:
     return out
 
 
+# Phase 18: the rest of the serving engine at production width (phase 4's
+# model): prefix caching, speculative decoding, int8 KV and weights, the
+# actuator verbs and the traffic simulator. Each run is a fresh engine
+# (random weights from seed 0, as phase 4's) with the paged kernel's and
+# the fused draws' counts set to 0 just before it and read just after.
+
+
+def short_traffic() -> tuple:
+    """16 prompts of 64-512 tokens, each asking 32 new tokens, with phase
+    16's sampling settings (even requests greedy)."""
+    rng = random.Random(18)
+    prompts = [[rng.randrange(4096) for _ in range(rng.randint(64, 512))]
+               for _ in range(16)]
+    return prompts, engine_traffic()[2]
+
+
+def prefix_traffic() -> tuple:
+    """16 prompts behind one 2048-token system prompt (16 pages), each
+    with its own tail of 64-512 tokens; phase 16's sampling settings. A
+    prefix cache keys each prompt's longest chunk-aligned strict prefix,
+    so the first request's tail is 64 tokens: its key is the system
+    prompt itself, which the other 15 then share."""
+    rng = random.Random(19)
+    system = [rng.randrange(4096) for _ in range(2048)]
+    tails = [64] + [rng.randint(64, 512) for _ in range(15)]
+    prompts = [system + [rng.randrange(4096) for _ in range(n)]
+               for n in tails]
+    return prompts, engine_traffic()[2]
+
+
+def periodic_traffic() -> tuple:
+    """Prompt lookup's case: 16 prompts of 256-512 tokens that repeat a
+    random period of 8-64 tokens; all greedy."""
+    rng = random.Random(20)
+    prompts = []
+    for _ in range(16):
+        period = [rng.randrange(4096) for _ in range(rng.randint(8, 64))]
+        n = rng.randint(256, 512)
+        prompts.append([period[i % len(period)] for i in range(n)])
+    return prompts, [(0.0, 0)] * 16
+
+
+def feature_config(**kw):
+    """Phase 4's model and shape with the dense cache (the defaults) and
+    ``kw`` over it."""
+    import dataclasses
+
+    return dataclasses.replace(
+        engine_config("gather", kv_layout="dense"), **kw)
+
+
+def serve_features(cfg, label: str, traffic: tuple, staged: bool = False,
+                   max_new: int = 32, engine=None, **engine_kw) -> tuple:
+    """``traffic`` through a fresh engine on the card (or ``engine``), the
+    paged kernel's and the draws' counts set to 0 just before and read
+    just after. ``staged``: the first request alone until its first token,
+    then the rest (so a prefix cache holds the shared prefix by then).
+    Checks every request completed with max_new + 1 tokens, the kernel's
+    launches (n_layers per plain decode step on the kernel path, none
+    elsewhere) and the draws (two key folds per categorical). Returns
+    (engine, streams, stats)."""
+    import torch
+
+    from tpumon_torch.loadgen.serving import ServingEngine
+    from tpumon_torch.ops import threefry
+    from tpumon_torch.ops.paged_attention import paged_attention
+    from tpumon_torch.tracing import quantiles
+
+    prompts, sampling = traffic
+    eng = engine or ServingEngine(cfg=cfg, seed=0, device="cuda",
+                                  **engine_kw)
+    torch.cuda.synchronize()
+    paged_attention.launches = 0
+    threefry.set_launch_counts(0)
+    t0 = time.perf_counter()
+
+    def submit(i):
+        t, k = sampling[i]
+        return eng.submit(prompts[i], max_new=max_new, temperature=t,
+                          top_k=k)
+
+    if staged:
+        reqs = [submit(0)]
+        while not reqs[0].output:
+            eng.step()
+        reqs += [submit(i) for i in range(1, len(prompts))]
+    else:
+        reqs = [submit(i) for i in range(len(prompts))]
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_attention.launches
+    draws = threefry.launch_counts()
+    m = eng.cfg.model
+    plain_steps = eng.decode_steps_total - eng.spec_rounds_total
+    ttfts = [r.ttft_s * 1e3 for r in reqs]
+    stats = {"wall_s": wall, "tokens": eng.tokens_total,
+             "tokens_per_s": eng.tokens_total / wall,
+             "target_dispatches": eng.decode_steps_total,
+             "spec_rounds": eng.spec_rounds_total,
+             "spec_proposed": eng.spec_proposed_total,
+             "spec_accepted": eng.spec_accepted_total,
+             "acceptance_pct": (100.0 * eng.spec_accepted_total
+                                / eng.spec_proposed_total
+                                if eng.spec_proposed_total else None),
+             "ttft_p50_ms": quantiles(ttfts)[0],
+             "ttft_p50_ms_after_first": quantiles(ttfts[1:])[0],
+             "launches": launches, "threefry": draws,
+             "prefix": eng._stats_snapshot()["prefix"]}
+    print(f"features_run {label} " + " ".join(
+        f"{k}={v!r}" for k, v in stats.items()), flush=True)
+    bad = [r.rid for r in reqs
+           if r.status != "completed" or len(r.output) != max_new + 1]
+    if bad:
+        fail(f"{label}: requests {bad} did not complete with "
+             f"{max_new + 1} tokens")
+    kernel = eng.cfg.kv_layout == "paged" and eng.cfg.paged_attn == "kernel"
+    want = m.n_layers * plain_steps if kernel else 0
+    if launches != want or (kernel and plain_steps == 0):
+        fail(f"{label}: kernel launches {launches} != n_layers x plain "
+             f"decode steps ({m.n_layers} x {plain_steps})")
+    if (draws["threefry_keys"] != 2 * draws["threefry_categorical"]
+            or draws["threefry_draw"]
+            or draws["threefry_categorical"] < len(reqs)):
+        fail(f"{label}: threefry launches {draws}")
+    return eng, [r.output for r in reqs], stats
+
+
+def first_divergences(eng, label: str, prompts, sampling, got, want,
+                      what: str) -> None:
+    """Greedy requests: ``got`` equal to ``want`` up to the first near-tie
+    (greedy_divergence fails on any other), printed."""
+    for i, (t, _) in enumerate(sampling):
+        if t > 0:
+            continue
+        where = greedy_divergence(eng, prompts[i], got[i], want[i])
+        print(f"features_greedy {label} request={i} {what} "
+              f"{'identical' if where is None else 'near-tie at ' + where}",
+              flush=True)
+
+
+def agreement(got, want) -> str:
+    """How far two runs' streams agree: identical requests, and tokens
+    before each request's first difference."""
+    same = sum(a == b for a, b in zip(got, want))
+    lead = sum(next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    len(a)) for a, b in zip(got, want))
+    total = sum(len(a) for a in want)
+    return f"identical_requests={same}/{len(want)} leading_tokens={lead}/{total}"
+
+
+def check_prefix() -> dict:
+    """Prefix caching, dense (4 entries) and paged kernel at block 8 with
+    the admission lookahead: each stream equal to the same engine's with
+    the cache off, hits counted, TTFT p50 cold against hit."""
+    import dataclasses
+
+    import torch
+
+    traffic = prefix_traffic()
+    out = {}
+    for label, base in (
+            ("dense", feature_config()),
+            ("paged_kernel_b8_la2", dataclasses.replace(
+                engine_config("kernel", decode_block=8),
+                admit_lookahead=2))):
+        _, cold, cold_st = serve_features(base, f"prefix_{label}_off",
+                                          traffic, staged=True)
+        torch.cuda.empty_cache()
+        _, hot, hot_st = serve_features(
+            dataclasses.replace(base, prefix_cache_entries=4),
+            f"prefix_{label}_on", traffic, staged=True)
+        pc = hot_st["prefix"]
+        same = hot == cold
+        print(f"prefix {label} streams_identical_to_cache_off={same} "
+              f"hits={pc['hits']} misses={pc['misses']} saved_tokens="
+              f"{pc['saved_tokens']} resident_bytes={pc['bytes']} "
+              f"ttft_p50_ms cold={cold_st['ttft_p50_ms_after_first']!r} "
+              f"hit={hot_st['ttft_p50_ms_after_first']!r} tokens_per_s "
+              f"cold={cold_st['tokens_per_s']!r} "
+              f"hit={hot_st['tokens_per_s']!r}", flush=True)
+        if not same:
+            fail(f"prefix {label}: cache-on streams differ from cache-off")
+        if pc["hits"] < len(traffic[0]) - 1:
+            fail(f"prefix {label}: {pc['hits']} hits, want "
+                 f"{len(traffic[0]) - 1}")
+        out[label] = {"cold": cold_st, "hit": hot_st}
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_spec() -> dict:
+    """Speculative decoding at production width (sequential scheduler:
+    each prompt prefills inline at admission, so the dense rounds never
+    wait on a slot mid-prefill): acceptance, target dispatches and
+    tokens/s beside plain decode of the same layout and traffic; bf16
+    greedy streams equal plain decode's up to the first near-tie."""
+    import dataclasses
+
+    import torch
+
+    half = dataclasses.replace(feature_config().model, n_layers=1)
+    paged = {"kv_layout": "paged", "paged_attn": "kernel"}
+    runs = {  # label: (layout, speculation, traffic)
+        "dense_self_g3": ({}, {"spec_len": 3}, "short"),
+        "dense_draft_1of2_g3": ({}, {"spec_len": 3, "draft_model": half},
+                                "short"),
+        "dense_prompt_g15": ({}, {"spec_len": 15, "spec_source": "prompt"},
+                             "periodic"),
+        "paged_kernel_self_g3": (paged, {"spec_len": 3}, "short"),
+    }
+    traffics = {"short": short_traffic(), "periodic": periodic_traffic()}
+    plain, out = {}, {}
+    for label, (layout, spec, tname) in runs.items():
+        traffic = traffics[tname]
+        base = feature_config(scheduler="sequential", **layout)
+        key = (tuple(layout), tname)
+        if key not in plain:
+            _, streams, st = serve_features(base, f"spec_plain_{label}",
+                                            traffic)
+            plain[key] = (streams, st)
+            torch.cuda.empty_cache()
+        pstreams, pst = plain[key]
+        eng, streams, st = serve_features(
+            dataclasses.replace(base, **spec), f"spec_{label}", traffic)
+        print(f"spec {label} acceptance_pct={st['acceptance_pct']!r} "
+              f"target_dispatches={st['target_dispatches']} (plain "
+              f"{pst['target_dispatches']}) tokens_per_s="
+              f"{st['tokens_per_s']!r} (plain {pst['tokens_per_s']!r}) "
+              f"vs_plain {agreement(streams, pstreams)}", flush=True)
+        first_divergences(eng, f"spec_{label}", traffic[0], traffic[1],
+                          streams, pstreams, "spec_vs_plain")
+        if st["spec_rounds"] == 0:
+            fail(f"spec {label}: no speculative round ran")
+        out[label] = st
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def small_engines_against_cpu(label: str, runs: dict) -> None:
+    """A small f32 engine of each kind in ``runs`` ({name: ServeConfig
+    fields}) emits the CPU's streams on the card, greedy and sampled, on
+    the same weights; self-speculation accepts every proposal."""
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen.model import ModelConfig, init_params
+    from tpumon_torch.loadgen.serving import ServeConfig, ServingEngine
+
+    model = ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, d_ff=256, max_seq=128,
+                        compute_dtype="float32")
+    params = init_params(model, torch.Generator().manual_seed(3))
+    rng = random.Random(4)
+    prompts = [[rng.randrange(256) for _ in range(n)]
+               for n in (5, 40, 17, 64, 9)]
+    prompts[4] = [7, 1, 9] * 8  # periodic: prompt lookup finds it
+    sampling = [(0.0, 0), (0.8, 0), (0.8, 50), (0.0, 0), (0.0, 0)]
+    for name, over in runs.items():
+        if over.get("draft_model") == "half":
+            over = {**over, "draft_model": dataclasses.replace(
+                model, n_layers=1)}
+        cfg = ServeConfig(model=model, slots=3, prefill_len=16, **over)
+        streams, engines = {}, {}
+        for dev in ("cpu", "cuda"):
+            eng = ServingEngine(cfg=cfg, params=params, seed=7, device=dev)
+            reqs = [eng.submit(p, max_new=12, temperature=t, top_k=k)
+                    for p, (t, k) in zip(prompts, sampling)]
+            eng.drain()
+            streams[dev], engines[dev] = [r.output for r in reqs], eng
+        card = engines["cuda"]
+        same = streams["cpu"] == streams["cuda"]
+        print(f"small_engine_cuda_vs_cpu f32 {label} {name} "
+              f"streams_identical={same} spec_accepted="
+              f"{card.spec_accepted_total}/{card.spec_proposed_total}",
+              flush=True)
+        if not same:
+            fail(f"small {label} {name} engine: card streams differ from "
+                 f"the CPU's")
+        if (name.endswith("self") and card.spec_accepted_total
+                != card.spec_proposed_total):
+            fail(f"small {name} engine: self-speculation rejected a "
+                 f"proposal on the card")
+
+
+def resident_bytes(eng) -> tuple:
+    from tpumon_torch.loadgen.model import leaf_bytes, param_bytes
+
+    store = eng.pool if eng.paged else eng.cache
+    return param_bytes(eng.params), sum(leaf_bytes(t)
+                                        for t in store.values())
+
+
+def check_int8() -> dict:
+    """int8 KV (dense block 8, paged gather), int8 weights (dense block
+    8) and both: every run completes; agreement with the bf16 streams;
+    resident weight and KV bytes and memory_allocated against bf16; the
+    dense decode step in ms against bf16 (and its device time by kernel
+    from the profiler), and the per-step dequantize of the int8 weights
+    alone."""
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen.model import param_leaves
+    from tpumon_torch.loadgen.quant import QTensor
+    from tpumon_torch.loadgen.serving import ServingEngine, decode_step
+
+    traffic = short_traffic()
+    runs = {
+        "bf16_dense_b8": feature_config(decode_block=8),
+        "kv8_dense_b8": feature_config(decode_block=8, kv_dtype="int8"),
+        "bf16_paged_gather": engine_config("gather"),
+        "kv8_paged_gather": dataclasses.replace(engine_config("gather"),
+                                                kv_dtype="int8"),
+        "w8_dense_b8": feature_config(decode_block=8, quantize="int8"),
+        "w8_kv8_dense_b8": feature_config(decode_block=8, kv_dtype="int8",
+                                          quantize="int8"),
+    }
+    prompts, _ = traffic
+    i32 = dict(dtype=torch.int32, device="cuda")
+    vocab = feature_config().model.vocab
+    last = torch.tensor([p[-1] % vocab for p in prompts], **i32)
+    pos = torch.tensor([len(p) for p in prompts], **i32)
+    streams, out = {}, {}
+    for label, cfg in runs.items():
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        eng = ServingEngine(cfg=cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated() - base_mem
+        wbytes, kvbytes = resident_bytes(eng)
+        _, streams[label], st = serve_features(cfg, f"int8_{label}",
+                                               traffic, engine=eng)
+        step_ms = None
+        if not eng.paged:
+            def step():
+                decode_step(eng.cfg, eng.params, eng.cache, last, pos)
+
+            step_ms = cuda_ms(step, reps=10)
+            tr = trace_step(step)
+            print(f"int8_trace {label} " + ("device_busy=not measured (the "
+                  "profiler recorded no device activity)" if tr is None else
+                  f"wall_ms={tr['wall_ms']!r} device_busy_ms="
+                  f"{tr['busy_ms']!r} device_idle_share={tr['idle_share']!r} "
+                  f"kernels_per_step={tr['kernels_per_step']!r} matmul_ms="
+                  f"{tr['matmul']!r} other_ms={tr['other']!r} "
+                  f"top={tr['top_ms']}"), flush=True)
+        st.update(weight_bytes=wbytes, kv_bytes=kvbytes,
+                  memory_allocated=alloc, decode_step_ms=step_ms)
+        if cfg.quantize:
+            qs = [x for x in param_leaves(eng.params)
+                  if isinstance(x, QTensor)]
+            st["dequantize_ms"] = cuda_ms(
+                lambda: [x.to(torch.bfloat16) for x in qs], reps=10)
+        base = "bf16_paged_gather" if eng.paged else "bf16_dense_b8"
+        print(f"int8 {label} weight_bytes={wbytes} kv_bytes={kvbytes} "
+              f"memory_allocated={alloc} decode_step_ms={step_ms!r} "
+              f"dequantize_ms={st.get('dequantize_ms')!r} tokens_per_s="
+              f"{st['tokens_per_s']!r} vs_{base} "
+              f"{agreement(streams[label], streams[base])}", flush=True)
+        out[label] = st
+        del eng
+    return out
+
+
+def check_actuator() -> dict:
+    """The actuator verbs at production width (paged kernel engine,
+    block 1, the short traffic): shedding half a tenant's submissions; a
+    slice drained mid-flight requeues its requests, and every stream
+    equals the undrained run's; evict_all on one engine and adopt on a
+    second give the same streams; nudge_capacity takes effect on the
+    next step."""
+    import torch
+
+    from tpumon_torch.loadgen.serving import ServingEngine
+
+    cfg = engine_config("kernel")
+    traffic = short_traffic()
+    prompts, sampling = traffic
+    _, want, st = serve_features(cfg, "actuate_undrained", traffic)
+    # Shed: fraction 0.5 sheds exactly every second submission.
+    eng = ServingEngine(cfg=cfg, seed=0, device="cuda")
+    eng.set_shed("t", 0.5)
+    reqs = [eng.submit(p, max_new=2, tenant="t") for p in prompts]
+    eng.drain()
+    shed = sum(r.status == "shed" for r in reqs)
+    served = sum(r.status == "completed" for r in reqs)
+    text = eng.metrics_text()
+    print(f"actuate shed fraction=0.5 submitted={len(reqs)} shed={shed} "
+          f"completed={served}", flush=True)
+    if shed != round(len(reqs) / 2) or served != len(reqs) - shed or (
+            f'tpumon_serving_tenant_shed{{tenant="t"}} {shed}' not in text):
+        fail("set_shed(t, 0.5) did not shed half the submissions")
+    # Drain a slice mid-flight.
+    eng = ServingEngine(cfg=cfg, seed=0, device="cuda")
+    eng.set_slices(["a", "b"])
+    from tpumon_torch.ops.paged_attention import paged_attention
+
+    paged_attention.launches = 0
+    reqs = [eng.submit(p, max_new=32, temperature=t, top_k=k)
+            for p, (t, k) in zip(prompts, sampling)]
+    for i in range(10_000):
+        if i == 24:
+            eng.drain_slice("a")
+        if i == 40:
+            eng.undrain_slice("a")
+        if not eng.step():
+            break
+    got = [r.output for r in reqs]
+    launches = paged_attention.launches
+    print(f"actuate drain requeued={eng.requeued_total} requeues="
+          f"{[r.requeues for r in reqs]} streams_identical_to_undrained="
+          f"{got == want} kernel_launches={launches} decode_steps="
+          f"{eng.decode_steps_total}", flush=True)
+    if eng.requeued_total == 0 or got != want:
+        fail("slice drain: no requeue, or streams differ from undrained")
+    if launches != cfg.model.n_layers * eng.decode_steps_total:
+        fail("slice drain: kernel launches != n_layers x decode steps")
+    del eng
+    # Evict from one engine, adopt into a second.
+    first = ServingEngine(cfg=cfg, seed=0, device="cuda")
+    reqs = [first.submit(p, max_new=32, temperature=t, top_k=k)
+            for p, (t, k) in zip(prompts, sampling)]
+    for _ in range(30):
+        first.step()
+    evicted = first.evict_all()
+    second = ServingEngine(cfg=cfg, seed=0, device="cuda")
+    for r in reversed(evicted):
+        second.adopt(r)
+    second.drain()
+    got = [r.output for r in reqs]
+    print(f"actuate evict_adopt evicted={len(evicted)} requeued="
+          f"{first.requeued_total} streams_identical={got == want}",
+          flush=True)
+    if first.load() or got != want or not evicted:
+        fail("evict_all + adopt: streams differ from the undrained run")
+    del first, second
+    torch.cuda.empty_cache()
+    # nudge_capacity: the prefill budget of the very next step.
+    eng = ServingEngine(cfg=feature_config(), seed=0, device="cuda")
+    p = eng.cfg.prefill_len
+    eng.submit(prompts[0][:p // 2], max_new=32)  # one chunk, then decodes
+    longs = [eng.submit((prompts[i] * 16)[:8 * p], max_new=4)
+             for i in range(1, 5)]
+    eng.step()  # nothing decodes yet: a chunk for every slot
+
+    def chunks():
+        return sum(w.next_c0 for w in eng._prefill_work
+                   if w is not None) // eng.cfg.prefill_len
+
+    moved = []
+    for budget in (1, 4, 1):
+        eng.nudge_capacity(prefill_budget=budget)
+        before = chunks()
+        eng.step()
+        moved.append(chunks() - before)
+    print(f"actuate nudge prefill_budget 1 -> 4 -> 1: chunks in the next "
+          f"step {moved}", flush=True)
+    eng.drain()
+    if moved != [1, 4, 1] or not all(r.status == "completed" for r in longs):
+        fail(f"nudge_capacity: chunks per step {moved}, want [1, 4, 1]")
+    return st
+
+
+def check_traffic() -> None:
+    """A two-tenant TrafficSim behind the /metrics server for a few
+    seconds (paged kernel engine with the prefix cache): the tenant
+    families appear, tpumon_serving_tenant_shed among them."""
+    import dataclasses
+
+    from tpumon_torch.loadgen.traffic import (
+        TenantSpec,
+        start_traffic_background,
+    )
+    from tpumon_torch.ops.paged_attention import paged_attention
+
+    tenants = [TenantSpec(name="chat", scenario="chat", rps=6.0),
+               TenantSpec(name="rag", scenario="rag", rps=2.0,
+                          prompt_chunks=8)]
+    cfg = dataclasses.replace(engine_config("kernel"),
+                              prefix_cache_entries=4)
+    paged_attention.launches = 0
+    engine, sim, url, stop = start_traffic_background(
+        tenants, cfg=cfg, seed=0, device="cuda")
+    try:
+        engine.set_shed("chat", 0.5)
+        time.sleep(4.0)
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            text = resp.read().decode()
+    finally:
+        stop.set()
+        sim._thread.join(timeout=60)
+    launches = paged_attention.launches
+    want = [f'{fam}{{tenant="{t}"}}' for t in ("chat", "rag")
+            for fam in ("tpumon_serving_tenant_requests",
+                        "tpumon_serving_tenant_shed",
+                        "tpumon_serving_tenant_completed")]
+    missing = [w for w in want if w not in text]
+    print(f"traffic sim={json.dumps(sim.to_json())} completed="
+          f"{engine.completed_total} shed={engine.shed_total} prefix_hits="
+          f"{engine.prefix_cache.hits} kernel_launches={launches} "
+          f"decode_steps={engine.decode_steps_total} missing={missing}",
+          flush=True)
+    if sim._thread.is_alive() or missing or engine.completed_total == 0:
+        fail("traffic: the sim did not serve both tenants' families")
+    if launches != cfg.model.n_layers * engine.decode_steps_total:
+        fail("traffic: kernel launches != n_layers x decode steps")
+
+
+def phase18() -> dict:
+    t0 = time.perf_counter()
+    out = {"prefix": check_prefix()}
+    out["spec"] = check_spec()
+    kinds = {"dense_self": {"spec_len": 3},
+             "dense_draft_half": {"spec_len": 3, "draft_model": "half"},
+             "dense_prompt": {"spec_len": 6, "spec_source": "prompt"},
+             "paged_kernel_self": {"spec_len": 3, "kv_layout": "paged",
+                                   "paged_attn": "kernel"}}
+    small_engines_against_cpu("spec", kinds)
+    out["int8"] = check_int8()
+    small_engines_against_cpu("int8", {
+        "kv8_dense_b4": {"kv_dtype": "int8", "decode_block": 4},
+        "kv8_paged_gather": {"kv_dtype": "int8", "kv_layout": "paged"},
+        "w8_dense_b4": {"quantize": "int8", "decode_block": 4},
+        "w8_kv8_dense": {"quantize": "int8", "kv_dtype": "int8"}})
+    out["actuate"] = check_actuator()
+    check_traffic()
+    print(f"phase18 wall_s={time.perf_counter() - t0!r}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3025,6 +3581,8 @@ def main() -> int:
     t0 = time.perf_counter()
     draws = check_threefry(gen, bw, peaks)
     print(f"phase17 wall_s={time.perf_counter() - t0!r}", flush=True)
+
+    phase18()
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",

@@ -96,6 +96,26 @@ def test_kernel_reads_a_parked_slots_repeated_trash_page(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_reads_prefix_shared_pages_on_card(cuda_device, dtype):
+    """Prefix caching points several tables at the same pages (the
+    paged prefix cache's sharing): sequences 0, 2 and 3 share sequence
+    1's first two pages, at lengths that end inside and past them, and
+    the kernel agrees with the plain version on every row."""
+    case = list(paged_case(b=4, nh=16, nkv=2, hd=128, num_pages=40,
+                           page_size=16, max_pages=8,
+                           lengths=(40, 100, 33, 128), seed=21))
+    table = case[3]
+    for row in (0, 2, 3):
+        table[row, :2] = table[1, :2]
+    args = [t.to(cuda_device) for t in to_torch(case, dtype)]
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = paged_attention_reference(*args)
+    assert torch.isfinite(out.float()).all()
+    assert rows_rel_err(out, ref, args[4]) <= PAGED_TOL[str(dtype)[6:]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", range(len(PAGED_SPLIT_CARD_CASES)))
 def test_split_kernel_matches_plain_on_card(cuda_device, case, dtype):
     """The page axis split across CTAs at the wrapper's pages_per_split:

@@ -12,6 +12,8 @@ max_seq - 1, show that the port writes the rows the reference writes.
 Then the reference's own oracle: cached decode equals the full forward.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -103,8 +105,16 @@ def test_init_cache_layout():
         assert tuple(pair.tcache[name].shape) == pair.jcache[name].shape
         assert pair.tcache[name].dtype == torch.float32
         assert not pair.tcache[name].any()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serving.init_cache(serving.ServeConfig(kv_dtype="int8"), "cpu")
+    # The int8 layout: int8 rows and f32 scales, the reference's shapes.
+    jcache = jax_serving.init_cache(dataclasses.replace(pair.jcfg,
+                                                        kv_dtype="int8"))
+    tcache = serving.init_cache(dataclasses.replace(pair.tcfg,
+                                                    kv_dtype="int8"), "cpu")
+    assert set(tcache) == set(jcache) == {"k", "v", "ks", "vs"}
+    for name, dtype in (("k", torch.int8), ("v", torch.int8),
+                        ("ks", torch.float32), ("vs", torch.float32)):
+        assert tuple(tcache[name].shape) == jcache[name].shape
+        assert tcache[name].dtype == dtype and not tcache[name].any()
 
 
 @pytest.mark.parametrize("slot", [0, 2])

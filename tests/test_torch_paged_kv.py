@@ -170,9 +170,18 @@ def test_not_ported_read_paths_raise():
             torch.zeros(SLOTS, dtype=torch.int32),
             torch.zeros(SLOTS, dtype=torch.int32),
             torch.zeros((SLOTS, MAX_PAGES), dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        paged_kv.init_pool(dataclasses.replace(tcfg, kv_dtype="int8"),
-                           NUM_PAGES, "cpu")
+    # The int8 pool is ported: int8 rows and f32 scales, the reference's
+    # shapes.
+    jcfg, _ = configs("gather")
+    jpool = jax_kv.init_pool(dataclasses.replace(jcfg, kv_dtype="int8"),
+                             NUM_PAGES)
+    tpool = paged_kv.init_pool(dataclasses.replace(tcfg, kv_dtype="int8"),
+                               NUM_PAGES, "cpu")
+    assert set(tpool) == set(jpool) == {"k", "v", "ks", "vs"}
+    for name, dtype in (("k", torch.int8), ("v", torch.int8),
+                        ("ks", torch.float32), ("vs", torch.float32)):
+        assert tuple(tpool[name].shape) == jpool[name].shape
+        assert tpool[name].dtype == dtype and not tpool[name].any()
 
 
 def test_page_allocator_order_matches_reference():

@@ -173,17 +173,36 @@ def test_engine_without_device_raises_when_no_gpu():
         serving.main(["--duration", "0.01", "--port", "0"])
 
 
-@pytest.mark.parametrize("over", [
-    {"spec_source": "prompt"}, {"mesh_dp": 2}, {"spec_len": 2},
-    {"prefix_cache_entries": 4}, {"kv_dtype": "int8"}, {"quantize": "int8"},
+# The fields the port now serves (speculation, prefix caching, int8 KV
+# and weights), each served to completion; the mesh and ring fields still
+# raise "not yet ported". The case order is the earlier list's.
+SLICE_CASES = [
+    {"spec_source": "prompt", "spec_len": 3}, {"mesh_dp": 2},
+    {"spec_len": 2}, {"prefix_cache_entries": 4},
+    {"kv_dtype": "int8", "paged_attn": "gather"}, {"quantize": "int8"},
     {"mesh_tp": 2}, {"ring_stripes": 2}, {"paged_attn": "ring"},
-])
-def test_outside_the_slice_raises_not_yet_ported(over):
+]
+
+
+@pytest.mark.parametrize("over", SLICE_CASES)
+def test_outside_the_slice_raises_not_yet_ported(weights, over):
     over = {"kv_layout": "paged", "paged_attn": "kernel", **over}
     cfg = ServeConfig(model=ModelConfig(**SMALL), slots=2, prefill_len=PS,
                       **over)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServingEngine(cfg=cfg, device="cpu")
+    if set(over) & {"mesh_dp", "mesh_tp", "ring_stripes"} or (
+            over["paged_attn"] == "ring"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            ServingEngine(cfg=cfg, device="cpu")
+        return
+    eng = ServingEngine(cfg=cfg, params=params_from_jax(weights[1]),
+                        device="cpu")
+    outs = run(eng, prompts=PROMPTS[:4])
+    assert [len(o) for o in outs] == [n + 1 for n in MAX_NEW[:4]]
+    snap = eng._stats_snapshot()
+    if "spec_len" in over:
+        assert snap["spec_rounds"] > 0
+    if "prefix_cache_entries" in over:
+        assert snap["prefix"] is not None
 
 
 def test_moe_family_and_sampling_raise_not_yet_ported(weights):
@@ -197,16 +216,45 @@ def test_moe_family_and_sampling_raise_not_yet_ported(weights):
     assert req.status == "completed" and len(req.output) == 5
 
 
-@pytest.mark.parametrize("flags", [
+# The flags of the fields this slice ports parse and build an engine,
+# which serves a moment; the mesh, ring and MoE flags still exit. The
+# case order is the earlier list's.
+CLI_CASES = [
     ["--kv-dtype", "int8"], ["--paged-attn", "ring"], ["--spec-len", "2"],
-    ["--spec-source", "prompt"], ["--quant", "int8"], ["--mesh", "1,2"],
-    ["--ring-attn", "2"], ["--prefix-cache", "8"], ["--experts", "4"],
-])
-def test_cli_flags_outside_the_slice_exit(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        serving.main(flags + ["--device", "cpu"])
-    assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    ["--spec-source", "prompt", "--spec-len", "2"], ["--quant", "int8"],
+    ["--mesh", "1,2"], ["--ring-attn", "2"], ["--prefix-cache", "8"],
+    ["--experts", "4"],
+]
+CLI_NOT_PORTED = ("--paged-attn", "--mesh", "--ring-attn", "--experts")
+
+
+@pytest.mark.parametrize("flags", CLI_CASES)
+def test_cli_flags_outside_the_slice_exit(flags, capsys, monkeypatch):
+    if flags[0] in CLI_NOT_PORTED:
+        with pytest.raises(SystemExit) as exc:
+            serving.main(flags + ["--device", "cpu"])
+        assert exc.value.code == 2
+        assert "not yet ported" in capsys.readouterr().err
+        return
+    built = []
+    real = serving.start_metrics_server
+
+    def capture(engine, *a, **kw):
+        built.append(engine)
+        return real(engine, *a, **kw)
+
+    monkeypatch.setattr(serving, "start_metrics_server", capture)
+    assert serving.main(flags + ["--device", "cpu", "--port", "0",
+                                 "--duration", "0.2", "--rps", "20",
+                                 "--max-new", "2"]) == 0
+    (eng,) = built
+    cfg = eng.cfg
+    assert {"--kv-dtype": cfg.kv_dtype == "int8",
+            "--spec-len": cfg.spec_len == 2,
+            "--spec-source": cfg.spec_source == "prompt",
+            "--quant": cfg.quantize == "int8",
+            "--prefix-cache": cfg.prefix_cache_entries == 8}[flags[0]]
+    assert eng.requests_total >= 1
 
 
 def test_backpressure_cancel_and_metrics_endpoint(weights):

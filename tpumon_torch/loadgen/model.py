@@ -121,7 +121,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 
 def map_params(params, fn):
-    """Apply ``fn`` to every tensor of a param tree (dicts and lists)."""
+    """Apply ``fn`` to every leaf of a param tree (dicts and lists); a
+    quantized weight (``quant.QTensor``) is one leaf."""
     if isinstance(params, dict):
         return {k: map_params(v, fn) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
@@ -133,14 +134,26 @@ def params_from_jax(tree, device: str | torch.device = "cpu",
                     dtype: torch.dtype = torch.float32) -> dict:
     """The JAX param pytree, given as numpy arrays (``jax.tree.map(
     np.asarray, params)``), as this package's param dict on ``device``
-    in ``dtype``. Structure and shapes carry over unchanged."""
-    return map_params(
-        tree, lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=dtype))
+    in ``dtype``. Structure and shapes carry over unchanged; a quantized
+    leaf of the reference (a ``QTensor`` of numpy ``q`` and ``scale``)
+    becomes the port's ``QTensor`` with its int8 codes and f32 scales."""
+    from tpumon_torch.loadgen.quant import QTensor
+
+    def leaf(a):
+        if hasattr(a, "q") and hasattr(a, "scale"):
+            return QTensor(
+                q=torch.from_numpy(np.array(a.q, dtype=np.int8)).to(device),
+                scale=torch.from_numpy(
+                    np.array(a.scale, dtype=np.float32)).to(device))
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=device, dtype=dtype)
+
+    return map_params(tree, leaf)
 
 
 def param_leaves(params) -> list:
-    """Every tensor of a param tree, in the tree's order."""
+    """Every leaf of a param tree, in the tree's order (a ``QTensor`` is
+    one leaf)."""
     if isinstance(params, dict):
         return [x for v in params.values() for x in param_leaves(v)]
     if isinstance(params, (list, tuple)):
@@ -148,9 +161,17 @@ def param_leaves(params) -> list:
     return [params]
 
 
+def leaf_bytes(leaf) -> int:
+    """Resident bytes of one leaf (a ``QTensor``: int8 codes + f32
+    scales)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return leaf.nbytes
+
+
 def param_bytes(params) -> int:
     """Resident weight bytes of a param tree."""
-    return sum(p.numel() * p.element_size() for p in param_leaves(params))
+    return sum(leaf_bytes(p) for p in param_leaves(params))
 
 
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -12,7 +12,11 @@ that reads pages in place. The append is the same batched scatter at
 ``(page, offset)`` per slot either way. ``paged_decode_block`` (T tokens a
 slot, always the gather read) and ``paged_decode_rounds`` (fused block
 decode: ``steps`` decode steps and samples, no host sync) complete the
-reference's paged functions.
+reference's paged functions. ``ServeConfig.kv_dtype="int8"`` gives an int8
+pool with per-(row, kv head) f32 scales (``"ks"``/``"vs"``), quantized on
+write and dequantized on the gather read; the kernel read path refuses it,
+as the reference's does. ``PagePrefixCache`` shares a cached prompt
+prefix's pages into new requests' tables, refcounted, with no copy.
 
 JAX donates the pool to each jitted call and gets it back; here the pool
 dict's tensors are updated IN PLACE, so the paged functions return only
@@ -78,14 +82,18 @@ class PageAllocator:
 
 
 def init_pool(cfg, num_pages: int, device: str | torch.device) -> dict:
-    """Zeroed compute-dtype pool ``{"k", "v"}``, each
-    ``[layers, kv_heads, num_pages, page, hd]`` on ``device``."""
-    if cfg.kv_dtype != "compute":
-        raise NotImplementedError(
-            "the int8 KV pool is not yet ported (ROADMAP queue 1 item 8)")
+    """Zeroed pool ``{"k", "v"}``, each ``[layers, kv_heads, num_pages,
+    page, hd]`` on ``device``: the compute dtype, or (``kv_dtype="int8"``)
+    int8 rows plus f32 scales ``{"ks", "vs"}`` of shape ``[layers,
+    kv_heads, num_pages, page]``."""
     m = cfg.model
     shape = (m.n_layers, m.n_kv_heads, num_pages, cfg.prefill_len,
              m.head_dim)
+    if cfg.kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(shape[:-1], device=device),
+                "vs": torch.zeros(shape[:-1], device=device)}
     return {"k": torch.zeros(shape, dtype=m.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=m.torch_dtype, device=device)}
 
@@ -103,7 +111,11 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
     into the pool in place and returns logits[vocab] (f32) at local
     position length-1.
     """
-    from tpumon_torch.loadgen.serving import decoder_forward
+    from tpumon_torch.loadgen.serving import (
+        _kv_dequant,
+        _kv_quant,
+        decoder_forward,
+    )
 
     m = cfg.model
     p = cfg.prefill_len  # == page_size
@@ -111,6 +123,7 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
     nkv, hd = m.n_kv_heads, m.head_dim
     s_max = table_row.shape[0] * p
     rows = table_row.long()
+    quant = "ks" in pool  # the int8 pool (init_pool)
 
     pos = start + torch.arange(p, dtype=torch.int32, device=dev)[None]
     row = torch.arange(s_max, dtype=torch.int32, device=dev)
@@ -119,10 +132,16 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
     def kv_update(li, k, v):
         # Write the chunk into its fresh page, then attend over the
         # sequence's pages (this chunk's page included).
-        pool["k"][li, :, page_id] = k[0].transpose(0, 1)  # [nkv, ps, hd]
-        pool["v"][li, :, page_id] = v[0].transpose(0, 1)
+        for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+            if quant:
+                new, scale = _kv_quant(new)
+                pool[sname][li, :, page_id] = scale[0].transpose(0, 1)
+            pool[name][li, :, page_id] = new[0].transpose(0, 1)
         ck = pool["k"][li][:, rows]  # [nkv, max_pages, ps, hd]
         cv = pool["v"][li][:, rows]
+        if quant:
+            ck = _kv_dequant(ck, pool["ks"][li][:, rows], k.dtype)
+            cv = _kv_dequant(cv, pool["vs"][li][:, rows], v.dtype)
         ck = ck.reshape(nkv, s_max, hd).transpose(0, 1)[None]
         cv = cv.reshape(nkv, s_max, hd).transpose(0, 1)[None]
         return ck, cv  # [1, S, nkv, hd]
@@ -145,12 +164,13 @@ def paged_decode_step(cfg, params: dict, pool: dict,
     ``cfg.paged_attn="kernel"`` swaps the gather read for the paged
     attention kernel; the scatter-write is identical either way.
     """
-    from tpumon_torch.loadgen.serving import decoder_forward
+    from tpumon_torch.loadgen.serving import _kv_quant, decoder_forward
 
     m = cfg.model
     ps = cfg.prefill_len
     s_max = tables.shape[1] * ps
     dev = tables.device
+    quant = "ks" in pool  # the int8 pool (init_pool)
 
     page = torch.gather(tables, 1, (positions // ps)[:, None].long())[:, 0]
     page = page.long()
@@ -165,15 +185,22 @@ def paged_decode_step(cfg, params: dict, pool: dict,
         # the broadcast batch dim where the adjacent index tensors sit
         # (not first, as numpy/JAX do when an int separates them), so
         # index a [pages, ps, nkv, hd] view of the layer instead.
-        for name, new in (("k", k), ("v", v)):
+        for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+            if quant:
+                new, scale = _kv_quant(new)
+                pool[sname][li].permute(1, 2, 0)[page, off] = scale[:, 0]
             pool[name][li].permute(1, 2, 0, 3)[page, off] = new[:, 0]
 
     def kv_update(li, k, v):
         scatter(li, k, v)
-        return _gather_context(pool, li, tables)  # [B, S, nkv, hd]
+        return _gather_context(pool, li, tables, k.dtype)  # [B,S,nkv,hd]
 
     attend = None
     if cfg.paged_attn == "kernel":
+        if quant:
+            raise ValueError(
+                "paged_attn='kernel' cannot read a quantized (int8) pool; "
+                "use the gather path or a compute-dtype pool")
         lengths = positions + 1  # rows 0..positions inclusive
 
         def attend(li, q, k, v):
@@ -191,15 +218,22 @@ def paged_decode_step(cfg, params: dict, pool: dict,
     return (x[:, 0] @ params["lm_head"].to(m.torch_dtype)).float()
 
 
-def _gather_context(pool: dict, li: int, tables: torch.Tensor):
+def _gather_context(pool: dict, li: int, tables: torch.Tensor, dt):
     """Layer ``li``'s context through the tables: K and V as [B, S, nkv,
-    hd], S = max_pages * page_size."""
+    hd] in ``dt``, S = max_pages * page_size (an int8 pool dequantized)."""
+    from tpumon_torch.loadgen.serving import _kv_dequant
+
     nkv, _, ps, hd = pool["k"].shape[1:]
     b, max_pages = tables.shape
     idx = tables.long()
-    return tuple(
-        pool[name][li][:, idx].reshape(nkv, b, max_pages * ps, hd)
-        .permute(1, 2, 0, 3) for name in ("k", "v"))
+    out = []
+    for name, sname in (("k", "ks"), ("v", "vs")):
+        ctx = pool[name][li][:, idx]  # [nkv, B, max_pages, ps, hd]
+        if sname in pool:
+            ctx = _kv_dequant(ctx, pool[sname][li][:, idx], dt)
+        out.append(ctx.reshape(nkv, b, max_pages * ps, hd)
+                   .permute(1, 2, 0, 3))
+    return tuple(out)
 
 
 def paged_decode_block(cfg, params: dict, pool: dict, tokens: torch.Tensor,
@@ -216,11 +250,12 @@ def paged_decode_block(cfg, params: dict, pool: dict, tokens: torch.Tensor,
     land on the trash page its table holds there. A multi-token query
     always takes the gather read, as in the reference.
     """
-    from tpumon_torch.loadgen.serving import decoder_forward
+    from tpumon_torch.loadgen.serving import _kv_quant, decoder_forward
 
     m = cfg.model
     ps = cfg.prefill_len
     t_blk = tokens.shape[1]
+    quant = "ks" in pool  # the int8 pool (init_pool)
     s_max = tables.shape[1] * ps
     dev = tokens.device
     pos = positions[:, None] + torch.arange(
@@ -235,11 +270,16 @@ def paged_decode_block(cfg, params: dict, pool: dict, tokens: torch.Tensor,
         # One batched scatter per block position, in the reference's
         # order (K's positions, then V's), on the [pages, ps, nkv, hd]
         # view paged_decode_step writes through.
-        for name, new in (("k", k), ("v", v)):
+        for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+            if quant:
+                new, scale = _kv_quant(new)  # scale: [B, T, nkv]
+                sview = pool[sname][li].permute(1, 2, 0)
             view = pool[name][li].permute(1, 2, 0, 3)
             for tt in range(t_blk):
+                if quant:
+                    sview[page[:, tt], off[:, tt]] = scale[:, tt]
                 view[page[:, tt], off[:, tt]] = new[:, tt]
-        return _gather_context(pool, li, tables)
+        return _gather_context(pool, li, tables, k.dtype)
 
     x = decoder_forward(cfg, params, tokens, pos, mask, kv_update)
     return (x @ params["lm_head"].to(m.torch_dtype)).float()
@@ -270,3 +310,95 @@ def paged_decode_rounds(cfg, params: dict, pool: dict,
         ctr = ctr + 1
         out.append(last)
     return last, pos, torch.stack(out, dim=1)
+
+
+class PagePrefixCache:
+    """Prefix caching for the paged layout: share pages, copy nothing.
+
+    Because page == prefill chunk, a chunk-aligned prompt prefix is a whole
+    number of pages: a later prompt that shares it points its page table
+    at the SAME pages, and the allocator's refcounts keep a shared page
+    alive until its last user (a cache entry or a live request) drops it.
+    Keys are the exact token tuples of chunk-aligned STRICT prefixes (the
+    chunk holding the prompt's last token is always recomputed). Bounded
+    LRU; ``evict_one`` lets the engine reclaim pinned pages under pool
+    pressure. The reference's class, line for line.
+    """
+
+    def __init__(self, chunk: int, allocator: PageAllocator,
+                 max_entries: int = 16):
+        from collections import OrderedDict
+
+        self.chunk = chunk
+        self.allocator = allocator
+        self.max_entries = max_entries
+        self._store: "OrderedDict[tuple, list[int]]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.saved_tokens = 0
+        self.page_bytes = 0  # set by the engine (pool bytes / page)
+
+    def peek(self, prompt: list[int]) -> tuple[int, list[int]]:
+        """(prefix_len, shared_pages) of the longest cached chunk-aligned
+        strict prefix, with no retain, LRU touch or hit/miss count (the
+        admission scheduler's probe). (0, []) on miss."""
+        n = len(prompt)
+        m = ((n - 1) // self.chunk) * self.chunk
+        while m >= self.chunk:
+            pages = self._store.get(tuple(prompt[:m]))
+            if pages is not None:
+                return m, list(pages)
+            m -= self.chunk
+        return 0, []
+
+    def lookup(self, prompt: list[int]) -> tuple[int, list[int]]:
+        """``peek`` plus the accounting: LRU touch, one retain of the
+        shared pages for the caller (released at request completion),
+        hit/miss and saved-token counters. (0, []) on miss."""
+        m, pages = self.peek(prompt)
+        if not m:
+            self.misses += 1
+            return 0, []
+        self._store.move_to_end(tuple(prompt[:m]))
+        self.allocator.retain(pages)
+        self.hits += 1
+        self.saved_tokens += m
+        return m, pages
+
+    def store(self, prompt: list[int], pages: list[int]) -> None:
+        """Pin the chunk-aligned strict prefix's pages (``pages``: the
+        request's full page list, one page per prefill chunk first). No-op
+        if already cached or shorter than one chunk."""
+        n = len(prompt)
+        m = ((n - 1) // self.chunk) * self.chunk
+        if m < self.chunk:
+            return
+        key = tuple(prompt[:m])
+        if key in self._store:
+            self._store.move_to_end(key)
+            return
+        pinned = pages[: m // self.chunk]
+        self.allocator.retain(pinned)
+        self._store[key] = list(pinned)
+        while len(self._store) > self.max_entries:
+            self.evict_one()
+
+    def evict_one(self, protect: tuple | None = None) -> bool:
+        """Drop the least-recently-used entry other than ``protect`` (its
+        pages free once no live request shares them); False when nothing
+        is evictable. The scheduler protects the queue head's own prefix,
+        so freeing pages for the head cannot evict what it will share."""
+        for key in self._store:
+            if key != protect:
+                pages = self._store.pop(key)
+                self.allocator.release(pages)
+                return True
+        return False
+
+    @property
+    def entries(self) -> int:
+        return len(self._store)
+
+    def resident_bytes(self) -> int:
+        pinned = {pg for pages in self._store.values() for pg in pages}
+        return len(pinned) * self.page_bytes

@@ -14,17 +14,22 @@ read paths: ``gather`` and the CUDA ``kernel``), fused block decode
 (``decode_block``), keyed temperature/top-k sampling (the reference's
 threefry draws, fused on the card by ``tpumon_torch.ops.threefry``), the
 interleaved chunked-prefill and the sequential schedulers, cancellation,
-backpressure, per-tenant accounting, serving a trainer checkpoint
-(``ckpt_dir``), the /metrics + /generate server and the arrival loop. The
-defaults are the reference's: ``kv_layout="dense"``,
-``paged_attn="gather"``. Everything else the reference engine does
-(speculative decoding, prefix caching, int8 weights and KV, MoE, the mesh
-engine, the actuator verbs) raises "not yet ported" when asked for
-(ROADMAP queue 1).
+backpressure, per-tenant accounting, speculative decoding (self draft,
+layer-truncated draft, prompt lookup; dense and paged), prefix caching
+(dense snapshot/restore, paged page sharing), int8 weights
+(``tpumon_torch.loadgen.quant``) and the int8 KV cache and pool, the
+actuator verbs (``set_shed``, ``nudge_capacity``, the slice drain and
+requeue, ``adopt``/``evict_all``), serving a trainer checkpoint
+(``ckpt_dir``), the /metrics + /generate server, the arrival loop and
+``start_background``. The defaults are the reference's:
+``kv_layout="dense"``, ``paged_attn="gather"``. The MoE family and the
+mesh and ring engines raise "not yet ported" when asked for (ROADMAP
+queue 1).
 
 Host-mirror discipline as in the reference: positions are mirrored on the
 host, so a decode step (or a fused block of ``decode_block`` steps) costs
-exactly ONE device→host sync (the sampled tokens' ``.tolist()``).
+exactly ONE device→host sync (the sampled tokens' ``.tolist()``); so does
+a speculative round (its proposals and the verify argmax together).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import sys
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace as dc_replace
 
 import torch
 import torch.nn.functional as F
@@ -49,17 +54,25 @@ from tpumon_torch.loadgen.model import (
     ModelConfig,
     _rms_norm,
     init_params,
+    leaf_bytes,
     map_params,
     param_bytes,
+    param_leaves,
     resolve_device,
 )
 from tpumon_torch.loadgen.paged_kv import (
     PageAllocator,
+    PagePrefixCache,
     init_pool,
+    paged_decode_block,
     paged_decode_rounds,
     paged_decode_step,
     paged_prefill,
 )
+from tpumon_torch.loadgen.prefix_cache import PrefixCache
+from tpumon_torch.loadgen.prompt_lookup import ngram_propose
+from tpumon_torch.loadgen.quant import QTensor, quantize_params
+from tpumon_torch.loadgen.speculative import decode_block, greedy_accept_len
 from tpumon_torch.metrics_text import MetricsWriter
 from tpumon_torch.ops import threefry
 from tpumon_torch.tracing import quantiles
@@ -69,6 +82,11 @@ from tpumon_torch.tracing import quantiles
 TTFT_BUCKETS_S = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
 )
+
+# Ceiling on any per-tenant admission-shed fraction (set_shed clamps to
+# it): the engine never sheds a whole tenant, so some live traffic always
+# survives to show recovery.
+SHED_CAP = 0.95
 
 
 @dataclass(frozen=True)
@@ -81,11 +99,23 @@ class ServeConfig:
     slots: int = 4  # concurrent decode slots (continuous batching)
     prefill_len: int = 64  # static prompt padding length == page size
     moe_prefill_max_chunk: int = 256
+    # Weight-only quantization: None (compute dtype) or "int8"
+    # (tpumon_torch.loadgen.quant).
     quantize: str | None = None
+    # Speculative decoding: spec_len proposals a round, verified in one
+    # target block (speculative.decode_block / paged_decode_block, the
+    # gather read); 0 = off. draft_model None = self-speculation; a
+    # layer-truncated draft_model shares the target's bottom layers.
+    # spec_source="prompt" proposes by n-gram lookup in the request's own
+    # context (prompt_lookup), searching its last spec_ngram_window
+    # tokens (0 = all).
     spec_len: int = 0
     draft_model: ModelConfig | None = None
     spec_source: str = "draft"
     spec_ngram_window: int = 1024
+    # Prefix caching: LRU entries of chunk-aligned prompt-prefix K/V; 0 =
+    # off. Dense: snapshot and restore by copy (prefix_cache); paged:
+    # shared refcounted pages (paged_kv.PagePrefixCache).
     prefix_cache_entries: int = 0
     # KV layout: "dense" reserves slots*max_seq rows (init_cache);
     # "paged" reserves prefill_len-row pages per request from a shared
@@ -100,6 +130,8 @@ class ServeConfig:
     # engine step with one device→host sync (decode_rounds /
     # paged_decode_rounds); 1 = off.
     decode_block: int = 1
+    # KV element type: "compute", or "int8" with a per-(row, kv head) f32
+    # scale (the dense cache and the paged pool; not the kernel read path).
     kv_dtype: str = "compute"
     # Admission scheduler: "interleaved" spends at most
     # prefill_chunk_budget prefill chunks per step before the decode
@@ -119,12 +151,6 @@ class ServeConfig:
 
 # (field, the value the port serves, the ROADMAP item that ports the rest)
 _NOT_PORTED = (
-    ("quantize", None, "queue 1 item 8"),
-    ("spec_len", 0, "queue 1 item 8"),
-    ("draft_model", None, "queue 1 item 8"),
-    ("spec_source", "draft", "queue 1 item 8"),
-    ("prefix_cache_entries", 0, "queue 1 item 8"),
-    ("kv_dtype", "compute", "queue 1 item 8"),
     ("mesh_dp", 1, "queue 1 item 12"),
     ("mesh_tp", 1, "queue 1 item 12"),
     ("ring_stripes", 0, "queue 1 item 12"),
@@ -150,6 +176,14 @@ def default_engine_config() -> ServeConfig:
                           n_kv_heads=2, d_ff=256, max_seq=128),
         slots=4, prefill_len=16,
     )
+
+
+def _place(params, device, dt) -> dict:
+    """A param tree on ``device`` in the compute dtype ``dt``; a quantized
+    weight keeps its int8 codes and f32 scales."""
+    return map_params(params, lambda t: t.to_device(device)
+                      if isinstance(t, QTensor) else t.to(device=device,
+                                                          dtype=dt))
 
 
 def _rope_at(x: torch.Tensor, positions: torch.Tensor,
@@ -224,14 +258,32 @@ def decoder_forward(cfg: ServeConfig, params: dict, tokens: torch.Tensor,
 
 def init_cache(cfg: ServeConfig, device) -> dict:
     """The dense KV cache ``{"k", "v"}``, each ``[layers, slots, max_seq,
-    kv_heads, head_dim]`` in the compute dtype, zeroed, on ``device``."""
-    if cfg.kv_dtype != "compute":
-        raise NotImplementedError(
-            "the int8 KV cache is not yet ported (ROADMAP queue 1 item 8)")
+    kv_heads, head_dim]``, zeroed, on ``device``: the compute dtype, or
+    (``kv_dtype="int8"``) int8 rows plus f32 scales ``{"ks", "vs"}`` of
+    shape ``[layers, slots, max_seq, kv_heads]``."""
     m = cfg.model
     shape = (m.n_layers, cfg.slots, m.max_seq, m.n_kv_heads, m.head_dim)
+    if cfg.kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(shape[:-1], device=device),
+                "vs": torch.zeros(shape[:-1], device=device)}
     return {"k": torch.zeros(shape, dtype=m.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=m.torch_dtype, device=device)}
+
+
+def _kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of each (..., head) row over head_dim,
+    in the reference's op order (f32, round half to even), so codes and
+    scales equal the reference's bit for bit."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequant(q: torch.Tensor, scale: torch.Tensor, dt) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dt)
 
 
 def prefill(cfg: ServeConfig, params: dict, cache: dict,
@@ -257,6 +309,15 @@ def prefill(cfg: ServeConfig, params: dict, cache: dict,
     s0 = min(max(start, 0), m.max_seq - p)
 
     def kv_update(li, k, v):
+        if "ks" in cache:  # the int8 layout (init_cache)
+            for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+                qx, sx = _kv_quant(new)
+                cache[name][li, slot, s0:s0 + p] = qx[0]
+                cache[sname][li, slot, s0:s0 + p] = sx[0]
+            return tuple(
+                _kv_dequant(cache[name][li, slot], cache[sname][li, slot],
+                            new.dtype)[None]
+                for name, sname, new in (("k", "ks", k), ("v", "vs", v)))
         cache["k"][li, slot, s0:s0 + p] = k[0]
         cache["v"][li, slot, s0:s0 + p] = v[0]
         return cache["k"][li, slot][None], cache["v"][li, slot][None]
@@ -271,8 +332,6 @@ def decode_step(cfg: ServeConfig, params: dict, cache: dict,
     """Advance every slot one token over the dense cache (in place):
     last_tokens/positions [B] int32, B == slots; returns the f32 logits
     [B, vocab]. The T == 1 case of ``speculative.decode_block``."""
-    from tpumon_torch.loadgen.speculative import decode_block
-
     return decode_block(cfg, params, cache, last_tokens[:, None],
                         positions)[:, 0]
 
@@ -344,8 +403,19 @@ class Request:
     # ("" = untagged, excluded from per-tenant metrics).
     tenant: str = ""
     # Terminal status, set exactly once when the request leaves the
-    # engine: "completed" | "rejected" | "cancelled" ("" in flight).
+    # engine: "completed" | "rejected" | "cancelled" | "shed" ("" in
+    # flight). "shed" is the actuation layer's admission shed, never
+    # counted as a rejection.
     status: str = ""
+    # Placement domain (engine.slices, round-robin at slot assignment);
+    # None untracked.
+    slice: str | None = None
+    # Times a slice drain aborted this request mid-flight and re-admitted
+    # it, and the stream tokens delivered before the latest requeue: the
+    # re-run regenerates the same prefix (keyed sampling), which must not
+    # reach the stream twice.
+    requeues: int = 0
+    _replay_n: int = 0
     ttft_s: float | None = None
     first_tok_t: float | None = None  # monotonic at first emit (TPOT)
     output: list[int] = field(default_factory=list)
@@ -366,7 +436,7 @@ class Request:
     def emit(self, tokens: list[int]) -> None:
         for t in tokens:
             self.output.append(t)
-            if self.stream is not None:
+            if self.stream is not None and len(self.output) > self._replay_n:
                 self.stream.put(t)
 
     def hit_stop(self) -> bool:
@@ -388,7 +458,7 @@ class _TenantStats:
     completed: int = 0
     rejected: int = 0
     cancelled: int = 0
-    shed: int = 0  # admission sheds: the actuator verbs are not yet ported
+    shed: int = 0  # admission sheds (set_shed), never rejections
     tokens: int = 0
     ttft: deque = field(default_factory=lambda: deque(maxlen=512))
     tpot: deque = field(default_factory=lambda: deque(maxlen=512))
@@ -396,15 +466,18 @@ class _TenantStats:
 
 @dataclass
 class _PrefillWork:
-    """Per-slot chunked-prefill progress: which chunk runs next, the
-    slot's page reservation and table (paged), and the final chunk's
-    logits. A slot holding one is occupied but not yet decoding."""
+    """Per-slot chunked-prefill progress: which target chunk runs next,
+    how far the draft model's own prefill got, the slot's page
+    reservation and table (paged), and the final chunk's logits. A slot
+    holding one is occupied but not yet decoding."""
 
     req: Request
     n: int                      # prompt length (tokens)
-    next_c0: int                # next chunk's start row
+    next_c0: int                # next target chunk's start row
+    draft_c0: int = 0           # next draft chunk's start row (spec)
     logits: torch.Tensor | None = None   # final-chunk logits
     pages: list[int] | None = None       # paged: full reservation
+    shared_n: int = 0           # paged: chunks served from shared pages
     table_row: torch.Tensor | None = None  # paged: this slot's table
 
 
@@ -416,7 +489,7 @@ class ServingEngine:
     def __init__(self, cfg: ServeConfig | None = None,
                  params: dict | None = None, seed: int = 0,
                  max_queue: int = 64, ckpt_dir: str | None = None,
-                 device=None):
+                 quantize: str | None = None, device=None):
         if cfg is None and ckpt_dir:
             # No explicit config: adopt the checkpoint's own architecture,
             # so the engine serves the trained weights instead of falling
@@ -426,40 +499,10 @@ class ServingEngine:
                 cfg = ServeConfig(model=saved, slots=4,
                                   prefill_len=min(16, saved.max_seq // 2))
         self.cfg = cfg or default_engine_config()
+        if quantize is not None:
+            self.cfg = dc_replace(self.cfg, quantize=quantize)
         _check_ported(self.cfg)
-        if self.cfg.kv_layout not in ("dense", "paged"):
-            raise ValueError(f"unknown kv_layout {self.cfg.kv_layout!r}")
-        if self.cfg.pool_pages and self.cfg.kv_layout != "paged":
-            raise ValueError(
-                "pool_pages requires kv_layout='paged' (a dense cache "
-                "has no page pool to size)")
-        if self.cfg.decode_block < 1:
-            raise ValueError(
-                f"decode_block must be >= 1, got {self.cfg.decode_block}")
-        if self.cfg.paged_attn not in ("gather", "kernel"):
-            raise ValueError(f"unknown paged_attn {self.cfg.paged_attn!r}")
-        if self.cfg.paged_attn == "kernel" and self.cfg.kv_layout != "paged":
-            raise ValueError(
-                "paged_attn='kernel' requires kv_layout='paged' (the "
-                "kernel reads pages)")
-        if self.cfg.scheduler not in ("interleaved", "sequential"):
-            raise ValueError(f"unknown scheduler {self.cfg.scheduler!r}")
-        if self.cfg.prefill_chunk_budget < 1:
-            raise ValueError(
-                f"prefill_chunk_budget must be >= 1, got "
-                f"{self.cfg.prefill_chunk_budget}")
-        if self.cfg.admit_lookahead < 0:
-            raise ValueError(
-                f"admit_lookahead must be >= 0, got "
-                f"{self.cfg.admit_lookahead}")
-        if self.cfg.admit_lookahead and self.cfg.kv_layout != "paged":
-            raise ValueError(
-                "admit_lookahead requires kv_layout='paged' (dense "
-                "admission never blocks on pages)")
-        if self.cfg.admit_max_skips < 1:
-            raise ValueError(
-                f"admit_max_skips must be >= 1, got "
-                f"{self.cfg.admit_max_skips}")
+        self._validate()
         self.device = resolve_device(device)
         m = self.cfg.model
         dev = self.device
@@ -481,12 +524,28 @@ class ServingEngine:
                     print(f"serving: no compatible checkpoint in "
                           f"{ckpt_dir!r}; serving FRESH INIT weights",
                           file=sys.stderr)
+        if self.cfg.quantize == "int8":
+            # Quantize after any checkpoint restore and before the cast
+            # below: the codes are the reference's from the same f32
+            # weights.
+            params = quantize_params(params)
+        elif self.cfg.quantize is not None:
+            raise ValueError(f"unknown quantize mode {self.cfg.quantize!r}")
+
         # Weights are cast to the compute dtype once, here — the same
         # values the reference's per-call ``.astype(dt)`` produces — so
         # the weight_bytes gauge reports what is actually resident.
-        self.params = map_params(
-            params, lambda t: t.to(device=dev, dtype=m.torch_dtype))
+        self.params = _place(params, dev, m.torch_dtype)
+        self.spec_len = self.cfg.spec_len
+        self.draft_params = None
+        self._draft_pos = [0] * self.cfg.slots
+        if self.spec_len and self.cfg.spec_source == "draft":
+            self._init_draft(seed)
+        self.spec_rounds_total = 0
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
         self.paged = self.cfg.kv_layout == "paged"
+        self.prefix_cache = None
         self.cache = None
         if self.paged:
             p = self.cfg.prefill_len
@@ -502,6 +561,14 @@ class ServingEngine:
             # writes can never corrupt pages reallocated to live requests.
             trash = self.allocator.alloc(1)
             assert trash == [0]
+            if self.cfg.prefix_cache_entries:
+                # Page == prefill chunk, so a cached prefix is shared by
+                # pointing new requests' tables at its pages: no copy.
+                self.prefix_cache = PagePrefixCache(
+                    chunk=p, allocator=self.allocator,
+                    max_entries=self.cfg.prefix_cache_entries)
+                self.prefix_cache.page_bytes = sum(
+                    leaf_bytes(t) for t in self.pool.values()) // pool_pages
             self._slot_pages: list[list[int]] = [
                 [] for _ in range(self.cfg.slots)]
             self._tables_host = [
@@ -512,11 +579,16 @@ class ServingEngine:
             self._tables_dirty = False
         else:
             self.cache = init_cache(self.cfg, dev)
+            if self.cfg.prefix_cache_entries:
+                self.prefix_cache = PrefixCache(
+                    chunk=self.cfg.prefill_len,
+                    max_entries=self.cfg.prefix_cache_entries)
         slots = self.cfg.slots
         self.positions = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self._host_positions = [0] * slots  # mirror, avoids syncs
         self.last_tokens = torch.zeros((slots,), dtype=torch.int32,
                                        device=dev)
+        self._host_last = [0] * slots  # mirror of last_tokens
         # Per-slot sampling state on the device (set at admission): the
         # settings, and the request id and next token index that key each
         # draw with _sample_key (sample_tokens), never the engine step.
@@ -550,6 +622,110 @@ class ServingEngine:
         self._tpot_recent: deque[float] = deque(maxlen=512)
         self.tenants: dict[str, _TenantStats] = {}
         self.tenant_window_s = 60.0
+        # Actuation surface (guarded by _lock): per-tenant shed fractions
+        # ("*" = every tenant without its own) and their deterministic
+        # pacing accumulators; placement domains (set_slices), attributed
+        # round-robin at slot assignment, and the drained ones.
+        self._shed: dict[str, float] = {}
+        self._shed_acc: dict[str, float] = {}
+        self.shed_total = 0
+        self.requeued_total = 0
+        self.slices: tuple[str, ...] = ()
+        self._slice_rr = 0
+        self._drained: set[str] = set()
+
+    def _validate(self) -> None:
+        """The reference's composition rules and messages, checked before
+        any device work (the mesh and ring rules are _check_ported's)."""
+        cfg = self.cfg
+        if cfg.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_layout {cfg.kv_layout!r}")
+        if cfg.spec_len < 0:
+            raise ValueError(f"spec_len must be >= 0, got {cfg.spec_len}")
+        if cfg.spec_source not in ("draft", "prompt"):
+            raise ValueError(f"unknown spec_source {cfg.spec_source!r}")
+        if cfg.spec_source == "prompt" and cfg.draft_model:
+            raise ValueError(
+                "spec_source='prompt' proposes from the request context "
+                "— a draft_model has no role (drop one of the two)")
+        if cfg.pool_pages and cfg.kv_layout != "paged":
+            raise ValueError(
+                "pool_pages requires kv_layout='paged' (a dense cache "
+                "has no page pool to size)")
+        if cfg.decode_block < 1:
+            raise ValueError(
+                f"decode_block must be >= 1, got {cfg.decode_block}")
+        if cfg.scheduler not in ("interleaved", "sequential"):
+            raise ValueError(f"unknown scheduler {cfg.scheduler!r}")
+        if cfg.prefill_chunk_budget < 1:
+            raise ValueError(
+                f"prefill_chunk_budget must be >= 1, got "
+                f"{cfg.prefill_chunk_budget}")
+        if cfg.admit_lookahead < 0:
+            raise ValueError(
+                f"admit_lookahead must be >= 0, got {cfg.admit_lookahead}")
+        if cfg.admit_lookahead and cfg.kv_layout != "paged":
+            raise ValueError(
+                "admit_lookahead requires kv_layout='paged' (dense "
+                "admission never blocks on pages, so the lookahead "
+                "window would silently do nothing)")
+        if cfg.admit_max_skips < 1:
+            raise ValueError(
+                f"admit_max_skips must be >= 1, got {cfg.admit_max_skips}")
+        if cfg.kv_dtype not in ("compute", "int8"):
+            raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r}")
+        if cfg.paged_attn not in ("gather", "kernel"):
+            raise ValueError(f"unknown paged_attn {cfg.paged_attn!r}")
+        if cfg.paged_attn == "kernel" and (
+                cfg.kv_layout != "paged" or cfg.kv_dtype == "int8"):
+            raise ValueError(
+                "paged_attn='kernel' requires kv_layout='paged' with "
+                "kv_dtype='compute' (the kernel reads bf16/f32 pages, "
+                "not the int8 pool)")
+        if cfg.kv_dtype == "int8" and (
+                (cfg.spec_len or cfg.prefix_cache_entries)
+                and cfg.kv_layout != "paged"):
+            raise ValueError(
+                "kv_dtype='int8' composes with the dense engine (with "
+                "decode_block and int8 weights) and the full paged "
+                "engine (incl. prefix caching and speculative "
+                "decoding) — not with a mesh, or with the DENSE "
+                "layout's speculative/prefix cache surgery")
+
+    def _init_draft(self, seed: int) -> None:
+        """The draft model of ``spec_source="draft"``: the target itself
+        (self-speculation), a layer-truncated draft sharing the target's
+        bottom layers, embedding and head, or a distinct model drawn from
+        ``seed + 1``, with its own dense cache."""
+        m = self.cfg.model
+        dm = self.cfg.draft_model or m
+        if dm.vocab != m.vocab or dm.max_seq != m.max_seq:
+            raise ValueError(
+                "draft_model must share vocab and max_seq with the "
+                f"target (draft {dm.vocab}/{dm.max_seq} vs "
+                f"target {m.vocab}/{m.max_seq})")
+        if self.cfg.draft_model is not None and dm.n_layers >= m.n_layers:
+            raise ValueError(
+                f"draft_model must be shallower than the target "
+                f"({dm.n_layers} >= {m.n_layers} layers; use "
+                "draft_model=None for self-speculation)")
+        self._draft_scfg = ServeConfig(model=dm, slots=self.cfg.slots,
+                                       prefill_len=self.cfg.prefill_len)
+        if self.cfg.draft_model is None:
+            self.draft_params = self.params  # self-speculation
+        elif dm == dc_replace(m, n_layers=dm.n_layers):
+            self.draft_params = {
+                "embed": self.params["embed"],
+                "layers": self.params["layers"][:dm.n_layers],
+                "final_norm": self.params["final_norm"],
+                "lm_head": self.params["lm_head"],
+            }
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed + 1)
+            self.draft_params = _place(init_params(dm, gen), self.device,
+                                       dm.torch_dtype)
+        self.draft_cache = init_cache(self._draft_scfg, self.device)
 
     def _h2d(self, values: list) -> torch.Tensor:
         """int32 host list (or list of lists) -> device tensor without a
@@ -575,11 +751,13 @@ class ServingEngine:
                stream: bool = False,
                stop_tokens: tuple = (), tenant: str = "",
                rid: int | None = None) -> Request:
-        """Enqueue a request. When the queue is full, or the prompt is
-        over the sequence capacity (max_seq-1 rows), or (paged) its page
-        reservation could never fit the pool, the request is rejected
-        immediately (status="rejected", done set, output empty).
-        temperature 0 = greedy; top_k 0 = the whole vocab."""
+        """Enqueue a request. A tenant under a shed fraction (set_shed)
+        has that share of its submissions shed (status="shed"). When the
+        queue is full, or the prompt is over the sequence capacity
+        (max_seq-1 rows), or (paged) its page reservation could never fit
+        the pool, the request is rejected immediately (status="rejected",
+        done set, output empty). temperature 0 = greedy; top_k 0 = the
+        whole vocab."""
         m = self.cfg.model
         max_new = max(0, int(max_new))
         prompt = [t % m.vocab for t in prompt]
@@ -599,6 +777,23 @@ class ServingEngine:
             tst = self._tenant_locked(req)
             if tst is not None:
                 tst.submitted += 1
+            # The shed pacing: the fraction accumulates per tenant and
+            # sheds on overflow, so fraction f sheds exactly round(n*f) of
+            # n submissions, with no RNG.
+            frac = (self._shed[req.tenant] if req.tenant in self._shed
+                    else self._shed.get("*", 0.0))
+            if frac > 0.0:
+                acc = self._shed_acc.get(req.tenant, 0.0) + frac
+                if acc >= 1.0:
+                    self._shed_acc[req.tenant] = acc - 1.0
+                    self.shed_total += 1
+                    if tst is not None:
+                        tst.shed += 1
+                    req.status = "shed"
+                    req.finish_stream()
+                    req.done.set()
+                    return req
+                self._shed_acc[req.tenant] = acc
             if len(self._queue) >= self.max_queue or infeasible:
                 self.rejected_total += 1
                 if tst is not None:
@@ -610,6 +805,123 @@ class ServingEngine:
             self._queue.append(req)
             self.requests_total += 1
         return req
+
+    # -- actuation surface (the verbs tpumon.actuate drives) ----------------
+
+    def set_shed(self, tenant: str, fraction: float) -> float:
+        """Set the admission-shed fraction for ``tenant`` ("*" = every
+        tenant without its own entry); <= 0 removes the throttle. Clamped
+        to SHED_CAP. Returns the effective fraction."""
+        frac = min(float(fraction), SHED_CAP)
+        with self._lock:
+            if frac <= 0.0:
+                self._shed.pop(tenant, None)
+                if tenant == "*":
+                    # "*"-paced tenants accumulate under their own names:
+                    # drop every accumulator no tenant throttle owns, so
+                    # the next episode starts afresh.
+                    for t in [t for t in self._shed_acc
+                              if t not in self._shed]:
+                        self._shed_acc.pop(t, None)
+                else:
+                    self._shed_acc.pop(tenant, None)
+                return 0.0
+            self._shed[tenant] = frac
+            return frac
+
+    def shed_fractions(self) -> dict[str, float]:
+        with self._lock:
+            return dict(self._shed)
+
+    def nudge_capacity(self, prefill_budget: int | None = None,
+                       admit_lookahead: int | None = None) -> dict:
+        """Adjust the scheduler knobs live: prefill chunks per step and
+        (paged engines only) the admission lookahead; both are read afresh
+        each step. Returns the effective values."""
+        kw = {}
+        if prefill_budget is not None:
+            kw["prefill_chunk_budget"] = max(1, int(prefill_budget))
+        if admit_lookahead is not None and self.paged:
+            kw["admit_lookahead"] = max(0, int(admit_lookahead))
+        if kw:
+            self.cfg = dc_replace(self.cfg, **kw)
+        return {"prefill_budget": self.cfg.prefill_chunk_budget,
+                "admit_lookahead": self.cfg.admit_lookahead}
+
+    def set_slices(self, names) -> None:
+        """Declare the placement domains requests are attributed to
+        (round-robin at slot assignment); drain marks of domains that no
+        longer exist are dropped."""
+        with self._lock:
+            self.slices = tuple(str(n) for n in names)
+            self._slice_rr = 0
+            self._drained &= set(self.slices)
+
+    def drain_slice(self, name: str) -> None:
+        """Mark a placement domain drained: its in-flight requests abort
+        and requeue at the next step, and new placements avoid it until
+        ``undrain_slice``."""
+        with self._lock:
+            self._drained.add(str(name))
+
+    def undrain_slice(self, name: str) -> None:
+        with self._lock:
+            self._drained.discard(str(name))
+
+    def drained_slices(self) -> tuple[str, ...]:
+        with self._lock:
+            return tuple(sorted(self._drained))
+
+    def _requeue_slot(self, slot: int) -> None:
+        """Abort the slot's request mid-flight, free the slot (and its
+        pages) and re-admit the request at the queue HEAD. The re-run
+        regenerates the same tokens (sampling is keyed per (rid, token
+        index)); ``_replay_n`` keeps delivered stream tokens from reaching
+        the consumer twice."""
+        req = self._slots[slot]
+        self._slots[slot] = None
+        self._prefill_work[slot] = None
+        self._release_slot_pages(slot)
+        req.slice = None
+        req.requeues += 1
+        req._replay_n = max(req._replay_n, len(req.output))
+        req.output = []
+        with self._lock:
+            self.requeued_total += 1
+            self._queue.appendleft(req)
+
+    def load(self) -> int:
+        """Queued + in-flight request count."""
+        with self._lock:
+            qd = len(self._queue)
+        return qd + sum(1 for s in self._slots if s is not None)
+
+    def prefix_hit_len(self, prompt: list[int]) -> int:
+        """Longest cached chunk-aligned prefix (tokens) this engine holds
+        for ``prompt``, with no side effect; 0 with no prefix cache."""
+        if self.prefix_cache is None:
+            return 0
+        got = self.prefix_cache.peek(prompt)
+        return int(got[0] if isinstance(got, tuple) else got)
+
+    def adopt(self, req: Request) -> None:
+        """Take an existing Request at the queue head without minting a
+        new rid, so its re-run replays the same stream; no counter is
+        charged (the original submit was)."""
+        with self._lock:
+            self._queue.appendleft(req)
+
+    def evict_all(self) -> "list[Request]":
+        """Abort-and-requeue every in-flight slot (``_requeue_slot``'s
+        replay contract) and hand back the whole queue, leaving the engine
+        empty."""
+        for slot in range(self.cfg.slots):
+            if self._slots[slot] is not None:
+                self._requeue_slot(slot)
+        with self._lock:
+            out = list(self._queue)
+            self._queue.clear()
+        return out
 
     # -- engine loop --------------------------------------------------------
 
@@ -655,14 +967,17 @@ class ServingEngine:
             self._tables_dev = self._h2d(self._tables_host)
             self._tables_dirty = False
 
-    def _reserve_next_locked(self) -> tuple[Request, list] | None:
+    def _reserve_next_locked(self) -> tuple[Request, list, int] | None:
         """Pick the next admissible queued request (caller holds the
         lock; paged only): probe the head, then — bounded lookahead — up to
         ``admit_lookahead`` requests behind it, admitting the first whose
-        page reservation succeeds. Every queue-jump past a blocked head
-        bumps ``_head_skips``; at ``admit_max_skips`` the window
-        collapses to the head alone until it admits. Returns (request,
-        pages) or None when nothing fits."""
+        page reservation succeeds. Probes use the prefix cache's
+        side-effect-free ``peek``; ``lookup`` (retain, hit/miss, LRU) runs
+        only for the request admitted. The head alone may evict cache
+        entries under pool pressure, never its own peeked prefix. Every
+        queue-jump past a blocked head bumps ``_head_skips``; at
+        ``admit_max_skips`` the window collapses to the head alone until
+        it admits. Returns (request, pages, shared chunks) or None."""
         if self._queue[0].rid != self._head_rid:
             self._head_rid = self._queue[0].rid
             self._head_skips = 0
@@ -671,22 +986,38 @@ class ServingEngine:
         for i, cand in enumerate(self._queue):
             if i >= window:
                 break
-            pages = self.allocator.alloc(self._pages_needed(cand))
+            shared: list[int] = []
+            if self.prefix_cache is not None:
+                _, shared = self.prefix_cache.peek(cand.prompt)
+            need = self._pages_needed(cand) - len(shared)
+            pages = self.allocator.alloc(need)
+            if i == 0:
+                protect = tuple(cand.prompt[:len(shared)
+                                            * self.cfg.prefill_len])
+                while pages is None and (
+                        self.prefix_cache is not None
+                        and self.prefix_cache.evict_one(
+                            protect=protect or None)):
+                    # The protected key is the longest cached prefix, so
+                    # (shared, need) cannot change under eviction.
+                    pages = self.allocator.alloc(need)
             if pages is None:
                 continue
+            if self.prefix_cache is not None:
+                _, shared = self.prefix_cache.lookup(cand.prompt)
             if i == 0:
                 self._queue.popleft()
                 self._head_skips = 0
             else:
                 del self._queue[i]
                 self._head_skips += 1
-            return cand, pages
+            return cand, shared + pages, len(shared)
         return None
 
     def _admit(self) -> None:
-        """Assign queued requests to free slots (paged: reserving pages);
-        the prefill chunks themselves run in ``_prefill_tick``, or inline
-        under ``scheduler="sequential"``."""
+        """Assign queued requests to free slots (paged: reserving pages,
+        shared prefix pages first); the prefill chunks themselves run in
+        ``_prefill_tick``, or inline under ``scheduler="sequential"``."""
         with self._lock:
             self._purge_cancelled_locked()
         for slot in range(self.cfg.slots):
@@ -699,20 +1030,29 @@ class ServingEngine:
                     picked = self._reserve_next_locked()
                     if picked is None:
                         return  # head (and window) blocked on pages
-                    req, pages = picked
+                    req, pages, shared_n = picked
                 else:
-                    req, pages = self._queue.popleft(), None
-            self._assign_slot(slot, req, pages)
+                    req, pages, shared_n = self._queue.popleft(), None, 0
+            self._assign_slot(slot, req, pages, shared_n)
             if self.cfg.scheduler == "sequential":
                 self._drain_prefill_slot(slot)
 
-    def _assign_slot(self, slot: int, req: Request,
-                     pages: list | None) -> None:
-        """Install ``req`` into ``slot`` in the in-prefill state: page
-        table (paged), prefill work record, and the parking of the slot's
-        position."""
-        work = _PrefillWork(req=req, n=len(req.prompt), next_c0=0,
-                            pages=pages)
+    def _assign_slot(self, slot: int, req: Request, pages: list | None,
+                     shared_n: int) -> None:
+        """Install ``req`` into ``slot`` in the in-prefill state: its
+        placement domain, page table (paged) or dense prefix restore, the
+        prefill work record, and the parking of the slot's position."""
+        p = self.cfg.prefill_len
+        if self.slices and req.slice is None:
+            # Round-robin over the undrained domains; with every domain
+            # drained, place anyway (refusing would wedge the queue).
+            avail = [s for s in self.slices if s not in self._drained]
+            pool = avail or list(self.slices)
+            req.slice = pool[self._slice_rr % len(pool)]
+            self._slice_rr += 1
+        work = _PrefillWork(req=req, n=len(req.prompt),
+                            next_c0=shared_n * p, pages=pages,
+                            shared_n=shared_n)
         if self.paged:
             self._slot_pages[slot] = pages
             trow = self._tables_host[slot]
@@ -720,6 +1060,10 @@ class ServingEngine:
                 trow[i] = pages[i] if i < len(pages) else 0
             self._tables_dirty = True
             work.table_row = self._h2d(trow)
+        elif self.prefix_cache is not None:
+            # The dense restore is one device copy, run at assignment.
+            work.next_c0 = self.prefix_cache.restore(
+                self.cache, req.prompt, slot)
         self._slots[slot] = req
         self._prefill_work[slot] = work
         # Park the slot's position on the last row while prefill is in
@@ -764,32 +1108,54 @@ class ServingEngine:
             budget -= 1
 
     def _prefill_chunk(self, slot: int) -> None:
-        """One prefill chunk for ``slot``; completing the last chunk
-        samples the first token and flips the slot to decoding."""
+        """One prefill chunk for ``slot``: target chunks first, then (draft
+        speculation) the draft model's own chunks, shared prefix chunks
+        included (the draft cache is never shared). Completing the last
+        chunk pins the prefix in the prefix cache, samples the first token
+        and flips the slot to decoding."""
         work = self._prefill_work[slot]
         req = work.req
         p = self.cfg.prefill_len
-        c0 = work.next_c0
-        chunk = req.prompt[c0:c0 + p]
-        ln = len(chunk)
-        toks = self._h2d(chunk + [0] * (p - ln))
-        if self.paged:
-            work.logits = paged_prefill(
-                self.cfg, self.params, self.pool, toks, ln,
-                work.pages[c0 // p], work.table_row, c0)
-        else:
-            work.logits = prefill(self.cfg, self.params, self.cache, toks,
-                                  ln, slot, c0)
-        work.next_c0 = c0 + p
+        draft_mode = self.spec_len and self.cfg.spec_source == "draft"
         if work.next_c0 < work.n:
+            c0 = work.next_c0
+            chunk = req.prompt[c0:c0 + p]
+            ln = len(chunk)
+            toks = self._h2d(chunk + [0] * (p - ln))
+            if self.paged:
+                work.logits = paged_prefill(
+                    self.cfg, self.params, self.pool, toks, ln,
+                    work.pages[c0 // p], work.table_row, c0)
+            else:
+                work.logits = prefill(self.cfg, self.params, self.cache,
+                                      toks, ln, slot, c0)
+            work.next_c0 = c0 + p
+        elif draft_mode and work.draft_c0 < work.n:
+            c0 = work.draft_c0
+            chunk = req.prompt[c0:c0 + p]
+            ln = len(chunk)
+            prefill(self._draft_scfg, self.draft_params, self.draft_cache,
+                    self._h2d(chunk + [0] * (p - ln)), ln, slot, c0)
+            work.draft_c0 = c0 + p
+        if work.next_c0 < work.n or (
+                draft_mode and work.draft_c0 < work.n):
             return
+        # Pin the prefix for later sharers only now that its K/V exists.
+        if self.prefix_cache is not None:
+            if self.paged:
+                self.prefix_cache.store(req.prompt, work.pages)
+            else:
+                self.prefix_cache.store(self.cache, req.prompt, slot)
+        if draft_mode:
+            self._draft_pos[slot] = work.n
         self._prefill_work[slot] = None
         self._after_prefill(slot, req, work.n, work.logits)
 
     def _after_prefill(self, slot: int, req: Request, n: int,
                        logits: torch.Tensor) -> None:
         """Sample the first token (index 0 of the request's stream, keyed
-        by its rid) and install the request for decoding."""
+        by its rid) and install the request for decoding. A requeued
+        re-run keeps the TTFT of its first admission."""
         dev = self.device
         first = int(sample_tokens(
             logits[None], self._sample_key, self._h2d([req.rid]),
@@ -798,18 +1164,20 @@ class ServingEngine:
             self._h2d([req.top_k]))[0])
         now = time.monotonic()
         with self._lock:
-            req.ttft_s = now - req.enqueued
-            req.first_tok_t = now
-            self._observe_ttft(req.ttft_s)
-            tst = self._tenant_locked(req)
-            if tst is not None:
-                tst.ttft.append((now, req.ttft_s))
+            if req.ttft_s is None:
+                req.ttft_s = now - req.enqueued
+                req.first_tok_t = now
+                self._observe_ttft(req.ttft_s)
+                tst = self._tenant_locked(req)
+                if tst is not None:
+                    tst.ttft.append((now, req.ttft_s))
             req.emit([first])
             self.tokens_total += 1
         self._slots[slot] = req
         self.positions[slot] = n
         self._host_positions[slot] = n
         self.last_tokens[slot] = first
+        self._host_last[slot] = first
         self.temps[slot] = req.temperature
         self.topks[slot] = req.top_k
         self.rids[slot] = req.rid
@@ -865,8 +1233,8 @@ class ServingEngine:
         req.done.set()
 
     def step(self) -> bool:
-        """Admit + prefill tick + one decode step; returns True if any
-        work remains."""
+        """Admit + prefill tick + one decode step (plain, fused block or
+        speculative round); returns True if any work remains."""
         self._admit()
         # Cancelled mid-flight requests free their slot (and pages)
         # before the prefill tick, so a dead request's chunks never
@@ -878,14 +1246,41 @@ class ServingEngine:
                     self._abort_prefill(slot)
                 else:
                     self._complete(slot)
+        # Drain sweep: requests placed on a drained domain abort and
+        # requeue, every step while the mark persists; with no undrained
+        # domain to requeue to, nothing is swept.
+        if self._drained:
+            with self._lock:
+                drained = set(self._drained)
+                has_home = any(s not in drained for s in self.slices)
+            if drained and has_home:
+                for slot in range(self.cfg.slots):
+                    req = self._slots[slot]
+                    if req is not None and req.slice in drained:
+                        self._requeue_slot(slot)
         self._prefill_tick()
         # Decode batch: slots mid-prefill are excluded (the batched step
         # computes them as garbage the host ignores, like free slots).
+        in_prefill = any(w is not None for w in self._prefill_work)
         active = [s for s in range(self.cfg.slots)
                   if self._slots[s] is not None
                   and self._prefill_work[s] is None]
         if active:
-            self._plain_step(active)
+            # A speculative round needs room for spec_len+1 rows in every
+            # active slot, one greedy slot to profit, and (dense only) no
+            # slot mid-prefill: the dense verify's clamped block write
+            # could land on rows a parked slot's prefill filled. Else the
+            # plain step.
+            if (self.spec_len
+                    and (self.paged or not in_prefill)
+                    and any(self._slots[s].temperature <= 0
+                            for s in active)
+                    and all(self._host_positions[s]
+                            <= self._seq_cap - 2 - self.spec_len
+                            for s in active)):
+                self._spec_round(active)
+            else:
+                self._plain_step(active)
         with self._lock:
             pending = bool(self._queue)
         return pending or any(s is not None for s in self._slots)
@@ -914,6 +1309,7 @@ class ServingEngine:
                                      max=self._seq_cap - 1)
         # ONE device→host sync per step; positions tracked host-side.
         nxt_host = nxt.tolist()
+        self._host_last = list(nxt_host)
         with self._lock:
             self.decode_steps_total += 1
             self.tokens_total += len(active)
@@ -963,8 +1359,149 @@ class ServingEngine:
                         >= self._seq_cap - 1):
                     self._complete(slot)
                     break
+        self._host_last = [row[-1] for row in toks_host]
         with self._lock:
             self.tokens_total += emitted
+
+    def _seq_token(self, req: Request, i: int) -> int:
+        """Token at sequence index ``i``: prompt, then emitted output."""
+        n = len(req.prompt)
+        return req.prompt[i] if i < n else req.output[i - n]
+
+    def _spec_round(self, active: list[int]) -> None:
+        """One speculative round: spec_len draft steps + one verify block;
+        each greedy slot accepts its longest agreed prefix plus the
+        target's own next token, each sampled slot emits one token drawn
+        from the verified logits (plain decode for it)."""
+        if self.cfg.spec_source == "prompt":
+            self._spec_round_prompt(active)
+            return
+        cfg, params, cache = self._draft_scfg, self.draft_params, (
+            self.draft_cache)
+        # Catch the draft cache up to the target frontier first: plain
+        # steps advance a sequence without touching the draft cache.
+        deficit = max(
+            self._host_positions[s] - self._draft_pos[s] for s in active)
+        for d in range(deficit):
+            toks, rows = [], []
+            for s in range(self.cfg.slots):
+                req = self._slots[s]
+                p_s = self._host_positions[s]
+                f = self._draft_pos[s] + d
+                if (req is not None and self._prefill_work[s] is None
+                        and f < p_s):
+                    toks.append(self._seq_token(req, f))
+                    rows.append(f)
+                else:
+                    # Caught up, empty or mid-prefill: rewrite the row the
+                    # proposal loop writes first anyway (idempotent).
+                    toks.append(self._host_last[s])
+                    rows.append(p_s)
+            decode_step(cfg, params, cache, self._h2d(toks),
+                        self._h2d(rows))
+        dt_tok = self.last_tokens
+        dpos = self.positions
+        drafts = []
+        for _ in range(self.spec_len):
+            dlogits = decode_step(cfg, params, cache, dt_tok, dpos)
+            dt_tok = torch.argmax(dlogits, dim=-1).to(torch.int32)
+            drafts.append(dt_tok)
+            dpos = dpos + 1
+        # One more draft step feeding the last proposal, so the draft
+        # cache holds its K/V when every proposal is accepted.
+        decode_step(cfg, params, cache, dt_tok, dpos)
+        self._spec_verify_emit(active, torch.stack(drafts, dim=1),
+                               prop_h=None)
+
+    def _spec_round_prompt(self, active: list[int]) -> None:
+        """Prompt-lookup round: host-side n-gram proposals from each
+        request's own context (``ngram_propose``), no draft model; the
+        verify and acceptance are the draft round's."""
+        g = self.spec_len
+        prop_rows = []
+        for s in range(self.cfg.slots):
+            req = self._slots[s]
+            if req is None:
+                prop_rows.append([0] * g)
+            else:
+                prop_rows.append(
+                    ngram_propose(req.prompt + req.output, g,
+                                  window=self.cfg.spec_ngram_window))
+        self._spec_verify_emit(active, self._h2d(prop_rows),
+                               prop_h=prop_rows)
+
+    def _spec_verify_emit(self, active: list[int], proposed: torch.Tensor,
+                          prop_h: list | None) -> None:
+        """One target verify block over [feed, proposals], greedy-prefix
+        acceptance plus the target's token, sampled slots drawn from the
+        verified logits. ``prop_h`` is the host copy of ``proposed`` when
+        the proposer has one; else it comes back with the verify argmax in
+        the round's one device→host sync."""
+        g = self.spec_len
+        ver_in = torch.cat([self.last_tokens[:, None], proposed], dim=1)
+        if self.paged:
+            self._sync_tables()
+            vlogits = paged_decode_block(self.cfg, self.params, self.pool,
+                                         ver_in, self.positions,
+                                         self._tables_dev)
+        else:
+            vlogits = decode_block(self.cfg, self.params, self.cache,
+                                   ver_in, self.positions)
+        tgt = torch.argmax(vlogits, dim=-1).to(torch.int32)  # [B, g+1]
+        host = [tgt] if prop_h is not None else [tgt, proposed]
+        # The sampler (a full-vocab sort for top-k) runs only when a
+        # sampled slot shares the round.
+        any_temp = any(self._slots[s].temperature > 0 for s in active)
+        if any_temp:
+            host.append(sample_tokens(vlogits[:, 0], self._sample_key,
+                                      self.rids, self.tok_ctrs,
+                                      self.temps, self.topks)[:, None])
+        width = [h.shape[1] for h in host]
+        fetched = torch.cat(host, dim=1).tolist()  # the one sync
+        tgt_h = [row[:width[0]] for row in fetched]
+        if prop_h is None:
+            prop_h = [row[width[0]:width[0] + g] for row in fetched]
+        samp_h = [row[-1] for row in fetched] if any_temp else None
+        emitted_n = accepted_n = proposed_n = 0
+        for slot in active:
+            req = self._slots[slot]
+            if req.temperature > 0:
+                a = 0
+                emitted = [samp_h[slot]]
+            else:
+                a = greedy_accept_len(prop_h[slot], tgt_h[slot])
+                emitted = prop_h[slot][:a] + [tgt_h[slot][a]]
+                proposed_n += g
+            accepted_n += a
+            room = req.max_new + 1 - len(req.output)
+            emitted = emitted[:room]  # room >= 1: full slots completed
+            if req.stop_tokens:
+                for si, tok in enumerate(emitted):
+                    if tok in req.stop_tokens:
+                        emitted = emitted[:si + 1]
+                        break
+            req.emit(emitted)
+            self._host_positions[slot] += len(emitted)
+            self._host_last[slot] = emitted[-1]
+            self._draft_pos[slot] = self._host_positions[slot]
+            emitted_n += len(emitted)
+            if (len(req.output) >= req.max_new + 1
+                    or req.hit_stop()
+                    or self._host_positions[slot] >= self._seq_cap - 1):
+                self._complete(slot)
+        self.positions = self._h2d(self._host_positions)
+        self.last_tokens = self._h2d(self._host_last)
+        # Greedy slots advanced by their accepted length, sampled ones by
+        # one: len(output) is the next sample index either way.
+        self.tok_ctrs = self._h2d(
+            [len(r.output) if (r := self._slots[s]) is not None else 0
+             for s in range(self.cfg.slots)])
+        with self._lock:
+            self.decode_steps_total += 1
+            self.spec_rounds_total += 1
+            self.spec_proposed_total += proposed_n
+            self.spec_accepted_total += accepted_n
+            self.tokens_total += emitted_n
 
     def drain(self, max_steps: int = 10_000) -> None:
         for _ in range(max_steps):
@@ -985,8 +1522,8 @@ class ServingEngine:
                 "queue": len(self._queue),
                 "rejected": self.rejected_total,
                 "cancelled": self.cancelled_total,
-                "shed": 0,
-                "requeued": 0,
+                "shed": self.shed_total,
+                "requeued": self.requeued_total,
                 "ttft_counts": list(self._ttft_counts),
                 "ttft_inf": self._ttft_inf,
                 "ttft_sum": self._ttft_sum,
@@ -995,9 +1532,9 @@ class ServingEngine:
                     1 for w in self._prefill_work if w is not None),
                 "ttft_recent": list(self._ttft_recent),
                 "tpot_recent": list(self._tpot_recent),
-                "spec_rounds": 0,
-                "spec_proposed": 0,
-                "spec_accepted": 0,
+                "spec_rounds": self.spec_rounds_total,
+                "spec_proposed": self.spec_proposed_total,
+                "spec_accepted": self.spec_accepted_total,
                 "tenant_window_s": self.tenant_window_s,
                 "tenants": {
                     name: {
@@ -1018,8 +1555,24 @@ class ServingEngine:
                 snap["kv_pages_free"] = self.allocator.free_pages
             else:
                 snap["kv_pages_total"] = snap["kv_pages_free"] = None
-        snap["weight_bytes"] = param_bytes(self.params)
-        snap["prefix"] = None
+        weight_bytes = param_bytes(self.params)
+        if self.draft_params is not None and (
+                self.draft_params is not self.params):
+            # A distinct draft's weights are resident too, but only its
+            # leaves that are not the target's own tensors (a truncated
+            # draft aliases them).
+            target = {id(x) for x in param_leaves(self.params)}
+            weight_bytes += sum(leaf_bytes(x)
+                                for x in param_leaves(self.draft_params)
+                                if id(x) not in target)
+        snap["weight_bytes"] = weight_bytes
+        if self.prefix_cache is not None:
+            pc = self.prefix_cache
+            snap["prefix"] = {"hits": pc.hits, "misses": pc.misses,
+                              "saved_tokens": pc.saved_tokens,
+                              "bytes": pc.resident_bytes()}
+        else:
+            snap["prefix"] = None
         return snap
 
     def metrics_text(self) -> str:
@@ -1361,23 +1914,91 @@ def _arrival_loop(engine: ServingEngine, rps: float, max_new: int,
                   seed: int = 0, temperature: float = 0.0,
                   top_k: int = 0) -> None:
     """Poisson-ish synthetic request arrivals + engine stepping until
-    ``stop`` is set (or ``duration`` seconds elapse, if nonzero). The
-    RNG draw order per arrival (prompt length, tail tokens, then the
-    exponential gap) is the reference's, so seeded runs replay the same
-    prompts."""
+    ``stop`` is set (or ``duration`` seconds elapse, if nonzero). With a
+    prefix cache every prompt starts with the same two-chunk system
+    prompt, so the cache hits. The RNG draw order per arrival (prompt
+    length, tail tokens, then the exponential gap) is the reference's, so
+    seeded runs replay the same prompts."""
     import random
 
     rng = random.Random(seed)
+    shared: list[int] = []
+    if engine.prefix_cache is not None:
+        srng = random.Random(seed ^ 0x5A5)
+        shared = [srng.randrange(engine.cfg.model.vocab)
+                  for _ in range(2 * engine.cfg.prefill_len)]
 
     def fire(_rel: float) -> None:
         n = rng.randint(2, engine.cfg.prefill_len)
         tail = [rng.randrange(engine.cfg.model.vocab) for _ in range(n)]
-        engine.submit(tail, max_new=max_new, temperature=temperature,
-                      top_k=top_k)
+        engine.submit(shared + tail, max_new=max_new,
+                      temperature=temperature, top_k=top_k)
 
     src = ArrivalSource(rate=lambda _t: rps, fire=fire,
                         interval=rng.expovariate)
     ArrivalPump(engine, [src]).run(stop, duration=duration)
+
+
+def start_background(rps: float = 0.5, max_new: int = 16,
+                     cfg: ServeConfig | None = None, port: int = 0,
+                     seed: int = 0, ckpt_dir: str | None = None,
+                     quantize: str | None = None,
+                     spec_len: int = 0, prefix_cache: int = 0,
+                     kv_layout: str = "dense", pool_pages: int = 0,
+                     decode_block: int = 1, kv_dtype: str = "compute",
+                     paged_attn: str = "gather",
+                     spec_source: str = "draft",
+                     scheduler: str = "interleaved",
+                     prefill_budget: int = 1,
+                     admit_lookahead: int = 0,
+                     mesh_dp: int = 1, mesh_tp: int = 1,
+                     ring_stripes: int = 0, device=None):
+    """Run the serving loadgen inside this process: the arrival loop in a
+    daemon thread + the /metrics endpoint. Returns (engine, url,
+    stop_event); setting the event ends the loop and closes the listener.
+    The reference's signature, plus ``device`` (as for
+    ``ServingEngine``)."""
+    if cfg is None and (spec_len or prefix_cache or pool_pages
+                        or kv_layout != "dense" or decode_block != 1
+                        or kv_dtype != "compute"
+                        or paged_attn != "gather"
+                        or spec_source != "draft"
+                        or scheduler != "interleaved"
+                        or prefill_budget != 1
+                        or admit_lookahead != 0
+                        or mesh_dp != 1 or mesh_tp != 1
+                        or ring_stripes != 0):
+        # Keep the checkpoint-architecture adoption the engine would do
+        # for a bare ckpt_dir.
+        base = None
+        if ckpt_dir:
+            saved = saved_model_config(ckpt_dir)
+            if saved is not None:
+                base = ServeConfig(model=saved, slots=4,
+                                   prefill_len=min(16, saved.max_seq // 2))
+        cfg = dc_replace(
+            base or default_engine_config(), spec_len=spec_len,
+            prefix_cache_entries=prefix_cache,
+            kv_layout=kv_layout, pool_pages=pool_pages,
+            decode_block=decode_block, kv_dtype=kv_dtype,
+            paged_attn=paged_attn, spec_source=spec_source,
+            scheduler=scheduler, prefill_chunk_budget=prefill_budget,
+            admit_lookahead=admit_lookahead,
+            mesh_dp=mesh_dp, mesh_tp=mesh_tp, ring_stripes=ring_stripes)
+    engine = ServingEngine(cfg=cfg, ckpt_dir=ckpt_dir, quantize=quantize,
+                           device=device)
+    server, bound = start_metrics_server(engine, port=port)
+    stop = threading.Event()
+
+    def _run():
+        try:
+            _arrival_loop(engine, rps, max_new, stop, seed=seed)
+        finally:
+            server.shutdown()
+            server.server_close()
+
+    threading.Thread(target=_run, daemon=True).start()
+    return engine, f"http://127.0.0.1:{bound}/metrics", stop
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1385,15 +2006,16 @@ def main(argv: list[str] | None = None) -> int:
     loadgen on the GPU: synthetic request arrivals + /metrics for tpumon
     to scrape. Same flags and defaults as ``python -m
     tpumon.loadgen.serving`` (dense layout, gather read path); a flag
-    asking for anything the port does not have yet exits with "not yet
-    ported"."""
+    asking for anything the port does not have yet (the mesh and ring
+    engines, the MoE family) exits with "not yet ported"."""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--port", type=int, default=9105)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--quant", choices=["int8"], default=None,
-                    help="weight-only quantization (not yet ported)")
+                    help="weight-only quantization "
+                         "(tpumon_torch.loadgen.quant)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -1404,17 +2026,21 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--duration", type=float, default=0.0,
                     help="seconds to run; 0 = forever")
     ap.add_argument("--spec-len", type=int, default=0,
-                    help="speculative decoding (not yet ported)")
+                    help="speculative decoding: draft tokens per round "
+                         "(0 = off)")
     ap.add_argument("--spec-draft-layers", type=int, default=0,
-                    help="draft model layer count (not yet ported)")
+                    help="draft model layer count (0 = self-speculation: "
+                         "the draft shares the target weights)")
     ap.add_argument("--spec-source", choices=["draft", "prompt"],
                     default="draft",
-                    help="speculative proposal source (not yet ported)")
+                    help="'prompt': n-gram prompt-lookup proposals from "
+                         "the request's own context, no draft model")
     ap.add_argument("--prefix-cache", type=int, default=0,
-                    help="prompt-prefix KV cache entries (not yet ported)")
+                    help="prompt-prefix KV cache LRU entries (0 = off)")
     ap.add_argument("--kv-dtype", choices=["compute", "int8"],
                     default="compute",
-                    help="KV cache element type (int8 not yet ported)")
+                    help="KV cache element type; int8 halves the resident "
+                         "cache (dense cache or paged pool, gather read)")
     ap.add_argument("--decode-block", type=int, default=1,
                     help="fuse N plain-decode steps into one block with "
                          "one device->host sync (dense or paged KV; "
@@ -1458,12 +2084,6 @@ def main(argv: list[str] | None = None) -> int:
                          "GPU is present)")
     args = ap.parse_args(argv)
     not_ported = [
-        (args.quant is not None, "--quant"),
-        (args.spec_len != 0, "--spec-len"),
-        (args.spec_draft_layers != 0, "--spec-draft-layers"),
-        (args.spec_source != "draft", "--spec-source"),
-        (args.prefix_cache != 0, "--prefix-cache"),
-        (args.kv_dtype != "compute", "--kv-dtype int8"),
         (args.paged_attn == "ring", "--paged-attn ring"),
         (args.mesh is not None, "--mesh"),
         (args.ring_attn != 0, "--ring-attn"),
@@ -1472,6 +2092,19 @@ def main(argv: list[str] | None = None) -> int:
     for asked, flag in not_ported:
         if asked:
             ap.error(f"{flag} is not yet ported (ROADMAP queue 1)")
+    if args.spec_draft_layers and not args.spec_len:
+        ap.error("--spec-draft-layers requires --spec-len > 0")
+    if args.spec_source == "prompt" and args.spec_draft_layers:
+        ap.error("--spec-source prompt proposes from context; drop "
+                 "--spec-draft-layers")
+    if args.spec_source == "prompt" and not args.spec_len:
+        ap.error("--spec-source prompt requires --spec-len > 0 "
+                 "(speculation is otherwise off and the flag would "
+                 "silently do nothing)")
+    if args.spec_draft_layers >= 4:  # the CLI model's n_layers below
+        ap.error("--spec-draft-layers must be < 4 (the target's depth)")
+    if args.spec_len < 0:
+        ap.error("--spec-len must be >= 0")
     if args.pool_pages and args.kv_layout != "paged":
         ap.error("--pool-pages requires --kv-layout paged")
     if args.prefill_budget < 1:
@@ -1479,15 +2112,21 @@ def main(argv: list[str] | None = None) -> int:
     if args.admit_lookahead and args.kv_layout != "paged":
         ap.error("--admit-lookahead requires --kv-layout paged (dense "
                  "admission never blocks on pages)")
-    if args.paged_attn == "kernel" and args.kv_layout != "paged":
-        ap.error("--paged-attn kernel requires --kv-layout paged (the "
-                 "kernel reads pages)")
+    if args.paged_attn == "kernel" and (
+            args.kv_layout != "paged" or args.kv_dtype == "int8"):
+        ap.error("--paged-attn kernel requires --kv-layout paged with "
+                 "--kv-dtype compute (the kernel reads bf16/f32 pages)")
 
     model = ModelConfig(vocab=2048, d_model=256, n_layers=4, n_heads=8,
                         n_kv_heads=4, d_ff=1024, max_seq=256)
+    draft = (dc_replace(model, n_layers=args.spec_draft_layers)
+             if args.spec_draft_layers else None)
     try:
         engine = ServingEngine(cfg=ServeConfig(
             model=model, slots=args.slots, prefill_len=32,
+            quantize=args.quant, spec_len=args.spec_len, draft_model=draft,
+            spec_source=args.spec_source,
+            prefix_cache_entries=args.prefix_cache, kv_dtype=args.kv_dtype,
             kv_layout=args.kv_layout, pool_pages=args.pool_pages,
             decode_block=args.decode_block, paged_attn=args.paged_attn,
             scheduler=args.scheduler,

@@ -1,10 +1,16 @@
-"""Multi-token decode over the dense cache.
+"""Multi-token decode over the dense cache: the speculative verify step.
 
-Counterpart of the part of ``tpumon/loadgen/speculative.py`` that the
-plain decode path runs: ``decode_block``, of which ``serving.decode_step``
-is the T = 1 case, and the two-line ``greedy_accept_len``. The
-speculative engine itself (draft proposals, the verify round) is not yet
-ported (ROADMAP queue 1 item 8).
+Counterpart of ``tpumon/loadgen/speculative.py``: ``decode_block``, of
+which ``serving.decode_step`` is the T = 1 case and which the speculative
+engine (``serving.ServingEngine._spec_round``) runs as its verify step
+over [feed, proposals], and ``greedy_accept_len``. A draft proposes
+``spec_len`` tokens; the target scores them in one block; the longest
+agreed prefix is accepted plus the target's own next token. Under greedy
+decoding the output equals plain decode whatever the draft (exactly in
+f32; in bf16 the block can reassociate a sum differently from a T = 1
+step and flip an argmax near-tie). Rejected rows need no rollback: the
+slot's position does not advance past them, the mask hides them and
+later writes overwrite them.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ def decode_block(cfg, params: dict, cache: dict, tokens: torch.Tensor,
 
     tokens: [B, T] int32, B == slots (tokens[:, 0] is the feed token at
     row ``positions``); positions: [B] int32 start rows. Writes the
-    block's K/V into the cache in place and returns the f32 logits [B, T,
+    block's K/V into the cache in place (quantized, with its scales, in the
+    int8 layout) and returns the f32 logits [B, T,
     vocab], where logits[:, t] predicts row ``positions + t + 1``; the
     mask is ``row <= positions + t``. The write is
     ``lax.dynamic_update_slice``'s per slot: its start clamps to max_seq
@@ -38,6 +45,15 @@ def decode_block(cfg, params: dict, cache: dict, tokens: torch.Tensor,
     slots = torch.arange(b, device=dev)[:, None]
 
     def kv_update(li, k, v):
+        if "ks" in cache:  # the int8 cache layout (serving.init_cache)
+            from tpumon_torch.loadgen.serving import _kv_dequant, _kv_quant
+
+            for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+                qx, sx = _kv_quant(new)
+                cache[name][li][slots, rows] = qx
+                cache[sname][li][slots, rows] = sx
+            return (_kv_dequant(cache["k"][li], cache["ks"][li], k.dtype),
+                    _kv_dequant(cache["v"][li], cache["vs"][li], v.dtype))
         cache["k"][li][slots, rows] = k
         cache["v"][li][slots, rows] = v
         return cache["k"][li], cache["v"][li]  # [B, S, nkv, hd]

@@ -11,8 +11,8 @@ functions over sampled values; they are copied here as they are
 
 The orchestration is not yet ported: ``validate()`` and ``main()`` raise.
 They need the monitor's collectors and config (ROADMAP queue 1 items 7
-and 11), and the serving check needs the dense, speculative, block and
-int8-KV engine modes (queue 1 items 3 and 8).
+and 11); the engine modes its serving check runs (dense, speculative,
+block and int8 KV) are ported.
 """
 
 from __future__ import annotations
