@@ -151,6 +151,25 @@ Phases, each of which exits non-zero on failure:
     tenant families. The paged kernel's launches equal n_layers x plain
     decode steps in every run (in-block steps included, speculative
     rounds excluded: their verify block reads by gather).
+19. the MoE family, the induction trainer and the workload self-report.
+    MoE serving: phase 4's model with 8 experts a layer (top-1, full
+    capacity) and phase 4's traffic, half sampled, through the dense
+    engine at block 1 and the paged kernel at block 1 and 8 (the kernel's
+    launches equal n_layers x decode steps; the paged streams identical
+    across blocks); the decode step in ms and where its device time goes
+    (attention, the expert banks' f32 casts, the f32 expert products,
+    routing, dispatch and combine), resident weight bytes, tokens/s and
+    TTFT p50; a WorkloadReporter on the paged block-1 engine writes a
+    report whose hbm_used is memory_allocated (1%) and whose busy_frac
+    lies in (0, 1]; small f32 MoE engines emit the CPU's streams on the
+    card in every mode. MoE training: phase 8's model with 8 experts
+    through run_train (finite loss, each flash kernel launched n_layers x
+    steps times), its step ms and MFU over the active parameters, and a
+    small f32 MoE trainer's losses equal to the CPU's within STEP_TOL.
+    train_induction at bench.py's settings (final loss under 1.0), then
+    prompt lookup against plain block-8 decode of the trained model on
+    bench.py's periodic prompts: identical streams, acceptance and both
+    tokens/s.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -1040,6 +1059,8 @@ def fault_applies(fault: str, t: int, causal: bool = True,
 # (measured 2.9e-2). f32 at 2 layers: summation order only, 1e-4 each.
 STEP_TOL = {"bfloat16": (2e-3, 5e-2), "float32": (1e-4, 1e-4)}
 TRAIN_STEPS = 4
+MOE_TRAIN_STEPS = 3
+INDUCTION_STEPS = 2000  # bench.py's train_induction steps on the chip
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 
 
@@ -3212,10 +3233,12 @@ def check_spec() -> dict:
     return out
 
 
-def small_engines_against_cpu(label: str, runs: dict) -> None:
-    """A small f32 engine of each kind in ``runs`` ({name: ServeConfig
-    fields}) emits the CPU's streams on the card, greedy and sampled, on
-    the same weights; self-speculation accepts every proposal."""
+def small_engines_against_cpu(label: str, runs: dict,
+                              n_experts: int = 0) -> None:
+    """A small f32 engine (of ``n_experts`` experts a layer, 0: dense) of
+    each kind in ``runs`` ({name: ServeConfig fields}) emits the CPU's
+    streams on the card, greedy and sampled, on the same weights;
+    self-speculation accepts every proposal."""
     import dataclasses
 
     import torch
@@ -3225,7 +3248,7 @@ def small_engines_against_cpu(label: str, runs: dict) -> None:
 
     model = ModelConfig(vocab=256, d_model=128, n_layers=2, n_heads=4,
                         n_kv_heads=2, d_ff=256, max_seq=128,
-                        compute_dtype="float32")
+                        compute_dtype="float32", n_experts=n_experts)
     params = init_params(model, torch.Generator().manual_seed(3))
     rng = random.Random(4)
     prompts = [[rng.randrange(256) for _ in range(n)]
@@ -3506,6 +3529,328 @@ def phase18() -> dict:
     return out
 
 
+# Phase 19: the MoE model family (serving and training), the induction
+# trainer and the workload self-report, at the widths below. Each path is
+# driven with the paged kernel's, the flash kernels' and the fused draws'
+# counts set to 0 just before it and read just after.
+
+MOE_EXPERTS = 8  # Mixtral-8x7B's expert count; top-1 routing (moe.py)
+
+
+def moe_engine_config(paged_attn="kernel", kv_layout="paged",
+                      decode_block=1):
+    """Phase 4's production serving model with MOE_EXPERTS experts a layer
+    (bf16, 16 slots, prefill_len 128 under the 256-token MoE cap)."""
+    import dataclasses
+
+    cfg = engine_config(paged_attn, kv_layout=kv_layout,
+                        decode_block=decode_block)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, n_experts=MOE_EXPERTS))
+
+
+def moe_step_parts(eng, lens) -> dict:
+    """One paged-kernel decode step of the MoE engine at 16 decoding slots
+    (tables over the pool's pages, each slot at one of phase 4's prompt
+    lengths) in ms by CUDA events, the device busy and idle share from a
+    trace, and its parts timed alone at the step's shapes: the two paged
+    attention calls, the two MoE FFNs, and within them the bf16 -> f32
+    casts of the expert banks, the f32 expert products, and the routing
+    with the dispatch and combine copies."""
+    import torch
+
+    from tpumon_torch.loadgen.model import _moe_mlp
+    from tpumon_torch.loadgen.moe import _assign, _combine, _dispatch
+    from tpumon_torch.loadgen.paged_kv import paged_decode_step
+    from tpumon_torch.ops.paged_attention import paged_attention
+
+    cfg, m = eng.cfg, eng.cfg.model
+    b, per = cfg.slots, eng._max_pages
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    pages = torch.randperm(eng.pool["k"].shape[2] - 1, generator=gen,
+                           device="cuda")[:b * per] + 1
+    tables = pages.view(b, per).int()
+    pos = torch.tensor([n - 1 for n in lens[:b]], dtype=torch.int32,
+                       device="cuda")
+    last = torch.randint(0, m.vocab, (b,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    pool = {k: t.clone() for k, t in eng.pool.items()}
+    before = paged_attention.launches
+
+    def step():
+        paged_decode_step(cfg, eng.params, pool, last, pos, tables)
+
+    out = {"step_ms": cuda_ms(step, reps=10)}
+    busy = device_busy(step)
+    if busy is not None:
+        out.update(device_busy_ms=busy[0], device_idle_share=1 - busy[0]
+                   / busy[1], device_kernels_per_step=busy[2])
+    q = torch.randn(b, m.n_heads, m.head_dim, device="cuda",
+                    dtype=torch.bfloat16, generator=gen)
+    out["attention_ms"] = m.n_layers * cuda_ms(lambda: paged_attention(
+        q, pool["k"][0], pool["v"][0], tables, pos + 1), reps=20)
+    hm = torch.randn(b, 1, m.d_model, device="cuda", dtype=torch.bfloat16,
+                     generator=gen)
+    layers = [layer["moe"] for layer in eng.params["layers"]]
+    out["moe_ffn_ms"] = cuda_ms(lambda: [_moe_mlp(
+        m, p, hm, full_capacity=True) for p in layers], reps=10)
+    out["moe_bank_casts_ms"] = cuda_ms(lambda: [
+        (p["w_in"].float(), p["w_out"].float()) for p in layers], reps=10)
+    banks = [(p["w_in"].float(), p["w_out"].float()) for p in layers]
+    xin = torch.randn(MOE_EXPERTS, b, m.d_model, device="cuda",
+                      generator=gen)
+    out["moe_products_ms"] = cuda_ms(lambda: [torch.bmm(torch.relu(
+        torch.bmm(xin, w_in)), w_out) for w_in, w_out in banks], reps=10)
+    del banks
+    x = hm.view(b, m.d_model)
+    out["moe_route_ms"] = cuda_ms(lambda: [_assign(p["router"], x, b)
+                                           for p in layers], reps=20)
+    rows = MOE_EXPERTS * b
+    expert, position, kept, gate = _assign(layers[0]["router"], x, b)
+    slot = torch.where(kept, expert * b + position, rows)
+    yout = torch.randn(rows, m.d_model, device="cuda", generator=gen)
+    out["moe_dispatch_combine_ms"] = m.n_layers * cuda_ms(lambda: (
+        _dispatch(x, slot, rows), _combine(yout, slot, kept, gate)),
+        reps=20)
+    paged_attention.launches = before  # timing launches are not the path's
+    del pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_moe_serving() -> dict:
+    """MoE serving at production width with phase 4's traffic (half the
+    requests sampled): dense block 1 and the paged kernel at block 1 and
+    8, the kernel's launches equal n_layers x decode steps (serve_features
+    checks them); the paged kernel's streams identical across blocks. A
+    WorkloadReporter on the paged block-1 engine writes a report whose
+    device hbm_used is memory_allocated at the write (1%) and whose
+    busy_frac lies in (0, 1]. Returns the stats by run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpumon_torch.loadgen.model import param_bytes
+    from tpumon_torch.loadgen.report import WorkloadReporter
+    from tpumon_torch.loadgen.serving import ServingEngine
+
+    lens, prompts, sampling = engine_traffic()
+    traffic = (prompts, sampling)
+    runs = {"moe_dense_b1": moe_engine_config("gather", kv_layout="dense"),
+            "moe_paged_kernel_b1": moe_engine_config(),
+            "moe_paged_kernel_b8": moe_engine_config(decode_block=8)}
+    streams, stats = {}, {}
+    for label, cfg in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServingEngine(cfg=cfg, seed=0, device="cuda")
+        build_peak = torch.cuda.max_memory_allocated()
+        rep = None
+        if label == "moe_paged_kernel_b1":
+            rdir = tempfile.mkdtemp(prefix="chip_smoke_report_")
+            rep = WorkloadReporter(name="chip_smoke_moe", directory=rdir)
+            eng.reporter = rep
+        _, streams[label], stats[label] = serve_features(cfg, label, traffic,
+                                                         engine=eng)
+        banks = sum(p.numel() * p.element_size()
+                    for layer in eng.params["layers"]
+                    for k, p in layer["moe"].items() if k != "router")
+        print(f"moe_serving {label} resident_weight_bytes="
+              f"{param_bytes(eng.params)} expert_bank_bytes={banks} "
+              f"build_peak_bytes={build_peak}", flush=True)
+        if rep is not None:
+            path = rep.write_once(interval_s=stats[label]["wall_s"])
+            allocated = torch.cuda.memory_allocated(0)
+            with open(path) as f:
+                dev = json.load(f)["devices"][0]
+            rep.stop()
+            shutil.rmtree(rdir, ignore_errors=True)
+            ok = (abs(dev["hbm_used"] - allocated) <= 0.01 * allocated
+                  and 0 < dev["busy_frac"] <= 1)
+            print(f"moe_report device={dev} memory_allocated={allocated} "
+                  f"{'ok' if ok else 'MISS'}", flush=True)
+            if not ok:
+                fail("workload report: hbm_used or busy_frac out of range")
+        if label == "moe_paged_kernel_b1":
+            parts = moe_step_parts(eng, lens)
+            print("moe_decode_step " + " ".join(
+                f"{k}={v!r}" for k, v in parts.items()), flush=True)
+            stats[label]["step"] = parts
+        del eng
+        torch.cuda.empty_cache()
+    same = streams["moe_paged_kernel_b1"] == streams["moe_paged_kernel_b8"]
+    dense = agreement(streams["moe_dense_b1"], streams["moe_paged_kernel_b1"])
+    print(f"moe_serving paged_kernel_b8_vs_b1 streams_identical={same} "
+          f"dense_vs_paged_kernel (bf16: not required) {dense}", flush=True)
+    if not same:
+        fail("MoE paged kernel: block 8 streams differ from block 1's")
+    return stats
+
+
+def check_small_moe_trainer_against_cpu() -> None:
+    """A small f32 MoE trainer (4 experts, flash, hd 32, T 100): three SGD
+    steps on the card give the CPU's losses within phase 8's STEP_TOL."""
+    import torch
+
+    from tpumon_torch.loadgen.model import (
+        ModelConfig,
+        init_params,
+        map_params,
+        sgd_train_step,
+    )
+    from tpumon_torch.loadgen.train import TrainConfig, synthetic_batch
+
+    before = flash_counts()
+    cfg = TrainConfig(model=ModelConfig(
+        vocab=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=256, max_seq=128, compute_dtype="float32", attention="flash",
+        attn_block_k=128, n_experts=4), batch=2, seq=101, lr=0.05)
+    init = init_params(cfg.model, torch.Generator().manual_seed(3))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        params = map_params(init, lambda t: t.to(dev, copy=True))
+        losses[dev] = [float(sgd_train_step(
+            cfg.model, params, synthetic_batch(cfg, step, dev),
+            lr=cfg.lr)[1]) for step in range(3)]
+    err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+    tol = STEP_TOL["float32"][0]
+    ok = err <= tol
+    print(f"small_moe_trainer_cuda_vs_cpu f32 losses_cpu={losses['cpu']} "
+          f"losses_cuda={losses['cuda']} max_abs_err={err!r} tol={tol} "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    set_flash_counts(before)
+    if not ok:
+        fail("small MoE trainer: card losses differ from the CPU's")
+
+
+def check_moe_training() -> dict:
+    """MoE training at the bench trainer's width (phase 8's model with
+    MOE_EXPERTS experts, flash at block 512, batch 8 x seq 1024) through
+    run_train: finite losses, each flash kernel launched n_layers x steps
+    times; then the step time and MFU over the active parameters
+    (fused_train_bench)."""
+    import torch
+
+    from tpumon_torch.loadgen.train import (
+        TrainConfig,
+        TrainMetrics,
+        detect_peak_flops,
+        flops_per_token,
+        fused_train_bench,
+        run_train,
+    )
+
+    model = train_model(n_experts=MOE_EXPERTS)
+    cfg = TrainConfig(model=model, steps=MOE_TRAIN_STEPS, batch=8, seq=1024)
+    metrics = TrainMetrics(flops_per_token=flops_per_token(model, cfg.seq),
+                           peak_flops=detect_peak_flops())
+    before = flash_counts()
+    torch.cuda.synchronize()
+    set_flash_counts(dict.fromkeys(FLASH_KERNELS, 0))
+    t0 = time.perf_counter()
+    out = run_train(cfg, "cuda", metrics=metrics)
+    wall = time.perf_counter() - t0
+    launches = flash_counts()
+    want = model.n_layers * cfg.steps
+    print(f"moe_trainer steps={cfg.steps} loss={out['loss']!r} "
+          f"launches={launches} want={want} wall_s={wall!r}", flush=True)
+    del out
+    torch.cuda.empty_cache()
+    if not torch.isfinite(torch.tensor(metrics.loss or float("nan"))):
+        fail("the MoE trainer's loss is not finite")
+    if any(n != want for n in launches.values()):
+        fail(f"MoE flash launches {launches} != n_layers x steps ({want})")
+    torch.cuda.reset_peak_memory_stats()
+    r = fused_train_bench(cfg, steps=MOE_TRAIN_STEPS, device="cuda")
+    print(f"moe_train_step step_ms={r['seconds'] / MOE_TRAIN_STEPS * 1e3!r} "
+          f"tokens_per_s={r['tokens_per_sec']!r} mfu_pct_active="
+          f"{r['mfu_pct']!r} flops_per_token={metrics.flops_per_token!r} "
+          f"loss={r['loss']!r} peak_mem_GB="
+          f"{torch.cuda.max_memory_allocated() / 1e9!r}", flush=True)
+    if not torch.isfinite(torch.tensor(r["loss"])):
+        fail("the MoE train step's loss is not finite")
+    set_flash_counts(before)
+    torch.cuda.empty_cache()
+    return {"launches": launches, **r}
+
+
+def check_induction() -> dict:
+    """train_induction at bench.py's settings (its TPU serving model,
+    2000 Adam steps, period 16, seq 256, batch 16): final loss under 1.0;
+    then bench.py's periodic prompts (3 periods of context, 160 new
+    tokens) through prompt lookup at spec_len 15 and through plain block-8
+    decode of the trained model: identical streams."""
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen.model import ModelConfig
+    from tpumon_torch.loadgen.serving import ServeConfig
+    from tpumon_torch.loadgen.train import train_induction
+    from tpumon_torch.ops import threefry
+
+    m = ModelConfig(vocab=4096, d_model=512, n_layers=4, n_heads=8,
+                    n_kv_heads=8, d_ff=2048, max_seq=512)
+    period, seq, steps = 16, 256, INDUCTION_STEPS
+    threefry.set_launch_counts(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trained, losses = train_induction(m, steps=steps, period=period,
+                                      seq=seq)
+    first, last = float(losses[0]), float(losses[-1])
+    wall = time.perf_counter() - t0
+    draws = threefry.launch_counts()
+    print(f"induction steps={steps} loss_first={first!r} loss_last={last!r} "
+          f"wall_s={wall!r} step_ms={wall / steps * 1e3!r} "
+          f"threefry_launches={draws}", flush=True)
+    if not last < 1.0:
+        fail(f"train_induction did not learn to copy: last loss {last!r}")
+
+    def mk_prompt(i: int) -> list:
+        rng = [1 + (i * 997 + j * 131) % (m.vocab - 1)
+               for j in range(period)]
+        return (rng * -(-48 // period))[:48]
+
+    traffic = ([mk_prompt(i) for i in range(24)], [(0.0, 0)] * 24)
+    new = min(160, m.max_seq - 64)
+    base = ServeConfig(model=m, slots=8, prefill_len=32)
+    runs = {"block8": dataclasses.replace(base, decode_block=8),
+            "prompt_g15": dataclasses.replace(base, spec_len=15,
+                                              spec_source="prompt")}
+    streams, stats = {}, {}
+    for label, cfg in runs.items():
+        _, streams[label], stats[label] = serve_features(
+            cfg, f"induction_{label}", traffic, max_new=new, params=trained)
+        torch.cuda.empty_cache()
+    same = streams["block8"] == streams["prompt_g15"]
+    print(f"induction_spec acceptance_pct="
+          f"{stats['prompt_g15']['acceptance_pct']!r} tokens_per_s "
+          f"prompt_g15={stats['prompt_g15']['tokens_per_s']!r} "
+          f"block8={stats['block8']['tokens_per_s']!r} "
+          f"streams_identical={same}", flush=True)
+    if not same:
+        fail("prompt lookup on the trained model: streams differ from "
+             "plain block-8 decode's")
+    return {"loss_last": last, **stats}
+
+
+def phase19() -> dict:
+    t0 = time.perf_counter()
+    out = {"serving": check_moe_serving()}
+    small_engines_against_cpu("moe", {
+        "dense_b1": {}, "dense_b4": {"decode_block": 4},
+        "paged_gather": {"kv_layout": "paged"},
+        "paged_kernel": {"kv_layout": "paged", "paged_attn": "kernel"},
+        "dense_self": {"spec_len": 3},
+        "paged_prompt": {"spec_len": 3, "spec_source": "prompt",
+                         "kv_layout": "paged"}}, n_experts=4)
+    out["training"] = check_moe_training()
+    check_small_moe_trainer_against_cpu()
+    out["induction"] = check_induction()
+    print(f"phase19 wall_s={time.perf_counter() - t0!r}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3583,6 +3928,7 @@ def main() -> int:
     print(f"phase17 wall_s={time.perf_counter() - t0!r}", flush=True)
 
     phase18()
+    phase19()
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",

@@ -232,7 +232,10 @@ def test_start_background_serves_metrics_and_stops(weights):
         assert all(r.done.wait(timeout=30) for r in reqs)
         with urllib.request.urlopen(url, timeout=10) as resp:
             text = resp.read().decode()
-        assert "tpumon_serving_requests_shed 2" in text
+        # The arrival loop's own (untagged) requests are shed-paced too,
+        # and race the scrape: tenant "t"'s count is the exact one.
+        assert 'tpumon_serving_tenant_shed{tenant="t"} 2' in text
+        assert "tpumon_serving_requests_shed " in text
         assert "tpumon_serving_prefix_hits" in text
     finally:
         stop.set()

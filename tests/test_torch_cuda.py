@@ -592,3 +592,45 @@ def test_decode_rounds_on_card_match_cpu(cuda_device, kv_layout,
     cpu = _rounds_case("cpu", kv_layout, paged_attn, params)
     assert torch.equal(card, cpu)
     assert launched == (2 * 8 if paged_attn == "kernel" else 0)
+
+
+@pytest.mark.parametrize("kv_layout,paged_attn", [
+    ("dense", "gather"), ("paged", "kernel")])
+def test_moe_engine_on_card_matches_cpu(cuda_device, kv_layout, paged_attn):
+    """A small f32 MoE engine (4 experts, full-capacity routing) emits the
+    CPU's greedy and sampled streams on the card; the kernel route
+    launches the paged kernel once per layer and decode step."""
+    from tpumon_torch.loadgen.model import ModelConfig, init_params
+    from tpumon_torch.loadgen.serving import ServeConfig, ServingEngine
+
+    cfg = ServeConfig(model=ModelConfig(
+        vocab=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+        d_ff=256, max_seq=128, compute_dtype="float32", n_experts=4),
+        slots=3, prefill_len=16, kv_layout=kv_layout, paged_attn=paged_attn)
+    params = init_params(cfg.model, torch.Generator().manual_seed(3))
+    prompts = [list(range(5, 40)), [7, 1, 9] * 6, [100]]
+    streams = []
+    for dev in ("cpu", cuda_device):
+        eng = ServingEngine(cfg=cfg, params=params, seed=7, device=dev)
+        before = paged_attention.launches
+        reqs = [eng.submit(p, max_new=10, temperature=t)
+                for p, t in zip(prompts, (0.0, 0.8, 0.0))]
+        eng.drain()
+        launched = paged_attention.launches - before
+        streams.append([r.output for r in reqs])
+    assert streams[0] == streams[1]
+    want = cfg.model.n_layers * eng.decode_steps_total
+    assert launched == (want if paged_attn == "kernel" else 0)
+
+
+def test_workload_footprint_on_card(cuda_device):
+    """footprint_by_device reports every visible card; the one holding a
+    tensor counts its bytes, and hbm_total is the card's memory."""
+    from tpumon_torch.loadgen.report import footprint_by_device
+
+    held = torch.empty(1 << 20, device=cuda_device)
+    fp = footprint_by_device()
+    assert len(fp) == torch.cuda.device_count()
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert any(e["hbm_used"] >= held.numel() * 4 and e["hbm_total"] == total
+               for e in fp.values())

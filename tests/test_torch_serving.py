@@ -206,30 +206,40 @@ def test_outside_the_slice_raises_not_yet_ported(weights, over):
 
 
 def test_moe_family_and_sampling_raise_not_yet_ported(weights):
-    """The MoE family still raises; keyed sampling is ported now, so a
-    sampled request is served to completion."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ModelConfig(**dict(SMALL, n_experts=4))
-    eng = port_engine(weights[1])
-    req = eng.submit([1, 2, 3], max_new=4, temperature=0.7, top_k=5)
-    eng.drain()
-    assert req.status == "completed" and len(req.output) == 5
+    """Both are ported now (the name is the earlier slices'): an MoE
+    config builds and its engine serves a sampled request to completion,
+    and so does the dense engine."""
+    moe = ModelConfig(**dict(SMALL, n_experts=4))
+    eng = ServingEngine(cfg=ServeConfig(model=moe, slots=2, prefill_len=PS,
+                                        kv_layout="paged",
+                                        paged_attn="kernel"),
+                        device="cpu")
+    assert "moe" in eng.params["layers"][0]
+    for eng in (eng, port_engine(weights[1])):
+        req = eng.submit([1, 2, 3], max_new=4, temperature=0.7, top_k=5)
+        eng.drain()
+        assert req.status == "completed" and len(req.output) == 5
 
 
-# The flags of the fields this slice ports parse and build an engine,
-# which serves a moment; the mesh, ring and MoE flags still exit. The
-# case order is the earlier list's.
+# The flags of the fields the port has parse and build an engine, which
+# serves a moment; the mesh and ring flags still exit. The case order is
+# the earlier list's.
 CLI_CASES = [
     ["--kv-dtype", "int8"], ["--paged-attn", "ring"], ["--spec-len", "2"],
     ["--spec-source", "prompt", "--spec-len", "2"], ["--quant", "int8"],
     ["--mesh", "1,2"], ["--ring-attn", "2"], ["--prefix-cache", "8"],
     ["--experts", "4"],
 ]
-CLI_NOT_PORTED = ("--paged-attn", "--mesh", "--ring-attn", "--experts")
+CLI_NOT_PORTED = ("--paged-attn", "--mesh", "--ring-attn")
 
 
 @pytest.mark.parametrize("flags", CLI_CASES)
-def test_cli_flags_outside_the_slice_exit(flags, capsys, monkeypatch):
+def test_cli_flags_outside_the_slice_exit(flags, capsys, monkeypatch,
+                                          tmp_path):
+    # The workload self-report runs by default: into tmp_path here.
+    from tpumon_torch.loadgen import report
+
+    monkeypatch.setattr(report, "DEFAULT_DIR", str(tmp_path))
     if flags[0] in CLI_NOT_PORTED:
         with pytest.raises(SystemExit) as exc:
             serving.main(flags + ["--device", "cpu"])
@@ -253,7 +263,8 @@ def test_cli_flags_outside_the_slice_exit(flags, capsys, monkeypatch):
             "--spec-len": cfg.spec_len == 2,
             "--spec-source": cfg.spec_source == "prompt",
             "--quant": cfg.quantize == "int8",
-            "--prefix-cache": cfg.prefix_cache_entries == 8}[flags[0]]
+            "--prefix-cache": cfg.prefix_cache_entries == 8,
+            "--experts": cfg.model.n_experts == 4}[flags[0]]
     assert eng.requests_total >= 1
 
 
@@ -320,7 +331,7 @@ def test_unchanged_monitor_scrapes_the_port_cli_over_http():
     proc = subprocess.Popen(
         [sys.executable, "-m", "tpumon_torch.loadgen.serving", "--device",
          "cpu", "--port", "0", "--rps", "20", "--max-new", "4",
-         "--duration", "60"],
+         "--duration", "60", "--no-report"],
         cwd=root, env=dict(os.environ, PYTHONPATH=str(root),
                            OMP_NUM_THREADS="1"),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)

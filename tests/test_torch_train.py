@@ -254,7 +254,18 @@ def test_cli_trains_on_cpu(capsys):
 
 @pytest.mark.parametrize("flags", [["--experts", "4"], ["--parallel", "sp"],
                                    ["--parallel", "sp-ring"]])
-def test_cli_flags_outside_the_slice_exit(flags, capsys):
+def test_cli_flags_outside_the_slice_exit(flags, capsys, monkeypatch,
+                                          tmp_path):
+    """The MoE family trains now (with the workload self-report, on by
+    default, into tmp_path); the sequence-parallel modes still exit."""
+    if flags[0] == "--experts":
+        from tpumon_torch.loadgen import report
+
+        monkeypatch.setattr(report, "DEFAULT_DIR", str(tmp_path))
+        assert train.main(flags + ["--device", "cpu", "--steps", "2",
+                                   "--batch", "1", "--seq", "16"]) == 0
+        assert "'step': 1" in capsys.readouterr().out
+        return
     with pytest.raises(SystemExit) as exc:
         train.main(flags + ["--device", "cpu"])
     assert exc.value.code == 2

@@ -15,7 +15,9 @@ Hopper, ``tpumon_torch.ops.paged_attention``), fused block decode and
 keyed temperature/top-k sampling on JAX's threefry (``tpumon_torch.prng``);
 the burns and kernel measurements; and the single-GPU trainer, whose flash schedule runs causal attention
 forward and backward through hand-written CUDA kernels
-(``tpumon_torch.ops.flash_attention``), with checkpoints the engine serves.
+(``tpumon_torch.ops.flash_attention``), with checkpoints the engine serves;
+the Mixture-of-Experts model family in both; the induction trainer; and
+the workload self-report the monitor reads (``source: workload``).
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version instead.
 """

@@ -2,5 +2,7 @@
 (``model``), the paged KV pool (``paged_kv``), the continuous-batching
 serving engine with its dense cache and ``/metrics`` endpoint
 (``serving``), multi-token decode (``speculative``), the burns (``burn``),
-and the trainer (``train``) with its checkpoints (``checkpoint``) and the
-online-softmax block update of its chunked schedule (``ring_attention``)."""
+the trainer (``train``, with the induction trainer and its Adam step) with
+its checkpoints (``checkpoint``) and the online-softmax block update of its
+chunked schedule (``ring_attention``), the Mixture-of-Experts FFN
+(``moe``), and the workload self-report (``report``)."""

@@ -9,10 +9,12 @@ packages can run identical weights, and the training path: ``forward``,
 ``loss_fn`` and ``sgd_train_step`` with the three attention schedules
 (``naive``, ``chunked`` and ``flash``, the last through the hand-written
 CUDA kernels of ``tpumon_torch.ops.flash_attention``) and per-layer
-``remat``. Params are a plain dict of tensors (the JAX pytree's exact
-structure), so the code reads ``params["layers"][li]["wq"]`` in both
-packages. The mesh-sharded step is multi-GPU work, not yet ported
-(ROADMAP queue 1 item 12).
+``remat``, for the dense Llama-style family and the Mixture-of-Experts
+family (``n_experts > 0``: each layer's SwiGLU becomes the routed expert
+FFN of ``tpumon_torch.loadgen.moe``). Params are a plain dict of tensors
+(the JAX pytree's exact structure), so the code reads
+``params["layers"][li]["wq"]`` in both packages. The mesh-sharded step is
+multi-GPU work, not yet ported (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from tpumon_torch.loadgen.moe import MoEConfig, init_moe_params, moe_ffn
 from tpumon_torch.loadgen.ring_attention import _block_attend
 from tpumon_torch.ops.flash_attention import (
     flash_attention_tri_bwd,
@@ -52,7 +55,10 @@ class ModelConfig:
     # grid T pads to).
     attention: str = "naive"
     attn_block_k: int = 512
-    # Mixture-of-Experts family: not yet ported (ROADMAP queue 1 item 8).
+    # Mixture-of-Experts family: n_experts>0 replaces each layer's SwiGLU
+    # with a top-1 routed expert FFN (loadgen.moe), in training and in
+    # every serving mode (decoder_forward routes at full capacity). 0 = the
+    # dense Llama-style family.
     n_experts: int = 0
     moe_capacity_factor: float = 1.25
 
@@ -64,10 +70,6 @@ class ModelConfig:
                 f"attn_block_k must be >= 1, got {self.attn_block_k}")
         if self.n_experts < 0:
             raise ValueError(f"n_experts must be >= 0, got {self.n_experts}")
-        if self.n_experts:
-            raise NotImplementedError(
-                "the MoE model family (n_experts>0) is not yet ported "
-                "(ROADMAP queue 1 item 8)")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.d_model % self.n_heads or self.n_heads % self.n_kv_heads:
@@ -101,17 +103,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "attn_norm": torch.ones((cfg.d_model,), device=dev),
             "wq": dense((cfg.d_model, nh * hd)),
             "wk": dense((cfg.d_model, nkv * hd)),
             "wv": dense((cfg.d_model, nkv * hd)),
             "wo": dense((nh * hd, cfg.d_model)),
             "mlp_norm": torch.ones((cfg.d_model,), device=dev),
-            "w_gate": dense((cfg.d_model, cfg.d_ff)),
-            "w_up": dense((cfg.d_model, cfg.d_ff)),
-            "w_down": dense((cfg.d_ff, cfg.d_model)),
-        })
+        }
+        if cfg.n_experts:
+            layer["moe"] = init_moe_params(_moe_config(cfg), generator)
+        else:
+            layer.update({
+                "w_gate": dense((cfg.d_model, cfg.d_ff)),
+                "w_up": dense((cfg.d_model, cfg.d_ff)),
+                "w_down": dense((cfg.d_ff, cfg.d_model)),
+            })
+        layers.append(layer)
     return {
         "embed": dense((cfg.vocab, cfg.d_model), scale=0.02),
         "layers": layers,
@@ -366,16 +374,41 @@ def _attention(cfg: ModelConfig, layer: dict, x: torch.Tensor,
     return out.reshape(b, t, nh * hd) @ layer["wo"].to(dt)
 
 
-def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, layer: dict, x: torch.Tensor) -> torch.Tensor:
+    if "moe" in layer:
+        return _moe_mlp(cfg, layer["moe"], x)
     dt = x.dtype
     h = F.silu(x @ layer["w_gate"].to(dt)) * (x @ layer["w_up"].to(dt))
     return h @ layer["w_down"].to(dt)
 
 
+def _moe_config(cfg: ModelConfig) -> MoEConfig:
+    return MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                     n_experts=cfg.n_experts,
+                     capacity_factor=cfg.moe_capacity_factor)
+
+
+def _moe_mlp(cfg: ModelConfig, moe_params: dict, x: torch.Tensor,
+             full_capacity: bool = False) -> torch.Tensor:
+    """Routed expert FFN over [B, T, D]: flattens the tokens, routes them
+    through ``moe.moe_ffn`` (top-1, fixed capacity, or G with
+    ``full_capacity``: no drops) and restores the shape. Every leaf but
+    the f32 router is taken in the compute dtype first (a quantized one
+    dequantized), as the reference casts them; the products then run in
+    f32 and the result comes back in the compute dtype."""
+    b, t, d = x.shape
+    dt = x.dtype
+    params = {k: v if k == "router" else v.to(dt)
+              for k, v in moe_params.items()}
+    out = moe_ffn(_moe_config(cfg), params, x.reshape(b * t, d),
+                  capacity=b * t if full_capacity else None)
+    return out.reshape(b, t, d).to(dt)
+
+
 def _layer_block(cfg: ModelConfig, x: torch.Tensor,
                  layer: dict) -> torch.Tensor:
     x = x + _attention(cfg, layer, _rms_norm(x, layer["attn_norm"]))
-    return x + _mlp(layer, _rms_norm(x, layer["mlp_norm"]))
+    return x + _mlp(cfg, layer, _rms_norm(x, layer["mlp_norm"]))
 
 
 def forward(cfg: ModelConfig, params: dict,

@@ -21,10 +21,12 @@ layer-truncated draft, prompt lookup; dense and paged), prefix caching
 actuator verbs (``set_shed``, ``nudge_capacity``, the slice drain and
 requeue, ``adopt``/``evict_all``), serving a trainer checkpoint
 (``ckpt_dir``), the /metrics + /generate server, the arrival loop and
-``start_background``. The defaults are the reference's:
-``kv_layout="dense"``, ``paged_attn="gather"``. The MoE family and the
-mesh and ring engines raise "not yet ported" when asked for (ROADMAP
-queue 1).
+``start_background``, the MoE model family (``decoder_forward`` routes
+at full capacity, so every mode emits the same tokens) and the workload
+self-report (``engine.reporter``, ``tpumon_torch.loadgen.report``). The
+defaults are the reference's: ``kv_layout="dense"``,
+``paged_attn="gather"``. The mesh and ring engines raise "not yet ported"
+when asked for (ROADMAP queue 1 item 12).
 
 Host-mirror discipline as in the reference: positions are mirrored on the
 host, so a decode step (or a fused block of ``decode_block`` steps) costs
@@ -52,10 +54,10 @@ from tpumon_torch.loadgen.checkpoint import (
 )
 from tpumon_torch.loadgen.model import (
     ModelConfig,
+    _moe_mlp,
     _rms_norm,
     init_params,
     leaf_bytes,
-    map_params,
     param_bytes,
     param_leaves,
     resolve_device,
@@ -98,6 +100,11 @@ class ServeConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     slots: int = 4  # concurrent decode slots (continuous batching)
     prefill_len: int = 64  # static prompt padding length == page size
+    # MoE prefill-chunk cap: serving routes MoE layers at full capacity
+    # (C = the chunk's G tokens, so every mode emits the same tokens), so
+    # a chunk's expert products run over E x G rows and the reference's
+    # dispatch/combine tensors are [G, E, G]. The engine refuses MoE
+    # configs whose prefill_len exceeds the cap (the reference's message).
     moe_prefill_max_chunk: int = 256
     # Weight-only quantization: None (compute dtype) or "int8"
     # (tpumon_torch.loadgen.quant).
@@ -178,12 +185,19 @@ def default_engine_config() -> ServeConfig:
     )
 
 
-def _place(params, device, dt) -> dict:
+def _place(params, device, dt, name: str = ""):
     """A param tree on ``device`` in the compute dtype ``dt``; a quantized
-    weight keeps its int8 codes and f32 scales."""
-    return map_params(params, lambda t: t.to_device(device)
-                      if isinstance(t, QTensor) else t.to(device=device,
-                                                          dtype=dt))
+    weight keeps its int8 codes and f32 scales, and the MoE router stays
+    f32 (the reference routes in f32: a bf16 router would route
+    otherwise)."""
+    if isinstance(params, dict):
+        return {k: _place(v, device, dt, k) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_place(v, device, dt) for v in params]
+    if isinstance(params, QTensor):
+        return params.to_device(device)
+    return params.to(device=device,
+                     dtype=torch.float32 if name == "router" else dt)
 
 
 def _rope_at(x: torch.Tensor, positions: torch.Tensor,
@@ -251,8 +265,17 @@ def decoder_forward(cfg: ServeConfig, params: dict, tokens: torch.Tensor,
                 "bhqk,bkhd->bqhd", probs, vr).reshape(b, t, nh * hd)
         x = x + att @ layer["wo"].to(dt)
         hm = _rms_norm(x, layer["mlp_norm"])
-        gate = F.silu(hm @ layer["w_gate"].to(dt))
-        x = x + (gate * (hm @ layer["w_up"].to(dt))) @ layer["w_down"].to(dt)
+        if "moe" in layer:
+            # The MoE family at FULL capacity (no drops): a capacity set
+            # by the batch's shape would route the same sequence
+            # differently through chunked prefill, step decode, fused
+            # blocks and the speculative verify; full capacity makes every
+            # mode emit the same tokens.
+            x = x + _moe_mlp(m, layer["moe"], hm, full_capacity=True)
+        else:
+            gate = F.silu(hm @ layer["w_gate"].to(dt))
+            x = x + (gate * (hm @ layer["w_up"].to(dt))) @ layer[
+                "w_down"].to(dt)
     return _rms_norm(x, params["final_norm"])
 
 
@@ -633,6 +656,10 @@ class ServingEngine:
         self.slices: tuple[str, ...] = ()
         self._slice_rr = 0
         self._drained: set[str] = set()
+        # Optional report.WorkloadReporter: when attached, step() time
+        # counts as declared device activity (source: workload in the
+        # monitor's counter chain).
+        self.reporter = None
 
     def _validate(self) -> None:
         """The reference's composition rules and messages, checked before
@@ -652,6 +679,14 @@ class ServingEngine:
             raise ValueError(
                 "pool_pages requires kv_layout='paged' (a dense cache "
                 "has no page pool to size)")
+        if cfg.model.n_experts and cfg.prefill_len > cfg.moe_prefill_max_chunk:
+            raise ValueError(
+                f"MoE serving at prefill_len={cfg.prefill_len} would "
+                f"materialize O(G²·E) routing tensors per chunk "
+                f"(full-capacity routing, ServeConfig.moe_prefill_max_chunk "
+                f"doc): cap is {cfg.moe_prefill_max_chunk} tokens — "
+                "lower prefill_len (long prompts run as multiple chunks) "
+                "or raise moe_prefill_max_chunk knowingly")
         if cfg.decode_block < 1:
             raise ValueError(
                 f"decode_block must be >= 1, got {cfg.decode_block}")
@@ -1234,7 +1269,16 @@ class ServingEngine:
 
     def step(self) -> bool:
         """Admit + prefill tick + one decode step (plain, fused block or
-        speculative round); returns True if any work remains."""
+        speculative round); returns True if any work remains. With a
+        ``reporter`` attached, the step counts as declared device work: it
+        ends in the decode's one device->host sync, so its wall time
+        covers the device work it queued."""
+        if self.reporter is not None:
+            with self.reporter.device_work():
+                return self._step_inner()
+        return self._step_inner()
+
+    def _step_inner(self) -> bool:
         self._admit()
         # Cancelled mid-flight requests free their slot (and pages)
         # before the prefill tick, so a dead request's chunks never
@@ -2005,9 +2049,10 @@ def main(argv: list[str] | None = None) -> int:
     """``python -m tpumon_torch.loadgen.serving`` — run the serving
     loadgen on the GPU: synthetic request arrivals + /metrics for tpumon
     to scrape. Same flags and defaults as ``python -m
-    tpumon.loadgen.serving`` (dense layout, gather read path); a flag
-    asking for anything the port does not have yet (the mesh and ring
-    engines, the MoE family) exits with "not yet ported"."""
+    tpumon.loadgen.serving`` (dense layout, gather read path, the
+    workload self-report on); a flag asking for anything the port does
+    not have yet (the mesh and ring engines) exits with "not yet
+    ported"."""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -2075,10 +2120,14 @@ def main(argv: list[str] | None = None) -> int:
                          "behind a page-blocked queue head (0 = strict "
                          "FIFO)")
     ap.add_argument("--experts", type=int, default=0,
-                    help="MoE model family (not yet ported; 0 = dense)")
+                    help="serve the MoE model family: this many "
+                         "top-1-routed experts per layer (0 = dense; "
+                         "full-capacity routing in serving so every "
+                         "decode mode stays token-identical)")
     ap.add_argument("--no-report", action="store_true",
-                    help="accepted for flag parity; the workload "
-                         "self-report is not yet ported")
+                    help="disable the workload self-report (HBM "
+                         "footprint + activity to the monitor's "
+                         "source:workload channel)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises when no "
                          "GPU is present)")
@@ -2087,7 +2136,6 @@ def main(argv: list[str] | None = None) -> int:
         (args.paged_attn == "ring", "--paged-attn ring"),
         (args.mesh is not None, "--mesh"),
         (args.ring_attn != 0, "--ring-attn"),
-        (args.experts != 0, "--experts"),
     ]
     for asked, flag in not_ported:
         if asked:
@@ -2118,7 +2166,8 @@ def main(argv: list[str] | None = None) -> int:
                  "--kv-dtype compute (the kernel reads bf16/f32 pages)")
 
     model = ModelConfig(vocab=2048, d_model=256, n_layers=4, n_heads=8,
-                        n_kv_heads=4, d_ff=1024, max_seq=256)
+                        n_kv_heads=4, d_ff=1024, max_seq=256,
+                        n_experts=args.experts)
     draft = (dc_replace(model, n_layers=args.spec_draft_layers)
              if args.spec_draft_layers else None)
     try:
@@ -2139,6 +2188,12 @@ def main(argv: list[str] | None = None) -> int:
     print(f"serving loadgen: /metrics on :{port} "
           f"(point TPUMON_SERVING_TARGETS=http://127.0.0.1:{port}/metrics)",
           flush=True)
+    reporter = None
+    if not args.no_report:
+        from tpumon_torch.loadgen.report import WorkloadReporter
+
+        reporter = WorkloadReporter(name="serve").start()
+        engine.reporter = reporter
     try:
         _arrival_loop(engine, args.rps, args.max_new, threading.Event(),
                       duration=args.duration, temperature=args.temperature,
@@ -2146,6 +2201,8 @@ def main(argv: list[str] | None = None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if reporter is not None:
+            reporter.stop()
         server.shutdown()
         server.server_close()
     return 0

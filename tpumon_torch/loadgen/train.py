@@ -8,19 +8,23 @@ card, saving checkpoints (``tpumon_torch.loadgen.checkpoint``) every
 serves the same ``tpumon_train_*`` Prometheus text as the reference, so
 the unchanged monitor scrapes it through ``TPUMON_SERVING_TARGETS``.
 
-Ported here: ``parallel="auto"`` on one device. Sequence parallelism
-(``"sp"``/``"sp-ring"``) and the dp x tp mesh are multi-GPU work, the MoE
-family and the workload self-report are not yet ported (ROADMAP queue 1
-items 8 and 12), and ``train_induction`` comes with the slice that uses
-it.
+Ported here: ``parallel="auto"`` on one device, for the dense and the MoE
+families (``--experts``); the workload self-report (``run_train(reporter=
+...)``, on by default in the CLI); and ``train_induction``, the Adam
+trainer of the induction (copy) task that gives prompt-lookup speculation
+a target that really copies. Sequence parallelism (``"sp"``/``"sp-ring"``)
+and the dp x tp mesh are multi-GPU work, not yet ported (ROADMAP queue 1
+item 12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tpumon_torch import prng
@@ -28,9 +32,12 @@ from tpumon_torch.loadgen.checkpoint import restore_checkpoint, save_checkpoint
 from tpumon_torch.loadgen.model import (
     ModelConfig,
     init_params,
+    param_leaves,
     resolve_device,
     sgd_train_step,
+    value_and_grad,
 )
+from tpumon_torch.ops import threefry
 
 
 @dataclass(frozen=True)
@@ -50,6 +57,11 @@ class TrainConfig:
     def __post_init__(self) -> None:
         if self.parallel not in ("auto", "sp", "sp-ring"):
             raise ValueError(f"unknown parallel mode {self.parallel!r}")
+        if self.parallel != "auto" and self.model.n_experts:
+            raise ValueError(
+                "the MoE family does not compose with parallel="
+                f"{self.parallel!r} yet (the sp step's layer body runs "
+                "the dense family only); train MoE with parallel='auto'")
         if self.parallel != "auto":
             raise NotImplementedError(
                 f"parallel={self.parallel!r} is not yet ported (ROADMAP "
@@ -282,11 +294,93 @@ def fused_train_bench(cfg: TrainConfig, steps: int, device=None) -> dict:
     }
 
 
+class Adam:
+    """``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) over a
+    list of f32 tensors, updated in place: the moments' moving averages,
+    bias correction by the step count, then ``p + (-lr) * m_hat /
+    (sqrt(v_hat) + eps)``, each in optax's order of operations, in f32."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+    def __init__(self, params: list, lr: float) -> None:
+        self.lr = lr
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.count = 0
+
+    @staticmethod
+    def _correction(decay: float, count: int) -> float:
+        # optax's 1 - decay**count, in f32.
+        return float(np.float32(1.0) - np.power(np.float32(decay),
+                                                np.float32(count)))
+
+    @torch.no_grad()
+    def step(self, params: list, grads) -> None:
+        """One update of every tensor; the ``_foreach`` ops make each
+        elementwise step one launch over all tensors on the card."""
+        self.count += 1
+        c1 = self._correction(self.b1, self.count)
+        c2 = self._correction(self.b2, self.count)
+        grads = list(grads)
+        torch._foreach_mul_(self.mu, self.b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - self.b1))
+        torch._foreach_mul_(self.nu, self.b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1 - self.b2))
+        denom = torch._foreach_add(
+            torch._foreach_sqrt(torch._foreach_div(self.nu, c2)), self.eps)
+        update = torch._foreach_div(torch._foreach_div(self.mu, c1), denom)
+        torch._foreach_add_(params, torch._foreach_mul(update, -self.lr))
+
+
+def induction_batches(model: ModelConfig, steps: int, period: int,
+                      seq: int, batch: int, seed: int,
+                      device) -> torch.Tensor:
+    """``train_induction``'s batches, int32 [steps, batch, seq]: per key of
+    ``split(PRNGKey(seed ^ 0xC0FFEE), steps)``, ``randint(k, (batch,
+    period), 1, vocab)`` tiled to ``seq``, the reference's draws bit for
+    bit (on the card: one key launch and one draw launch of the fused
+    threefry kernels)."""
+    keys = threefry.split(prng.torch_key(seed ^ 0xC0FFEE, device), steps)
+    pattern = threefry.randint(keys, (batch, period), 1, model.vocab)
+    return pattern.repeat(1, 1, -(-seq // period))[:, :, :seq]
+
+
+def train_induction(model: ModelConfig, steps: int = 2000, period: int = 16,
+                    seq: int = 256, batch: int = 16, lr: float = 1e-3,
+                    seed: int = 0, device=None, params: dict | None = None):
+    """Train ``model`` to CONTINUE periodic token sequences (the
+    induction/copy task) with Adam, one eager step a batch.
+
+    The reference's function: bench.py's prompt-lookup speculation
+    benchmark trains the serving model here so that measured acceptance is
+    a property of real target agreement (against an untrained target any
+    proposer's acceptance is noise, and plain SGD at the loadgen's lr
+    leaves the copy task unlearned). ``params`` (trained in place) bridges
+    weights in; by default they are drawn from ``seed`` by ``init_params``.
+    Returns (trained params, losses f32 [steps]).
+    """
+    device = resolve_device(device)
+    if params is None:
+        params = init_params(
+            model, torch.Generator(device=device).manual_seed(seed))
+    leaves = param_leaves(params)
+    opt = Adam(leaves, lr)
+    losses = []
+    for tokens in induction_batches(model, steps, period, seq, batch, seed,
+                                    device):
+        loss, grads = value_and_grad(model, params, tokens)
+        opt.step(leaves, grads)
+        losses.append(loss)
+    return params, torch.stack(losses)
+
+
 def run_train(cfg: TrainConfig, device=None, log=lambda s: None,
-              metrics: TrainMetrics | None = None) -> dict:
+              metrics: TrainMetrics | None = None, reporter=None) -> dict:
     """Run (or resume) the loop on one device (CUDA unless asked
     otherwise); returns {step, loss, resumed_from, tokens_per_sec, mesh,
-    params}."""
+    params}. With a ``reporter`` (``report.WorkloadReporter``), each step
+    and its loss's read-back count as declared device work."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     params = init_params(cfg.model, gen)
@@ -298,18 +392,26 @@ def run_train(cfg: TrainConfig, device=None, log=lambda s: None,
             params, saved_step = restored
             start = resumed_from = saved_step + 1
             log(f"resumed from step {saved_step}")
-    return _train_loop(cfg, device, log, metrics, params, start, resumed_from)
+    return _train_loop(cfg, device, log, metrics, params, start, resumed_from,
+                       reporter)
 
 
-def _train_loop(cfg, device, log, metrics, params, start,
-                resumed_from) -> dict:
+def _train_loop(cfg, device, log, metrics, params, start, resumed_from,
+                reporter) -> dict:
     loss = None  # stays None when resume lands at/past the final step
     t0 = time.perf_counter()
     tokens_seen = 0
     for step in range(start, cfg.steps):
         t_step = time.perf_counter()
         tokens = synthetic_batch(cfg, step, device)
-        params, loss_t = sgd_train_step(cfg.model, params, tokens, lr=cfg.lr)
+        # Self-report: torch queues the step asynchronously, so the
+        # declared device work ends in the loss's read-back (a sync).
+        with (reporter.device_work() if reporter is not None
+              else contextlib.nullcontext()):
+            params, loss_t = sgd_train_step(cfg.model, params, tokens,
+                                            lr=cfg.lr)
+            if reporter is not None:
+                loss_t.item()
         tokens_seen += cfg.batch * cfg.seq
         if metrics is not None:
             # The loop only enqueues work on the card: loop dt amortizes
@@ -341,8 +443,9 @@ def _train_loop(cfg, device, log, metrics, params, start,
 
 def main(argv: list[str] | None = None) -> int:
     """``python -m tpumon_torch.loadgen.train`` — the loadgen trainer on
-    the GPU, with the reference's flags. Multi-device modes and the MoE
-    family exit with "not yet ported"."""
+    the GPU, with the reference's flags (the workload self-report on
+    unless ``--no-report``). Multi-device modes exit with "not yet
+    ported"."""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -373,20 +476,21 @@ def main(argv: list[str] | None = None) -> int:
                     help="K/V block rows for --attention chunked, block "
                     "grid for flash")
     ap.add_argument("--experts", type=int, default=0,
-                    help="MoE model family (not yet ported; 0 = dense)")
+                    help="MoE model family: replace each layer's dense "
+                    "SwiGLU with this many top-1-routed experts "
+                    "(0 = dense; GShard capacity-factor routing)")
     ap.add_argument("--parallel", choices=["auto", "sp", "sp-ring"],
                     default="auto",
                     help="'auto': one device; 'sp'/'sp-ring' sequence "
                     "parallelism is not yet ported")
     ap.add_argument("--no-report", action="store_true",
-                    help="accepted for flag parity; the workload "
-                    "self-report is not yet ported")
+                    help="disable the workload self-report (HBM "
+                    "footprint + activity to the monitor's "
+                    "source:workload channel)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; raises when no GPU "
                     "is present)")
     args = ap.parse_args(argv)
-    if args.experts:
-        ap.error("--experts is not yet ported (ROADMAP queue 1 item 8)")
     if args.parallel != "auto":
         ap.error(f"--parallel {args.parallel} is not yet ported (ROADMAP "
                  "queue 1 item 12)")
@@ -396,6 +500,7 @@ def main(argv: list[str] | None = None) -> int:
             vocab=2048, d_model=256, n_layers=4, n_heads=8, n_kv_heads=4,
             d_ff=1024, max_seq=max(64, args.seq), remat=args.remat,
             attention=args.attention, attn_block_k=args.attn_block,
+            n_experts=args.experts,
         ),
         steps=args.steps, batch=args.batch, seq=args.seq,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
@@ -414,9 +519,17 @@ def main(argv: list[str] | None = None) -> int:
             peak_flops=peak)
         httpd, url = start_metrics_server(metrics, port=args.metrics_port)
         print(f"train metrics at {url}", flush=True)
+    reporter = None
+    if not args.no_report:
+        from tpumon_torch.loadgen.report import WorkloadReporter
+
+        reporter = WorkloadReporter(name="train").start()
     try:
-        out = run_train(cfg, device, log=print, metrics=metrics)
+        out = run_train(cfg, device, log=print, metrics=metrics,
+                        reporter=reporter)
     finally:
+        if reporter is not None:
+            reporter.stop()
         if httpd is not None:
             httpd.shutdown()
             httpd.server_close()
