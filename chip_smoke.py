@@ -56,7 +56,11 @@ Phases, each of which exits non-zero on failure:
    warpgroups of 64, and its 64-row streamed tiles), must read over the
    same limit where they apply. The bf16 forward's and backward's ptxas
    lines, shared memory and registers after setmaxnreg are printed after
-   the build.
+   the build. Then the bf16 gradients on more draws at the production
+   shape (numpy's from seeds 0-7, as tests/flash_spread.py gives them to
+   the JAX reference's kernel on the CPU, and flash_variants' draw) under
+   the same limit, each draw's worst slice saved to build/flash_spread/
+   for tests/flash_spread.py --slices.
 8. trainer: the trainer at production width (bench.py's d2048/L6 flash
    schedule: vocab 4096, d_model 2048, 6 layers, 16/16 heads, d_ff 8192,
    attn_block_k 512, batch 8, seq 1024, bf16 over f32 master weights,
@@ -128,7 +132,9 @@ Phases, each of which exits non-zero on failure:
     sampler's keys and [16, 4096] categorical, the burns' 4096^2 bf16
     normals and int8 randint, the paged burn's pool, queries and table),
     every element equal; then each kernel's time beside its plain
-    version's and its bound.
+    version's and its bound, the normal also at [8, 4096, 4096], where
+    back-to-back launches keep the card busy (its summary row), bounded
+    at the card's issue rate (SMs x 128 lanes x the maximum SM clock).
 18. serving features: phase 4's model. Prefix caching (16 requests behind
     a 2048-token system prompt, tails of 64-512 tokens, half sampled;
     dense with 4 entries and paged kernel at block 8 with the admission
@@ -170,6 +176,18 @@ Phases, each of which exits non-zero on failure:
     prompt lookup against plain block-8 decode of the trained model on
     bench.py's periodic prompts: identical streams, acceptance and both
     tokens/s.
+20. the monitor's GPU collectors and validate: the in-process NVML
+    collector (tpumon_torch/collectors/accel_cuda.py) sees the card as
+    nvidia-smi does (kind h100, name, memory.total, memory.used within
+    256 MiB, the card idle); its hbm_used rises by at least 0.9 x the
+    bytes of hbm_fill(0.3); its mxu_duty_pct reaches 80% in one of five
+    samples a second apart under mxu_burn(use_kernel=True) (the GEMM
+    kernel's launches counted from 0), and is read under the default
+    (cuBLAS) burn too; python -m tpumon_torch.validate runs in its own
+    process with its defaults (backend cuda, device cuda) and exits 0
+    with every check PASS but dark source-* SKIPs and source-nvml PASS;
+    the median cost of 50 collects of the NVML collector and of the
+    nvidia-smi one.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -988,10 +1006,16 @@ FLASH_KERNELS = ("flash_attention_tri_fwd", "flash_attention_tri_bwd_dq",
 # another order: kernels 1.5e-6, faults 7.2e-2. bf16 out: P rounds to
 # bf16 at other running maxima than the plain version's one block per
 # row: 2.7e-3 against 7.3e-2. bf16 gradients: the kernels round dS and P
-# where the plain versions do, 1.0e-3, against 2.8e-3 for P and dS left
-# unrounded.
+# where the plain versions do, against 2.8e-3 for P and dS left
+# unrounded; where a dominant entry's f32 value lies a hair from a bf16
+# rounding point, any other exact computation rounds it the other way, so
+# the reading depends on the draw: 1.93e-3 on flash_variants' draw (an
+# NVIDIA H100 80GB HBM3 at 700 W), where the JAX reference's own Pallas
+# backward reads 1.90e-3 against the same plain version (tests/
+# flash_spread.py on the slice check_flash_grad_spread saves). 2.3e-3 lies
+# between, 1.2x from each.
 FLASH_TOL = {"float32": {"out": 1e-4, "grad": 1e-4, "lse": 2e-5},
-             "bfloat16": {"out": 1.5e-2, "grad": 1.7e-3, "lse": 2e-5}}
+             "bfloat16": {"out": 1.5e-2, "grad": 2.3e-3, "lse": 2e-5}}
 FLASH_TILE = 64  # rows of the tiles tile_rel_err runs over (T % 64 == 0)
 # The tiles a kernel's planted faults are modelled at: the bf16 forward's
 # 128-row q and k tiles (csrc/flash_fwd.cuh); the backward kernels' (csrc/
@@ -1341,6 +1365,92 @@ def check_flash_kernels(gen) -> dict:
             del q, k, v, g, want_out, want_lse, dvec, got, want
             torch.cuda.empty_cache()
     return worst
+
+
+# The bf16 gradients' spread on more draws, at phase 7's production shape:
+# the draws tests/flash_spread.py gives the JAX reference's own Pallas
+# backward on the CPU (numpy's standard normals from each seed), so each
+# card reading has the reference kernel's on the same inputs, and the
+# draw of tpumon_torch/ops/flash_variants.py --backward, which read dQ at
+# 1.93e-3. Each case's worst (output, bh) slice goes to SPREAD_DIR with
+# the kernel's gradients there, for tests/flash_spread.py --slices.
+FLASH_SPREAD_SEEDS = range(8)
+SPREAD_DIR = Path(__file__).resolve().parent / "build" / "flash_spread"
+
+
+def spread_cases():
+    """(label, q, k, v, dO) on the card, one case at a time."""
+    import numpy as np
+    import torch
+
+    bh, t, hd = 128, 1024, 128
+    for seed in FLASH_SPREAD_SEEDS:
+        rng = np.random.default_rng(seed)
+        yield (f"seed{seed}", *(torch.from_numpy(rng.standard_normal(
+            (bh, t, hd), np.float32)).to("cuda", torch.bfloat16)
+            for _ in range(4)))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    yield ("variants_draw", *(torch.randn(bh, t, hd, generator=gen,
+                                          device="cuda").bfloat16()
+                              for _ in range(4)))
+
+
+def check_flash_grad_spread() -> None:
+    """Each bf16 gradient kernel against its plain version on
+    spread_cases(), under phase 7's limit; saves each case's worst slice."""
+    import numpy as np
+    import torch
+
+    from tpumon_torch.ops import flash_attention as fa
+
+    def bits(x):
+        return x.contiguous().view(torch.int16).cpu().numpy()
+
+    launches = flash_counts()
+    SPREAD_DIR.mkdir(parents=True, exist_ok=True)
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    t0 = time.perf_counter()
+    for label, q, k, v, g in spread_cases():
+        out, lse = fa.flash_attention_tri_fwd_reference(q, k, v)
+        dvec = (g.float() * out.float()).sum(-1)
+        got = dict(zip(("dk", "dv"), fa.flash_attention_tri_bwd_dkv(
+            q, k, v, g, lse, dvec, block=64)))
+        got["dq"] = fa.flash_attention_tri_bwd_dq(q, k, v, g, lse, dvec,
+                                                  block=64)
+        want = dict(zip(("dk", "dv"), fa.flash_attention_tri_bwd_dkv_reference(
+            q, k, v, g, lse, dvec)))
+        want["dq"] = fa.flash_attention_tri_bwd_dq_reference(q, k, v, g, lse,
+                                                             dvec)
+        per_bh = {}
+        for o in ("dq", "dk", "dv"):
+            a, b = (x.float().reshape(q.shape[0], -1, FLASH_TILE * q.shape[2])
+                    for x in (got[o], want[o]))
+            per_bh[o] = ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(
+                1e-30)).amax(dim=-1)
+        rel = {o: float(r.max()) for o, r in per_bh.items()}
+        o_max = max(rel, key=rel.get)
+        b = int(per_bh[o_max].argmax())
+        np.savez(SPREAD_DIR / f"{label}.npz", output=o_max, bh=b,
+                 reading=rel[o_max],
+                 **{n: bits(x[b:b + 1]) for n, x in (
+                     ("q", q), ("k", k), ("v", v), ("dout", g), ("out", out),
+                     ("dq", got["dq"]), ("dk", got["dk"]),
+                     ("dv", got["dv"]))},
+                 lse=lse[b:b + 1].cpu().numpy(),
+                 dvec=dvec[b:b + 1].cpu().numpy())
+        print(f"flash_grad_spread BH{q.shape[0]}/T{q.shape[1]}/hd{q.shape[2]} "
+              f"bfloat16 {label} tile_rel_err={rel} worst_slice=({o_max}, bh "
+              f"{b}) limit={FLASH_TOL['bfloat16']['grad']}", flush=True)
+        for o, r in rel.items():
+            worst[o] = max(worst[o], r)
+        del q, k, v, g, out, lse, dvec, got, want
+    set_flash_counts(launches)  # a check's launches are not the paths'
+    print(f"flash_grad_spread worst={worst} slices={SPREAD_DIR} wall_s="
+          f"{time.perf_counter() - t0!r}", flush=True)
+    over = {o: r for o, r in worst.items()
+            if not r <= FLASH_TOL["bfloat16"]["grad"]}
+    if over:
+        fail(f"bf16 flash gradients over their limit on more draws: {over}")
 
 
 def train_model(dtype="bfloat16", **over):
@@ -2863,14 +2973,33 @@ def time_dense_and_fused(eng, runs: dict, sampler: dict) -> None:
 # what its plain version computes, step for step and rounded alike, so
 # the limit is equality of every element.
 THREEFRY_KERNELS = ("threefry_keys", "threefry_draw", "threefry_categorical")
-# Operations an element, for the bounds: Threefry-2x32 is 77 32-bit
-# integer operations (two key adds, then 5 x (4 x (add, rotate, xor) + 3
-# adds)), 78 with the XOR of its words; a bf16 normal's lookup by its
-# mantissa 3 more (the kernel computes the 128 values once a CTA); a
-# Gumbel's uniform 6 and two logs about 64, its sum and comparison 3.
-# They are counted at the CUDA cores' float32 rate, which no 32-bit
-# integer operation beats, so each bound is still a least time.
-THREEFRY_OPS = {"keys": 77, "normal_bf16": 81, "categorical": 151}
+# Instructions an element, for the bounds, at the fewest a compiler can
+# issue: Threefry-2x32's 20 rounds are 60 (add, rotate, xor); of its 12
+# key adds, the 5 into x0 that a round's add follows fold into that add
+# (IADD3), leaving 7: 67 in all. A bf16 normal adds one: the XOR of the
+# two words and the mask of the 7 mantissa bits that index its table (the
+# kernel looks the normal up among the 128 values a CTA computes once)
+# fold into one LOP3: 68. The categorical adds the XOR, a Gumbel's uniform
+# 6, two logs about 64, its sum and comparison 3: 141. Each is counted at the
+# card's issue rate, one 32-bit instruction a lane a clock (SMs x 128
+# lanes x the maximum SM clock, read from the card), which no instruction
+# stream exceeds, so each bound is a least time. (The float32 FLOP rate,
+# used before, counts an FMA as two and so halved the bounds.)
+THREEFRY_OPS = {"keys": 67, "normal_bf16": 68, "categorical": 141}
+# The normal draw is also timed at [8, 4096, 4096], where one call's
+# device time is 8x the 4096^2 draw's and dwarfs the wrapper's host time,
+# so back-to-back launches keep the card busy: device-bound.
+THREEFRY_DEVICE_BOUND_SHAPE = (8, 4096, 4096)
+
+
+def issue_rate() -> tuple[float, int, float]:
+    """(32-bit instructions a second, SMs, maximum SM clock Hz) of card 0:
+    SMs x 128 lanes x the clock nvidia-smi gives as clocks.max.sm."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = float(smi("clocks.max.sm")[0]) * 1e6
+    return sms * 128 * clock, sms, clock
 
 
 def threefry_cases(gen) -> dict:
@@ -2954,7 +3083,11 @@ def check_threefry(gen, bw: float, peaks: dict) -> dict:
     rids = torch.arange(16, dtype=torch.int32, device=dev) * 7
     logits = torch.randn(16, 4096, device=dev, generator=gen)
     keys16 = prng.torch_fold_in(key, rids)
-    f32_rate = peaks["float32"]
+    rate, sms, clock = issue_rate()
+    print(f"threefry_issue_rate ops_per_s={rate!r} (SMs {sms} x 128 lanes x "
+          f"clocks.max.sm {clock / 1e6!r} MHz)", flush=True)
+    big = THREEFRY_DEVICE_BOUND_SHAPE
+    n_big = big[0] * big[1] * big[2]
     timed = {
         "threefry_keys": (
             lambda: threefry.fold_in(key, rids),
@@ -2966,6 +3099,11 @@ def check_threefry(gen, bw: float, peaks: dict) -> dict:
             lambda: prng.normal(key, (4096, 4096), torch.bfloat16),
             16 + 4096 * 4096 * 2, 4096 * 4096 * THREEFRY_OPS["normal_bf16"],
             "normal 4096^2 bf16"),
+        "threefry_draw_device_bound": (
+            lambda: threefry.normal(key, big, torch.bfloat16),
+            lambda: prng.normal(key, big, torch.bfloat16),
+            16 + n_big * 2, n_big * THREEFRY_OPS["normal_bf16"],
+            f"normal {list(big)} bf16"),
         "threefry_categorical": (
             lambda: threefry.categorical(keys16, logits),
             lambda: prng.categorical(keys16, logits),
@@ -2973,10 +3111,11 @@ def check_threefry(gen, bw: float, peaks: dict) -> dict:
             16 * 4096 * THREEFRY_OPS["categorical"],
             "categorical [16, 4096] f32")}
     for kernel, (fused, plain, nbytes, ops, shape) in timed.items():
-        ms = cuda_ms(fused, reps=50, warmup=3)
-        plain_ms = cuda_ms(plain, reps=5, warmup=1)
-        busy = device_busy(fused, reps=20)
-        bytes_ms, ops_ms = nbytes / bw * 1e3, ops / f32_rate * 1e3
+        big_case = kernel.endswith("_device_bound")
+        ms = cuda_ms(fused, reps=20 if big_case else 50, warmup=3)
+        plain_ms = cuda_ms(plain, reps=2 if big_case else 5, warmup=1)
+        busy = device_busy(fused, reps=5 if big_case else 20)
+        bytes_ms, ops_ms = nbytes / bw * 1e3, ops / rate * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         print(f"time_threefry kernel={kernel} shape={shape!r} ms={ms!r} "
@@ -2986,6 +3125,13 @@ def check_threefry(gen, bw: float, peaks: dict) -> dict:
               f"{ms / bound_ms!r} device_ms="
               f"{None if busy is None else busy[0]!r} (profiler, all "
               f"device kernels of a call)", flush=True)
+        if big_case:
+            if ms < bound_ms:
+                fail(f"threefry normal {shape}: {ms!r} ms under its bound "
+                     f"{bound_ms!r} ms: the count, the rate or the timing is "
+                     "off")
+            # The summary's draw row: the device-bound reading.
+            kernel = "threefry_draw"
         out[kernel].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=None)
     for name, n in before.items():  # the check's launches are not the paths'
@@ -3851,6 +3997,199 @@ def phase19() -> dict:
     return out
 
 
+# Phase 20: the monitor's GPU-facing half. The in-process NVML collector
+# (tpumon_torch/collectors/accel_cuda.py) is held to nvidia-smi on this
+# card and must see the burns; then python -m tpumon_torch.validate runs
+# on the card as a user runs it, in its own process, with its defaults.
+# With the card idle, the collector's memory.used and nvidia-smi's, read
+# right after, may differ by what allocations land between the two.
+NVML_USED_SLACK = 256 * 2**20
+NVML_FILL_SHARE = 0.9  # of hbm_fill's bytes the reading must rise by
+DUTY_MIN_PCT = 80.0  # SM utilisation under the GEMM kernel's burn
+
+
+def monitor_chip(collector):
+    """Card 0's ChipSample from one collect; fails unless the sample is
+    whole. Card 0 is torch's device 0, found among NVML's cards by UUID."""
+    import asyncio
+
+    import torch
+
+    from tpumon_torch.collectors.accel_cuda import uuid_key
+
+    s = asyncio.run(collector.collect())
+    if not s.ok or not s.data:
+        fail(f"the NVML collector: ok={s.ok} error={s.error!r}")
+    want = uuid_key(str(torch.cuda.get_device_properties(0).uuid))
+    index = next((c.index for c in collector.cards
+                  if uuid_key(c.uuid) == want), None)
+    if index is None:
+        fail(f"no NVML card has torch device 0's UUID ({collector.cards})")
+    return next(c for c in s.data if c.index == index)
+
+
+def duty_under(burn, collector) -> list:
+    """The collector's mxu_duty_pct of card 0 in five samples a second
+    apart, after a second's start, while ``burn`` runs in a loop in a
+    thread."""
+    import threading
+
+    stop = threading.Event()
+    errors = []
+
+    def loop():
+        try:
+            while not stop.is_set():
+                burn()
+        except BaseException as e:  # handed to the main thread below
+            errors.append(e)
+
+    t = threading.Thread(target=loop)
+    t.start()
+    duty = []
+    try:
+        time.sleep(1.0)
+        for _ in range(5):
+            duty.append(monitor_chip(collector).mxu_duty_pct)
+            time.sleep(1.0)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    if errors or t.is_alive():
+        fail(f"the burn thread failed: {errors}")
+    return duty
+
+
+def collect_ms(collector, n: int = 50) -> float:
+    """Median wall ms of ``n`` collects, each whole."""
+    import asyncio
+    import statistics
+
+    async def run():
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            s = await collector.collect()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not s.ok:
+                fail(f"{type(collector).__name__}: {s.error}")
+        return statistics.median(times)
+
+    return asyncio.run(run())
+
+
+def check_monitor() -> None:
+    """Phase 20: identity, memory and duty of the NVML collector against
+    nvidia-smi and the burns; validate on the card; each collector's cost."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from tpumon_torch.collectors.accel_cuda import CudaGpuCollector, Nvml
+    from tpumon_torch.collectors.gpu import NvidiaSmiCollector
+    from tpumon_torch.loadgen import burn
+    from tpumon_torch.ops import threefry
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the caching allocator's reserve is not a fill
+    collector = CudaGpuCollector(workload_dir=None)
+    monitor_chip(collector)
+    time.sleep(1.0)
+
+    # Identity, against nvidia-smi read right after.
+    chip = monitor_chip(collector)
+    card = next(c for c in collector.cards if c.index == chip.index)
+    name, total, used, reserved = smi(
+        "name,memory.total,memory.used,memory.reserved")
+    nvml = Nvml()
+    nvml.init()
+    h = nvml.handle(card.index)
+    v1, v2 = nvml.memory_v1(h), nvml.memory_v2(h)
+    nvml.shutdown()
+    print(f"monitor_identity chip={chip.to_json()} name={card.name!r} "
+          f"smi_name={name!r} smi_total_mib={total} smi_used_mib={used} "
+          f"smi_reserved_mib={reserved} nvml_v1(total,used)="
+          f"{(v1.total, v1.used)} nvml_v2(total,reserved,used)="
+          f"{(v2.total, v2.reserved, v2.used)} links={card.links}",
+          flush=True)
+    if chip.kind != "h100" or card.name != name:
+        fail(f"identity: kind {chip.kind!r}, name {card.name!r} against "
+             f"nvidia-smi's {name!r}")
+    if chip.hbm_total // 2**20 != int(total):
+        fail(f"hbm_total {chip.hbm_total} B against nvidia-smi's {total} MiB")
+    if abs(chip.hbm_used - float(used) * 2**20) > NVML_USED_SLACK:
+        fail(f"hbm_used {chip.hbm_used} B against nvidia-smi's {used} MiB")
+
+    # Memory response.
+    hbm0 = monitor_chip(collector).hbm_used
+    arrays = burn.hbm_fill(0.3)
+    filled = sum(a.numel() * a.element_size() for a in arrays)
+    hbm1 = monitor_chip(collector).hbm_used
+    del arrays
+    torch.cuda.empty_cache()
+    hbm2 = monitor_chip(collector).hbm_used
+    print(f"monitor_memory hbm_used={[hbm0, hbm1, hbm2]} filled={filled} "
+          f"rise_over_filled={(hbm1 - hbm0) / filled!r}", flush=True)
+    if hbm1 - hbm0 < NVML_FILL_SHARE * filled:
+        fail(f"hbm_used rose {hbm1 - hbm0} B under a {filled} B fill")
+
+    # Duty response: the GEMM kernel's burn (its launches counted from 0),
+    # then the reference's default burn (cuBLAS).
+    gemm_before, draws_before = gemm_counts(), threefry.launch_counts()
+    set_gemm_counts({k: 0 for k in gemm_before})
+    threefry.set_launch_counts(0)
+    duty_kernel = duty_under(lambda: burn.mxu_burn(
+        seconds=0.5, use_kernel=True), collector)
+    launches = {**gemm_counts(), **threefry.launch_counts()}
+    duty_library = duty_under(lambda: burn.mxu_burn(seconds=0.5), collector)
+    set_gemm_counts(gemm_before)
+    for kname, n in draws_before.items():
+        getattr(threefry, kname).launches = n
+    print(f"monitor_duty kernel_burn={duty_kernel} library_burn="
+          f"{duty_library} launches={launches} throttle_score="
+          f"{monitor_chip(collector).throttle_score}", flush=True)
+    if not launches["matmul"]:
+        fail("the duty burn launched no GEMM kernel")
+    if max(d for d in duty_kernel if d is not None) < DUTY_MIN_PCT:
+        fail(f"mxu_duty_pct {duty_kernel} under the GEMM kernel's burn")
+
+    # validate, as a user runs it: backend cuda, device cuda.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "validate.json"
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpumon_torch.validate", "--json",
+             str(path)], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t1
+        for line in proc.stdout.splitlines():
+            print(f"validate | {line}", flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], flush=True)
+            fail(f"python -m tpumon_torch.validate exit {proc.returncode}")
+        art = json.loads(path.read_text())
+    bad = [c for c in art["checks"] if c["verdict"] != "PASS" and not (
+        c["check"].startswith("source-") and c["verdict"] == "SKIP")]
+    nvml_check = [c["verdict"] for c in art["checks"]
+                  if c["check"] == "source-nvml"]
+    print(f"validate seconds={art['seconds']!r} exit={art['exit']} "
+          f"wall_s={wall!r}", flush=True)
+    if bad or nvml_check != ["PASS"]:
+        fail(f"validate on the card: {bad or art['checks']}")
+
+    # Each collector's cost a sample.
+    nvml_ms = collect_ms(collector)
+    smi_ms = collect_ms(NvidiaSmiCollector())
+    asyncio.run(collector.close())
+    print(f"collector_cost nvml_median_ms={nvml_ms!r} nvidia_smi_median_ms="
+          f"{smi_ms!r} (50 collects each) card={card_line()!r}", flush=True)
+    print(f"phase20 wall_s={time.perf_counter() - t0!r}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3892,6 +4231,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     flash_worst = check_flash_kernels(gen)
+    check_flash_grad_spread()
     trained = run_trainer()
     compare_flash_naive()
     check_small_trainer_against_cpu()
@@ -3929,6 +4269,7 @@ def main() -> int:
 
     phase18()
     phase19()
+    check_monitor()
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",

@@ -1,4 +1,4 @@
-"""tpumon_torch — the PyTorch/CUDA port of tpumon's workload stack.
+"""tpumon_torch — the PyTorch/CUDA port of tpumon.
 
 ``tpumon/`` (JAX, Pallas kernels for the TPU) stays the reference; this
 package mirrors its layout path for path so each module's counterpart is
@@ -16,8 +16,11 @@ keyed temperature/top-k sampling on JAX's threefry (``tpumon_torch.prng``);
 the burns and kernel measurements; and the single-GPU trainer, whose flash schedule runs causal attention
 forward and backward through hand-written CUDA kernels
 (``tpumon_torch.ops.flash_attention``), with checkpoints the engine serves;
-the Mixture-of-Experts model family in both; the induction trainer; and
-the workload self-report the monitor reads (``source: workload``).
+the Mixture-of-Experts model family in both; the induction trainer; the
+workload self-report the monitor reads (``source: workload``); and the
+monitor's GPU-facing half: its collector layer, an in-process NVML
+collector (``tpumon_torch.collectors.accel_cuda``, the counterpart of the
+reference's JAX collector) and ``python -m tpumon_torch.validate``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version instead.
 """

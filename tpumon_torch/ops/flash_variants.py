@@ -18,7 +18,7 @@ seq-8k shape (BH 16, T 8192), bf16, held to the plain version by the worst
 relative error over 64-row tiles under chip_smoke.py's bf16 out limit
 (1.5e-2). Backward: each runs dQ and dK/dV at both shapes on the plain
 forward's lse and D, each output held to its plain version under the bf16
-gradient limit (1.7e-3), or to the as-built kernel's own reading where
+gradient limit (2.3e-3), or to the as-built kernel's own reading where
 that is over it, but for the diagnostic variants (``BWD_DIAGNOSTIC``),
 whose readings are printed only. Times are CUDA events: per shape, every
 variant twice in palindromic order (a, b, ..., b, a) between two timings
@@ -82,7 +82,7 @@ VARIANTS = {
 }
 
 
-GRAD_TOL = 1.7e-3  # chip_smoke.FLASH_TOL["bfloat16"]["grad"]
+GRAD_TOL = 2.3e-3  # chip_smoke.FLASH_TOL["bfloat16"]["grad"]
 # (name, BH, T) of the backward's timings: the training shape, seq 8k.
 BWD_SHAPES = (("train", 128, 1024), ("seq8k", 16, 8192))
 # The dK/dV loop's schedule within a warpgroup, as built: tile j-1's
