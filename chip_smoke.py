@@ -188,6 +188,27 @@ Phases, each of which exits non-zero on failure:
     with every check PASS but dark source-* SKIPs and source-nvml PASS;
     the median cost of 50 collects of the NVML collector and of the
     nvidia-smi one.
+21. the monitor core: the native layer (tpumon_torch/native, g++) builds
+    into build/tpumon_torch/native/ and the TSDB's ingest kernel loads;
+    python -m tpumon_torch.info runs with its defaults in its own process
+    (exit 0, no degraded source, a row for the card with NVML's HBM
+    total); phase 4's engine (paged kernel) serves 2 x phase 4's 16
+    prompts, 32 new tokens each, from start_background (no synthetic
+    arrivals) behind its /metrics, while a port Sampler (NVML, host and
+    serving collectors; rules chip.mxu[5m] and chip.hbm[5m], the default
+    thresholds, a TTFT SLO, a capacity policy bound to the engine) ticks
+    every second (serving_interval_s cut 5 -> 1 s): the card's duty series
+    rises over its idle ticks, the TSDB's tokens/s integrates to the
+    engine's token count (5%), its last TTFT p50 is the engine's own, the
+    ingest kernel is active, the policy fires and moves the prefill
+    budget, no collector fails, the paged kernel's and the draws' launches
+    are the path's (counted from 0); the tick's p50/p95 and each stage's
+    p50; the engine's tokens/s and decode-step ms without and with a
+    sampler ticking, in turns; a Sampler on fake:v5p-256 with 256 chips'
+    series (1,034 series), 8 + 40 ticks through the ingest kernel and
+    with ingest_kernel off, equal series, the history stage's p50 and the
+    instant and 30 m range queries' p50s. Row 1's and the sampler draws'
+    launches in the summary add this path's to phase 4's.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -4190,6 +4211,431 @@ def check_monitor() -> None:
     print(f"phase20 wall_s={time.perf_counter() - t0!r}", flush=True)
 
 
+# Phase 21: the monitor core. python -m tpumon_torch.info runs on the
+# card; a port Sampler (NVML, host and serving collectors; recording
+# rules, the default thresholds, a TTFT SLO and a capacity policy bound
+# to the engine in process) ticks at the reference's 1 s while phase 4's
+# engine serves behind its /metrics; the engine's tokens/s and step ms
+# with and without the sampler ticking; the reference's fleet scale
+# (fake:v5p-256, 256 chips' series) through both ingest paths.
+# Traffic keeps two waves of phase 4's 16 prompts outstanding (a new
+# wave whenever no more than one is left) for a fixed window, so the
+# number of sampler ticks under load is set by the window, not by how
+# fast the engine serves.
+MONITOR_BUSY_S = 12.0  # the window the checks read: >= 12 ticks serving
+MONITOR_BUSY_TICKS = 10  # fewer ticks under load fail the phase
+MONITOR_SLO = {"name": "ttft", "expr": "ttft_p50_ms > 10000",
+               "target": 0.99, "window": "1h"}
+# Holds while more requests wait than a quarter of a wave; capacity is
+# the one verb that changes what the engine does next without dropping
+# work (the prefill budget 1 -> 2 chunks a step).
+MONITOR_POLICY = {"name": "grow_prefill", "when": "queue_depth > 4",
+                  "action": "capacity", "prefill_budget": 2,
+                  "cooldown_s": 0, "fire_hold": 2, "clear_hold": 2}
+DUTY_RISE_PCT = 5.0  # the card's duty series over its idle maximum
+# The tokens/s series integrated over the sampler's tick times against
+# the engine's token counter: the rate divides by the scrape times, a
+# few ms from the tick times over 1 s ticks.
+TOKENS_TOL = 0.05
+TTFT_WINDOW = 512  # the engine's /metrics TTFT p50 is over its last 512
+# The monitor's cost to the job: one warmed sampler, turns of a fixed
+# window in the order without, with, with, without twice over, under the
+# same continuous traffic; 8 ticks a "with" turn, 32 in all.
+COST_TURNS = ("without", "with", "with", "without") * 2
+COST_TURN_S = 7.5
+COST_WARM_S = 4.0  # the queue filled from empty serves prefill-heavy at first
+COST_MIN_TICKS = 30
+FLEET_WARMUP, FLEET_TICKS = 8, 40  # bench.py:1282-1304
+HOST_SERIES = ("cpu", "memory", "disk", "dcn")
+
+
+def monitor_sampler(url: str, accel, actuations: list):
+    """A port Sampler as tpumon's app builds one: the host collector, the
+    given accelerator collector and a serving collector on ``url``."""
+    from tpumon_torch.collectors.host import HostCollector
+    from tpumon_torch.collectors.serving import ServingCollector
+    from tpumon_torch.config import load_config
+    from tpumon_torch.sampler import Sampler
+
+    cfg = load_config(env={
+        "TPUMON_COLLECTORS": "host,accel,serving",
+        "TPUMON_SERVING_TARGETS": url,
+        "TPUMON_SERVING_INTERVAL_S": "1",
+        "TPUMON_RECORDING_RULES": "chip.mxu[5m],chip.hbm[5m]",
+        "TPUMON_SLOS": json.dumps([MONITOR_SLO]),
+        "TPUMON_ACTUATIONS": json.dumps(actuations),
+    })
+    host = HostCollector(cpu_count=cfg.cpu_count, disk_mounts=cfg.disk_mounts)
+    serving = ServingCollector(targets=cfg.serving_targets)
+    return Sampler(cfg, host=host, accel=accel, serving=serving)
+
+
+async def keep_serving(eng, prompts, max_new: int, reqs: list,
+                       seconds: float, sampler=None, on_tick=None,
+                       interval_s: float = 1.0) -> int:
+    """For ``seconds``, keep two waves of ``prompts`` outstanding at the
+    engine its pump thread steps (appending each request to ``reqs``);
+    with a sampler, tick_all every ``interval_s`` from the start (calling
+    ``on_tick()`` after each tick). Returns the number of ticks."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    next_tick, ticks = t0, 0
+    pending: list = []
+    while (now := time.perf_counter()) < t0 + seconds:
+        pending = [r for r in pending if not r.status]
+        if len(pending) <= len(prompts):
+            wave = [eng.submit(p, max_new=max_new) for p in prompts]
+            pending += wave
+            reqs += wave
+        if sampler is not None and now >= next_tick:
+            next_tick += interval_s
+            await sampler.tick_all()
+            ticks += 1
+            if on_tick is not None:
+                on_tick()
+        await asyncio.sleep(0.01)
+    return ticks
+
+
+async def drain(reqs: list, sampler=None, on_tick=None,
+                interval_s: float = 1.0) -> None:
+    """Wait until every request in ``reqs`` ended, ticking as above."""
+    import asyncio
+
+    next_tick = time.perf_counter()
+    while not all(r.status for r in reqs):
+        if sampler is not None and time.perf_counter() >= next_tick:
+            next_tick += interval_s
+            await sampler.tick_all()
+            if on_tick is not None:
+                on_tick()
+        await asyncio.sleep(0.01)
+
+
+async def idle_ticks(sampler, n: int) -> None:
+    """``n`` ticks a second apart with no traffic."""
+    import asyncio
+
+    for _ in range(n):
+        t0 = time.perf_counter()
+        await sampler.tick_all()
+        await asyncio.sleep(max(0.0, 1.0 - (time.perf_counter() - t0)))
+
+
+def series_points(sampler, name: str) -> list:
+    s = sampler.history.series.get(name)
+    return s.fine.since(None) if s is not None else []
+
+
+def check_info(collector) -> None:
+    """python -m tpumon_torch.info with its defaults, in its own process:
+    exit 0, no degraded source, and a row for the card with NVML's HBM
+    total."""
+    from tpumon_torch.cli import _fmt_bytes
+
+    chip = monitor_chip(collector)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpumon_torch.info"],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"info | {line}", flush=True)
+    row = [ln for ln in proc.stdout.splitlines()
+           if ln.startswith(chip.chip_id + " ")]
+    print(f"phase21 info exit={proc.returncode} wall_s={wall!r} "
+          f"stderr={proc.stderr.strip()[-400:]!r} nvml_hbm_total="
+          f"{chip.hbm_total}", flush=True)
+    if proc.returncode != 0 or "[degraded" in proc.stderr:
+        fail(f"python -m tpumon_torch.info: exit {proc.returncode}, "
+             f"stderr {proc.stderr[-2000:]!r}")
+    if (len(row) != 1 or f" {chip.kind} " not in row[0]
+            or f"/{_fmt_bytes(chip.hbm_total)}" not in row[0]):
+        fail(f"info's table has no row for {chip.chip_id} ({chip.kind}, "
+             f"{_fmt_bytes(chip.hbm_total)} HBM): {row}")
+
+
+def check_monitor_serving(eng, url: str, accel) -> dict:
+    """The sampler over the serving job: duty rises, the TSDB's tokens/s
+    and TTFT agree with the engine's own, the ingest kernel is active,
+    the capacity policy fires and moves the engine, no collector fails.
+    Returns the launches of the paged kernel and the fused draws."""
+    import asyncio
+
+    from tpumon_torch import tsdb
+    from tpumon_torch.ops import threefry
+    from tpumon_torch.ops.paged_attention import paged_attention
+    from tpumon_torch.tracing import quantiles
+
+    _, prompts, _ = engine_traffic()
+    sampler = monitor_sampler(url, accel, [MONITOR_POLICY])
+    sampler.actuate.bind_engine(eng)  # as tpumon/app.py:240-241 does
+    budgets = []
+
+    def on_tick():
+        budgets.append(eng.cfg.prefill_chunk_budget)
+
+    async def run():
+        await idle_ticks(sampler, 3)
+        t_submit = time.time()
+        tok0, steps0 = eng.tokens_total, eng.decode_steps_total
+        paged_attention.launches = 0  # count only this path from here
+        threefry.set_launch_counts(0)
+        t0 = time.perf_counter()
+        reqs: list = []
+        busy_ticks = await keep_serving(eng, prompts, 32, reqs,
+                                        MONITOR_BUSY_S, sampler, on_tick)
+        await drain(reqs, sampler, on_tick)
+        out = {"wall_s": time.perf_counter() - t0, "t_submit": t_submit,
+               "tokens": eng.tokens_total - tok0,
+               "steps": eng.decode_steps_total - steps0, "reqs": reqs,
+               "busy_ticks": busy_ticks,
+               "launches": paged_attention.launches,
+               "draws": threefry.launch_counts()}
+        await idle_ticks(sampler, 3)  # the last scrapes see the finished work
+        return out
+
+    run = asyncio.run(run())
+    t_submit, launches, draws = run["t_submit"], run["launches"], run["draws"]
+
+    duty = series_points(sampler, "mxu")
+    idle = [v for t, v in duty if t < t_submit]
+    busy = [v for t, v in duty if t >= t_submit]
+    rate = series_points(sampler, "tokens_per_sec")
+    ticks = [t for t, _ in rate]
+    served = sum(v * (t - ticks[i - 1]) for i, (t, v) in enumerate(rate)
+                 if i and t >= t_submit)
+    ttft = series_points(sampler, "ttft_p50_ms")
+    # The engine's own p50 as its /metrics gauge exports it (ms, rounded
+    # to 3 places), as the TSDB stores it (f32).
+    want_ttft = tsdb.quantize_val(round(
+        quantiles([r.ttft_s for r in run["reqs"]])[0] * 1e3, 3))
+    fired = [e for e in sampler.journal.events()
+             if e["kind"] == "actuate" and e.get("state") == "fired"]
+    health = sampler.health_json()
+    failures = {n: st.failures for n, st in sampler.stats.items()}
+    bad_targets = [r for r in sampler.serving_data() if not r.get("ok")]
+    stages = sampler.tracer.to_json()["stages"]
+    print(f"phase21 serving window_s={MONITOR_BUSY_S} busy_ticks="
+          f"{run['busy_ticks']} requests="
+          f"{len(run['reqs'])} wall_s={run['wall_s']!r} tokens="
+          f"{run['tokens']} decode_steps={run['steps']} "
+          f"paged_launches={launches} threefry_launches={draws} "
+          f"duty_idle={idle} duty_busy={busy} "
+          f"tokens_series_integral={served!r} ttft_series={ttft[-1:]} "
+          f"engine_ttft_p50_ms_f32={want_ttft!r} prefill_budget_by_tick="
+          f"{budgets} fired={[e['msg'] for e in fired]} "
+          f"ingest_kernel={health['history']['ingest_kernel']} "
+          f"failures={failures} series={len(sampler.history.series)}",
+          flush=True)
+    bad = [r.rid for r in run["reqs"] if r.status != "completed"]
+    if bad:
+        fail(f"phase 21: requests {bad} did not complete")
+    if run["busy_ticks"] < MONITOR_BUSY_TICKS:
+        fail(f"phase 21: {run['busy_ticks']} sampler ticks while serving, "
+             f"fewer than {MONITOR_BUSY_TICKS}")
+    if len(run["reqs"]) > TTFT_WINDOW:
+        fail(f"phase 21: {len(run['reqs'])} requests overrun the engine's "
+             f"TTFT window of {TTFT_WINDOW}")
+    if launches != eng.cfg.model.n_layers * run["steps"] or not launches:
+        fail(f"phase 21: paged kernel launches {launches} != n_layers x "
+             f"decode steps ({run['steps']})")
+    check_sampler_draws(draws, run["steps"] + len(run["reqs"]), "phase 21")
+    if not idle or not busy or max(busy) < max(idle) + DUTY_RISE_PCT:
+        fail(f"the card's duty series did not rise while serving: idle "
+             f"{idle}, serving {busy}")
+    if abs(served - run["tokens"]) > TOKENS_TOL * run["tokens"]:
+        fail(f"the TSDB's tokens/s integrates to {served} tokens against "
+             f"the engine's {run['tokens']}")
+    if not ttft or ttft[-1][1] != want_ttft:
+        fail(f"the TSDB's TTFT p50 {ttft[-1:]} against the engine's "
+             f"{want_ttft}")
+    if not health["history"]["ingest_kernel"] or tsdb.kernel() is None:
+        fail(f"the native ingest kernel is not active: "
+             f"{tsdb.kernel_status()}")
+    if not fired or MONITOR_POLICY["prefill_budget"] not in budgets:
+        fail(f"the capacity policy: fired {fired}, prefill budget by tick "
+             f"{budgets}")
+    if (set(failures) != {"host", "accel", "serving"}
+            or any(failures.values()) or bad_targets):
+        fail(f"a collector reported ok=False: {failures} {bad_targets}")
+    tick = stages["tick_fast"]
+    print("phase21 tick " + " ".join(
+        f"{name}_p50_ms={row['p50_ms']!r}" for name, row in stages.items())
+        + f" tick_fast_p95_ms={tick['p95_ms']!r} card={card_line()!r}",
+        flush=True)
+    return {"paged": launches, "threefry": draws, "capacity_after": (
+        eng.cfg.prefill_chunk_budget, eng.cfg.admit_lookahead)}
+
+
+def monitor_cost(eng, url: str, accel) -> None:
+    """The engine's tokens/s and decode-step ms with the sampler ticking
+    at 1 s and without, under the same continuous traffic: one sampler
+    (no policy: the engine is the same in both arms), warmed by idle
+    ticks, ticks in the "with" turns of COST_TURNS and rests in the
+    others; each turn is a fixed window of COST_TURN_S. Prints every
+    turn, each arm's mean and spread, and the difference."""
+    import asyncio
+    import statistics
+
+    _, prompts, _ = engine_traffic()
+    sampler = monitor_sampler(url, accel, [])
+    capacity = (eng.cfg.prefill_chunk_budget, eng.cfg.admit_lookahead)
+
+    async def run():
+        await idle_ticks(sampler, 3)
+        reqs: list = []
+        await keep_serving(eng, prompts, 32, reqs, COST_WARM_S)
+        rows = []
+        for arm in COST_TURNS:
+            tok0, steps0 = eng.tokens_total, eng.decode_steps_total
+            t0 = time.perf_counter()
+            ticks = await keep_serving(
+                eng, prompts, 32, reqs, COST_TURN_S,
+                sampler if arm == "with" else None)
+            wall = time.perf_counter() - t0
+            tokens = eng.tokens_total - tok0
+            steps = eng.decode_steps_total - steps0
+            rows.append((arm, tokens / wall, wall * 1e3 / max(1, steps),
+                         ticks))
+        await drain(reqs)
+        return rows, reqs
+
+    rows, reqs = asyncio.run(run())
+    if any(r.status != "completed" for r in reqs):
+        fail("phase 21 cost run: a request did not complete")
+    arms = {arm: [r for r in rows if r[0] == arm]
+            for arm in ("without", "with")}
+    ticks = sum(r[3] for r in arms["with"])
+    stat = {}
+    for arm, rs in arms.items():
+        tps = [r[1] for r in rs]
+        ms = [r[2] for r in rs]
+        mean = statistics.mean(tps)
+        stat[arm] = mean
+        print(f"phase21 cost arm={arm} turns={len(rs)} tokens_per_s={tps} "
+              f"mean={mean!r} spread_pct={(max(tps) - min(tps)) / mean * 100!r}"
+              f" ms_per_decode_step={ms} mean_ms={statistics.mean(ms)!r}",
+              flush=True)
+    tick = sampler.tracer.to_json()["stages"]["tick_fast"]
+    print(f"phase21 cost turns={[r[0] for r in rows]} turn_s={COST_TURN_S} "
+          f"with_ticks={ticks} requests={len(reqs)} capacity={capacity} "
+          f"tick_fast_p50_ms={tick['p50_ms']!r} tokens_per_s_change_pct="
+          f"{(stat['with'] - stat['without']) / stat['without'] * 100!r} "
+          f"card={card_line()!r}", flush=True)
+    if ticks < COST_MIN_TICKS or any(r[1] <= 0 for r in rows):
+        fail(f"phase 21 cost: {ticks} ticks in the with arm (want >= "
+             f"{COST_MIN_TICKS}), turns {rows}")
+
+
+def fleet_scale() -> None:
+    """bench.py's ingest tick at the reference's fleet scale: a Sampler on
+    fake:v5p-256 with 256 chips' series, 8 warm-up and 40 timed ticks a
+    second apart on a shared clock, through the native ingest kernel and
+    through the reference's ``ingest_kernel off`` path (timed beside it,
+    never in its place); both must leave equal accelerator series. Then
+    bench.py's instant and range queries over each ring."""
+    import asyncio
+    import statistics
+    from unittest import mock
+
+    from tpumon_torch import tsdb
+    from tpumon_torch.collectors.accel_fake import FakeTpuCollector
+    from tpumon_torch.collectors.host import HostCollector
+    from tpumon_torch.config import load_config
+    from tpumon_torch.sampler import Sampler
+
+    t_base = time.time()
+    out = {}
+    for path in ("kernel", "off"):
+        cfg = load_config(env={
+            "TPUMON_COLLECTORS": "host,accel",
+            "TPUMON_HISTORY_PER_CHIP": "256",
+            "TPUMON_INGEST_KERNEL": "1" if path == "kernel" else "0",
+        })
+        tsdb.set_kernel_enabled(cfg.ingest_kernel)  # as tpumon/app.py:34
+        if (tsdb.kernel() is not None) != (path == "kernel"):
+            fail(f"ingest path {path}: kernel {tsdb.kernel_status()}")
+        now = [t_base]
+        accel = FakeTpuCollector(topology="v5p-256", clock=lambda: now[0])
+        sampler = Sampler(cfg, accel=accel, host=HostCollector(
+            cpu_count=cfg.cpu_count, disk_mounts=cfg.disk_mounts))
+
+        async def ticks():
+            for i in range(FLEET_WARMUP + FLEET_TICKS):
+                now[0] = t_base + i
+                await sampler.tick_fast()
+
+        with mock.patch("time.time", lambda: now[0]):
+            asyncio.run(ticks())
+            at = now[0]
+            inst, rng = [], []
+            for _ in range(40):
+                t0 = time.perf_counter()
+                got = sampler.query.instant(
+                    "topk(5, avg_over_time(chip.mxu[5m]))", at=at)
+                inst.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(10):
+                t0 = time.perf_counter()
+                rq = sampler.query.range_query("avg(chip.mxu)", 1800, 30,
+                                               end=at)
+                rng.append((time.perf_counter() - t0) * 1e3)
+        if len(got["result"]) != 5 or not rq["series"][0]["points"]:
+            fail(f"fleet queries ({path}): {got} {rq['series'][:1]}")
+        stages = sampler.tracer.to_json()["stages"]
+        series = {n: s.fine.since(None)
+                  for n, s in sampler.history.series.items()
+                  if n not in HOST_SERIES}
+        coarse = {n: v for n, v in sampler.history.dump_coarse().items()
+                  if n not in HOST_SERIES}
+        out[path] = (series, coarse)
+        print(f"phase21 fleet path={path} series="
+              f"{len(sampler.history.series)} history_p50_ms="
+              f"{stages['history']['p50_ms']!r} tick_fast_p50_ms="
+              f"{stages['tick_fast']['p50_ms']!r} query_instant_p50_ms="
+              f"{statistics.median(inst)!r} query_range_30m_p50_ms="
+              f"{statistics.median(rng)!r} card={card_line()!r}", flush=True)
+    tsdb.set_kernel_enabled(True)
+    if out["kernel"] != out["off"] or len(out["kernel"][0]) < 1024:
+        fail("the two ingest paths left different series at v5p-256")
+
+
+def phase21() -> int:
+    """Phase 21: build the native layer, then the entry point, the
+    sampler on the serving job, its cost to the job, the fleet scale.
+    Returns the launches of the paged kernel and the fused draws on the
+    serving path."""
+    import asyncio
+
+    from tpumon_torch import native, tsdb
+    from tpumon_torch.collectors.accel_cuda import CudaGpuCollector
+    from tpumon_torch.loadgen.serving import start_background
+
+    t0 = time.perf_counter()
+    if not native.build(quiet=False):
+        fail("the native layer did not build")
+    print(f"phase21 native_build_s={time.perf_counter() - t0!r} "
+          f"tsdb={native.so_path('tsdb')}", flush=True)
+    if tsdb.kernel() is None:
+        fail(f"the native ingest kernel did not load: {tsdb.kernel_status()}")
+    accel = CudaGpuCollector(workload_dir=None)
+    check_info(accel)
+    eng, url, stop = start_background(rps=0.0, cfg=engine_config(),
+                                      device="cuda")
+    try:
+        served = check_monitor_serving(eng, url, accel)
+        monitor_cost(eng, url, accel)
+    finally:
+        stop.set()
+        asyncio.run(accel.close())
+    fleet_scale()
+    del eng
+    print(f"phase21 wall_s={time.perf_counter() - t0!r} capacity_after="
+          f"{served['capacity_after']}", flush=True)
+    return served
+
+
 def main() -> int:
     import torch
 
@@ -4270,11 +4716,13 @@ def main() -> int:
     phase18()
     phase19()
     check_monitor()
+    monitor = phase21()
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
              "replaces": "tpumon/ops/paged_attention.py:65",
-             "launches": stats["launches"], "max_abs_err": worst["bfloat16"],
+             "launches": stats["launches"] + monitor["paged"],
+             "max_abs_err": worst["bfloat16"],
              **times}]
     sources = {"flash_attention_tri_fwd": (
         "tpumon_torch/ops/csrc/flash_attention_tri_fwd.cu",
@@ -4308,14 +4756,16 @@ def main() -> int:
                      **gemm_times[kernel]})
     # The draws replace no Pallas kernel: each row names the jax.random
     # call it computes on the path whose launches it counts (phase 4's
-    # sampler, phase 12's burn inputs).
+    # and phase 21's sampler, phase 12's burn inputs).
     for kernel, replaces, launches in (
             ("threefry_keys", "tpumon/loadgen/serving.py:687",
-             stats["threefry"]["threefry_keys"]),
+             stats["threefry"]["threefry_keys"]
+             + monitor["threefry"]["threefry_keys"]),
             ("threefry_draw", "tpumon/loadgen/burn.py:38",
              burn_launches["threefry_draw"]),
             ("threefry_categorical", "tpumon/loadgen/serving.py:694",
-             stats["threefry"]["threefry_categorical"])):
+             stats["threefry"]["threefry_categorical"]
+             + monitor["threefry"]["threefry_categorical"])):
         rows.append({"name": kernel, "route": "cuda",
                      "source": "tpumon_torch/ops/csrc/threefry.cu",
                      "replaces": replaces, "launches": launches,

@@ -59,6 +59,8 @@ def test_importing_the_port_loads_neither_jax_nor_tpumon():
         "import tpumon_torch.ops.flash_attention\n"
         "import tpumon_torch.loadgen.burn\n"
         "import tpumon_torch.validate\n"
+        "import tpumon_torch.sampler\n"
+        "import tpumon_torch.cli\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpumon'))\n"
         "print(','.join(bad))\n"

@@ -17,10 +17,15 @@ the burns and kernel measurements; and the single-GPU trainer, whose flash sched
 forward and backward through hand-written CUDA kernels
 (``tpumon_torch.ops.flash_attention``), with checkpoints the engine serves;
 the Mixture-of-Experts model family in both; the induction trainer; the
-workload self-report the monitor reads (``source: workload``); and the
+workload self-report the monitor reads (``source: workload``); the
 monitor's GPU-facing half: its collector layer, an in-process NVML
 collector (``tpumon_torch.collectors.accel_cuda``, the counterpart of the
-reference's JAX collector) and ``python -m tpumon_torch.validate``.
+reference's JAX collector) and ``python -m tpumon_torch.validate``; and
+the monitor core under its sampler (``tpumon_torch.sampler``): the
+columnar TSDB with its native ingest kernel (``tpumon_torch.native``,
+C++ built by g++ at first use), the query engine, history, event
+journal, span tracer, anomaly, SLO, actuation and alert engines, the
+host collector, and ``python -m tpumon_torch.info``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on a
 CPU tensor every kernel wrapper runs its plain PyTorch version instead.
 """
