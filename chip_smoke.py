@@ -209,6 +209,27 @@ Phases, each of which exits non-zero on failure:
     with ingest_kernel off, equal series, the history stage's p50 and the
     instant and 30 m range queries' p50s. Row 1's and the sampler draws'
     launches in the summary add this path's to phase 4's.
+22. the app: phase 4's model with random bf16 weights from a seed is
+    written by the port's checkpoint writer, then ``python -m tpumon_torch
+    --port 0 --serve-loadgen --loadgen-ckpt DIR --loadgen-kv-layout paged
+    --loadgen-paged-attn kernel`` (rules chip.mxu[5m] and chip.hbm[5m], a
+    shed policy on queue depth; serving scrape cut 5 -> 1 s) runs as its
+    own process, its port read from the banner; 12 clients call the
+    engine's /generate for 12 s (prompts of 64-512 tokens, 32 new tokens,
+    half greedy, half at temperature 0.8) while /api/profile?seconds=2
+    captures a torch.profiler trace. Checks: /api/accel/metrics shows the
+    one card (the chip NVML reads in this process, the kind of
+    nvidia-smi's name) and its HBM in use rose over the idle card's by at
+    least the checkpoint's bf16 bytes; /api/serving's TTFT and TPOT p50
+    equal the engine's own /metrics read on both sides of it; /metrics
+    holds the chip and serving families; /api/stream yields a frame; /
+    serves tpumon_torch/web/dashboard.html; /api/actuate shows the policy
+    bound to the engine, not dry-run, fired, and the engine counted
+    sheds; the capture's trace names the paged-attention CUDA kernel;
+    python -m tpumon_torch.info --remote exits 0; SIGTERM ends the app
+    with exit 0 within 10 s. Prints the startup seconds, tick_fast
+    p50/p95, /api/accel/metrics latency p50, TTFT and TPOT p50, tokens/s
+    and the capture's kernel count, which row 1's launches add.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -4636,6 +4657,390 @@ def phase21() -> int:
     return served
 
 
+APP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_app"
+APP_TRAFFIC_S = 12.0  # >= 10 s of concurrent /generate calls
+APP_CLIENTS = 12  # 4 slots (the checkpoint's engine): a queue of ~8
+APP_PROFILE_AT_S, APP_PROFILE_S = 6.0, 2.0  # readings before it too
+APP_STOP_S = 10.0  # SIGTERM to exit
+# Fires while more than 4 requests wait (the clients keep ~8 waiting):
+# sheds a quarter of new submissions, which the engine counts.
+APP_POLICY = {"name": "shed_overload", "when": "queue_depth > 4",
+              "action": "shed", "tenant": "*", "fraction": 0.25,
+              "cooldown_s": 0, "fire_hold": 2, "clear_hold": 3}
+
+
+def write_app_checkpoint(directory: Path, device: str = "cuda") -> int:
+    """Phase 4's model with random weights from a seed, in bf16, saved by
+    the port's checkpoint writer. Returns the weights' bf16 bytes."""
+    import shutil
+
+    import torch
+
+    from tpumon_torch.loadgen.checkpoint import save_checkpoint
+    from tpumon_torch.loadgen.model import (init_params, map_params,
+                                            param_leaves)
+
+    shutil.rmtree(directory, ignore_errors=True)
+    model = engine_config().model
+    params = map_params(
+        init_params(model, torch.Generator(device=device).manual_seed(22)),
+        lambda t: t.to(torch.bfloat16))
+    nbytes = sum(t.numel() * t.element_size() for t in param_leaves(params))
+    save_checkpoint(str(directory), params, 0, cfg=model)
+    del params
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return nbytes
+
+
+def http_get(url: str, timeout: float = 30.0) -> tuple:
+    """(status, body) of a GET; HTTP errors are statuses, not raises."""
+    import urllib.error
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def start_app(argv: list, env: dict, err_path: Path) -> tuple:
+    """``python -m tpumon_torch ARGV`` as its own process, as a user starts
+    it. Returns (process, port, startup seconds, stdout lines)."""
+    import queue
+    import re
+    import threading
+
+    t0 = time.perf_counter()
+    err = open(err_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "tpumon_torch", *argv],
+                            cwd=Path(__file__).resolve().parent, env=env,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    lines: list = []
+    ready: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            m = re.match(r"tpumon listening on http://[^:]+:(\d+) ", line)
+            if m:
+                ready.put(int(m.group(1)))
+        ready.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        port = ready.get(timeout=180)
+    except queue.Empty:
+        port = None
+    if port is None:
+        proc.kill()
+        proc.wait(timeout=30)
+        fail(f"python -m tpumon_torch printed no banner: {lines[-20:]} "
+             f"{err_path.read_text()[-3000:]!r}")
+    return proc, port, time.perf_counter() - t0, lines
+
+
+def app_traffic(gen_url: str, seconds: float, clients: int, vocab: int,
+                during=None) -> dict:
+    """``clients`` threads each call /generate back to back for
+    ``seconds``: prompts of 64-512 tokens, 32 new tokens, half greedy and
+    half at temperature 0.8. ``during()`` runs in its own thread from
+    APP_PROFILE_AT_S on. Returns the counts and the ``during`` result."""
+    import threading
+
+    out = {"completed": 0, "shed": 0, "other": [], "tokens": 0}
+    lock = threading.Lock()
+    t_end = time.perf_counter() + seconds
+
+    def client(i: int):
+        rng = random.Random(100 + i)
+        n = 0
+        while time.perf_counter() < t_end:
+            prompt = [rng.randrange(vocab)
+                      for _ in range(rng.randint(64, 512))]
+            temp = 0.0 if (i + n) % 2 == 0 else 0.8
+            n += 1
+            status, body = http_get(
+                f"{gen_url}?prompt={','.join(map(str, prompt))}"
+                f"&max_new=32&temperature={temp}", timeout=120)
+            with lock:
+                if status == 200:
+                    toks = json.loads(body)["tokens"]
+                    out["completed"] += 1
+                    out["tokens"] += len(toks)
+                    if len(toks) != 33:
+                        out["other"].append(("short", len(toks)))
+                elif status == 429:
+                    out["shed"] += 1
+                else:
+                    out["other"].append((status, body[:200]))
+
+    side = {}
+
+    def run_during():
+        time.sleep(APP_PROFILE_AT_S)
+        side["result"] = during()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(clients)]
+    if during is not None:
+        threads.append(threading.Thread(target=run_during, daemon=True))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 180)
+    out["wall_s"] = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail("phase 22: a /generate client did not finish")
+    out["during"] = side.get("result")
+    return out
+
+
+def count_kernel_events(trace_path: Path, needle: str) -> tuple:
+    """(CUDA kernel events whose name holds ``needle``, all kernel events)
+    in a Chrome trace torch.profiler wrote."""
+    events = json.loads(trace_path.read_text()).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return (sum(needle in str(e.get("name", "")) for e in kernels),
+            len(kernels))
+
+
+def first_sse_frame(port: int) -> bytes:
+    """The /api/stream response up to the end of its first event."""
+    import socket
+
+    frame = b""
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as sock:
+        sock.sendall(b"GET /api/stream HTTP/1.1\r\nHost: x\r\n\r\n")
+        while b"\n\n" not in frame.partition(b"\r\n\r\n")[2]:
+            chunk = sock.recv(65536)
+            if not chunk:
+                break
+            frame += chunk
+    return frame
+
+
+def serving_pair(base: str, engine_url: str) -> tuple:
+    """(the engine's own TTFT/TPOT p50, the monitor's /api/serving row's),
+    read back to back around one monitor read."""
+    from tpumon_torch.collectors.serving import distill_serving_metrics
+
+    keys = ("ttft_p50_ms", "tpot_p50_ms")
+
+    def engine():
+        d = distill_serving_metrics(http_get(engine_url)[1].decode())
+        return tuple(d.get(k) for k in keys)
+
+    before = engine()
+    row = json.loads(http_get(f"{base}/api/serving")[1])["targets"][0]
+    after = engine()
+    return before, tuple(row.get(k) for k in keys), after
+
+
+def phase22(device: str = "cuda", extra_argv: tuple = ()) -> int:
+    """Phase 22: ``python -m tpumon_torch --serve-loadgen`` on the card, as
+    its own process, watching its own engine (phase 4's model from a
+    checkpoint, the paged kernel read path). Returns the paged kernel's
+    events in the profiler capture taken during the traffic.
+    ``device``/``extra_argv`` rehearse it on the CPU (``cpu``, with
+    ``--loadgen-device cpu`` and a fake accelerator), where the checks of
+    the card fail."""
+    import asyncio
+    import os
+    import shutil
+    import signal
+    import statistics
+
+    import torch
+
+    from tpumon_torch.collectors.accel_cuda import CudaGpuCollector
+    from tpumon_torch.collectors.gpu import normalize_gpu_kind
+    from tpumon_torch.collectors.serving import distill_serving_metrics
+    from tpumon_torch.metrics_text import parse_metrics_text, samples_by_name
+
+    t_phase = time.perf_counter()
+    ckpt = APP_DIR / "ckpt"
+    nbytes = write_app_checkpoint(ckpt, device)
+    smi_name = smi("name")[0]
+    collector = CudaGpuCollector(workload_dir=None)
+    idle = monitor_chip(collector)
+    card = next(c for c in collector.cards if c.index == idle.index)
+    asyncio.run(collector.close())
+    if card.name != smi_name:
+        fail(f"NVML names the card {card.name!r}, nvidia-smi {smi_name!r}")
+    policy = json.dumps([APP_POLICY])
+    argv = ["--port", "0", "--serve-loadgen", "--loadgen-ckpt", str(ckpt),
+            "--loadgen-kv-layout", "paged", "--loadgen-paged-attn", "kernel",
+            "--recording-rules", "chip.mxu[5m],chip.hbm[5m]",
+            "--actuations", policy, *extra_argv]
+    # The serving scrape every second (phase 21's cut); no Kubernetes.
+    env = dict(os.environ, TPUMON_SERVING_INTERVAL_S="1",
+               TPUMON_K8S_MODE="none")
+    err_path = APP_DIR / "app.stderr"
+    proc, port, startup_s, lines = start_app(argv, env, err_path)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        # The engine's target, once the monitor has scraped it.
+        deadline = time.perf_counter() + 30
+        targets = []
+        while time.perf_counter() < deadline:
+            targets = json.loads(http_get(f"{base}/api/serving")[1])["targets"]
+            if targets and targets[0].get("ok"):
+                break
+            time.sleep(0.5)
+        if not targets or not targets[0].get("ok"):
+            fail(f"phase 22: the monitor never scraped its engine: {targets}")
+        engine_url = targets[0]["target"]
+        gen_url = engine_url.rsplit("/", 1)[0] + "/generate"
+        tokens0 = distill_serving_metrics(
+            http_get(engine_url)[1].decode()).get("tokens_total", 0.0)
+
+        def capture():
+            # The window before the capture: tokens/s and the tick so far.
+            pre_tokens = distill_serving_metrics(
+                http_get(engine_url)[1].decode()).get("tokens_total", 0.0)
+            pre = {"tokens_per_s": (pre_tokens - tokens0)
+                   / (time.perf_counter() - t_traffic),
+                   "tick": json.loads(http_get(f"{base}/api/trace")[1])[
+                       "stages"].get("tick_fast", {})}
+            status, body = http_get(
+                f"{base}/api/profile?seconds={APP_PROFILE_S}", timeout=120)
+            return status, json.loads(body), pre
+
+        t_traffic = time.perf_counter()
+        traffic = app_traffic(gen_url, APP_TRAFFIC_S, APP_CLIENTS,
+                              engine_config().model.vocab, during=capture)
+        engine_text = http_get(engine_url)[1].decode()
+        served = distill_serving_metrics(engine_text)
+        tokens = served.get("tokens_total", 0.0) - tokens0
+        time.sleep(1.5)  # a scrape after the last request
+
+        # The card, as the monitor shows it.
+        accel = json.loads(http_get(f"{base}/api/accel/metrics")[1])
+        chips = accel["chips"]
+        rise = chips[0]["hbm_used"] - idle.hbm_used if chips else None
+        lat = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            http_get(f"{base}/api/accel/metrics")
+            lat.append((time.perf_counter() - t0) * 1e3)
+        # TTFT and TPOT: the monitor's row against the engine's /metrics
+        # read on both sides of it (synthetic arrivals may land between).
+        pair, t_end = None, time.perf_counter() + 20
+        while time.perf_counter() < t_end:
+            before, row, after = serving_pair(base, engine_url)
+            if before == after:
+                pair = (before, row)
+                if row == before:
+                    break
+            time.sleep(0.3)
+        metrics = http_get(f"{base}/metrics")[1].decode()
+        actuate = json.loads(http_get(f"{base}/api/actuate")[1])
+        trace = json.loads(http_get(f"{base}/api/trace")[1])
+        status_root, root = http_get(f"{base}/")
+        html = (Path(__file__).resolve().parent / "tpumon_torch" / "web"
+                / "dashboard.html").read_bytes()
+        frame = first_sse_frame(port)
+        remote = subprocess.run(
+            [sys.executable, "-m", "tpumon_torch.info", "--remote",
+             f"127.0.0.1:{port}"], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=120)
+        for line in remote.stdout.splitlines():
+            print(f"phase22 info --remote | {line}", flush=True)
+
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=APP_STOP_S)
+        except subprocess.TimeoutExpired:
+            code = None
+        stop_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    err = err_path.read_text()
+
+    status, profile, pre = traffic["during"] or (None, {}, {})
+    trace_file = Path(profile.get("dir", "")) / "trace.json"
+    paged, kernels = (count_kernel_events(trace_file, "paged_attention")
+                      if status == 200 and trace_file.is_file() else (0, 0))
+    by_name = samples_by_name(parse_metrics_text(engine_text))
+    shed = sum(s.value for s in by_name.get("tpumon_serving_requests_shed", []))
+    policy_row = (actuate.get("policies") or [{}])[0]
+    stage = trace["stages"].get("tick_fast", {})
+    print(f"phase22 app startup_s={startup_s!r} port={port} "
+          f"ckpt_bf16_bytes={nbytes} requests_completed="
+          f"{traffic['completed']} shed_429={traffic['shed']} "
+          f"other={traffic['other'][:5]} traffic_wall_s="
+          f"{traffic['wall_s']!r} engine_tokens={tokens} tokens_per_s="
+          f"{tokens / traffic['wall_s']!r} ttft_p50_ms="
+          f"{served.get('ttft_p50_ms')!r} tpot_p50_ms="
+          f"{served.get('tpot_p50_ms')!r} engine_shed={shed} "
+          f"tick_fast_p50_ms={stage.get('p50_ms')!r} tick_fast_p95_ms="
+          f"{stage.get('p95_ms')!r} accel_metrics_p50_ms="
+          f"{statistics.median(lat)!r} hbm_idle={idle.hbm_used} "
+          f"hbm_serving={chips[0]['hbm_used'] if chips else None} "
+          f"hbm_rise={rise} profile_status={status} profile_s="
+          f"{profile.get('seconds')!r} profile_bytes="
+          f"{profile.get('total_bytes')} paged_kernel_events={paged} "
+          f"kernel_events={kernels} before_capture_tokens_per_s="
+          f"{pre.get('tokens_per_s')!r} before_capture_tick_fast_p50_ms="
+          f"{pre.get('tick', {}).get('p50_ms')!r} before_capture_tick_fast_"
+          f"p95_ms={pre.get('tick', {}).get('p95_ms')!r} serving_pair={pair} actuate="
+          f"{policy_row} remote_exit={remote.returncode} sigterm_exit={code} "
+          f"stop_s={stop_s!r} card={card_line()!r}", flush=True)
+    print(f"phase22 app stdout={lines[-8:]} stderr_tail={err[-600:]!r}",
+          flush=True)
+
+    if len(chips) != 1 or chips[0]["kind"] != normalize_gpu_kind(smi_name) \
+            or chips[0]["chip"] != idle.chip_id \
+            or chips[0]["accel_kind"] != "gpu":
+        fail(f"phase 22: /api/accel/metrics shows {chips}, not the card "
+             f"{idle.chip_id} ({smi_name})")
+    if rise is None or rise < nbytes:
+        fail(f"phase 22: HBM in use rose {rise} bytes over the idle card, "
+             f"under the checkpoint's {nbytes}")
+    if traffic["completed"] < APP_CLIENTS or traffic["other"]:
+        fail(f"phase 22: /generate completed {traffic['completed']}, "
+             f"failures {traffic['other'][:5]}")
+    if pair is None or pair[0] != pair[1] or None in pair[0]:
+        fail(f"phase 22: TTFT/TPOT in /api/serving {pair} against the "
+             f"engine's /metrics")
+    for family in ("tpu_hbm_used_bytes{", 'accel="gpu"',
+                   "tpumon_serving_ttft_p50_ms{",
+                   "tpumon_serving_tokens_per_sec{"):
+        if family not in metrics:
+            fail(f"phase 22: /metrics has no {family!r}")
+    if not frame.startswith(b"HTTP/1.1 200") or b"\ndata: " not in frame:
+        fail(f"phase 22: /api/stream gave no frame: {frame[:300]!r}")
+    if status_root != 200 or root != html:
+        fail("phase 22: / did not serve tpumon_torch/web/dashboard.html")
+    if (not actuate.get("engine_bound") or policy_row.get("dry_run")
+            or not policy_row.get("fired") or shed <= 0
+            or traffic["shed"] <= 0):
+        fail(f"phase 22: the shed policy {policy_row} (engine bound "
+             f"{actuate.get('engine_bound')}), engine shed {shed}, "
+             f"429s {traffic['shed']}")
+    if status != 200 or paged <= 0:
+        fail(f"phase 22: the capture ({status}, {profile}) holds {paged} "
+             f"paged-attention kernel events of {kernels}")
+    if remote.returncode != 0:
+        fail(f"phase 22: info --remote exit {remote.returncode}: "
+             f"{remote.stderr[-1000:]!r}")
+    if code != 0 or stop_s > APP_STOP_S:
+        fail(f"phase 22: SIGTERM: exit {code} after {stop_s} s; stderr "
+             f"{err[-2000:]!r}")
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase22 wall_s={time.perf_counter() - t_phase!r}", flush=True)
+    return paged
+
+
 def main() -> int:
     import torch
 
@@ -4717,11 +5122,12 @@ def main() -> int:
     phase19()
     check_monitor()
     monitor = phase21()
+    app_paged = phase22()
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
              "replaces": "tpumon/ops/paged_attention.py:65",
-             "launches": stats["launches"] + monitor["paged"],
+             "launches": stats["launches"] + monitor["paged"] + app_paged,
              "max_abs_err": worst["bfloat16"],
              **times}]
     sources = {"flash_attention_tri_fwd": (

@@ -1,0 +1,200 @@
+"""``python -m tpumon_torch`` (``tpumon_torch/app.py``) against ``python -m
+tpumon`` (``tpumon/app.py``).
+
+- Every flag of the reference's usage, with ``run`` and
+  ``start_background`` patched out in both packages, gives the same exit
+  code, the same ``Config`` and the same engine arguments (the port adds
+  ``device``).
+- The federation flags exit 2 before any engine starts, naming ROADMAP
+  item 7d; ``build`` refuses the same configs.
+- ``--serve-loadgen`` with no card and no ``--loadgen-device cpu`` exits
+  non-zero with ``resolve_device``'s message; the mesh and ring engines
+  exit 2 with the engine's "not yet ported".
+- A subprocess ``python -m tpumon_torch --port 0 --serve-loadgen
+  --loadgen-device cpu --accel-backend fake:v5e-8`` prints the banner,
+  scrapes its own engine in ``/api/serving`` and exits 0 on SIGTERM.
+"""
+
+import dataclasses
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import time
+import urllib.request
+from pathlib import Path
+
+import pytest
+import torch
+
+from tpumon import app as ref_app
+from tpumon.loadgen import serving as ref_serving
+from tpumon_torch import app
+from tpumon_torch.loadgen import serving
+
+ROOT = Path(__file__).resolve().parents[1]
+SLOS = json.dumps([{"name": "ttft", "expr": "serving.ttft_p50_ms > 500",
+                    "target": 0.99, "window": "1h"}])
+ACTS = json.dumps([{"name": "shed", "when": "queue_depth > 4",
+                    "action": "shed", "tenant": "*", "fraction": 0.25}])
+
+CASES = [
+    [], ["--port", "9000"], ["--port", "x"], ["--port"],
+    ["--accel-backend", "fake:v5e-8"], ["--accel-backend", "jax"],
+    ["--demo"], ["--serve-loadgen"], ["--loadgen-ckpt", "ckpt"],
+    ["--loadgen-quant", "int8"], ["--loadgen-spec-len", "4"],
+    ["--loadgen-spec-len", "x"], ["--loadgen-prefix-cache", "8"],
+    ["--loadgen-kv-layout", "paged", "--loadgen-paged-attn", "kernel"],
+    ["--loadgen-pool-pages", "64"], ["--loadgen-decode-block", "8"],
+    ["--loadgen-kv-dtype", "int8"], ["--loadgen-spec-source", "prompt"],
+    ["--loadgen-scheduler", "sequential"], ["--loadgen-prefill-budget", "2"],
+    ["--loadgen-admit-lookahead", "4"], ["--loadgen-mesh", "2,1"],
+    ["--loadgen-mesh", "2"], ["--loadgen-ring-attn", "2"],
+    ["--peers", "a:8888,b:8888", "--peer-fanout", "4"],
+    ["--federation-lease", "12"], ["--federation-initial-leader"],
+    ["--sse-keyframe-every", "5"], ["--state", "s.json"],
+    ["--trace-ring", "0"], ["--events-ring", "64"],
+    ["--events-log", "e.jsonl"], ["--chaos", "err:accel:0.1,slow:host:5"],
+    ["--history-snapshot", "h.bin", "--history-snapshot-format", "json"],
+    ["--history-per-chip", "16"], ["--wire-binary", "off"],
+    ["--ingest-kernel", "off"], ["--recording-rules", "chip.mxu[5m]"],
+    ["--slos", SLOS], ["--actuations", ACTS, "--actuate-dry-run"],
+    ["--tls-cert", "c.pem", "--tls-key", "k.pem"], ["--bogus"],
+    ["-c", "CONFIG"], ["-h"],
+]
+FEDERATION = [
+    ["--federate-up", "http://root:8888"],
+    ["--federation-role", "aggregator"],
+    ["--federation-role", "root", "--federation-peer", "http://root-b:8888",
+     "--federation-initial-leader"],
+    ["--federation-peer", "http://root-b:8888"],
+]
+
+
+class Calls:
+    """What main handed to run and to start_background."""
+
+    def __init__(self):
+        self.cfg = None
+        self.engine_kw = None
+
+    async def run(self, cfg, loadgen_engine=None):
+        self.cfg = cfg
+
+    def start_background(self, **kw):
+        self.engine_kw = kw
+        return "engine", "http://127.0.0.1:1/metrics", serving.BackgroundStop()
+
+
+def drive(monkeypatch, mod, serving_mod, argv, capsys):
+    calls = Calls()
+    monkeypatch.setattr(mod, "run", calls.run)
+    monkeypatch.setattr(serving_mod, "start_background", calls.start_background)
+    try:
+        code = mod.main(argv)
+    except SystemExit as e:  # a flag's missing or malformed value
+        code = e.code
+    out = capsys.readouterr()
+    cfg = None if calls.cfg is None else dataclasses.asdict(calls.cfg)
+    return code, cfg, calls.engine_kw, out
+
+
+@pytest.mark.parametrize("argv", CASES, ids=lambda a: " ".join(a)[:40] or "bare")
+def test_flags_parse_as_the_reference(monkeypatch, capsys, tmp_path, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for key in [k for k in os.environ if k.startswith("TPUMON_")]:
+        monkeypatch.delenv(key)
+    config = tmp_path / "tpumon.json"
+    config.write_text(json.dumps({"port": 7777, "sample_interval_s": 2.0}))
+    argv = [str(config) if a == "CONFIG" else a for a in argv]
+    port = drive(monkeypatch, app, serving, argv, capsys)
+    ref = drive(monkeypatch, ref_app, ref_serving, argv, capsys)
+    assert port[0] == ref[0], (port[3].err, ref[3].err)
+    assert port[1] == ref[1]
+    if ref[2] is not None:
+        assert port[2].pop("device") == torch.device("cuda")
+        assert port[2] == ref[2]
+    else:
+        assert port[2] is None
+    if argv == ["-h"]:
+        assert "python -m tpumon_torch" in port[3].out
+        assert "--loadgen-device cuda|cpu" in port[3].out
+    else:
+        assert port[3].err == ref[3].err
+
+
+@pytest.mark.parametrize("argv", FEDERATION)
+def test_federation_exits_2_naming_item_7d(monkeypatch, capsys, argv):
+    calls = Calls()
+    monkeypatch.setattr(app, "run", calls.run)
+    monkeypatch.setattr(serving, "start_background", calls.start_background)
+    assert app.main(argv + ["--serve-loadgen"]) == 2
+    assert "not yet ported (ROADMAP item 7d)" in capsys.readouterr().err
+    assert calls.cfg is None and calls.engine_kw is None
+    from tpumon_torch.config import load_config
+
+    keys = {"--federate-up": "TPUMON_FEDERATE_UP",
+            "--federation-role": "TPUMON_FEDERATION_ROLE",
+            "--federation-peer": "TPUMON_FEDERATION_PEER"}
+    env = {keys[a]: v for a, v in zip(argv, argv[1:]) if a in keys}
+    with pytest.raises(ValueError, match="item 7d"):
+        app.build(load_config(env=env))
+
+
+def test_serve_loadgen_without_a_card_exits_nonzero(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert app.main(["--serve-loadgen"]) == 2
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "device='cpu'" in err
+
+
+@pytest.mark.parametrize("flags", [["--loadgen-mesh", "2,1"],
+                                   ["--loadgen-ring-attn", "2",
+                                    "--loadgen-kv-layout", "paged"]])
+def test_mesh_and_ring_exit_2_not_yet_ported(capsys, flags):
+    assert app.main(flags + ["--loadgen-device", "cpu"]) == 2
+    assert "not yet ported (ROADMAP queue 1 item 12)" in capsys.readouterr().err
+
+
+def get_json(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=5) as r:
+        return json.loads(r.read())
+
+
+def test_serve_loadgen_subprocess_on_the_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), TPUMON_SERVING_INTERVAL_S="1",
+               TPUMON_K8S_MODE="none", TMPDIR=str(tmp_path))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpumon_torch", "--port", "0",
+         "--serve-loadgen", "--loadgen-device", "cpu",
+         "--accel-backend", "fake:v5e-8"],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        banner = proc.stdout.readline()
+        m = re.match(r"tpumon listening on http://0\.0\.0\.0:(\d+) ", banner)
+        assert m, (banner, proc.stderr.read() if proc.poll() is not None else "")
+        port = int(m.group(1))
+        deadline = time.monotonic() + 30
+        target = None
+        while time.monotonic() < deadline:
+            targets = get_json(port, "/api/serving")["targets"]
+            if targets and targets[0]["ok"] and targets[0].get("tokens_total"):
+                target = targets[0]
+                break
+            time.sleep(0.5)
+        assert target is not None, targets
+        assert target["target"].startswith("http://127.0.0.1:")
+        assert len(get_json(port, "/api/accel/metrics")["chips"]) == 8
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=15) == 0, proc.stderr.read()
+        assert "tpumon shutting down" in proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()

@@ -361,10 +361,15 @@ def test_factory_refuses_jax_peers_and_unknown():
     with pytest.raises(ValueError, match="unknown accel backend"):
         port_accel.make_accel_collector(
             port_config.load_config(env={"TPUMON_ACCEL_BACKEND": "tpu"}))
+    # Peers are no longer refused: the local collector (none here) is
+    # wrapped in the port's peer collector, as the reference does.
+    from tpumon_torch.collectors.accel_peers import PeerFederatedCollector
+
     cfg = port_config.load_config(env={"TPUMON_ACCEL_BACKEND": "none",
                                        "TPUMON_PEERS": "http://a:8899"})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7c"):
-        port_accel.make_accel_collector(cfg)
+    fed = port_accel.make_accel_collector(cfg)
+    assert isinstance(fed, PeerFederatedCollector)
+    assert fed.peers == ("http://a:8899",)
 
 
 # ------------------------------------------------------------ serving

@@ -91,6 +91,160 @@ def render(chips: list[ChipSample], host: dict, ici_rates: dict | None = None) -
     return "\n".join(lines)
 
 
+def render_runtime_lines(runtime: dict | None) -> list[str]:
+    """Slice-level runtime extras (/api/accel/metrics "runtime"; the JAX
+    package's libtpu SDK fills them, the port's collectors leave them out):
+    HLO queue depth and collective/DCN latency p50s, one line each."""
+    lines: list[str] = []
+    if not runtime:
+        return lines
+    queue = runtime.get("hlo_queue_size") or {}
+    if queue:
+        cells = " ".join(f"{k}:{v:.0f}" for k, v in sorted(queue.items()))
+        lines.append(f"hlo queue: {cells}")
+    for family, label in (
+        ("collective_e2e_latency", "collective e2e"),
+        ("buffer_transfer_latency", "DCN transfer"),
+    ):
+        table = runtime.get(family) or {}
+        for bucket, pcts in sorted(table.items()):
+            p50 = pcts.get("p50")
+            p999 = pcts.get("p999")
+            if p50 is not None:
+                lines.append(
+                    f"{label} {bucket}: p50 {p50:.0f}µs"
+                    + (f" · p99.9 {p999:.0f}µs" if p999 is not None else "")
+                )
+    return lines
+
+
+def render_health_lines(health: dict | None) -> list[str]:
+    """Degraded-source lines for the remote view: failing sources and
+    breakers that left closed (tpumon_torch.resilience) — healthy sources stay
+    silent, a quick look only needs the problems."""
+    lines: list[str] = []
+    for name, s in sorted(((health or {}).get("sources") or {}).items()):
+        br = s.get("breaker") or {}
+        state = br.get("state", "closed")
+        if s.get("ok") and state == "closed":
+            continue
+        bits = [f"source {name}: DOWN" if not s.get("ok") else f"source {name}:"]
+        if s.get("error"):
+            bits.append(str(s["error"])[:80])
+        if state != "closed":
+            retry = br.get("retry_in_s")
+            bits.append(
+                f"breaker {state}"
+                + (f" (retry {retry:.0f}s)" if retry is not None else "")
+            )
+        lines.append(" · ".join(bits))
+    chaos = (health or {}).get("chaos")
+    if chaos:
+        lines.append(f"CHAOS ACTIVE: {chaos}")
+    return lines
+
+
+def render_status_lines(alerts: dict | None, serving: dict | None) -> list[str]:
+    """Alert/serving/training summary lines for the remote view."""
+    lines: list[str] = []
+    if alerts:
+        n = {s: len(alerts.get(s) or []) for s in ("critical", "serious", "minor")}
+        silenced = len(alerts.get("silenced") or [])
+        line = f"alerts: {n['critical']}🔴 {n['serious']}🟠 {n['minor']}🟡"
+        if silenced:
+            line += f" ({silenced} silenced)"
+        lines.append(line)
+        for sev in ("critical", "serious"):
+            for a in alerts.get(sev) or []:
+                lines.append(f"  [{sev}] {a.get('title')}: {a.get('desc')}")
+    for t in (serving or {}).get("targets") or []:
+        if t.get("train_step") is not None:
+            loss = t.get("train_loss")
+            gp = t.get("train_goodput_pct")
+            lines.append(
+                f"train {t.get('target')}: step {t['train_step']:.0f}"
+                + (f" · loss {loss:.3f}" if loss is not None else "")
+                + (f" · goodput {gp:.0f}%" if gp is not None else "")
+            )
+        elif t.get("ok"):
+            tps = t.get("tokens_per_sec")
+            ttft = t.get("ttft_p50_ms")
+            spec = t.get("spec_accept_pct")
+            kv = t.get("kv_pages_used_pct")
+            lines.append(
+                f"serve {t.get('target')}:"
+                + (f" {tps:.0f} tok/s" if tps is not None else "")
+                + (f" · TTFT p50 {ttft:.0f}ms" if ttft is not None else "")
+                + (f" · spec {spec:.0f}%" if spec is not None else "")
+                + (f" · KV pool {kv:.0f}%" if kv is not None else "")
+            )
+        else:
+            # a down target carries no train_* fields, so we can't tell
+            # trainer from server here — keep the label neutral
+            lines.append(f"target {t.get('target')}: DOWN ({t.get('error')})")
+    return lines
+
+
+async def _run_remote(url: str, watch: float | None) -> int:
+    """Render a running tpumon server's view (no local collectors or devices)."""
+    import json
+    import urllib.request
+
+    from tpumon_torch.collectors.accel_peers import chip_from_json, normalize_base_url
+
+    base = normalize_base_url(url)
+    failed: list[str] = []
+
+    def get(path: str) -> dict | None:
+        try:
+            with urllib.request.urlopen(f"{base}{path}", timeout=5) as r:
+                return json.load(r)
+        except Exception as e:
+            failed.append(f"{path}: {type(e).__name__}")
+            return None
+
+    first = True
+    while True:
+        failed.clear()
+        accel, host, alerts, serving, health = await asyncio.gather(
+            *(asyncio.to_thread(get, p) for p in (
+                "/api/accel/metrics", "/api/host/metrics",
+                "/api/alerts", "/api/serving", "/api/health",
+            ))
+        )
+        if accel is None and host is None:
+            print(f"tpumon at {base} unreachable", file=sys.stderr)
+            if first or not watch:
+                return 1
+            # transient failure mid-watch: keep polling, the server may
+            # be restarting (matches the local loop's degraded behavior)
+            await asyncio.sleep(watch)
+            continue
+        first = False
+        chips = [chip_from_json(c) for c in (accel or {}).get("chips") or []]
+        rates = {
+            c.get("chip"): {"tx_bps": c["tx_bps"]}
+            for c in (accel or {}).get("chips") or []
+            if c.get("tx_bps") is not None
+        }
+        if watch:
+            print("\x1b[2J\x1b[H", end="")
+            print(time.strftime("%H:%M:%S"), f"· tpumon info · {base}")
+        print(render(chips, host or {}, rates))
+        for line in render_runtime_lines((accel or {}).get("runtime")):
+            print(line)
+        for line in render_health_lines(health):
+            print(line)
+        for line in render_status_lines(alerts, serving):
+            print(line)
+        if failed:
+            print(f"[degraded: {', '.join(sorted(failed))}]", file=sys.stderr)
+        sys.stdout.flush()
+        if not watch:
+            return 0
+        await asyncio.sleep(watch)
+
+
 async def _run(watch: float | None, backend: str | None) -> int:
     env = {"TPUMON_COLLECTORS": "host,accel"}
     if backend:
@@ -138,8 +292,7 @@ def main(argv: list[str] | None = None) -> int:
                 "usage: python -m tpumon_torch.info [-w SECONDS] "
                 "[--backend cuda|fake:v5e-8] [--remote HOST:8888]\n"
                 "--remote renders a running tpumon server's view (chips, "
-                "alerts, serving/training) without local collectors; it is "
-                "not yet ported (ROADMAP item 7c)"
+                "alerts, serving/training) without local collectors"
             )
             return 0
         else:
@@ -148,11 +301,9 @@ def main(argv: list[str] | None = None) -> int:
     if remote and backend:
         print("--remote and --backend are mutually exclusive", file=sys.stderr)
         return 2
-    if remote:
-        print("--remote is not yet ported (ROADMAP item 7c): it reads a "
-              "running server through the peer collector", file=sys.stderr)
-        return 2
     try:
+        if remote:
+            return asyncio.run(_run_remote(remote, watch))
         return asyncio.run(_run(watch, backend))
     except KeyboardInterrupt:
         return 0

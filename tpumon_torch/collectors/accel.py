@@ -15,7 +15,8 @@ Backend selection (Config.accel_backend):
 - "dcgm:<url>": GPU chips scraped from a DCGM exporter.
 - "none": disabled.
 
-Peer federation (``cfg.peers``) is not yet ported (ROADMAP item 7c).
+With ``cfg.peers`` the local collector is wrapped in the peer collector
+(``tpumon_torch.collectors.accel_peers``), as in the reference.
 """
 
 from __future__ import annotations
@@ -76,8 +77,15 @@ def make_accel_collector(cfg: Config) -> Collector:
     else:
         raise ValueError(f"unknown accel backend {backend!r}")
     if cfg.peers:
-        raise NotImplementedError(
-            "peer federation (cfg.peers) is not yet ported (ROADMAP item 7c)")
+        from tpumon_torch.collectors.accel_peers import PeerFederatedCollector
+
+        return PeerFederatedCollector(
+            local=local,
+            peers=cfg.peers,
+            timeout_s=cfg.peer_timeout_s,
+            fanout=cfg.peer_fanout,
+            wire_binary=cfg.wire_binary,
+        )
     if local is None:
         return NullAccelCollector(reason="accel backend 'none' configured")
     return local

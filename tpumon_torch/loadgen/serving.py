@@ -1983,6 +1983,24 @@ def _arrival_loop(engine: ServingEngine, rps: float, max_new: int,
     ArrivalPump(engine, [src]).run(stop, duration=duration)
 
 
+class BackgroundStop(threading.Event):
+    """The stop event ``start_background`` returns: ``set()`` ends the
+    arrival loop, and ``join()`` waits until it has ended and closed the
+    /metrics listener, so the caller can exit with no engine step still
+    running in the daemon thread (one torch op running while the
+    interpreter exits aborts the process)."""
+
+    def __init__(self):
+        super().__init__()
+        self.thread: threading.Thread | None = None
+
+    def join(self, timeout: float | None = None) -> bool:
+        """Wait for the loop's thread; True once it has ended."""
+        if self.thread is not None:
+            self.thread.join(timeout)
+        return self.thread is None or not self.thread.is_alive()
+
+
 def start_background(rps: float = 0.5, max_new: int = 16,
                      cfg: ServeConfig | None = None, port: int = 0,
                      seed: int = 0, ckpt_dir: str | None = None,
@@ -1999,9 +2017,9 @@ def start_background(rps: float = 0.5, max_new: int = 16,
                      ring_stripes: int = 0, device=None):
     """Run the serving loadgen inside this process: the arrival loop in a
     daemon thread + the /metrics endpoint. Returns (engine, url,
-    stop_event); setting the event ends the loop and closes the listener.
-    The reference's signature, plus ``device`` (as for
-    ``ServingEngine``)."""
+    stop_event); setting the event ends the loop and closes the listener,
+    and its ``join()`` waits for that (``BackgroundStop``). The
+    reference's signature, plus ``device`` (as for ``ServingEngine``)."""
     if cfg is None and (spec_len or prefix_cache or pool_pages
                         or kv_layout != "dense" or decode_block != 1
                         or kv_dtype != "compute"
@@ -2032,7 +2050,7 @@ def start_background(rps: float = 0.5, max_new: int = 16,
     engine = ServingEngine(cfg=cfg, ckpt_dir=ckpt_dir, quantize=quantize,
                            device=device)
     server, bound = start_metrics_server(engine, port=port)
-    stop = threading.Event()
+    stop = BackgroundStop()
 
     def _run():
         try:
@@ -2041,7 +2059,8 @@ def start_background(rps: float = 0.5, max_new: int = 16,
             server.shutdown()
             server.server_close()
 
-    threading.Thread(target=_run, daemon=True).start()
+    stop.thread = threading.Thread(target=_run, daemon=True)
+    stop.thread.start()
     return engine, f"http://127.0.0.1:{bound}/metrics", stop
 
 
