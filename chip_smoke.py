@@ -230,6 +230,34 @@ Phases, each of which exits non-zero on failure:
     with exit 0 within 10 s. Prints the startup seconds, tick_fast
     p50/p95, /api/accel/metrics latency p50, TTFT and TPOT p50, tokens/s
     and the capture's kernel count, which row 1's launches add.
+23. the federation tree: five ``python -m tpumon_torch`` processes at the
+    config's intervals (tick 1 s, dark after 5 s, lease 2 s): root A
+    (``--federation-role root``, its peer root B, the initial leader),
+    root B (its peer root A; it listens on a port reserved first, since A
+    must name it at start), an aggregator homed on both
+    (``--federate-up A,B``), leaf 1 serving phase 22's checkpoint on the
+    card through the paged kernel (its chip from NVML) and leaf 2 with
+    fake GPU chips (``gpufake:dgx-h100-8@leaf2``); every other node takes
+    --port 0 and each reads its port from its banner. 12 clients call
+    leaf 1's /generate for 12 s. Checks: A leads generation 1 and B
+    stands by; A's /api/federation lists both leaves' slices, all of
+    accel kind gpu, and its fleet counts 1 chip plus leaf 2's; the card's
+    HBM rollup at A equals leaf 1's /api/accel/metrics within a tick;
+    ``python -m tpumon_torch query ... --fleet`` at A answers with the
+    card's chip for an aggregate and a topk; ``trace --fleet`` at A runs
+    and A holds offset-adjusted spans of leaf 1; the aggregator and A
+    export the tpumon_federation_* families. Leaf 2 killed (SIGKILL): its
+    slice goes dark at the aggregator and at A, and the next fleet answer
+    is partial, naming it. Root A killed: B leads generation 2 and holds
+    the card's chip again within the reference soak's budget (30 ticks +
+    4 s), the aggregator's uplink failed over to B. Last, a 2 s capture
+    on leaf 1 under the same traffic, with the aggregator's view of leaf
+    1 read every 0.1 s (recorded, not failed). SIGTERM ends root B, the
+    aggregator and leaf 1 with exit 0 within 10 s. Prints leaf 1's uplink
+    frames and bytes per second (delta and keyframe), A's freshness p50 /
+    p95 for leaf 1, dark-detection and failover ms, leaf 1's tokens/s and
+    TTFT/TPOT p50 beside phase 22's, the capture's readings, and leaf 1's
+    decode steps, whose paged launches (one a layer a step) row 1 adds.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -242,6 +270,7 @@ import random
 import subprocess
 import sys
 import time
+import urllib.parse
 import urllib.request
 from pathlib import Path
 
@@ -4840,12 +4869,15 @@ def serving_pair(base: str, engine_url: str) -> tuple:
     return before, tuple(row.get(k) for k in keys), after
 
 
-def phase22(device: str = "cuda", extra_argv: tuple = ()) -> int:
+def phase22(device: str = "cuda", extra_argv: tuple = (),
+            keep_checkpoint: bool = False) -> dict:
     """Phase 22: ``python -m tpumon_torch --serve-loadgen`` on the card, as
     its own process, watching its own engine (phase 4's model from a
     checkpoint, the paged kernel read path). Returns the paged kernel's
-    events in the profiler capture taken during the traffic.
-    ``device``/``extra_argv`` rehearse it on the CPU (``cpu``, with
+    events in the profiler capture taken during the traffic (``paged``),
+    the engine's tokens/s, TTFT and TPOT p50, and the checkpoint's
+    directory and bf16 bytes, which ``keep_checkpoint`` leaves for phase
+    23. ``device``/``extra_argv`` rehearse it on the CPU (``cpu``, with
     ``--loadgen-device cpu`` and a fake accelerator), where the checks of
     the card fail."""
     import asyncio
@@ -5034,11 +5066,424 @@ def phase22(device: str = "cuda", extra_argv: tuple = ()) -> int:
     if code != 0 or stop_s > APP_STOP_S:
         fail(f"phase 22: SIGTERM: exit {code} after {stop_s} s; stderr "
              f"{err[-2000:]!r}")
-    shutil.rmtree(APP_DIR, ignore_errors=True)
+    if not keep_checkpoint:
+        shutil.rmtree(APP_DIR, ignore_errors=True)
     if device == "cuda":
         torch.cuda.empty_cache()
     print(f"phase22 wall_s={time.perf_counter() - t_phase!r}", flush=True)
-    return paged
+    return {"paged": paged, "ckpt": ckpt, "ckpt_bytes": nbytes,
+            "tokens_per_s": tokens / traffic["wall_s"],
+            "before_capture_tokens_per_s": pre.get("tokens_per_s"),
+            "ttft_p50_ms": served.get("ttft_p50_ms"),
+            "tpot_p50_ms": served.get("tpot_p50_ms")}
+
+
+# --- phase 23: a federation tree of port processes on the card ----------
+
+FED_LEASE_S = 2.0  # the roots' lease (the config's default)
+FED_TICK_S = 1.0  # every node's sample interval (the config's default)
+FED_DARK_AFTER_S = 5.0  # the config's default
+# The reference soak's failover budget: one keyframe cadence of ticks
+# (30) for the uplink's resync, plus 4 s for the standby's promotion.
+FED_FAILOVER_S = 30 * FED_TICK_S + 4.0
+FED_LEAF2 = "gpufake:dgx-h100-8@leaf2"  # its own host prefix: no collision
+FED_WAIT_S = 60.0  # for a view to converge
+
+
+def fed_json(base: str, path: str = "/api/federation") -> dict:
+    status, body = http_get(f"{base}{path}", timeout=30)
+    if status != 200:
+        return {}
+    return json.loads(body)
+
+
+def wait_for(what: str, fn, timeout_s: float = FED_WAIT_S,
+             period: float = 0.1):
+    """Poll ``fn`` until it returns something truthy; fail after
+    ``timeout_s``. Returns (value, seconds waited)."""
+    t0 = time.perf_counter()
+    last = None
+    while time.perf_counter() - t0 < timeout_s:
+        try:
+            last = fn()
+        except OSError as e:
+            last = e
+        if last and not isinstance(last, OSError):
+            return last, time.perf_counter() - t0
+        time.sleep(period)
+    fail(f"phase 23: timed out after {timeout_s} s waiting for {what} "
+         f"(last {str(last)[:600]})")
+
+
+def node_rows(fed: dict, node: str) -> list:
+    return [r for r in fed.get("slices") or [] if r.get("node") == node]
+
+
+def watch_status(base: str, node: str, stop, period: float = 0.1) -> list:
+    """(seconds since the call, the node's status, seconds since its last
+    frame) at ``base``'s hub every ``period`` until ``stop`` is set; runs
+    in its own thread."""
+    out: list = []
+    t0 = time.perf_counter()
+    while not stop.is_set():
+        try:
+            ns = (fed_json(base).get("nodes") or {}).get(node) or {}
+            out.append((time.perf_counter() - t0, ns.get("status"),
+                        ns.get("age_s")))
+        except OSError:
+            pass
+        time.sleep(period)
+    return out
+
+
+def dark_spans(samples: list) -> list:
+    """[start, end] seconds of each run of non-"ok" readings."""
+    spans, start, prev = [], None, None
+    for t, status, _age in samples:
+        if status != "ok" and start is None:
+            start = t
+        elif status == "ok" and start is not None:
+            spans.append([start, t])
+            start = None
+        prev = t
+    if start is not None:
+        spans.append([start, prev])
+    return spans
+
+
+def phase23(app: dict, device: str = "cuda", extra_argv: tuple = ()) -> dict:
+    """Phase 23: a federation tree of ``python -m tpumon_torch`` processes
+    over the card: two roots holding the HA lease (A leads), a slice
+    aggregator homed on both, leaf 1 serving phase 22's checkpoint on the
+    card through the paged kernel (its chip from NVML), and leaf 2 with
+    fake GPU chips. Returns the paged kernel's launches on leaf 1 (one a
+    layer each decode step, from its engine's own counter).
+    ``device``/``extra_argv`` (leaf 1's) rehearse it on the CPU, as in
+    phase 22."""
+    import os
+    import shutil
+    import signal
+    import socket
+    import statistics
+    import threading
+
+    import torch
+
+    from tpumon_torch.collectors.gpu import normalize_gpu_kind
+    from tpumon_torch.collectors.serving import distill_serving_metrics
+    from tpumon_torch.metrics_text import parse_metrics_text, samples_by_name
+
+    t_phase = time.perf_counter()
+    smi_name = smi("name")[0]
+    procs: dict = {}
+    env0 = dict(os.environ, TPUMON_K8S_MODE="none",
+                TPUMON_SAMPLE_INTERVAL_S=str(FED_TICK_S),
+                TPUMON_FEDERATION_DARK_AFTER_S=str(FED_DARK_AFTER_S))
+
+    def start(name: str, argv: list, **env) -> str:
+        proc, port, startup_s, lines = start_app(
+            ["--port", str(env.pop("port", 0)), *argv],
+            dict(env0, TPUMON_FEDERATION_NODE=name, **env),
+            APP_DIR / f"{name}.stderr")
+        procs[name] = proc
+        print(f"phase23 node={name} port={port} startup_s={startup_s!r}",
+              flush=True)
+        return f"http://127.0.0.1:{port}"
+
+    def stderr_of(name: str) -> str:
+        path = APP_DIR / f"{name}.stderr"
+        return path.read_text()[-1500:] if path.is_file() else ""
+
+    def metric(text: str, family: str) -> list:
+        return samples_by_name(parse_metrics_text(text)).get(family, [])
+
+    try:
+        # Root A must name root B at start, so B's port is reserved here
+        # (bound and released); every other node takes --port 0.
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port_b = s.getsockname()[1]
+        lease = ["--federation-lease", f"{FED_LEASE_S:g}",
+                 "--accel-backend", "none"]
+        root_a = start("rootA", ["--federation-role", "root",
+                                 "--federation-peer",
+                                 f"http://127.0.0.1:{port_b}",
+                                 "--federation-initial-leader", *lease])
+        root_b = start("rootB", ["--federation-role", "root",
+                                 "--federation-peer", root_a, *lease],
+                       port=port_b)
+        agg = start("agg0", ["--federation-role", "aggregator",
+                             "--federate-up", f"{root_a},{root_b}",
+                             "--accel-backend", "none"])
+        leaf1 = start("leaf1", [
+            "--federate-up", agg, "--serve-loadgen", "--loadgen-ckpt",
+            str(app["ckpt"]), "--loadgen-kv-layout", "paged",
+            "--loadgen-paged-attn", "kernel", *extra_argv],
+            TPUMON_SERVING_INTERVAL_S="1")
+        leaf2 = start("leaf2", ["--federate-up", agg, "--accel-backend",
+                                FED_LEAF2])
+
+        # --- the tree converges: A leads, both leaves at the root -------
+        lead_a, _ = wait_for("root A to lead generation 1", lambda: (
+            (ld := fed_json(root_a).get("leader") or {}).get("leader")
+            and ld.get("generation") == 1 and ld))
+        wait_for("root B to join as standby", lambda: (
+            (ld := fed_json(root_b).get("leader") or {}).get("generation") == 1
+            and not ld.get("leader")))
+        card = json.loads(http_get(f"{leaf1}/api/accel/metrics")[1])["chips"]
+        fakes = json.loads(http_get(f"{leaf2}/api/accel/metrics")[1])["chips"]
+        if (len(card) != 1 or card[0]["accel_kind"] != "gpu"
+                or card[0]["kind"] != normalize_gpu_kind(smi_name)):
+            fail(f"phase 23: leaf 1 shows {card}, not the card {smi_name}")
+        chip_id = card[0]["chip"]
+        fleet0, t_conv = wait_for("both leaves at root A", lambda: (
+            (f := fed_json(root_a))
+            and {r["accel_kind"] for r in node_rows(f, "leaf1")
+                 + node_rows(f, "leaf2")} == {"gpu"}
+            and sum(r["chips"] for r in node_rows(f, "leaf1")) == 1
+            and sum(r["chips"] for r in node_rows(f, "leaf2")) == len(fakes)
+            and all(r["health"] == "ok" for r in f["slices"])
+            and f["fleet"]["chips"] == 1 + len(fakes) and f))
+
+        # --- 12 clients on leaf 1's engine; the tree streams meanwhile --
+        targets = json.loads(http_get(f"{leaf1}/api/serving")[1])["targets"]
+        engine_url = targets[0]["target"]
+        gen_url = engine_url.rsplit("/", 1)[0] + "/generate"
+        up0 = fed_json(leaf1)["uplink"]
+        fresh: list = []
+        stop = threading.Event()
+
+        def sample_freshness():
+            while not stop.is_set():
+                for s in metric(http_get(f"{root_a}/metrics")[1].decode(),
+                                "tpumon_federation_freshness_ms"):
+                    if s.labels.get("node") == "leaf1":
+                        fresh.append(s.value)
+                time.sleep(0.5)
+
+        sampler = threading.Thread(target=sample_freshness, daemon=True)
+        sampler.start()
+        t0 = time.perf_counter()
+        traffic = app_traffic(gen_url, APP_TRAFFIC_S, APP_CLIENTS,
+                              engine_config().model.vocab)
+        stop.set()
+        sampler.join(timeout=30)
+        up1 = fed_json(leaf1)["uplink"]
+        up_s = time.perf_counter() - t0
+        served = distill_serving_metrics(http_get(engine_url)[1].decode())
+        if traffic["completed"] < APP_CLIENTS or traffic["other"]:
+            fail(f"phase 23: /generate completed {traffic['completed']}, "
+                 f"failures {traffic['other'][:5]}")
+
+        # --- the card's chip at the root: its HBM rollup, one tick ------
+        def hbm_match():
+            before = json.loads(http_get(f"{leaf1}/api/accel/metrics")[1])
+            row = node_rows(fed_json(root_a), "leaf1")
+            after = json.loads(http_get(f"{leaf1}/api/accel/metrics")[1])
+            v0, v1 = (d["chips"][0]["hbm_pct"] for d in (before, after))
+            got = row[0]["hbm_mean"] if row else None
+            ok = (got is not None and v0 == v1
+                  and abs(got - v0) <= 1e-6 * max(1.0, abs(v0)))
+            return ok and (v0, got, row[0])
+
+        (hbm_leaf, hbm_root, card_row), _ = wait_for(
+            "root A's HBM rollup of the card to match leaf 1's", hbm_match,
+            timeout_s=10 * FED_TICK_S, period=0.2)
+
+        # --- fleet query and trace at the root, as a user asks them -----
+        answers = {}
+        for expr in ("sum by (chip) (chip.hbm)", "topk(9, chip.hbm)"):
+            out = subprocess.run(
+                [sys.executable, "-m", "tpumon_torch", "query", expr,
+                 "--fleet", "--json", "--url", root_a],
+                cwd=Path(__file__).resolve().parent, capture_output=True,
+                text=True, timeout=120)
+            ans = json.loads(out.stdout) if out.returncode == 0 else {}
+            answers[expr] = ans
+            chips_in = [r["labels"].get("chip")
+                        for r in ans.get("result") or []]
+            print(f"phase23 query {expr!r} exit={out.returncode} "
+                  f"rows={len(chips_in)} partial={ans.get('partial')}",
+                  flush=True)
+            if (out.returncode != 0 or chip_id not in chips_in
+                    or ans.get("partial") or not ans.get("fleet")):
+                fail(f"phase 23: query --fleet {expr!r}: exit "
+                     f"{out.returncode}, {str(ans)[:800]} "
+                     f"{out.stderr[-800:]!r}")
+        trace_cli = subprocess.run(
+            [sys.executable, "-m", "tpumon_torch", "trace", "--fleet",
+             "--url", root_a], cwd=Path(__file__).resolve().parent,
+            capture_output=True, text=True, timeout=120)
+        for line in trace_cli.stdout.splitlines()[:12]:
+            print(f"phase23 trace --fleet | {line}", flush=True)
+        fleet_trace = fed_json(root_a, "/api/trace?fleet=1").get("fleet") or {}
+        leaf_spans = [s for s in fleet_trace.get("spans") or []
+                      if s.get("node") == "leaf1"]
+        adjusted = [s for s in leaf_spans if s.get("clock_adjusted")]
+        if trace_cli.returncode != 0 or not adjusted:
+            fail(f"phase 23: trace --fleet exit {trace_cli.returncode}; "
+                 f"{len(leaf_spans)} spans of leaf 1 at root A, "
+                 f"{len(adjusted)} offset-adjusted")
+        metrics_root = http_get(f"{root_a}/metrics")[1].decode()
+        metrics_agg = http_get(f"{agg}/metrics")[1].decode()
+        for where, text, families in (
+                ("agg0", metrics_agg, (
+                    "tpumon_federation_downstream_up",
+                    "tpumon_federation_downstream_frames_total",
+                    "tpumon_federation_fleet_chips",
+                    "tpumon_federation_freshness_ms",
+                    "tpumon_federation_uplink_connected")),
+                ("rootA", metrics_root, (
+                    "tpumon_federation_leader",
+                    "tpumon_federation_generation",
+                    "tpumon_federation_downstream_up",
+                    "tpumon_federation_fleet_chips",
+                    "tpumon_federation_freshness_ms"))):
+            for family in families:
+                if not metric(text, family):
+                    fail(f"phase 23: {where}'s /metrics has no {family}")
+
+        # --- leaf 2 dies: dark at both tiers, the answer partial --------
+        t_kill = time.perf_counter()
+        procs["leaf2"].send_signal(signal.SIGKILL)
+        procs["leaf2"].wait(timeout=30)
+        wait_for("leaf 2 dark at the aggregator", lambda: (
+            (fed_json(agg).get("nodes") or {}).get("leaf2", {}).get(
+                "status") == "down"))
+        dark_agg_s = time.perf_counter() - t_kill
+        wait_for("leaf 2's slice dark at root A", lambda: (
+            (rows := node_rows(fed_json(root_a), "leaf2"))
+            and {r["health"] for r in rows} == {"dark"}))
+        dark_root_s = time.perf_counter() - t_kill
+        q = urllib.parse.quote("sum(chip.hbm)")
+        partial = fed_json(root_a, f"/api/query?query={q}&fleet=1")
+        if (partial.get("partial") is not True
+                or not any("leaf2" in m for m in partial.get("missing") or [])
+                or not partial.get("result")):
+            fail(f"phase 23: the fleet answer with leaf 2 dark: {partial}")
+
+        # --- root A dies: B promotes, the aggregator fails over ---------
+        t_kill = time.perf_counter()
+        procs["rootA"].send_signal(signal.SIGKILL)
+        procs["rootA"].wait(timeout=30)
+        lead_b, _ = wait_for("root B to lead generation 2", lambda: (
+            (ld := fed_json(root_b).get("leader") or {}).get("leader")
+            and ld.get("generation") == 2 and ld), timeout_s=FED_FAILOVER_S)
+        promote_s = time.perf_counter() - t_kill
+        wait_for("the card's chip in root B's view", lambda: (
+            (rows := node_rows(fed_json(root_b), "leaf1"))
+            and rows[0]["health"] == "ok" and rows[0]["chips"] == 1),
+            timeout_s=FED_FAILOVER_S)
+        failover_s = time.perf_counter() - t_kill
+        up_agg = fed_json(agg)["uplink"]
+        if (failover_s > FED_FAILOVER_S or up_agg["url"] != root_b
+                or up_agg["failovers"] < 1):
+            fail(f"phase 23: failover in {failover_s} s (budget "
+                 f"{FED_FAILOVER_S}), the aggregator's uplink {up_agg}")
+
+        # --- last: a 2 s capture on leaf 1; does the aggregator see it
+        #     go dark? (recorded, not failed) --------------------------
+        stop = threading.Event()
+        watched: dict = {}
+        watcher = threading.Thread(target=lambda: watched.setdefault(
+            "s", watch_status(agg, "leaf1", stop)), daemon=True)
+        watcher.start()
+
+        def capture():
+            t = time.perf_counter()
+            status, body = http_get(
+                f"{leaf1}/api/profile?seconds={APP_PROFILE_S}", timeout=120)
+            return status, json.loads(body), time.perf_counter() - t
+
+        traffic2 = app_traffic(gen_url, APP_TRAFFIC_S, APP_CLIENTS,
+                               engine_config().model.vocab, during=capture)
+        wait_for("leaf 1 back to ok at the aggregator", lambda: (
+            (fed_json(agg).get("nodes") or {}).get("leaf1", {}).get(
+                "status") == "ok"), timeout_s=FED_WAIT_S)
+        time.sleep(1.0)
+        stop.set()
+        watcher.join(timeout=30)
+        spans = dark_spans(watched.get("s", []))
+        ages = [a for _t, _s, a in watched.get("s", []) if a is not None]
+        cap_status, cap, cap_wall = traffic2["during"] or (None, {}, None)
+
+        # Leaf 1's paged launches: 2 a decode step over its whole life.
+        engine_text = http_get(engine_url)[1].decode()
+        steps = sum(s.value for s in metric(engine_text,
+                                            "tpumon_serving_decode_steps"))
+        layers = engine_config().model.n_layers
+
+        # --- SIGTERM ends what is left, each with exit 0 ---------------
+        codes = {}
+        t0 = time.perf_counter()
+        for name in ("leaf1", "agg0", "rootB"):
+            procs[name].send_signal(signal.SIGTERM)
+        for name in ("leaf1", "agg0", "rootB"):
+            left = max(0.0, APP_STOP_S - (time.perf_counter() - t0))
+            try:
+                procs[name].wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                pass
+            # Exit time from the common SIGTERM, as polled here.
+            codes[name] = (procs[name].poll(), time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+    st_f = (statistics.quantiles(fresh, n=20) if len(fresh) >= 2 else [])
+    delta_frames = up1["delta_frames"] - up0["delta_frames"]
+    key_frames = up1["keyframes"] - up0["keyframes"]
+    print(f"phase23 tree converged_s={t_conv!r} leader={lead_a} "
+          f"root_fleet={fleet0['fleet']} card_row={card_row} "
+          f"hbm_leaf_pct={hbm_leaf!r} hbm_root_pct={hbm_root!r} "
+          f"card={card_line()!r}", flush=True)
+    print(f"phase23 uplink leaf1 window_s={up_s!r} frames_per_s="
+          f"{(up1['frames'] - up0['frames']) / up_s!r} bytes_per_s="
+          f"{(up1['bytes'] - up0['bytes']) / up_s!r} delta_frames="
+          f"{delta_frames} delta_bytes_per_frame="
+          f"{(up1['delta_bytes'] - up0['delta_bytes']) / max(1, delta_frames)!r}"
+          f" keyframes={key_frames} keyframe_bytes_per_frame="
+          f"{up1['keyframe_bytes'] / max(1, up1['keyframes'])!r} "
+          f"totals={up1}", flush=True)
+    print(f"phase23 freshness root_ms samples={len(fresh)} p50="
+          f"{statistics.median(fresh) if fresh else None!r} p95="
+          f"{st_f[18] if st_f else None!r} max={max(fresh, default=None)!r}",
+          flush=True)
+    print(f"phase23 dark leaf2 agg_ms={dark_agg_s * 1e3!r} root_ms="
+          f"{dark_root_s * 1e3!r} partial_missing={partial.get('missing')} "
+          f"failover promote_ms={promote_s * 1e3!r} view_ms="
+          f"{failover_s * 1e3!r} budget_s={FED_FAILOVER_S} leader_b={lead_b} "
+          f"agg_uplink_failovers={up_agg['failovers']}", flush=True)
+    print(f"phase23 leaf1 serving requests={traffic['completed']} "
+          f"tokens_per_s={traffic['tokens'] / traffic['wall_s']!r} "
+          f"ttft_p50_ms={served.get('ttft_p50_ms')!r} tpot_p50_ms="
+          f"{served.get('tpot_p50_ms')!r} | phase22 tokens_per_s="
+          f"{app['tokens_per_s']!r} before_capture="
+          f"{app['before_capture_tokens_per_s']!r} ttft_p50_ms="
+          f"{app['ttft_p50_ms']!r} "
+          f"tpot_p50_ms={app['tpot_p50_ms']!r}", flush=True)
+    print(f"phase23 capture leaf1 status={cap_status} seconds="
+          f"{cap.get('seconds')!r} returned_after_s={cap_wall!r} "
+          f"agg_dark_spans_s={spans} dark_total_s="
+          f"{sum(b - a for a, b in spans)!r} max_frame_age_s="
+          f"{max(ages, default=None)!r} readings={len(ages)} "
+          f"dark_after_s={FED_DARK_AFTER_S} capture_at_s={APP_PROFILE_AT_S} "
+          f"requests={traffic2['completed']}", flush=True)
+    print(f"phase23 paged decode_steps={steps} n_layers={layers} "
+          f"launches={int(steps) * layers} sigterm={codes} wall_s="
+          f"{time.perf_counter() - t_phase!r}", flush=True)
+    for name, (code, stop_s) in codes.items():
+        if code != 0 or stop_s > APP_STOP_S:
+            fail(f"phase 23: SIGTERM {name}: exit {code} after {stop_s} s; "
+                 f"stderr {stderr_of(name)!r}")
+    if steps <= 0:
+        fail(f"phase 23: leaf 1's engine counted {steps} decode steps")
+    shutil.rmtree(APP_DIR, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"paged": int(steps) * layers}
 
 
 def main() -> int:
@@ -5122,12 +5567,14 @@ def main() -> int:
     phase19()
     check_monitor()
     monitor = phase21()
-    app_paged = phase22()
+    app = phase22(keep_checkpoint=True)
+    tree = phase23(app)
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
              "replaces": "tpumon/ops/paged_attention.py:65",
-             "launches": stats["launches"] + monitor["paged"] + app_paged,
+             "launches": (stats["launches"] + monitor["paged"] + app["paged"]
+                          + tree["paged"]),
              "max_abs_err": worst["bfloat16"],
              **times}]
     sources = {"flash_attention_tri_fwd": (

@@ -5,8 +5,9 @@ tpumon`` (``tpumon/app.py``).
   ``start_background`` patched out in both packages, gives the same exit
   code, the same ``Config`` and the same engine arguments (the port adds
   ``device``).
-- The federation flags exit 2 before any engine starts, naming ROADMAP
-  item 7d; ``build`` refuses the same configs.
+- The federation flags (an upstream, an aggregator, an HA root, a peer
+  alone) give the same ``Config`` through ``main`` and build the same hub
+  role, uplink URLs and tier, and lease peer and bootstrap flag.
 - ``--serve-loadgen`` with no card and no ``--loadgen-device cpu`` exits
   non-zero with ``resolve_device``'s message; the mesh and ring engines
   exit 2 with the engine's "not yet ported".
@@ -125,22 +126,42 @@ def test_flags_parse_as_the_reference(monkeypatch, capsys, tmp_path, argv):
         assert port[3].err == ref[3].err
 
 
-@pytest.mark.parametrize("argv", FEDERATION)
-def test_federation_exits_2_naming_item_7d(monkeypatch, capsys, argv):
-    calls = Calls()
-    monkeypatch.setattr(app, "run", calls.run)
-    monkeypatch.setattr(serving, "start_background", calls.start_background)
-    assert app.main(argv + ["--serve-loadgen"]) == 2
-    assert "not yet ported (ROADMAP item 7d)" in capsys.readouterr().err
-    assert calls.cfg is None and calls.engine_kw is None
-    from tpumon_torch.config import load_config
+def federation_wiring(sampler) -> dict:
+    """What ``build`` wired for federation, in terms both packages share."""
+    hub, up, lease = sampler.federation, sampler.uplink, sampler.leader
+    return {
+        "hub": None if hub is None else (hub.role, hub.dark_after_s,
+                                         hub.lease is lease),
+        "merged": type(sampler.accel).__name__,
+        "uplink": None if up is None else (
+            up.urls, up.tier, up.hub is hub, up.enc.keyframe_every,
+            None if hub is None or hub.gen_source is None
+            else hub.gen_source()),
+        "lease": None if lease is None else (
+            lease.peer_url, lease.initial_leader, lease.lease_s,
+            lease.clock is sampler.clock, lease.on_events is not None),
+        "node": sampler.tracer.node,
+    }
 
-    keys = {"--federate-up": "TPUMON_FEDERATE_UP",
-            "--federation-role": "TPUMON_FEDERATION_ROLE",
-            "--federation-peer": "TPUMON_FEDERATION_PEER"}
-    env = {keys[a]: v for a, v in zip(argv, argv[1:]) if a in keys}
-    with pytest.raises(ValueError, match="item 7d"):
-        app.build(load_config(env=env))
+
+@pytest.mark.parametrize("argv", FEDERATION)
+def test_federation_builds_as_the_reference(monkeypatch, capsys, argv):
+    for key in [k for k in os.environ if k.startswith("TPUMON_")]:
+        monkeypatch.delenv(key)
+    argv = argv + ["--accel-backend", "none", "--federation-lease", "3"]
+    cfgs = []
+    for mod in (app, ref_app):
+        calls = Calls()
+        monkeypatch.setattr(mod, "run", calls.run)
+        assert mod.main(argv) == 0, capsys.readouterr().err
+        cfgs.append(calls.cfg)
+    assert dataclasses.asdict(cfgs[0]) == dataclasses.asdict(cfgs[1])
+    got = federation_wiring(app.build(cfgs[0])[0])
+    want = federation_wiring(ref_app.build(cfgs[1])[0])
+    assert got == want
+    role = dict(zip(argv, argv[1:])).get("--federation-role")
+    assert (got["hub"] is not None) == (role in ("aggregator", "root"))
+    assert (got["lease"] is not None) == (role == "root")
 
 
 def test_serve_loadgen_without_a_card_exits_nonzero(monkeypatch, capsys):

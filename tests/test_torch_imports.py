@@ -63,6 +63,8 @@ def test_importing_the_port_loads_neither_jax_nor_tpumon():
         "import tpumon_torch.cli\n"
         "import tpumon_torch.app\n"
         "import tpumon_torch.server\n"
+        "import tpumon_torch.federation\n"
+        "import tpumon_torch.leader\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpumon'))\n"
         "print(','.join(bad))\n"

@@ -1,9 +1,10 @@
 """Application wiring and entrypoint (``python -m tpumon_torch``), a copy of
 ``tpumon/app.py``: every flag of the reference, ``--serve-loadgen`` binding
 the port's serving engine (``tpumon_torch.loadgen.serving``) in process,
-plus ``--loadgen-device``. The federation roles (``federation_role``,
-``federate_up``, ``federation_peer``) are not yet ported (ROADMAP item
-7d): ``main`` exits 2 on them before any engine starts.
+plus ``--loadgen-device``. The federation roles (``--federation-role
+aggregator|root``, ``--federate-up``, ``--federation-peer``) build the
+port's hub, uplink and root-HA lease (``tpumon_torch.federation``,
+``tpumon_torch.leader``) as the reference builds its own.
 
 Reference startup (SURVEY §3.1): read HTML, create server, listen — no
 config, no health check, no graceful shutdown (monitor_server.js:241-298).
@@ -27,20 +28,6 @@ from tpumon_torch.config import Config, load_config
 from tpumon_torch.history import HistoryService, RingHistory
 from tpumon_torch.sampler import Sampler
 from tpumon_torch.server import MonitorServer
-
-
-FEDERATION_FIELDS = ("federation_role", "federate_up", "federation_peer")
-
-
-def federation_refusal(cfg: Config) -> str | None:
-    """Why ``cfg`` cannot run in the port, or None: a federation role, an
-    upstream or an HA peer needs the federation tree (ROADMAP item 7d)."""
-    asked = [f for f in FEDERATION_FIELDS if getattr(cfg, f)]
-    if not asked:
-        return None
-    return (f"federation ({', '.join(asked)}) is not yet ported (ROADMAP "
-            f"item 7d); run a standalone monitor, or --peers for a flat "
-            f"peer view")
 
 
 def build(cfg: Config) -> tuple[Sampler, MonitorServer]:
@@ -110,11 +97,76 @@ def build(cfg: Config) -> tuple[Sampler, MonitorServer]:
         engine=AlertEngine(cfg.thresholds),
         notifier=notifier,
     )
-    # Hierarchical federation (docs/federation.md): the hub, the uplink
-    # and the root-HA lease are not yet ported.
-    refusal = federation_refusal(cfg)
-    if refusal:
-        raise ValueError(refusal)
+    # Hierarchical federation (tpumon_torch.federation, docs/federation.md):
+    # aggregator and root roles grow a hub (downstream delta streams fan in
+    # through /api/federation/ingest, hub chips merge into the accel
+    # view); --federate-up grows an uplink that pushes THIS node's
+    # frames upstream (chip rows from a leaf, slice rows from an
+    # aggregator). Standalone monitors skip all of it.
+    role = cfg.federation_role or ("leaf" if cfg.federate_up else "")
+    if role not in ("", "leaf", "aggregator", "root"):
+        raise ValueError(
+            f"unknown federation_role {cfg.federation_role!r} "
+            f"(want leaf | aggregator | root)"
+        )
+    if role or cfg.federate_up:
+        import socket
+
+        from tpumon_torch.federation import (
+            FederationHub,
+            FederationUplink,
+            HubMergedCollector,
+        )
+
+        node = cfg.federation_node or socket.gethostname()
+        # Fleet tracing: spans shipped upstream (and wire/header trace
+        # contexts) carry this node's federation name, not the "local"
+        # placeholder — a multi-node Perfetto export needs one process
+        # track per NAMED node.
+        sampler.tracer.node = node
+        if role in ("aggregator", "root"):
+            hub = FederationHub(
+                node=node, role=role, dark_after_s=cfg.federation_dark_after_s
+            )
+            hub.bind(sampler)
+            sampler.federation = hub
+            sampler.accel = HubMergedCollector(local=sampler.accel, hub=hub)
+        if cfg.federate_up and role != "root":
+            sampler.uplink = FederationUplink(
+                sampler,
+                url=cfg.federate_up,
+                node=node,
+                tier="aggregator" if sampler.federation is not None else "leaf",
+                hub=sampler.federation,
+                keyframe_every=cfg.federation_keyframe_every,
+                auth_token=cfg.auth_token,
+            )
+            if sampler.federation is not None:
+                # An aggregator is not a leader but relays the fleet
+                # leader's fencing token: its own TPWQ fan-out stamps
+                # the highest generation its uplink has seen.
+                up = sampler.uplink
+                sampler.federation.gen_source = lambda: up.gen_seen
+        if role == "root" and (
+            cfg.federation_peer or cfg.federation_initial_leader
+        ):
+            # Root HA (tpumon_torch.leader, docs/federation.md "Root HA"):
+            # the lease self-fences actuation, the heartbeat poll
+            # promotes the standby, and the hub stamps the generation
+            # on every fleet query.
+            from tpumon_torch.leader import LeaderLease
+
+            sampler.leader = LeaderLease(
+                node=node,
+                journal=sampler.journal,
+                peer_url=cfg.federation_peer,
+                lease_s=cfg.federation_lease_s,
+                initial_leader=cfg.federation_initial_leader,
+                auth_token=cfg.auth_token,
+                clock=sampler.clock,
+            )
+            sampler.leader.on_events = sampler.mark_events_dirty
+            sampler.federation.lease = sampler.leader
     # Chaos link faults attach to the links they target; a fault aimed
     # at a link this config never builds must fail loudly, like an
     # unknown collector source does.
@@ -224,6 +276,14 @@ async def run(cfg: Config, loadgen_engine=None) -> None:
         f"accel={cfg.accel_backend} interval={cfg.sample_interval_s:g}s",
     )
     await sampler.start()
+    if sampler.uplink is not None:
+        # Push task starts with the tick loops: one delta frame per
+        # tick flows upstream from here on (keyframe first).
+        await sampler.uplink.start()
+    if sampler.leader is not None:
+        # Lease renewal + peer heartbeat poll; on a fresh HA pair the
+        # initial_leader root promotes on its first probe.
+        await sampler.leader.start()
     if store is not None:
         await store.start(sampler)
     if snapshotter is not None:
@@ -572,10 +632,6 @@ def main(argv: list[str] | None = None) -> int:
             print(f"unknown argument {arg!r}", file=sys.stderr)
             return 2
     cfg = load_config(path=path, overrides=overrides)
-    refusal = federation_refusal(cfg)
-    if refusal:
-        print(refusal, file=sys.stderr)
-        return 2
     loadgen_stop = None
     loadgen_engine = None
     if serve_loadgen:

@@ -390,12 +390,11 @@ def _render_trace(sampler: Sampler, profiler=None) -> str:
 
 
 def _render_federation(sampler: Sampler) -> str:
-    """Aggregator-tree block (the federation tree, not yet ported:
-    ROADMAP item 7d): per-downstream freshness and liveness,
-    fleet-level dark/unreachable counts, and the uplink's wire accounting — the
-    gauges an operator pages off when a subtree goes quiet. Rendered
-    on the "federation" dirty section (plus "samples" so age gauges
-    advance per tick); absent entirely on standalone monitors. The
+    """Aggregator-tree block (tpumon_torch.federation): per-downstream
+    freshness and liveness, fleet-level dark/unreachable counts, and the
+    uplink's wire accounting — the gauges an operator pages off when a
+    subtree goes quiet. Rendered on the "federation" dirty section (plus
+    "samples" so age gauges advance per tick); absent entirely on standalone monitors. The
     family names below are documented in docs/federation.md — the
     tpulint registry pass pins that."""
     hub = getattr(sampler, "federation", None)

@@ -6,9 +6,8 @@ the port has no libtpu, but keeps the codec because the frames below are
 built from it. The frames carry the chip table between monitors:
 ``/api/accel/wire`` (``Accept: application/x-tpumon-wire``), the peer
 collector (``tpumon_torch.collectors.accel_peers``), and the federation
-tree's delta stream, query and trace messages (the federation itself is
-not yet ported, ROADMAP item 7d). Every encoder gives the reference's
-bytes.
+tree's delta stream, query and trace messages
+(``tpumon_torch.federation``). Every encoder gives the reference's bytes.
 
 Wire format (https://protobuf.dev/programming-guides/encoding/):
   tag = (field_number << 3) | wire_type
