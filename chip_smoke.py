@@ -258,6 +258,30 @@ Phases, each of which exits non-zero on failure:
     p95 for leaf 1, dark-detection and failover ms, leaf 1's tokens/s and
     TTFT/TPOT p50 beside phase 22's, the capture's readings, and leaf 1's
     decode steps, whose paged launches (one a layer a step) row 1 adds.
+24. mesh serving on the one card (a mesh is one controller over a device
+    list that may repeat; the tensor-parallel sum is then device-local):
+    (a) the reference's golden matrix (tests/test_scheduler.py: dp x tp
+    2x2 and 4x1, dense and paged, block 4, speculation 2) plus 2x1 paged
+    through the kernel, on [cuda:0] x 4 with a small f32 model (vocab 96,
+    head_dim 32) and the reference's trace, greedy and seeded: every stream identical
+    to the 1x1 engine's. (b) Phase 4's model and traffic (half sampled) in
+    three layouts: 1x1 with the kernel, MeshServingEngine 2x1 with the
+    kernel (both replicas on cuda:0; the kernel's launches, counted from 0
+    just before, equal n_layers x the replicas' decode steps, and every
+    replica decodes), tp=2 on [cuda:0, cuda:0] through the gather read (no
+    kernel launch); greedy held to 1x1 by greedy_divergence; agreement,
+    tokens/s, each replica's decode-only step p50, resident weight and KV
+    bytes. (c) 2x1 with r1 drained mid-flight: its requests finish on r0
+    with the undrained run's streams; with both drained a submit is
+    rejected, after undrain_slice served. (d) start_metrics_server on the
+    2x1 engine: /metrics parses with tpumon_torch.metrics_text, carries
+    tpumon_serving_replica_* for r0 and r1, and its token counter is the
+    replicas' sum. (e) A 4,200-token prompt: the flat engine rejects it,
+    ring_stripes=2 completes it with the gather and the ring read, greedy
+    held to a flat max_seq 8192 engine. (f) python -m
+    tpumon_torch.loadgen.serving --mesh 2,1 exits 2 with "divide the device
+    count"; --kv-layout paged --ring-attn 2 answers a /generate past
+    max_seq. Row 1's launches in the summary add (b)'s 2x1 run's.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -2818,7 +2842,8 @@ def greedy_divergence(eng, prompt, a, b) -> str | None:
     i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if i is None:
         return None
-    seq = torch.tensor([prompt + a[:i]], dtype=torch.int32, device="cuda")
+    seq = torch.tensor([prompt + a[:i]], dtype=torch.int32,
+                       device=eng.device)
     logits = forward(eng.cfg.model, eng.params, seq)[0, -1]
     top2 = torch.topk(logits, 2).values
     margin = float(top2[0] - top2[1])
@@ -5486,6 +5511,366 @@ def phase23(app: dict, device: str = "cuda", extra_argv: tuple = ()) -> dict:
     return {"paged": int(steps) * layers}
 
 
+# Phase 24: mesh serving on one card. A mesh is one controller over a
+# device list that may repeat, so dp x tp runs on the one card: its
+# tensor-parallel sum is device-local here. The paged kernel runs on the
+# dp replicas (tp = 1); tp takes the gather read, as in the reference.
+
+# tests/test_scheduler.py's MESH_MODEL at twice the width: head_dim 32,
+# the least the paged kernel takes.
+MESH_MODEL = dict(vocab=96, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                  d_ff=256, max_seq=96, compute_dtype="float32")
+# tests/test_scheduler.py's TRACE: chunked long prompts, short ones, two
+# sampled.
+MESH_TRACE = [
+    ([(7 * i + 3) % 97 for i in range(37)], 6, 0.0, 0),
+    ([5, 1, 88], 8, 0.0, 0),
+    ([(3 * i + 11) % 97 for i in range(21)], 5, 1.0, 8),
+    ([9, 2, 6, 5], 7, 0.0, 0),
+    ([(11 * i + 2) % 97 for i in range(49)], 4, 0.0, 0),
+    ([4, 4, 2], 6, 0.7, 12),
+    ([8, 1, 8, 2, 8], 6, 0.0, 0),
+]
+# The reference's golden-matrix layouts (tests/test_scheduler.py:415-424)
+# and the dp replicas through the paged kernel.
+MESH_LAYOUTS = [
+    (2, 2, {}), (4, 1, {}), (2, 2, {"kv_layout": "paged"}),
+    (4, 1, {"kv_layout": "paged"}),
+    (2, 2, {"kv_layout": "paged", "decode_block": 4}),
+    (4, 1, {"decode_block": 4}),
+    (2, 2, {"kv_layout": "paged", "spec_len": 2}), (4, 1, {"spec_len": 2}),
+    (2, 1, {"kv_layout": "paged", "paged_attn": "kernel"}),
+]
+RING_PROMPT = 4200  # tokens: past max_seq 4096, inside 2 x 4096
+RING_NEW = 8
+
+
+def sync(device: str) -> None:
+    import torch
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def mesh_golden_matrix(device: str) -> None:
+    """(a) Every layout's streams, greedy and seeded, identical to the 1x1
+    engine's, on the card (f32, devices [cuda:0] x 4)."""
+    from tpumon_torch.loadgen.model import ModelConfig
+    from tpumon_torch.loadgen.serving import ServeConfig, make_serving_engine
+    from tpumon_torch.ops.paged_attention import paged_attention
+
+    def run(dp, tp, **over):
+        eng = make_serving_engine(ServeConfig(
+            model=ModelConfig(**MESH_MODEL), slots=2, prefill_len=8,
+            mesh_dp=dp, mesh_tp=tp, **over), seed=5, devices=[device] * 4,
+            device=device)
+        reqs = [eng.submit(p, max_new=mx, temperature=t, top_k=k)
+                for p, mx, t, k in MESH_TRACE]
+        eng.drain()
+        return eng, [r.output for r in reqs]
+
+    _, want = run(1, 1)
+    for dp, tp, over in MESH_LAYOUTS:
+        paged_attention.launches = 0
+        eng, got = run(dp, tp, **over)
+        label = f"{dp}x{tp} " + (",".join(f"{k}={v}" for k, v in over.items())
+                                 or "dense")
+        print(f"mesh_golden {label} streams_identical={got == want} "
+              f"kernel_launches={paged_attention.launches}", flush=True)
+        if got != want:
+            fail(f"mesh golden matrix: {label} streams differ from 1x1: "
+                 f"{got} != {want}")
+        if over.get("paged_attn") == "kernel" and device != "cpu":
+            steps = sum(r.decode_steps_total for r in eng.replicas)
+            if paged_attention.launches != 2 * steps or steps == 0:
+                fail(f"mesh golden {label}: kernel launches "
+                     f"{paged_attention.launches} != 2 x {steps} steps")
+
+
+def store_bytes(store) -> int:
+    """Bytes of a KV cache or pool, or of a mesh's list of them."""
+    from tpumon_torch.loadgen.model import leaf_bytes
+
+    stores = store if isinstance(store, list) else [store]
+    return sum(leaf_bytes(t) for st in stores for t in st.values())
+
+
+def mesh_serve(eng, label: str, traffic, max_new: int = 32) -> tuple:
+    """Phase 4's traffic through ``eng`` (a ServingEngine or a
+    MeshServingEngine), each replica stepped in turn as
+    MeshServingEngine.step does, the paged kernel's count set to 0 just
+    before and read just after. Returns (streams, stats): tokens/s, the
+    decode-only step ms of each replica (steps with no prefill in flight),
+    decode steps and kernel launches per replica."""
+    import torch
+
+    from tpumon_torch.loadgen.model import param_bytes
+    from tpumon_torch.ops.paged_attention import paged_attention
+    from tpumon_torch.tracing import quantiles
+
+    prompts, sampling = traffic
+    replicas = getattr(eng, "replicas", [eng])
+    device = str(replicas[0].device)
+    sync(device)
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=max_new, temperature=t, top_k=k)
+            for p, (t, k) in zip(prompts, sampling)]
+    step_ms: list = [[] for _ in replicas]
+    busy = True
+    while busy:
+        busy = False
+        for i, r in enumerate(replicas):
+            before = r.decode_steps_total
+            pure = all(w is None for w in r._prefill_work)
+            s0 = time.perf_counter()
+            busy = r.step() or busy
+            if pure and r.decode_steps_total == before + 1:
+                step_ms[i].append((time.perf_counter() - s0) * 1e3)
+    sync(device)
+    wall = time.perf_counter() - t0
+    stats = {
+        "wall_s": wall, "tokens": eng.tokens_total,
+        "tokens_per_s": eng.tokens_total / wall,
+        "decode_steps": [r.decode_steps_total for r in replicas],
+        "step_ms_p50": [None if not ms else quantiles(ms)[0]
+                        for ms in step_ms],
+        "kernel_launches": paged_attention.launches,
+        "weight_bytes": sum(param_bytes(r.params) for r in replicas),
+        "kv_bytes": sum(store_bytes(r.pool if r.paged else r.cache)
+                        for r in replicas),
+        "memory_allocated": (None if device == "cpu"
+                             else torch.cuda.memory_allocated()),
+    }
+    print(f"mesh_run {label} " + " ".join(f"{k}={v!r}"
+                                          for k, v in stats.items()),
+          flush=True)
+    bad = [r.rid for r in reqs
+           if r.status != "completed" or len(r.output) != max_new + 1]
+    if bad:
+        fail(f"{label}: requests {bad} did not complete")
+    return [r.output for r in reqs], stats
+
+
+def hold_greedy(eng, label: str, traffic, got, want) -> None:
+    """Greedy requests of ``got`` equal to ``want`` up to a near-tie
+    (greedy_divergence on ``eng``, a single-device engine of the same
+    weights)."""
+    prompts, sampling = traffic
+    print(f"mesh_agreement {label} {agreement(got, want)}", flush=True)
+    for i, (t, _) in enumerate(sampling):
+        if t > 0:
+            continue
+        where = greedy_divergence(eng, prompts[i], got[i], want[i])
+        if where is not None:
+            print(f"mesh_greedy {label} request={i} near-tie at {where}",
+                  flush=True)
+
+
+def mesh_full_width(device: str) -> dict:
+    """(b)-(d): phase 4's model and traffic in three layouts — 1x1 with
+    the kernel, MeshServingEngine 2x1 with the kernel (both replicas on
+    cuda:0), tp=2 on [cuda:0, cuda:0] through the gather read — greedy
+    held to 1x1; the drain of r1 mid-flight; the merged /metrics page.
+    Returns the 2x1 run's kernel launches (the main path's)."""
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen.model import Mesh
+    from tpumon_torch.loadgen.serving import (
+        MeshServingEngine,
+        ServingEngine,
+        start_metrics_server,
+    )
+    from tpumon_torch.metrics_text import parse_metrics_text, samples_by_name
+
+    _, prompts, sampling = engine_traffic()
+    traffic = (prompts, sampling)
+    cfg = engine_config("kernel")
+    one = ServingEngine(cfg=cfg, seed=0, device=device)
+    want, _ = mesh_serve(one, "1x1_kernel", traffic)
+
+    two_cfg = dataclasses.replace(cfg, mesh_dp=2)
+    mesh = MeshServingEngine(two_cfg, seed=0, devices=[device] * 2)
+    got, st = mesh_serve(mesh, "2x1_kernel", traffic)
+    steps = st["decode_steps"]
+    launches = st["kernel_launches"]
+    print(f"mesh_kernel 2x1 launches={launches} per_replica="
+          f"{[cfg.model.n_layers * s for s in steps]}", flush=True)
+    if min(steps) == 0 or (device != "cpu" and launches
+                           != cfg.model.n_layers * sum(steps)):
+        fail(f"2x1: kernel launches {launches} != n_layers x decode steps "
+             f"{steps}, or a replica decoded nothing")
+    hold_greedy(one, "2x1_kernel", traffic, got, want)
+
+    # (d) the merged page.
+    server, port = start_metrics_server(mesh, port=0)
+    try:
+        status, body = http_get(f"http://127.0.0.1:{port}/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+    by = samples_by_name(parse_metrics_text(body.decode()))
+    replicas = sorted(s.labels.get("replica") for s in by.get(
+        "tpumon_serving_replica_slots_available", []))
+    (tok,) = by["jetstream_generate_tokens"]
+    print(f"mesh_metrics status={status} replicas={replicas} tokens="
+          f"{tok.value} replica_sum="
+          f"{sum(r.tokens_total for r in mesh.replicas)}", flush=True)
+    if status != 200 or replicas != ["r0", "r1"] or tok.value != sum(
+            r.tokens_total for r in mesh.replicas):
+        fail("mesh /metrics: no per-replica family for r0 and r1, or the "
+             "token counter is not the replicas' sum")
+    for fam in ("tpumon_serving_replica_queue_size",
+                "tpumon_serving_replica_ttft_p95_ms"):
+        if sorted(s.labels["replica"] for s in by.get(fam, [])) != [
+                "r0", "r1"]:
+            fail(f"mesh /metrics: {fam} lacks a replica")
+    del mesh
+
+    # (c) drain r1 mid-flight.
+    mesh = MeshServingEngine(two_cfg, seed=0, devices=[device] * 2)
+    reqs = [mesh.submit(p, max_new=32, temperature=t, top_k=k)
+            for p, (t, k) in zip(prompts, sampling)]
+    for _ in range(24):
+        mesh.step()
+    r1 = mesh.replicas[1]
+    moved = [s.rid for s in r1._slots if s is not None]
+    mesh.drain_slice("r1")
+    mesh.drain()
+    drained = [r.output for r in reqs]
+    print(f"mesh_drain in_flight_on_r1={len(moved)} requeued="
+          f"{mesh.replicas[0].requeued_total + r1.requeued_total} "
+          f"r1_steps={r1.decode_steps_total} streams_identical_to_undrained="
+          f"{drained == got}", flush=True)
+    if not moved or drained != got or any(
+            s is not None for s in r1._slots):
+        fail("drain r1: nothing in flight, work left on r1, or streams "
+             "differ from the undrained run's")
+    mesh.drain_slice("r0")
+    rej = mesh.submit(prompts[0][:64], max_new=4)
+    mesh.undrain_slice("r0")
+    ok = mesh.submit(prompts[0][:64], max_new=4)
+    mesh.drain()
+    print(f"mesh_drain all_drained={rej.status} after_undrain={ok.status}",
+          flush=True)
+    if rej.status != "rejected" or ok.status != "completed":
+        fail("mesh: a submit with every replica drained was not rejected, "
+             "or undrain did not serve")
+    del mesh
+    torch.cuda.empty_cache()
+
+    tp = ServingEngine(cfg=engine_config("gather"), seed=0,
+                       mesh=Mesh([device] * 2, ("model",)))
+    got_tp, st_tp = mesh_serve(tp, "tp2_gather", traffic)
+    if st_tp["kernel_launches"]:
+        fail("tp=2 launched the paged kernel: tp runs the gather read")
+    hold_greedy(one, "tp2_gather", traffic, got_tp, want)
+    del tp, one
+    torch.cuda.empty_cache()
+    return {"paged": launches}
+
+
+def mesh_ring(device: str) -> None:
+    """(e) A 4,200-token prompt: the flat engine refuses it, the ring
+    engine (ring_stripes=2, gather and ring reads) completes it, greedy,
+    held to a flat max_seq 8192 engine by greedy_divergence."""
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen.serving import ServingEngine
+
+    rng = random.Random(24)
+    prompt = [rng.randrange(4096) for _ in range(RING_PROMPT)]
+    flat = ServingEngine(cfg=engine_config("gather"), seed=0, device=device)
+    if flat.submit(prompt, max_new=RING_NEW).status != "rejected":
+        fail("the flat engine admitted a prompt past max_seq")
+    del flat
+    cfg = engine_config("gather")
+    wide = ServingEngine(cfg=dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, max_seq=2 * cfg.model.max_seq)), seed=0, device=device)
+    t0 = time.perf_counter()
+    r = wide.submit(prompt, max_new=RING_NEW)
+    wide.drain()
+    want = r.output
+    print(f"mesh_ring flat8192 wall_s={time.perf_counter() - t0!r} "
+          f"status={r.status}", flush=True)
+    for read in ("gather", "ring"):
+        eng = ServingEngine(cfg=dataclasses.replace(
+            cfg, ring_stripes=2, paged_attn=read), seed=0, device=device)
+        sync(device)
+        t0 = time.perf_counter()
+        r = eng.submit(prompt, max_new=RING_NEW)
+        eng.drain()
+        sync(device)
+        print(f"mesh_ring read={read} status={r.status} wall_s="
+              f"{time.perf_counter() - t0!r} decode_steps="
+              f"{eng.decode_steps_total} identical_to_flat8192="
+              f"{r.output == want}", flush=True)
+        if r.status != "completed" or len(r.output) != RING_NEW + 1:
+            fail(f"ring engine ({read}) did not complete the long prompt")
+        where = greedy_divergence(wide, prompt, r.output, want)
+        if where is not None:
+            print(f"mesh_ring read={read} near-tie at {where}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    del wide
+    torch.cuda.empty_cache()
+
+
+def mesh_cli(device: str) -> None:
+    """(f) The CLI: --mesh 2,1 exits non-zero with the reference's text on
+    one card; --kv-layout paged --ring-attn 2 answers a /generate."""
+    import os
+    import re
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    base = [sys.executable, "-m", "tpumon_torch.loadgen.serving", "--port",
+            "0", "--rps", "0", "--no-report", "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(base + ["--mesh", "2,1"], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=120)
+    print(f"mesh_cli --mesh 2,1 exit={proc.returncode} wall_s="
+          f"{time.perf_counter() - t0!r} err={proc.stderr.strip()[-160:]!r}",
+          flush=True)
+    if proc.returncode == 0 or "divide the device count" not in proc.stderr:
+        fail("--mesh 2,1 on one card did not exit with the 'divide the "
+             "device count' text")
+    proc = subprocess.Popen(base + ["--kv-layout", "paged", "--ring-attn",
+                                    "2"], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"/metrics on :(\d+)", line)
+        if not m:
+            fail(f"ring CLI printed no banner: {line!r}")
+        prompt = ",".join(str(i % 2048) for i in range(300))  # > max_seq 256
+        status, body = http_get(f"http://127.0.0.1:{m.group(1)}/generate?"
+                                f"prompt={prompt}&max_new=4", timeout=120)
+        got = json.loads(body) if status == 200 else {}
+        print(f"mesh_cli --ring-attn 2 status={status} tokens="
+              f"{got.get('tokens')}", flush=True)
+        if status != 200 or len(got.get("tokens", [])) != 5:
+            fail("the ring CLI did not answer /generate with 5 tokens")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def phase24(device: str = "cuda") -> dict:
+    t0 = time.perf_counter()
+    mesh_golden_matrix(device)
+    out = mesh_full_width(device)
+    mesh_ring(device)
+    mesh_cli(device)
+    print(f"phase24 wall_s={time.perf_counter() - t0!r}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5569,12 +5954,13 @@ def main() -> int:
     monitor = phase21()
     app = phase22(keep_checkpoint=True)
     tree = phase23(app)
+    mesh = phase24()
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
              "replaces": "tpumon/ops/paged_attention.py:65",
              "launches": (stats["launches"] + monitor["paged"] + app["paged"]
-                          + tree["paged"]),
+                          + tree["paged"] + mesh["paged"]),
              "max_abs_err": worst["bfloat16"],
              **times}]
     sources = {"flash_attention_tri_fwd": (

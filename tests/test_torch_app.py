@@ -9,13 +9,15 @@ tpumon`` (``tpumon/app.py``).
   alone) give the same ``Config`` through ``main`` and build the same hub
   role, uplink URLs and tier, and lease peer and bootstrap flag.
 - ``--serve-loadgen`` with no card and no ``--loadgen-device cpu`` exits
-  non-zero with ``resolve_device``'s message; the mesh and ring engines
-  exit 2 with the engine's "not yet ported".
+  non-zero with ``resolve_device``'s message; on the CPU a 2 x 1 mesh
+  exits 2 with the reference's "divide the device count" (one CPU device
+  is visible), and the ring engine serves a prompt past max_seq.
 - A subprocess ``python -m tpumon_torch --port 0 --serve-loadgen
   --loadgen-device cpu --accel-backend fake:v5e-8`` prints the banner,
   scrapes its own engine in ``/api/serving`` and exits 0 on SIGTERM.
 """
 
+import asyncio
 import dataclasses
 import json
 import os
@@ -174,9 +176,33 @@ def test_serve_loadgen_without_a_card_exits_nonzero(monkeypatch, capsys):
 @pytest.mark.parametrize("flags", [["--loadgen-mesh", "2,1"],
                                    ["--loadgen-ring-attn", "2",
                                     "--loadgen-kv-layout", "paged"]])
-def test_mesh_and_ring_exit_2_not_yet_ported(capsys, flags):
-    assert app.main(flags + ["--loadgen-device", "cpu"]) == 2
-    assert "not yet ported (ROADMAP queue 1 item 12)" in capsys.readouterr().err
+def test_mesh_and_ring_exit_2_not_yet_ported(monkeypatch, capsys, tmp_path,
+                                             flags):
+    """Both are ported now (the name is the earlier slices'): the mesh
+    asks for two devices where the CPU has one and exits 2 with the
+    reference's text; the ring engine serves a prompt longer than the
+    flat engine admits while the app runs."""
+    for key in [k for k in os.environ if k.startswith("TPUMON_")]:
+        monkeypatch.delenv(key)
+    served = []
+
+    async def run(cfg, loadgen_engine=None):
+        eng = loadgen_engine
+        prompt = list(range(eng.cfg.model.max_seq + 20))
+        req = eng.submit(prompt, max_new=3)
+        await asyncio.to_thread(req.done.wait, 60)
+        served.append((eng.cfg.ring_stripes, req.status, len(req.output)))
+
+    monkeypatch.setattr(app, "run", run)
+    code = app.main(flags + ["--loadgen-device", "cpu",
+                             "--accel-backend", "none"])
+    if flags[0] == "--loadgen-mesh":
+        assert code == 2
+        assert ("dp*tp must divide the device count"
+                in capsys.readouterr().err)
+        return
+    assert code == 0, capsys.readouterr().err
+    assert served == [(2, "completed", 4)]
 
 
 def get_json(port, path):

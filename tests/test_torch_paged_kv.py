@@ -3,10 +3,11 @@
 Same weights (``params_from_jax``), same tokens, same page ids: each
 prefill chunk's logits and each decode step's logits must agree within
 1e-4 (f32; the two frameworks sum in different orders), and so must
-every page of the resulting pools. Both decode read paths are covered:
+every page of the resulting pools. The decode read paths are covered:
 ``gather`` and ``kernel`` (on the CPU the port's kernel wrapper runs its
 plain version; the reference runs its Pallas kernel in interpret mode),
-for the single step, the multi-token block and the fused rounds.
+for the single step, the multi-token block and the fused rounds, and the
+ring engine mode's ``ring`` read for the single step.
 """
 
 import dataclasses
@@ -109,7 +110,7 @@ def test_prefill_logits_and_pages_match():
     assert_pools_match(pair.jpool, pair.tpool)
 
 
-@pytest.mark.parametrize("paged_attn", ["gather", "kernel"])
+@pytest.mark.parametrize("paged_attn", ["gather", "kernel", "ring"])
 def test_decode_steps_match(paged_attn):
     """Two live slots at unequal lengths plus one parked slot (position
     max_seq-1, table all trash page 0, as the engine parks free and
@@ -162,14 +163,24 @@ def test_decode_scatter_keeps_batch_first_when_slots_equal_kv_heads():
 
 
 def test_not_ported_read_paths_raise():
+    """Every read path is ported now (the name is the earlier slices'):
+    the ring and kernel reads refuse an int8 pool with the reference's
+    text, and an unknown read path raises."""
     _, tcfg = configs("gather")
-    pool = paged_kv.init_pool(tcfg, NUM_PAGES, "cpu")
-    with pytest.raises(NotImplementedError):
+    qpool = paged_kv.init_pool(dataclasses.replace(tcfg, kv_dtype="int8"),
+                               NUM_PAGES, "cpu")
+    zeros = torch.zeros(SLOTS, dtype=torch.int32)
+    tables = torch.zeros((SLOTS, MAX_PAGES), dtype=torch.int32)
+    for read in ("ring", "kernel"):
+        with pytest.raises(ValueError, match=f"paged_attn='{read}' cannot "
+                           "read a quantized"):
+            paged_kv.paged_decode_step(
+                dataclasses.replace(tcfg, paged_attn=read), {}, qpool,
+                zeros, zeros, tables)
+    with pytest.raises(ValueError, match="unknown paged_attn"):
         paged_kv.paged_decode_step(
-            dataclasses.replace(tcfg, paged_attn="ring"), {}, pool,
-            torch.zeros(SLOTS, dtype=torch.int32),
-            torch.zeros(SLOTS, dtype=torch.int32),
-            torch.zeros((SLOTS, MAX_PAGES), dtype=torch.int32))
+            dataclasses.replace(tcfg, paged_attn="bogus"), {},
+            paged_kv.init_pool(tcfg, NUM_PAGES, "cpu"), zeros, zeros, tables)
     # The int8 pool is ported: int8 rows and f32 scales, the reference's
     # shapes.
     jcfg, _ = configs("gather")

@@ -14,6 +14,7 @@ import asyncio
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -173,9 +174,11 @@ def test_engine_without_device_raises_when_no_gpu():
         serving.main(["--duration", "0.01", "--port", "0"])
 
 
-# The fields the port now serves (speculation, prefix caching, int8 KV
-# and weights), each served to completion; the mesh and ring fields still
-# raise "not yet ported". The case order is the earlier list's.
+# Every field is served now (speculation, prefix caching, int8 KV and
+# weights, each to completion); the mesh and ring fields do what the
+# reference does with the same options: serve its streams, or raise its
+# error where the options do not compose. The case order is the earlier
+# list's.
 SLICE_CASES = [
     {"spec_source": "prompt", "spec_len": 3}, {"mesh_dp": 2},
     {"spec_len": 2}, {"prefix_cache_entries": 4},
@@ -191,8 +194,24 @@ def test_outside_the_slice_raises_not_yet_ported(weights, over):
                       **over)
     if set(over) & {"mesh_dp", "mesh_tp", "ring_stripes"} or (
             over["paged_attn"] == "ring"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ServingEngine(cfg=cfg, device="cpu")
+        jparams, tree = weights
+        try:
+            ref = jax_serving.make_serving_engine(
+                jax_serving.ServeConfig(model=JaxModelConfig(**SMALL),
+                                        slots=2, prefill_len=PS, **over),
+                params=jparams)
+        except ValueError as e:
+            # The reference's text up to its parenthesis (which names its
+            # Pallas kernel).
+            with pytest.raises(ValueError,
+                               match=re.escape(str(e).split(" (")[0])):
+                serving.make_serving_engine(
+                    cfg, devices=[torch.device("cpu")] * 8, device="cpu")
+            return
+        eng = serving.make_serving_engine(
+            cfg, params=params_from_jax(tree),
+            devices=[torch.device("cpu")] * 8, device="cpu")
+        assert run(eng, prompts=PROMPTS[:4]) == run(ref, prompts=PROMPTS[:4])
         return
     eng = ServingEngine(cfg=cfg, params=params_from_jax(weights[1]),
                         device="cpu")
@@ -221,16 +240,23 @@ def test_moe_family_and_sampling_raise_not_yet_ported(weights):
         assert req.status == "completed" and len(req.output) == 5
 
 
-# The flags of the fields the port has parse and build an engine, which
-# serves a moment; the mesh and ring flags still exit. The case order is
-# the earlier list's.
+# Every flag parses and builds an engine, which serves a moment, or exits
+# 2 with the reference's text where the reference's would: the ring read
+# and the ring mode on the default dense layout, and a 1 x 2 mesh over the
+# one CPU device (``--device cpu``: no other device of its kind). The case
+# order is the earlier list's; the last two serve the ring mode.
 CLI_CASES = [
     ["--kv-dtype", "int8"], ["--paged-attn", "ring"], ["--spec-len", "2"],
     ["--spec-source", "prompt", "--spec-len", "2"], ["--quant", "int8"],
     ["--mesh", "1,2"], ["--ring-attn", "2"], ["--prefix-cache", "8"],
-    ["--experts", "4"],
+    ["--experts", "4"], ["--kv-layout", "paged", "--ring-attn", "2"],
+    ["--kv-layout", "paged", "--paged-attn", "ring"],
 ]
-CLI_NOT_PORTED = ("--paged-attn", "--mesh", "--ring-attn")
+CLI_NOT_PORTED = {
+    "--paged-attn": "paged_attn='ring' requires kv_layout='paged'",
+    "--mesh": "dp*tp must divide the device count",
+    "--ring-attn": "--ring-attn requires --kv-layout paged",
+}
 
 
 @pytest.mark.parametrize("flags", CLI_CASES)
@@ -244,7 +270,7 @@ def test_cli_flags_outside_the_slice_exit(flags, capsys, monkeypatch,
         with pytest.raises(SystemExit) as exc:
             serving.main(flags + ["--device", "cpu"])
         assert exc.value.code == 2
-        assert "not yet ported" in capsys.readouterr().err
+        assert CLI_NOT_PORTED[flags[0]] in capsys.readouterr().err
         return
     built = []
     real = serving.start_metrics_server
@@ -259,12 +285,16 @@ def test_cli_flags_outside_the_slice_exit(flags, capsys, monkeypatch,
                                  "--max-new", "2"]) == 0
     (eng,) = built
     cfg = eng.cfg
-    assert {"--kv-dtype": cfg.kv_dtype == "int8",
+    took = {"--kv-dtype": cfg.kv_dtype == "int8",
             "--spec-len": cfg.spec_len == 2,
             "--spec-source": cfg.spec_source == "prompt",
             "--quant": cfg.quantize == "int8",
             "--prefix-cache": cfg.prefix_cache_entries == 8,
-            "--experts": cfg.model.n_experts == 4}[flags[0]]
+            "--experts": cfg.model.n_experts == 4,
+            "--kv-layout": cfg.kv_layout == "paged",
+            "--ring-attn": cfg.ring_stripes == 2,
+            "--paged-attn": cfg.paged_attn == "ring"}
+    assert all(took[f] for f in flags if f.startswith("--"))
     assert eng.requests_total >= 1
 
 

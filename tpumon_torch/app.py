@@ -668,9 +668,9 @@ def main(argv: list[str] | None = None) -> int:
                 mesh_dp=loadgen_mesh_dp, mesh_tp=loadgen_mesh_tp,
                 ring_stripes=loadgen_ring_attn, device=device,
             )
-        except (ValueError, NotImplementedError) as e:
-            # uncomposable/unknown engine options, or the mesh and ring
-            # engines (not yet ported, ROADMAP item 12)
+        except ValueError as e:
+            # uncomposable/unknown engine options, or a mesh shape the
+            # visible devices cannot hold
             print(f"--serve-loadgen: {e}", file=sys.stderr)
             return 2
         collectors = tuple(cfg.collectors)

@@ -13,8 +13,19 @@ CUDA kernels of ``tpumon_torch.ops.flash_attention``) and per-layer
 family (``n_experts > 0``: each layer's SwiGLU becomes the routed expert
 FFN of ``tpumon_torch.loadgen.moe``). Params are a plain dict of tensors
 (the JAX pytree's exact structure), so the code reads
-``params["layers"][li]["wq"]`` in both packages. The mesh-sharded step is
-multi-GPU work, not yet ported (ROADMAP queue 1 item 12).
+``params["layers"][li]["wq"]`` in both packages.
+
+The mesh (serving over a dp x tp layout): ``Mesh`` names a set of devices
+over the axes "data" and "model", as ``jax.sharding.Mesh`` does, for ONE
+controller process; a device may repeat, so dp x tp runs on one card (or
+on the CPU) through the same code as on many. ``PARAM_SPECS`` and
+``param_shardings`` are the reference's Megatron split, ``shard_params``
+applies it (one param dict per shard, each its own allocation on its
+shard's device), and ``all_reduce_sum`` and ``gather_vocab`` are the two
+collectives XLA inserts there: the sum of row-parallel partials and the
+gather of vocab-split logits. ``replica_meshes`` carves the devices into
+dp tensor-parallel submeshes. The mesh-sharded train step is multi-GPU
+work, not yet ported (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -188,6 +199,17 @@ def _rms_norm(x: torch.Tensor, weight: torch.Tensor,
     # x.dtype, THEN scale by the weight in x.dtype.
     var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
     return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(x.dtype)
+
+
+def visible_devices(device=None) -> list[torch.device]:
+    """The devices a mesh spreads over when none are named: every CUDA
+    device torch sees (``resolve_device``'s rule for the default), or the
+    one CPU device when ``device`` is a CPU."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -389,19 +411,22 @@ def _moe_config(cfg: ModelConfig) -> MoEConfig:
 
 
 def _moe_mlp(cfg: ModelConfig, moe_params: dict, x: torch.Tensor,
-             full_capacity: bool = False) -> torch.Tensor:
+             full_capacity: bool = False,
+             expert_offset: int = 0) -> torch.Tensor:
     """Routed expert FFN over [B, T, D]: flattens the tokens, routes them
     through ``moe.moe_ffn`` (top-1, fixed capacity, or G with
     ``full_capacity``: no drops) and restores the shape. Every leaf but
     the f32 router is taken in the compute dtype first (a quantized one
     dequantized), as the reference casts them; the products then run in
-    f32 and the result comes back in the compute dtype."""
+    f32 and the result comes back in the compute dtype. A tensor-parallel
+    shard's block of experts starts at ``expert_offset``."""
     b, t, d = x.shape
     dt = x.dtype
     params = {k: v if k == "router" else v.to(dt)
               for k, v in moe_params.items()}
     out = moe_ffn(_moe_config(cfg), params, x.reshape(b * t, d),
-                  capacity=b * t if full_capacity else None)
+                  capacity=b * t if full_capacity else None,
+                  expert_offset=expert_offset)
     return out.reshape(b, t, d).to(dt)
 
 
@@ -465,3 +490,186 @@ def sgd_train_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         for p, g in zip(param_leaves(params), grads):
             p.sub_(lr * g)
     return params, loss
+
+
+# ---------------------------------------------------------------------------
+# The mesh: tensor parallel over "model", replicated elsewhere
+# ---------------------------------------------------------------------------
+
+
+class Mesh:
+    """Devices laid out over named axes: the counterpart of
+    ``jax.sharding.Mesh`` for one controller. ``devices`` is array-like
+    with one dimension per axis name (a device may repeat); ``shape`` maps
+    each axis name to its size, read as ``mesh.shape["model"]`` and
+    ``mesh.shape.get("data", 1)``."""
+
+    def __init__(self, devices, axis_names: tuple[str, ...]):
+        given = np.asarray(devices, dtype=object)
+        if given.ndim != len(axis_names):
+            raise ValueError(f"devices of shape {given.shape} do not match "
+                             f"the axes {tuple(axis_names)}")
+        self.devices = np.empty(given.shape, dtype=object)
+        for idx, d in np.ndenumerate(given):
+            self.devices[idx] = torch.device(d)
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, given.shape))
+
+    @property
+    def device_list(self) -> list[torch.device]:
+        """The devices in row-major order (shard order)."""
+        return list(self.devices.flat)
+
+    def model_index(self, i: int) -> int:
+        """The "model" coordinate of the ``i``-th device of
+        ``device_list``."""
+        coords = np.unravel_index(i, self.devices.shape)
+        return int(coords[self.axis_names.index("model")])
+
+
+# The reference's Megatron split: column-parallel wq/wk/wv/w_gate/w_up and
+# lm_head (their output columns over "model"), row-parallel wo/w_down (their
+# input rows), the MoE experts over "model" (expert parallelism on the tp
+# axis), everything else replicated. A spec names each dim's mesh axis.
+PARAM_SPECS = {
+    "embed": (None, None),
+    "final_norm": (None,),
+    "lm_head": (None, "model"),
+    "attn_norm": (None,),
+    "mlp_norm": (None,),
+    "wq": (None, "model"),
+    "wk": (None, "model"),
+    "wv": (None, "model"),
+    "wo": ("model", None),
+    "w_gate": (None, "model"),
+    "w_up": (None, "model"),
+    "w_down": ("model", None),
+    "router": (None, None),
+    "w_in": ("model", None, None),
+    "w_out": ("model", None, None),
+}
+
+
+def param_shardings(mesh: Mesh, params, _name: str = ""):
+    """The spec tree of ``params`` (the mesh only fixes the axis names).
+    A quantized weight (``quant.QTensor``) gets a QTensor of specs: its
+    int8 ``q`` keeps the weight's spec, and its per-output-channel
+    ``scale`` takes the spec of the weight's last axis, so
+    column-parallel weights get split scales and row-parallel ones
+    replicated scales, as in the reference."""
+    from tpumon_torch.loadgen.quant import QTensor
+
+    del mesh
+    if isinstance(params, dict):
+        return {k: param_shardings(None, v, k) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [param_shardings(None, v, _name) for v in params]
+    spec = PARAM_SPECS.get(_name, ())
+    if isinstance(params, QTensor):
+        return QTensor(q=spec, scale=(spec[-1],) if spec else ())
+    return spec
+
+
+def _check_moe_tp(cfg: ModelConfig, mesh: Mesh) -> None:
+    """Experts shard over the "model" axis, so the expert count must
+    divide it."""
+    tp = mesh.shape.get("model", 1) if hasattr(mesh, "shape") else 1
+    if cfg.n_experts and cfg.n_experts % tp:
+        raise ValueError(
+            f"n_experts={cfg.n_experts} must be divisible by the mesh's "
+            f"'model' axis ({tp}) — experts shard over it")
+
+
+def _take_shard(t: torch.Tensor, spec: tuple, r: int, tp: int, device,
+                dtype) -> torch.Tensor:
+    """Shard ``r`` of ``tp`` of ``t`` under ``spec`` as a fresh allocation
+    on ``device`` (``dtype`` None: t's own)."""
+    if "model" in spec:
+        axis = spec.index("model")
+        if t.shape[axis] % tp:
+            raise ValueError(
+                f"a weight dim of {t.shape[axis]} does not split over "
+                f"tp={tp}")
+        n = t.shape[axis] // tp
+        t = t.narrow(axis, r * n, n)
+    out = torch.empty(t.shape, dtype=dtype or t.dtype, device=device)
+    return out.copy_(t)
+
+
+def shard_params(mesh: Mesh, params: dict,
+                 dtype: torch.dtype | None = None) -> list:
+    """One param dict per device of ``mesh`` (``device_list`` order), each
+    holding its "model" shard of every weight (``param_shardings``) as its
+    own allocation on its device, even where devices repeat. ``dtype``
+    casts every float leaf but the MoE router (f32, as the reference
+    routes); a quantized weight keeps its int8 codes and f32 scales."""
+    from tpumon_torch.loadgen.quant import QTensor
+
+    specs = param_shardings(mesh, params)
+    tp = mesh.shape.get("model", 1)
+
+    def split(tree, spec, r, device, name=""):
+        if isinstance(tree, dict):
+            return {k: split(v, spec[k], r, device, k)
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [split(v, s, r, device) for v, s in zip(tree, spec)]
+        if isinstance(tree, QTensor):
+            return QTensor(
+                q=_take_shard(tree.q, spec.q, r, tp, device, None),
+                scale=_take_shard(tree.scale, spec.scale, r, tp, device,
+                                  None))
+        dt = torch.float32 if name == "router" else dtype
+        return _take_shard(tree, spec, r, tp, device, dt)
+
+    return [split(params, specs, mesh.model_index(i), dev)
+            for i, dev in enumerate(mesh.device_list)]
+
+
+def all_reduce_sum(parts: list) -> list:
+    """The psum over "model" that XLA inserts after a row-parallel
+    product: the shards' partials summed in shard order on shard 0's
+    device, the result copied back to each shard's device. One card holds
+    every shard when the mesh repeats it, and the sum is then local."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device)
+    return [total.to(p.device) for p in parts]
+
+
+def gather_vocab(parts: list) -> torch.Tensor:
+    """The all-gather of vocab-split logits (``lm_head`` is
+    column-parallel): the shards' slices concatenated in shard order on
+    shard 0's device."""
+    home = parts[0].device
+    return torch.cat([p.to(home) for p in parts], dim=-1)
+
+
+def replica_meshes(dp: int, tp: int, dense: bool = False,
+                   devices=None) -> list:
+    """Carve the devices into ``dp`` disjoint tensor-parallel submeshes,
+    one per data-parallel replica: the replica's Mesh over its own ``tp``
+    contiguous devices, or None when tp == 1 (a plain single-device
+    engine). ``dense`` picks the dense serving path's ("data", "model")
+    axes (a data axis of 1); paged serving is tensor-parallel only, over a
+    bare ("model",) axis. ``devices`` None: ``visible_devices()``. Raises
+    ValueError when dp*tp does not tile the device count (the reference's
+    text)."""
+    devices = list(visible_devices() if devices is None else devices)
+    ndev = len(devices)
+    if dp < 1 or tp < 1:
+        raise ValueError(f"mesh shape dp×tp must be >= 1x1, got {dp}x{tp}")
+    if dp * tp > ndev or ndev % (dp * tp):
+        raise ValueError(
+            f"mesh shape dp×tp = {dp}x{tp} needs {dp * tp} devices but "
+            f"{ndev} are visible — dp*tp must divide the device count")
+    out = []
+    for d in range(dp):
+        devs = devices[d * tp:(d + 1) * tp]
+        if tp == 1:
+            out.append(None)
+        elif dense:
+            out.append(Mesh([devs], ("data", "model")))
+        else:
+            out.append(Mesh(devs, ("model",)))
+    return out

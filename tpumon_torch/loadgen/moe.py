@@ -24,8 +24,13 @@ O(G·E·C·d) products (one of them is 3.4e14 FLOP at the trainer's G 8192,
 E 8, C 1280, d 2048). ``_route`` still builds the tensors, for the tests
 that hold them to the reference's.
 
-``make_sharded_moe_step``, ``MOE_PARAM_SPECS`` and the expert-parallel
-mesh are multi-GPU work, not yet ported (ROADMAP queue 1 item 12).
+Over a serving mesh each tensor-parallel shard holds a contiguous block
+of the experts (``model.PARAM_SPECS``) and runs ``moe_ffn`` with its
+``expert_offset``: routing is over every expert (the router replicates),
+and a shard returns only its experts' tokens, zeros elsewhere, so the sum
+over shards is each token's one expert output, exactly.
+``make_sharded_moe_step`` and ``MOE_PARAM_SPECS`` (the training mesh) are
+multi-GPU work, not yet ported (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -98,16 +103,22 @@ def _route(cfg: MoEConfig, router_w: torch.Tensor, x: torch.Tensor,
 
 
 def moe_ffn(cfg: MoEConfig, params: dict, x: torch.Tensor,
-            capacity: int | None = None) -> torch.Tensor:
+            capacity: int | None = None,
+            expert_offset: int = 0) -> torch.Tensor:
     """x: [G, d_model] -> [G, d_model] f32; dropped tokens return zeros
     (callers add the residual). ``capacity`` overrides the capacity-factor
     default: the serving engine passes G (no drops), so routing does not
     depend on the batch's shape and every decode mode emits the same
-    tokens."""
+    tokens. ``params`` may hold a block of the experts, the first being
+    expert ``expert_offset`` (a tensor-parallel shard): tokens routed
+    elsewhere return zeros."""
     g, d = x.shape
-    e = cfg.n_experts
+    e = params["w_in"].shape[0]
     capacity = cfg.capacity(g) if capacity is None else capacity
     expert, position, kept, gate = _assign(params["router"], x, capacity)
+    if e != cfg.n_experts:
+        expert = expert - expert_offset
+        kept = kept & (expert >= 0) & (expert < e)
     slot = torch.where(kept, expert * capacity + position, e * capacity)
     expert_in = _dispatch(x, slot, e * capacity).view(e, capacity, d)
     h = torch.relu(torch.bmm(expert_in, params["w_in"].float()))

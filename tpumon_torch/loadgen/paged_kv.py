@@ -4,12 +4,18 @@ Counterpart of ``tpumon/loadgen/paged_kv.py``. Requests reserve fixed-size
 pages (page == prefill chunk) from a shared head-major pool
 ``[layers, kv_heads, num_pages, page, hd]`` for their lifetime; per-slot
 page tables are host-owned ints shipped as one ``[slots, max_pages]``
-int32 device tensor. Decode attention has two read paths, selected by
+int32 device tensor. Decode attention has three read paths, selected by
 ``ServeConfig.paged_attn``: ``"gather"`` gathers the table's pages and
 attends densely (the plain version); ``"kernel"`` routes the decode step
 through ``tpumon_torch.ops.paged_attention``, the hand-written CUDA kernel
-that reads pages in place. The append is the same batched scatter at
-``(page, offset)`` per slot either way. ``paged_decode_block`` (T tokens a
+that reads pages in place; ``"ring"`` visits the table's pages one at a
+time through the online-softmax accumulator
+(``ring_attention.paged_ring_decode_attend``), the ring engine mode's read
+path. The append is the same batched scatter at ``(page, offset)`` per
+slot either way. Over a tensor-parallel mesh the pool is the list of the
+shards' pools, each holding its n_kv_heads/tp heads on its device, and
+every function here takes the shards' param and pool lists
+(``serving.decoder_forward``); the page tables replicate. ``paged_decode_block`` (T tokens a
 slot, always the gather read) and ``paged_decode_rounds`` (fused block
 decode: ``steps`` decode steps and samples, no host sync) complete the
 reference's paged functions. ``ServeConfig.kv_dtype="int8"`` gives an int8
@@ -81,14 +87,16 @@ class PageAllocator:
                 self._free.append(pg)
 
 
-def init_pool(cfg, num_pages: int, device: str | torch.device) -> dict:
+def init_pool(cfg, num_pages: int, device: str | torch.device,
+              kv_heads: int | None = None) -> dict:
     """Zeroed pool ``{"k", "v"}``, each ``[layers, kv_heads, num_pages,
     page, hd]`` on ``device``: the compute dtype, or (``kv_dtype="int8"``)
     int8 rows plus f32 scales ``{"ks", "vs"}`` of shape ``[layers,
-    kv_heads, num_pages, page]``."""
+    kv_heads, num_pages, page]``. ``kv_heads`` overrides the config's for
+    one shard of a mesh."""
     m = cfg.model
-    shape = (m.n_layers, m.n_kv_heads, num_pages, cfg.prefill_len,
-             m.head_dim)
+    shape = (m.n_layers, kv_heads or m.n_kv_heads, num_pages,
+             cfg.prefill_len, m.head_dim)
     if cfg.kv_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -114,41 +122,45 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
     from tpumon_torch.loadgen.serving import (
         _kv_dequant,
         _kv_quant,
+        _logits,
+        _per_store,
         decoder_forward,
     )
 
-    m = cfg.model
     p = cfg.prefill_len  # == page_size
     dev = tokens.device
-    nkv, hd = m.n_kv_heads, m.head_dim
     s_max = table_row.shape[0] * p
-    rows = table_row.long()
-    quant = "ks" in pool  # the int8 pool (init_pool)
 
     pos = start + torch.arange(p, dtype=torch.int32, device=dev)[None]
     row = torch.arange(s_max, dtype=torch.int32, device=dev)
     mask = (row[None, :] <= pos[0][:, None])[None, None]  # [1,1,P,S]
 
-    def kv_update(li, k, v):
-        # Write the chunk into its fresh page, then attend over the
-        # sequence's pages (this chunk's page included).
-        for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
-            if quant:
-                new, scale = _kv_quant(new)
-                pool[sname][li, :, page_id] = scale[0].transpose(0, 1)
-            pool[name][li, :, page_id] = new[0].transpose(0, 1)
-        ck = pool["k"][li][:, rows]  # [nkv, max_pages, ps, hd]
-        cv = pool["v"][li][:, rows]
-        if quant:
-            ck = _kv_dequant(ck, pool["ks"][li][:, rows], k.dtype)
-            cv = _kv_dequant(cv, pool["vs"][li][:, rows], v.dtype)
-        ck = ck.reshape(nkv, s_max, hd).transpose(0, 1)[None]
-        cv = cv.reshape(nkv, s_max, hd).transpose(0, 1)[None]
-        return ck, cv  # [1, S, nkv, hd]
+    def make(pool):
+        rows = table_row.long().to(pool["k"].device)
+        quant = "ks" in pool  # the int8 pool (init_pool)
 
-    x = decoder_forward(cfg, params, tokens[None], pos, mask, kv_update)
-    last = x[0, length - 1]
-    return (last @ params["lm_head"].to(m.torch_dtype)).float()
+        def kv_update(li, k, v):
+            # Write the chunk into its fresh page, then attend over the
+            # sequence's pages (this chunk's page included).
+            nkv, hd = k.shape[2], k.shape[3]
+            for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+                if quant:
+                    new, scale = _kv_quant(new)
+                    pool[sname][li, :, page_id] = scale[0].transpose(0, 1)
+                pool[name][li, :, page_id] = new[0].transpose(0, 1)
+            ck = pool["k"][li][:, rows]  # [nkv, max_pages, ps, hd]
+            cv = pool["v"][li][:, rows]
+            if quant:
+                ck = _kv_dequant(ck, pool["ks"][li][:, rows], k.dtype)
+                cv = _kv_dequant(cv, pool["vs"][li][:, rows], v.dtype)
+            ck = ck.reshape(nkv, s_max, hd).transpose(0, 1)[None]
+            cv = cv.reshape(nkv, s_max, hd).transpose(0, 1)[None]
+            return ck, cv  # [1, S, nkv, hd]
+        return kv_update
+
+    x = decoder_forward(cfg, params, tokens[None], pos, mask,
+                        _per_store(pool, make))
+    return _logits(cfg, params, x, (0, length - 1))
 
 
 def paged_decode_step(cfg, params: dict, pool: dict,
@@ -162,60 +174,86 @@ def paged_decode_step(cfg, params: dict, pool: dict,
     already be reserved. Returns logits [B, vocab] (f32).
 
     ``cfg.paged_attn="kernel"`` swaps the gather read for the paged
-    attention kernel; the scatter-write is identical either way.
+    attention kernel, ``"ring"`` for the page-at-a-time online softmax of
+    ``ring_attention.paged_ring_decode_attend``; the scatter-write is
+    identical either way. Neither reads an int8 pool.
     """
-    from tpumon_torch.loadgen.serving import _kv_quant, decoder_forward
+    from tpumon_torch.loadgen.ring_attention import paged_ring_decode_attend
+    from tpumon_torch.loadgen.serving import (
+        _kv_quant,
+        _logits,
+        _per_store,
+        decoder_forward,
+    )
 
-    m = cfg.model
     ps = cfg.prefill_len
     s_max = tables.shape[1] * ps
     dev = tables.device
-    quant = "ks" in pool  # the int8 pool (init_pool)
+    if cfg.paged_attn not in ("gather", "kernel", "ring"):
+        raise ValueError(f"unknown paged_attn {cfg.paged_attn!r}")
+    quant = "ks" in (pool[0] if isinstance(pool, list) else pool)
+    if quant and cfg.paged_attn != "gather":
+        raise ValueError(
+            f"paged_attn={cfg.paged_attn!r} cannot read a quantized (int8) "
+            "pool; use the gather path or a compute-dtype pool")
 
-    page = torch.gather(tables, 1, (positions // ps)[:, None].long())[:, 0]
-    page = page.long()
-    off = (positions % ps).long()
+    page_all = torch.gather(tables, 1,
+                            (positions // ps)[:, None].long())[:, 0].long()
+    off_all = (positions % ps).long()
     pos = positions[:, None]
     row = torch.arange(s_max, dtype=torch.int32, device=dev)
     mask = (row[None] <= positions[:, None])[:, None, None]  # [B,1,1,S]
 
-    def scatter(li, k, v):
-        # Batched scatter pool[li, :, page[b], off[b]] = kv[b] with the
-        # value batch-first [B, nkv, hd], as in the reference. Torch puts
-        # the broadcast batch dim where the adjacent index tensors sit
-        # (not first, as numpy/JAX do when an int separates them), so
-        # index a [pages, ps, nkv, hd] view of the layer instead.
-        for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
-            if quant:
-                new, scale = _kv_quant(new)
-                pool[sname][li].permute(1, 2, 0)[page, off] = scale[:, 0]
-            pool[name][li].permute(1, 2, 0, 3)[page, off] = new[:, 0]
+    def make_scatter(pool):
+        page, off = page_all.to(pool["k"].device), off_all.to(
+            pool["k"].device)
 
-    def kv_update(li, k, v):
-        scatter(li, k, v)
-        return _gather_context(pool, li, tables, k.dtype)  # [B,S,nkv,hd]
+        def scatter(li, k, v):
+            # Batched scatter pool[li, :, page[b], off[b]] = kv[b] with the
+            # value batch-first [B, nkv, hd], as in the reference. Torch
+            # puts the broadcast batch dim where the adjacent index
+            # tensors sit (not first, as numpy/JAX do when an int
+            # separates them), so index a [pages, ps, nkv, hd] view of the
+            # layer instead.
+            for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+                if quant:
+                    new, scale = _kv_quant(new)
+                    pool[sname][li].permute(1, 2, 0)[page, off] = (
+                        scale[:, 0])
+                pool[name][li].permute(1, 2, 0, 3)[page, off] = new[:, 0]
+        return scatter
 
-    attend = None
-    if cfg.paged_attn == "kernel":
-        if quant:
-            raise ValueError(
-                "paged_attn='kernel' cannot read a quantized (int8) pool; "
-                "use the gather path or a compute-dtype pool")
-        lengths = positions + 1  # rows 0..positions inclusive
+    def make_update(pool):
+        scatter = make_scatter(pool)
+
+        def kv_update(li, k, v):
+            scatter(li, k, v)
+            return _gather_context(pool, li, tables, k.dtype)
+        return kv_update
+
+    def make_attend(pool):
+        scatter = make_scatter(pool)
+        pdev = pool["k"].device
+        tab, at = tables.to(pdev), positions.to(pdev)
+        lengths = at + 1  # rows 0..positions inclusive
 
         def attend(li, q, k, v):
             scatter(li, k, v)
+            if cfg.paged_attn == "ring":
+                return paged_ring_decode_attend(
+                    pool["k"][li], pool["v"][li], q, tab, at)
             out = paged_attention(q[:, 0], pool["k"][li], pool["v"][li],
-                                  tables, lengths)
+                                  tab, lengths)
             return out[:, None]  # [B, 1, nh, hd]
-    elif cfg.paged_attn != "gather":
-        raise NotImplementedError(
-            f"paged_attn={cfg.paged_attn!r} is not yet ported (ROADMAP "
-            "queue 1 item 12)")
+        return attend
 
+    if cfg.paged_attn == "gather":
+        kv_update, attend = _per_store(pool, make_update), None
+    else:
+        kv_update, attend = None, _per_store(pool, make_attend)
     x = decoder_forward(cfg, params, last_tokens[:, None], pos, mask,
                         kv_update, attend=attend)
-    return (x[:, 0] @ params["lm_head"].to(m.torch_dtype)).float()
+    return _logits(cfg, params, x, (slice(None), 0))
 
 
 def _gather_context(pool: dict, li: int, tables: torch.Tensor, dt):
@@ -225,7 +263,7 @@ def _gather_context(pool: dict, li: int, tables: torch.Tensor, dt):
 
     nkv, _, ps, hd = pool["k"].shape[1:]
     b, max_pages = tables.shape
-    idx = tables.long()
+    idx = tables.long().to(pool["k"].device)
     out = []
     for name, sname in (("k", "ks"), ("v", "vs")):
         ctx = pool[name][li][:, idx]  # [nkv, B, max_pages, ps, hd]
@@ -250,39 +288,49 @@ def paged_decode_block(cfg, params: dict, pool: dict, tokens: torch.Tensor,
     land on the trash page its table holds there. A multi-token query
     always takes the gather read, as in the reference.
     """
-    from tpumon_torch.loadgen.serving import _kv_quant, decoder_forward
+    from tpumon_torch.loadgen.serving import (
+        _kv_quant,
+        _logits,
+        _per_store,
+        decoder_forward,
+    )
 
-    m = cfg.model
     ps = cfg.prefill_len
     t_blk = tokens.shape[1]
-    quant = "ks" in pool  # the int8 pool (init_pool)
     s_max = tables.shape[1] * ps
     dev = tokens.device
     pos = positions[:, None] + torch.arange(
         t_blk, dtype=torch.int32, device=dev)[None]
     pos = torch.clamp(pos, max=s_max - 1)  # [B, T]
-    page = torch.gather(tables, 1, (pos // ps).long()).long()
-    off = (pos % ps).long()
+    page_all = torch.gather(tables, 1, (pos // ps).long()).long()
+    off_all = (pos % ps).long()
     row = torch.arange(s_max, dtype=torch.int32, device=dev)
     mask = (row[None, None] <= pos[:, :, None])[:, None]  # [B, 1, T, S]
 
-    def kv_update(li, k, v):
-        # One batched scatter per block position, in the reference's
-        # order (K's positions, then V's), on the [pages, ps, nkv, hd]
-        # view paged_decode_step writes through.
-        for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
-            if quant:
-                new, scale = _kv_quant(new)  # scale: [B, T, nkv]
-                sview = pool[sname][li].permute(1, 2, 0)
-            view = pool[name][li].permute(1, 2, 0, 3)
-            for tt in range(t_blk):
-                if quant:
-                    sview[page[:, tt], off[:, tt]] = scale[:, tt]
-                view[page[:, tt], off[:, tt]] = new[:, tt]
-        return _gather_context(pool, li, tables, k.dtype)
+    def make(pool):
+        quant = "ks" in pool  # the int8 pool (init_pool)
+        page, off = page_all.to(pool["k"].device), off_all.to(
+            pool["k"].device)
 
-    x = decoder_forward(cfg, params, tokens, pos, mask, kv_update)
-    return (x @ params["lm_head"].to(m.torch_dtype)).float()
+        def kv_update(li, k, v):
+            # One batched scatter per block position, in the reference's
+            # order (K's positions, then V's), on the [pages, ps, nkv, hd]
+            # view paged_decode_step writes through.
+            for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+                if quant:
+                    new, scale = _kv_quant(new)  # scale: [B, T, nkv]
+                    sview = pool[sname][li].permute(1, 2, 0)
+                view = pool[name][li].permute(1, 2, 0, 3)
+                for tt in range(t_blk):
+                    if quant:
+                        sview[page[:, tt], off[:, tt]] = scale[:, tt]
+                    view[page[:, tt], off[:, tt]] = new[:, tt]
+            return _gather_context(pool, li, tables, k.dtype)
+        return kv_update
+
+    x = decoder_forward(cfg, params, tokens, pos, mask,
+                        _per_store(pool, make))
+    return _logits(cfg, params, x)
 
 
 def paged_decode_rounds(cfg, params: dict, pool: dict,
@@ -296,7 +344,8 @@ def paged_decode_rounds(cfg, params: dict, pool: dict,
     loop-invariant tables (pages are reserved for the whole request at
     admission; rows past the reservation land on the trash page).
     ``cfg.paged_attn="kernel"`` launches the paged-attention kernel once
-    per layer and step. Positions clamp at ``seq_cap`` - 1 (0: max_seq).
+    per layer and step ("ring": the ring read). Positions clamp at
+    ``seq_cap`` - 1 (0: max_seq).
     Returns (last tokens, positions, tokens [B, steps])."""
     from tpumon_torch.loadgen.serving import sample_tokens
 

@@ -23,10 +23,21 @@ requeue, ``adopt``/``evict_all``), serving a trainer checkpoint
 (``ckpt_dir``), the /metrics + /generate server, the arrival loop and
 ``start_background``, the MoE model family (``decoder_forward`` routes
 at full capacity, so every mode emits the same tokens) and the workload
-self-report (``engine.reporter``, ``tpumon_torch.loadgen.report``). The
-defaults are the reference's: ``kv_layout="dense"``,
-``paged_attn="gather"``. The mesh and ring engines raise "not yet ported"
-when asked for (ROADMAP queue 1 item 12).
+self-report (``engine.reporter``, ``tpumon_torch.loadgen.report``), and
+mesh serving: ``ServingEngine(mesh=...)`` is tensor-parallel over its
+mesh's "model" axis (``model.shard_params``, dense and paged, int8
+weights, block decode, paged speculation, MoE), ``MeshServingEngine`` puts
+``mesh_dp`` such replicas behind the reference's affinity router, and
+``make_serving_engine`` picks the shape from the config; the ring engine
+mode (``ring_stripes``, ``paged_attn="ring"``) admits contexts up to
+``ring_stripes`` x max_seq. The defaults are the reference's:
+``kv_layout="dense"``, ``paged_attn="gather"``.
+
+A mesh here is one controller over a list of devices that may repeat
+(``model.Mesh``): each shard runs its heads and FFN columns on its own
+device, and the row-parallel partials meet in ``model.all_reduce_sum``,
+where XLA inserts its psum. On one card the shards share it and the sum is
+device-local.
 
 Host-mirror discipline as in the reference: positions are mirrored on the
 host, so a decode step (or a fused block of ``decode_block`` steps) costs
@@ -43,6 +54,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field, replace as dc_replace
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -54,13 +66,19 @@ from tpumon_torch.loadgen.checkpoint import (
 )
 from tpumon_torch.loadgen.model import (
     ModelConfig,
+    _check_moe_tp,
     _moe_mlp,
     _rms_norm,
+    all_reduce_sum,
+    gather_vocab,
     init_params,
     leaf_bytes,
     param_bytes,
     param_leaves,
+    replica_meshes,
     resolve_device,
+    shard_params,
+    visible_devices,
 )
 from tpumon_torch.loadgen.paged_kv import (
     PageAllocator,
@@ -93,9 +111,8 @@ SHED_CAP = 0.95
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """The reference's ServeConfig, field for field, with its defaults;
-    the engine raises "not yet ported" when a field outside the port is
-    set (``_check_ported``)."""
+    """The reference's ServeConfig, field for field, with its
+    defaults."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     slots: int = 4  # concurrent decode slots (continuous batching)
@@ -130,8 +147,10 @@ class ServeConfig:
     kv_layout: str = "dense"
     pool_pages: int = 0  # 0 = the dense equivalent, slots*max_pages + 1
     # Paged decode read path: "gather" (plain torch: gather the table's
-    # pages, attend densely) or "kernel" (tpumon_torch.ops.paged_attention,
-    # the CUDA kernel on a GPU; its plain version on the CPU).
+    # pages, attend densely), "kernel" (tpumon_torch.ops.paged_attention,
+    # the CUDA kernel on a GPU; its plain version on the CPU) or "ring"
+    # (ring_attention.paged_ring_decode_attend: the table's pages one at a
+    # time through the online-softmax accumulator).
     paged_attn: str = "gather"
     # Fused plain decode: this many (decode step -> sample) pairs per
     # engine step with one device→host sync (decode_rounds /
@@ -151,29 +170,20 @@ class ServeConfig:
     # Paged admission lookahead (0 = strict FIFO) and its aging bound.
     admit_lookahead: int = 0
     admit_max_skips: int = 8
+    # dp×tp mesh serving (MeshServingEngine): mesh_dp data-parallel
+    # replicas behind the affinity router, each tensor-parallel over its
+    # own mesh_tp devices; 1×1 = the plain engine. dp*tp must divide the
+    # device count. Every request's stream stays a pure function of
+    # (seed, prompt, params) across layouts (the router owns the rids).
     mesh_dp: int = 1
     mesh_tp: int = 1
+    # Ring-attention engine mode (0 = off, >= 2 = stripes): the page
+    # tables widen to ring_stripes x the flat capacity, so admission rises
+    # from max_seq - 1 to ring_stripes * max_seq - 1 tokens. The paged
+    # functions take their geometry from the table's width, so the math
+    # is a flat paged engine's of max_seq = the ring's capacity. Requires
+    # kv_layout="paged"; composes with neither speculation nor the kernel.
     ring_stripes: int = 0
-
-
-# (field, the value the port serves, the ROADMAP item that ports the rest)
-_NOT_PORTED = (
-    ("mesh_dp", 1, "queue 1 item 12"),
-    ("mesh_tp", 1, "queue 1 item 12"),
-    ("ring_stripes", 0, "queue 1 item 12"),
-)
-
-
-def _check_ported(cfg: ServeConfig) -> None:
-    for name, supported, item in _NOT_PORTED:
-        got = getattr(cfg, name)
-        if got != supported:
-            raise NotImplementedError(
-                f"ServeConfig.{name}={got!r} is not yet ported (ROADMAP "
-                f"{item}); the port serves {name}={supported!r}")
-    if cfg.paged_attn == "ring":
-        raise NotImplementedError(
-            "paged_attn='ring' is not yet ported (ROADMAP queue 1 item 12)")
 
 
 def default_engine_config() -> ServeConfig:
@@ -237,55 +247,106 @@ def decoder_forward(cfg: ServeConfig, params: dict, tokens: torch.Tensor,
     attend(li, q, k, v), when given, REPLACES kv_update + the in-body
     attention for every layer: it writes the block's K/V and returns the
     attention output [B, T, n_heads, hd] directly (the
-    ``paged_attn="kernel"`` path; ``mask`` is then unused — the kernel
-    masks by sequence length).
+    ``paged_attn="kernel"`` and ``"ring"`` paths; ``mask`` is then unused
+    — they mask by sequence length).
+
+    Over a tensor-parallel mesh ``params`` is the list of shard param
+    dicts (``model.shard_params``) and ``kv_update`` / ``attend`` the
+    lists of each shard's callables over its own store: shard r runs its
+    n_heads/tp query heads, n_kv_heads/tp kv heads and d_ff/tp FFN
+    columns (or its block of experts) on its device, and the two
+    row-parallel products of each layer are summed by
+    ``model.all_reduce_sum``. Returns then the list of every shard's
+    hidden states (replicated; ``_logits`` gathers the vocab split).
     """
     m = cfg.model
     dt = m.torch_dtype
-    nh, nkv, hd = m.n_heads, m.n_kv_heads, m.head_dim
+    sharded = isinstance(params, list)
+    shards = params if sharded else [params]
+    updates = kv_update if sharded else [kv_update]
+    attends = attend if sharded or attend is None else [attend]
+    tp = len(shards)
+    nh, nkv, hd = m.n_heads // tp, m.n_kv_heads // tp, m.head_dim
     b, t = tokens.shape
-    x = params["embed"].to(dt)[tokens.long()]  # [B, T, D]
-    for li, layer in enumerate(params["layers"]):
-        h = _rms_norm(x, layer["attn_norm"])
-        q = _rope_at((h @ layer["wq"].to(dt)).reshape(b, t, nh, hd),
-                     pos, m.rope_theta)
-        k = _rope_at((h @ layer["wk"].to(dt)).reshape(b, t, nkv, hd),
-                     pos, m.rope_theta)
-        v = (h @ layer["wv"].to(dt)).reshape(b, t, nkv, hd)
-        if attend is not None:
-            att = attend(li, q, k, v).reshape(b, t, nh * hd)
-        else:
-            ck, cv = kv_update(li, k, v)
-            kr, vr = _gqa_repeat(ck, nh), _gqa_repeat(cv, nh)
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float()
-            scores = scores / (hd**0.5)
-            scores = torch.where(mask, scores, -1e30)
-            probs = torch.softmax(scores, dim=-1).to(dt)
-            att = torch.einsum(
-                "bhqk,bkhd->bqhd", probs, vr).reshape(b, t, nh * hd)
-        x = x + att @ layer["wo"].to(dt)
-        hm = _rms_norm(x, layer["mlp_norm"])
-        if "moe" in layer:
-            # The MoE family at FULL capacity (no drops): a capacity set
-            # by the batch's shape would route the same sequence
-            # differently through chunked prefill, step decode, fused
-            # blocks and the speculative verify; full capacity makes every
-            # mode emit the same tokens.
-            x = x + _moe_mlp(m, layer["moe"], hm, full_capacity=True)
-        else:
-            gate = F.silu(hm @ layer["w_gate"].to(dt))
-            x = x + (gate * (hm @ layer["w_up"].to(dt))) @ layer[
-                "w_down"].to(dt)
-    return _rms_norm(x, params["final_norm"])
+    devs = [sh["embed"].device for sh in shards]
+    poss = [pos.to(d) for d in devs]
+    masks = [mask.to(d) for d in devs]
+    xs = [sh["embed"].to(dt)[tokens.to(d).long()]  # [B, T, D]
+          for sh, d in zip(shards, devs)]
+    for li in range(len(shards[0]["layers"])):
+        parts = []
+        for r, sh in enumerate(shards):
+            layer = sh["layers"][li]
+            h = _rms_norm(xs[r], layer["attn_norm"])
+            q = _rope_at((h @ layer["wq"].to(dt)).reshape(b, t, nh, hd),
+                         poss[r], m.rope_theta)
+            k = _rope_at((h @ layer["wk"].to(dt)).reshape(b, t, nkv, hd),
+                         poss[r], m.rope_theta)
+            v = (h @ layer["wv"].to(dt)).reshape(b, t, nkv, hd)
+            if attends is not None:
+                att = attends[r](li, q, k, v).reshape(b, t, nh * hd)
+            else:
+                ck, cv = updates[r](li, k, v)
+                kr, vr = _gqa_repeat(ck, nh), _gqa_repeat(cv, nh)
+                scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).float()
+                scores = scores / (hd**0.5)
+                scores = torch.where(masks[r], scores, -1e30)
+                probs = torch.softmax(scores, dim=-1).to(dt)
+                att = torch.einsum(
+                    "bhqk,bkhd->bqhd", probs, vr).reshape(b, t, nh * hd)
+            parts.append(att @ layer["wo"].to(dt))
+        xs = [x + a for x, a in zip(xs, all_reduce_sum(parts))]
+        parts = []
+        for r, sh in enumerate(shards):
+            layer = sh["layers"][li]
+            hm = _rms_norm(xs[r], layer["mlp_norm"])
+            if "moe" in layer:
+                # The MoE family at FULL capacity (no drops): a capacity
+                # set by the batch's shape would route the same sequence
+                # differently through chunked prefill, step decode, fused
+                # blocks and the speculative verify; full capacity makes
+                # every mode emit the same tokens. A shard holds a block
+                # of the experts; the others' tokens come back as zeros.
+                parts.append(_moe_mlp(
+                    m, layer["moe"], hm, full_capacity=True,
+                    expert_offset=r * (m.n_experts // tp)))
+            else:
+                gate = F.silu(hm @ layer["w_gate"].to(dt))
+                parts.append((gate * (hm @ layer["w_up"].to(dt)))
+                             @ layer["w_down"].to(dt))
+        xs = [x + a for x, a in zip(xs, all_reduce_sum(parts))]
+    out = [_rms_norm(x, sh["final_norm"]) for x, sh in zip(xs, shards)]
+    return out if sharded else out[0]
 
 
-def init_cache(cfg: ServeConfig, device) -> dict:
+def _logits(cfg: ServeConfig, params, x, index=()) -> torch.Tensor:
+    """f32 logits of the hidden states ``x[index]``; over a mesh (``x``
+    the shards' list) each shard's slice of the vocab, gathered on the
+    first shard's device (``model.gather_vocab``)."""
+    dt = cfg.model.torch_dtype
+    if isinstance(params, list):
+        return gather_vocab([h[index] @ sh["lm_head"].to(dt)
+                             for h, sh in zip(x, params)]).float()
+    return (x[index] @ params["lm_head"].to(dt)).float()
+
+
+def _per_store(store, make):
+    """``make(store)``: the kv_update (or attend) over one KV store; over
+    a mesh (``store`` the shards' list) one per shard."""
+    return [make(st) for st in store] if isinstance(store, list) else (
+        make(store))
+
+
+def init_cache(cfg: ServeConfig, device, slots: int | None = None,
+               kv_heads: int | None = None) -> dict:
     """The dense KV cache ``{"k", "v"}``, each ``[layers, slots, max_seq,
     kv_heads, head_dim]``, zeroed, on ``device``: the compute dtype, or
     (``kv_dtype="int8"``) int8 rows plus f32 scales ``{"ks", "vs"}`` of
-    shape ``[layers, slots, max_seq, kv_heads]``."""
+    shape ``[layers, slots, max_seq, kv_heads]``. ``slots`` and
+    ``kv_heads`` override the config's for one shard of a mesh."""
     m = cfg.model
-    shape = (m.n_layers, cfg.slots, m.max_seq, m.n_kv_heads, m.head_dim)
+    shape = (m.n_layers, slots or cfg.slots, m.max_seq,
+             kv_heads or m.n_kv_heads, m.head_dim)
     if cfg.kv_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -331,22 +392,26 @@ def prefill(cfg: ServeConfig, params: dict, cache: dict,
     mask = (row[None, :] <= pos[0][:, None])[None, None]  # [1,1,P,S]
     s0 = min(max(start, 0), m.max_seq - p)
 
-    def kv_update(li, k, v):
-        if "ks" in cache:  # the int8 layout (init_cache)
-            for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
-                qx, sx = _kv_quant(new)
-                cache[name][li, slot, s0:s0 + p] = qx[0]
-                cache[sname][li, slot, s0:s0 + p] = sx[0]
-            return tuple(
-                _kv_dequant(cache[name][li, slot], cache[sname][li, slot],
-                            new.dtype)[None]
-                for name, sname, new in (("k", "ks", k), ("v", "vs", v)))
-        cache["k"][li, slot, s0:s0 + p] = k[0]
-        cache["v"][li, slot, s0:s0 + p] = v[0]
-        return cache["k"][li, slot][None], cache["v"][li, slot][None]
+    def make(cache):
+        def kv_update(li, k, v):
+            if "ks" in cache:  # the int8 layout (init_cache)
+                for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+                    qx, sx = _kv_quant(new)
+                    cache[name][li, slot, s0:s0 + p] = qx[0]
+                    cache[sname][li, slot, s0:s0 + p] = sx[0]
+                return tuple(
+                    _kv_dequant(cache[name][li, slot],
+                                cache[sname][li, slot], new.dtype)[None]
+                    for name, sname, new in (("k", "ks", k),
+                                             ("v", "vs", v)))
+            cache["k"][li, slot, s0:s0 + p] = k[0]
+            cache["v"][li, slot, s0:s0 + p] = v[0]
+            return cache["k"][li, slot][None], cache["v"][li, slot][None]
+        return kv_update
 
-    x = decoder_forward(cfg, params, tokens[None], pos, mask, kv_update)
-    return (x[0, length - 1] @ params["lm_head"].to(m.torch_dtype)).float()
+    x = decoder_forward(cfg, params, tokens[None], pos, mask,
+                        _per_store(cache, make))
+    return _logits(cfg, params, x, (0, length - 1))
 
 
 def decode_step(cfg: ServeConfig, params: dict, cache: dict,
@@ -363,16 +428,19 @@ def decode_rounds(cfg: ServeConfig, params: dict, cache: dict,
                   last_tokens: torch.Tensor, positions: torch.Tensor,
                   base_key: torch.Tensor, rids: torch.Tensor,
                   ctr0: torch.Tensor, temps: torch.Tensor,
-                  topks: torch.Tensor, steps: int) -> tuple:
+                  topks: torch.Tensor, steps: int, decode=None) -> tuple:
     """``steps`` (decode_step -> sample_tokens) pairs over the dense cache
     with no host sync: rids [B] and ctr0 [B] carry each request's (id,
     next token index), the index advancing by one a step, so the block
-    emits the per-step stream. Positions clamp at max_seq - 1. Returns
-    (last tokens, positions, tokens [B, steps] in emission order)."""
+    emits the per-step stream. Positions clamp at max_seq - 1. ``decode``
+    (params, cache, last, positions) -> logits replaces decode_step (the
+    mesh's data-parallel step). Returns (last tokens, positions, tokens
+    [B, steps] in emission order)."""
+    decode = decode or partial(decode_step, cfg)
     out = []
     last, pos, ctr = last_tokens, positions, ctr0
     for _ in range(steps):
-        logits = decode_step(cfg, params, cache, last, pos)
+        logits = decode(params, cache, last, pos)
         last = sample_tokens(logits, base_key, rids, ctr, temps, topks)
         pos = torch.clamp(pos + 1, max=cfg.model.max_seq - 1)
         ctr = ctr + 1
@@ -407,6 +475,65 @@ def sample_tokens(logits: torch.Tensor, base_key: torch.Tensor,
     sampled = threefry.categorical(keys, scaled)
     return torch.where(temps > 0, sampled, torch.argmax(logits, dim=-1)
                        ).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving: tensor-parallel dense decode over a mesh
+# ---------------------------------------------------------------------------
+
+
+def make_sharded_serving(cfg: ServeConfig, mesh, params: dict):
+    """Prefill, decode and fused block decode tensor-parallel over mesh
+    axis "model", data-parallel over "data", on the dense cache.
+
+    The reference's Megatron split (``model.PARAM_SPECS``): each device
+    holds its block of kv heads, attention is local per head, the
+    row-parallel products meet in ``model.all_reduce_sum``, and the
+    vocab-split logits in ``model.gather_vocab``. The cache splits on its
+    kv-head axis over "model" (each shard's appends are device-local) and
+    on its slot axis over "data": the slots of data row d decode on that
+    row's shards. Logits come back replicated on the mesh's first device
+    for sampling. Requires ``n_kv_heads % tp == 0`` and ``slots % dp ==
+    0``. Returns (prefill_fn, decode_fn, placed params — one dict per
+    device —, placed cache — one dict per device —, rounds_fn)."""
+    tp = mesh.shape["model"]
+    dp = mesh.shape.get("data", 1)
+    if cfg.model.n_kv_heads % tp:
+        raise ValueError(f"n_kv_heads={cfg.model.n_kv_heads} not "
+                         f"divisible by tp={tp}")
+    _check_moe_tp(cfg.model, mesh)
+    if cfg.slots % dp:
+        raise ValueError(f"slots={cfg.slots} not divisible by dp={dp}")
+    per = cfg.slots // dp
+    devs = mesh.device_list
+    placed = shard_params(mesh, params, cfg.model.torch_dtype)
+    placed_cache = [init_cache(cfg, d, slots=per,
+                               kv_heads=cfg.model.n_kv_heads // tp)
+                    for d in devs]
+
+    def row(d):  # data row d's shards, in "model" order
+        return slice(d * tp, (d + 1) * tp)
+
+    def prefill_fn(cache, tokens, length, slot, start=0):
+        d, local = divmod(slot, per)
+        return prefill(cfg, placed[row(d)], cache[row(d)], tokens, length,
+                       local, start).to(devs[0])
+
+    def decode_fn(cache, last_tokens, positions):
+        return torch.cat([
+            decode_step(cfg, placed[row(d)], cache[row(d)],
+                        last_tokens[d * per:(d + 1) * per],
+                        positions[d * per:(d + 1) * per]).to(devs[0])
+            for d in range(dp)])
+
+    def rounds_fn(cache, last_tokens, positions, base_key, rids, ctr0,
+                  temps, topks, steps):
+        return decode_rounds(
+            cfg, placed, cache, last_tokens, positions, base_key, rids,
+            ctr0, temps, topks, steps,
+            decode=lambda _p, c, last, pos: decode_fn(c, last, pos))
+
+    return prefill_fn, decode_fn, placed, placed_cache, rounds_fn
 
 
 # ---------------------------------------------------------------------------
@@ -507,12 +634,19 @@ class _PrefillWork:
 class ServingEngine:
     """Continuous-batching engine over the dense KV cache or the paged KV
     pool: submit() from any thread, step() (or the arrival loop) drives
-    prefill/decode; /metrics-ready exposition from metrics_text()."""
+    prefill/decode; /metrics-ready exposition from metrics_text().
+
+    ``mesh`` (a ``model.Mesh``) makes the whole loop tensor-parallel over
+    its "model" axis: ``params`` then holds one shard dict per device,
+    the dense cache splits on its kv-head axis over "model" and on slots
+    over "data" (``make_sharded_serving``), the paged pool on its kv-head
+    axis (a tp-only mesh). The engine's own state (positions, sampling
+    settings, logits) lives on the mesh's first device."""
 
     def __init__(self, cfg: ServeConfig | None = None,
                  params: dict | None = None, seed: int = 0,
                  max_queue: int = 64, ckpt_dir: str | None = None,
-                 quantize: str | None = None, device=None):
+                 quantize: str | None = None, device=None, mesh=None):
         if cfg is None and ckpt_dir:
             # No explicit config: adopt the checkpoint's own architecture,
             # so the engine serves the trained weights instead of falling
@@ -524,12 +658,17 @@ class ServingEngine:
         self.cfg = cfg or default_engine_config()
         if quantize is not None:
             self.cfg = dc_replace(self.cfg, quantize=quantize)
-        _check_ported(self.cfg)
-        self._validate()
-        self.device = resolve_device(device)
+        self._validate(mesh)
+        self.mesh = mesh
+        self.device = resolve_device(
+            device if mesh is None else mesh.device_list[0])
         m = self.cfg.model
         dev = self.device
-        self._seq_cap = m.max_seq
+        # The admission and position ceiling: ring engines stripe
+        # ring_stripes x max_seq rows, so every completion check, position
+        # clamp and submit()'s refusal read _seq_cap; the paged functions
+        # take all geometry from the (widened) tables' width.
+        self._seq_cap = max(1, self.cfg.ring_stripes or 1) * m.max_seq
         self.ckpt_step: int | None = None
         if params is None:
             gen = torch.Generator(device=dev)
@@ -557,8 +696,29 @@ class ServingEngine:
 
         # Weights are cast to the compute dtype once, here — the same
         # values the reference's per-call ``.astype(dt)`` produces — so
-        # the weight_bytes gauge reports what is actually resident.
-        self.params = _place(params, dev, m.torch_dtype)
+        # the weight_bytes gauge reports what is actually resident. Over a
+        # mesh each device gets its own shard (model.shard_params).
+        self.paged = self.cfg.kv_layout == "paged"
+        self.cache = None
+        self._prefill = partial(prefill, self.cfg)
+        self._decode = partial(decode_step, self.cfg)
+        self._decode_rounds = partial(decode_rounds, self.cfg)
+        if mesh is None:
+            self.params = _place(params, dev, m.torch_dtype)
+        elif self.paged:
+            self.params = shard_params(mesh, params, m.torch_dtype)
+        else:
+            pre_fn, dec_fn, self.params, self.cache, rounds_fn = (
+                make_sharded_serving(self.cfg, mesh, params))
+            # The engine's call signatures, the params argument ignored
+            # (the shards are placed).
+            self._prefill = (lambda _p, cache, toks, ln, slot, start:
+                             pre_fn(cache, toks, ln, slot, start))
+            self._decode = (lambda _p, cache, last, positions:
+                            dec_fn(cache, last, positions))
+            self._decode_rounds = (
+                lambda _p, cache, *args, steps: rounds_fn(
+                    cache, *args, steps))
         self.spec_len = self.cfg.spec_len
         self.draft_params = None
         self._draft_pos = [0] * self.cfg.slots
@@ -567,17 +727,21 @@ class ServingEngine:
         self.spec_rounds_total = 0
         self.spec_proposed_total = 0
         self.spec_accepted_total = 0
-        self.paged = self.cfg.kv_layout == "paged"
         self.prefix_cache = None
-        self.cache = None
         if self.paged:
             p = self.cfg.prefill_len
+            # Ring mode widens each slot's table to the ring's capacity.
             self._max_pages = -(-self._seq_cap // p)
             pool_pages = self.cfg.pool_pages or (
                 self.cfg.slots * self._max_pages + 1)
             if pool_pages < 2:
                 raise ValueError("pool_pages must be >= 2")
-            self.pool = init_pool(self.cfg, pool_pages, dev)
+            if mesh is None:
+                self.pool = init_pool(self.cfg, pool_pages, dev)
+            else:  # one pool per shard, its kv heads on its device
+                nkv = m.n_kv_heads // mesh.shape["model"]
+                self.pool = [init_pool(self.cfg, pool_pages, d, kv_heads=nkv)
+                             for d in mesh.device_list]
             self.allocator = PageAllocator(pool_pages)
             # Page 0 is the permanent trash page: freed and mid-prefill
             # slots' tables point at it so their garbage batched-decode
@@ -601,7 +765,8 @@ class ServingEngine:
                 device=dev)
             self._tables_dirty = False
         else:
-            self.cache = init_cache(self.cfg, dev)
+            if mesh is None:
+                self.cache = init_cache(self.cfg, dev)
             if self.cfg.prefix_cache_entries:
                 self.prefix_cache = PrefixCache(
                     chunk=self.cfg.prefill_len,
@@ -661,9 +826,9 @@ class ServingEngine:
         # monitor's counter chain).
         self.reporter = None
 
-    def _validate(self) -> None:
+    def _validate(self, mesh) -> None:
         """The reference's composition rules and messages, checked before
-        any device work (the mesh and ring rules are _check_ported's)."""
+        any device work."""
         cfg = self.cfg
         if cfg.kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {cfg.kv_layout!r}")
@@ -679,6 +844,8 @@ class ServingEngine:
             raise ValueError(
                 "pool_pages requires kv_layout='paged' (a dense cache "
                 "has no page pool to size)")
+        if mesh is not None:
+            self._validate_mesh(mesh)
         if cfg.model.n_experts and cfg.prefill_len > cfg.moe_prefill_max_chunk:
             raise ValueError(
                 f"MoE serving at prefill_len={cfg.prefill_len} would "
@@ -709,7 +876,7 @@ class ServingEngine:
                 f"admit_max_skips must be >= 1, got {cfg.admit_max_skips}")
         if cfg.kv_dtype not in ("compute", "int8"):
             raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r}")
-        if cfg.paged_attn not in ("gather", "kernel"):
+        if cfg.paged_attn not in ("gather", "kernel", "ring"):
             raise ValueError(f"unknown paged_attn {cfg.paged_attn!r}")
         if cfg.paged_attn == "kernel" and (
                 cfg.kv_layout != "paged" or cfg.kv_dtype == "int8"):
@@ -717,15 +884,81 @@ class ServingEngine:
                 "paged_attn='kernel' requires kv_layout='paged' with "
                 "kv_dtype='compute' (the kernel reads bf16/f32 pages, "
                 "not the int8 pool)")
+        if cfg.paged_attn == "ring" and (
+                cfg.kv_layout != "paged" or cfg.kv_dtype == "int8"):
+            raise ValueError(
+                "paged_attn='ring' requires kv_layout='paged' with "
+                "kv_dtype='compute' (the blockwise ring accumulator "
+                "streams compute-dtype pages, not the int8 pool)")
+        if cfg.mesh_dp < 1 or cfg.mesh_tp < 1:
+            raise ValueError(
+                f"mesh_dp/mesh_tp must be >= 1, got "
+                f"{cfg.mesh_dp}x{cfg.mesh_tp}")
+        if cfg.mesh_dp * cfg.mesh_tp > 1:
+            raise ValueError(
+                "ServeConfig.mesh_dp/mesh_tp describe a dp×tp mesh "
+                "engine — construct a MeshServingEngine (or pass "
+                "--loadgen-mesh dp,tp), not a plain ServingEngine")
+        if cfg.ring_stripes:
+            if cfg.ring_stripes < 2:
+                raise ValueError(
+                    f"ring_stripes must be 0 (off) or >= 2, got "
+                    f"{cfg.ring_stripes} (one stripe IS the flat layout)")
+            if cfg.kv_layout != "paged":
+                raise ValueError(
+                    "ring_stripes requires kv_layout='paged' (ring mode "
+                    "pages KV block-wise around the tp ring — a dense "
+                    "cache has no pages to stripe)")
+            if cfg.spec_len:
+                raise ValueError(
+                    "ring_stripes does not compose with speculative "
+                    "decoding (the draft cache is one stripe wide; a "
+                    "ring-admitted context would overrun it)")
+            if cfg.paged_attn == "kernel":
+                raise ValueError(
+                    "ring_stripes does not compose with "
+                    "paged_attn='kernel' (the kernel's geometry is pinned "
+                    "to one device's stripe); use the gather or ring "
+                    "read path")
         if cfg.kv_dtype == "int8" and (
-                (cfg.spec_len or cfg.prefix_cache_entries)
-                and cfg.kv_layout != "paged"):
+                mesh is not None
+                or ((cfg.spec_len or cfg.prefix_cache_entries)
+                    and cfg.kv_layout != "paged")):
             raise ValueError(
                 "kv_dtype='int8' composes with the dense engine (with "
                 "decode_block and int8 weights) and the full paged "
                 "engine (incl. prefix caching and speculative "
                 "decoding) — not with a mesh, or with the DENSE "
                 "layout's speculative/prefix cache surgery")
+
+    def _validate_mesh(self, mesh) -> None:
+        """The reference's rules for a tensor-parallel engine."""
+        cfg = self.cfg
+        if cfg.prefix_cache_entries:
+            raise ValueError(
+                "a tensor-parallel mesh does not compose with prefix "
+                "caching (host-side cache surgery on sharded buffers)")
+        if cfg.spec_len and cfg.kv_layout != "paged":
+            raise ValueError(
+                "over a mesh, speculative decoding composes with the "
+                "PAGED layout; dense-layout spec is single-device only")
+        if cfg.paged_attn == "kernel":
+            raise ValueError(
+                "paged_attn='kernel' is single-device (the kernel reads "
+                "one device's whole pool); use the gather path over a "
+                "mesh")
+        tp = mesh.shape["model"]
+        dp = mesh.shape.get("data", 1)
+        if cfg.kv_layout == "paged" and dp != 1:
+            raise ValueError(
+                "paged serving over a mesh is tensor-parallel only "
+                f"(axis 'model'); got data={dp} — slots batch via "
+                "continuous batching, not a data axis")
+        if cfg.model.n_kv_heads % tp:
+            raise ValueError(
+                f"n_kv_heads={cfg.model.n_kv_heads} not divisible by "
+                f"tp={tp}")
+        _check_moe_tp(cfg.model, mesh)
 
     def _init_draft(self, seed: int) -> None:
         """The draft model of ``spec_source="draft"``: the target itself
@@ -746,21 +979,33 @@ class ServingEngine:
                 "draft_model=None for self-speculation)")
         self._draft_scfg = ServeConfig(model=dm, slots=self.cfg.slots,
                                        prefill_len=self.cfg.prefill_len)
+        mesh = self.mesh
         if self.cfg.draft_model is None:
             self.draft_params = self.params  # self-speculation
         elif dm == dc_replace(m, n_layers=dm.n_layers):
-            self.draft_params = {
-                "embed": self.params["embed"],
-                "layers": self.params["layers"][:dm.n_layers],
-                "final_norm": self.params["final_norm"],
-                "lm_head": self.params["lm_head"],
-            }
+            # The target's bottom layers, embedding and head, re-sliced
+            # from the placed target (each shard's, over a mesh): aliases,
+            # no second copy.
+            self.draft_params = _per_store(self.params, lambda sh: {
+                "embed": sh["embed"],
+                "layers": sh["layers"][:dm.n_layers],
+                "final_norm": sh["final_norm"],
+                "lm_head": sh["lm_head"],
+            })
         else:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed + 1)
-            self.draft_params = _place(init_params(dm, gen), self.device,
-                                       dm.torch_dtype)
-        self.draft_cache = init_cache(self._draft_scfg, self.device)
+            drawn = init_params(dm, gen)
+            self.draft_params = (
+                _place(drawn, self.device, dm.torch_dtype) if mesh is None
+                else shard_params(mesh, drawn, dm.torch_dtype))
+        if mesh is None:
+            self.draft_cache = init_cache(self._draft_scfg, self.device)
+        else:  # the draft's dense cache splits on its kv-head axis
+            nkv = dm.n_kv_heads // mesh.shape["model"]
+            self.draft_cache = [
+                init_cache(self._draft_scfg, d, kv_heads=nkv)
+                for d in mesh.device_list]
 
     def _h2d(self, values: list) -> torch.Tensor:
         """int32 host list (or list of lists) -> device tensor without a
@@ -1162,8 +1407,8 @@ class ServingEngine:
                     self.cfg, self.params, self.pool, toks, ln,
                     work.pages[c0 // p], work.table_row, c0)
             else:
-                work.logits = prefill(self.cfg, self.params, self.cache,
-                                      toks, ln, slot, c0)
+                work.logits = self._prefill(self.params, self.cache, toks,
+                                            ln, slot, c0)
             work.next_c0 = c0 + p
         elif draft_mode and work.draft_c0 < work.n:
             c0 = work.draft_c0
@@ -1343,8 +1588,8 @@ class ServingEngine:
                 self.cfg, self.params, self.pool, self.last_tokens,
                 self.positions, self._tables_dev)
         else:
-            logits = decode_step(self.cfg, self.params, self.cache,
-                                 self.last_tokens, self.positions)
+            logits = self._decode(self.params, self.cache,
+                                  self.last_tokens, self.positions)
         nxt = sample_tokens(logits, self._sample_key, self.rids,
                             self.tok_ctrs, self.temps, self.topks)
         self.tok_ctrs = self.tok_ctrs + 1
@@ -1381,8 +1626,8 @@ class ServingEngine:
                 self.rids, self.tok_ctrs, self.temps, self.topks, steps=n,
                 seq_cap=self._seq_cap)
         else:
-            self.last_tokens, self.positions, toks = decode_rounds(
-                self.cfg, self.params, self.cache, self.last_tokens,
+            self.last_tokens, self.positions, toks = self._decode_rounds(
+                self.params, self.cache, self.last_tokens,
                 self.positions, self._sample_key, self.rids,
                 self.tok_ctrs, self.temps, self.topks, steps=n)
         self.tok_ctrs = self.tok_ctrs + n
@@ -1623,10 +1868,58 @@ class ServingEngine:
         return _render_serving_metrics(self._stats_snapshot())
 
 
-def _render_serving_metrics(snap: dict) -> str:
-    """Render one stats snapshot as the /metrics exposition — the
-    reference's renderer line for line (without the mesh engine's
-    per-replica family), so the text is identical for equal snapshots."""
+def _merge_serving_snapshots(snaps: "list[dict]") -> dict:
+    """Sum dp-replica snapshots into one fleet snapshot: counters and
+    gauge counts add, latency windows concatenate (quantiles are
+    order-independent), per-tenant series merge with their observation
+    times, so the recency window still applies."""
+    out = dict(snaps[0])
+    out["tenants"] = {
+        name: dict(row, ttft=list(row["ttft"]), tpot=list(row["tpot"]))
+        for name, row in snaps[0]["tenants"].items()
+    }
+    for s in snaps[1:]:
+        for k in ("tokens", "requests", "completed", "steps", "queue",
+                  "rejected", "cancelled", "shed", "requeued", "ttft_inf",
+                  "ttft_sum", "free", "in_prefill", "spec_rounds",
+                  "spec_proposed", "spec_accepted", "weight_bytes"):
+            out[k] += s[k]
+        out["ttft_counts"] = [
+            a + b for a, b in zip(out["ttft_counts"], s["ttft_counts"])]
+        for k in ("kv_pages_total", "kv_pages_free"):
+            if s[k] is not None:
+                out[k] = (out[k] or 0) + s[k]
+        out["ttft_recent"] = out["ttft_recent"] + s["ttft_recent"]
+        out["tpot_recent"] = out["tpot_recent"] + s["tpot_recent"]
+        if s["prefix"] is not None:
+            if out["prefix"] is None:
+                out["prefix"] = dict(s["prefix"])
+            else:
+                out["prefix"] = {
+                    k: out["prefix"][k] + v for k, v in s["prefix"].items()}
+        for name, row in s["tenants"].items():
+            mine = out["tenants"].get(name)
+            if mine is None:
+                out["tenants"][name] = dict(
+                    row, ttft=list(row["ttft"]), tpot=list(row["tpot"]))
+                continue
+            for k in ("submitted", "completed", "rejected", "cancelled",
+                      "shed", "tokens"):
+                mine[k] += row[k]
+            mine["ttft"] = list(mine["ttft"]) + list(row["ttft"])
+            mine["tpot"] = list(mine["tpot"]) + list(row["tpot"])
+    return out
+
+
+def _render_serving_metrics(snap: dict,
+                            replica_rows: "list[tuple] | None" = None
+                            ) -> str:
+    """Render one (possibly merged) stats snapshot as the /metrics
+    exposition — the reference's renderer line for line, so the text is
+    identical for equal snapshots. ``replica_rows`` — (replica,
+    slots_free, queue, ttft_p95_ms, tpot_p95_ms) per dp replica — adds
+    the ``tpumon_serving_replica_*`` gauge family of the mesh engine; None
+    omits it."""
     tokens = snap["tokens"]
     requests = snap["requests"]
     completed = snap["completed"]
@@ -1775,6 +2068,32 @@ def _render_serving_metrics(snap: dict) -> str:
         w.gauge("tpumon_serving_prefix_bytes",
                 "HBM pinned by cached prefix K/V"
                 ).add(value=pc["bytes"])
+    if replica_rows is not None:
+        # The mesh engine's per-replica family: the collector distills it
+        # into per-replica series, so an SLO can target one dp replica.
+        rg = {}
+        for fam, help_ in (
+            ("tpumon_serving_replica_slots_available",
+             "free decode slots per dp replica"),
+            ("tpumon_serving_replica_queue_size",
+             "requests waiting per dp replica (router-assigned)"),
+            ("tpumon_serving_replica_ttft_p95_ms",
+             "recent-window TTFT p95 per dp replica"),
+            ("tpumon_serving_replica_tpot_p95_ms",
+             "recent-window TPOT p95 per dp replica"),
+        ):
+            rg[fam] = w.gauge(fam, help_)
+        for (replica, slots_free, rq, ttft_p95, tpot_p95) in replica_rows:
+            labels = {"replica": replica}
+            rg["tpumon_serving_replica_slots_available"].add(
+                labels, slots_free)
+            rg["tpumon_serving_replica_queue_size"].add(labels, rq)
+            if ttft_p95 is not None:
+                rg["tpumon_serving_replica_ttft_p95_ms"].add(
+                    labels, round(ttft_p95, 3))
+            if tpot_p95 is not None:
+                rg["tpumon_serving_replica_tpot_p95_ms"].add(
+                    labels, round(tpot_p95, 3))
     lines = [w.render().rstrip("\n")]
     lines.append("# TYPE jetstream_time_to_first_token histogram")
     cum = 0
@@ -1788,6 +2107,260 @@ def _render_serving_metrics(snap: dict) -> str:
     lines.append(f"jetstream_time_to_first_token_sum {ttft_sum:.6f}")
     lines.append(f"jetstream_time_to_first_token_count {total}")
     return "\n".join(lines) + "\n"
+
+
+# ---------------------------------------------------------------------------
+# dp×tp mesh serving: replicated engines behind an affinity router
+# ---------------------------------------------------------------------------
+
+
+class MeshServingEngine:
+    """``mesh_dp`` data-parallel replicas — each a plain ServingEngine,
+    its scheduler unchanged, tensor-parallel over its own ``mesh_tp``
+    devices (``model.replica_meshes``) — behind the reference's topology-
+    and prefix-affinity-aware router, in this one process.
+
+    Routing: a request goes to the replica with the longest cached prefix
+    of its prompt, ties broken by least load (queued + in flight), then
+    by lowest replica index (the contiguous device order). The router
+    mints the rids (children take ``submit(rid=...)``) and every replica
+    shares seed and params, so a request's sampled stream is a pure
+    function of (seed, prompt, params) on whichever replica it lands.
+
+    The dp replica ids ("r0".."r<dp-1>") are the placement domains:
+    ``drain_slice("r1")`` stops admission there and moves its queued and
+    in-flight work to live replicas by ``evict_all`` / ``adopt`` (rid and
+    delivered-stream watermark kept, so the re-run replays the same
+    tokens). With every replica drained the router rejects new work.
+
+    ``devices`` lists the devices the replicas take in order (a device
+    may repeat: dp x tp on one card); None takes ``visible_devices(device)``
+    — every CUDA device, or the one CPU for ``device="cpu"``."""
+
+    def __init__(self, cfg: ServeConfig | None = None,
+                 params: dict | None = None, seed: int = 0,
+                 max_queue: int = 64, ckpt_dir: str | None = None,
+                 quantize: str | None = None, devices=None, device=None):
+        self.cfg = cfg or default_engine_config()
+        dp, tp = self.cfg.mesh_dp, self.cfg.mesh_tp
+        devices = list(visible_devices(device) if devices is None
+                       else devices)
+        # Validates the shape against the device count (the reference's
+        # text, which both CLIs report).
+        meshes = replica_meshes(dp, tp, dense=self.cfg.kv_layout != "paged",
+                                devices=devices)
+        child_cfg = dc_replace(self.cfg, mesh_dp=1, mesh_tp=1)
+        self.replica_ids: tuple[str, ...] = tuple(
+            f"r{d}" for d in range(dp))
+        # Children share (seed, params): identical weights on every
+        # replica is the identical-stream precondition (params None: each
+        # child draws them from the same seed).
+        self.replicas: list[ServingEngine] = [
+            ServingEngine(cfg=child_cfg, params=params, seed=seed,
+                          max_queue=max_queue, ckpt_dir=ckpt_dir,
+                          quantize=quantize, device=devices[d * tp],
+                          mesh=meshes[d])
+            for d in range(dp)
+        ]
+        self._rid = itertools.count()
+        self._lock = threading.Lock()
+        self._drained: set[str] = set()
+        self.slices: tuple[str, ...] = self.replica_ids
+        self.router_rejected = 0
+
+    # -- admission / routing ------------------------------------------------
+
+    def _live(self) -> "list[int]":
+        with self._lock:
+            drained = set(self._drained)
+        return [i for i, name in enumerate(self.replica_ids)
+                if name not in drained]
+
+    def _route(self, prompt: list[int], live: "list[int]") -> ServingEngine:
+        best_i = live[0]
+        best = (-self.replicas[best_i].prefix_hit_len(prompt),
+                self.replicas[best_i].load())
+        for i in live[1:]:
+            eng = self.replicas[i]
+            key = (-eng.prefix_hit_len(prompt), eng.load())
+            if key < best:
+                best, best_i = key, i
+        return self.replicas[best_i]
+
+    def submit(self, prompt: list[int], max_new: int = 16,
+               temperature: float = 0.0, top_k: int = 0,
+               stream: bool = False, stop_tokens=(),
+               tenant: str = "", rid: int | None = None) -> Request:
+        """Route one request to a dp replica (affinity → load → index) and
+        submit it there with a router-minted rid; ServingEngine.submit's
+        contract. With every replica drained the request is rejected
+        here."""
+        live = self._live()
+        if not live:
+            req = Request(
+                rid=rid if rid is not None else next(self._rid),
+                prompt=[t % self.cfg.model.vocab for t in prompt] or [0],
+                max_new=max(0, int(max_new)), enqueued=time.monotonic(),
+                temperature=float(temperature), top_k=int(top_k),
+                stream=queue.Queue() if stream else None,
+                stop_tokens=tuple(int(t) for t in stop_tokens),
+                tenant=str(tenant))
+            with self._lock:
+                self.router_rejected += 1
+            req.status = "rejected"
+            req.finish_stream()
+            req.done.set()
+            return req
+        eng = self._route(list(prompt), live)
+        return eng.submit(prompt, max_new=max_new, temperature=temperature,
+                          top_k=top_k, stream=stream,
+                          stop_tokens=stop_tokens, tenant=tenant,
+                          rid=rid if rid is not None else next(self._rid))
+
+    # -- engine loop --------------------------------------------------------
+
+    def step(self) -> bool:
+        """One scheduler step on every replica, drained ones included
+        (their remaining work must still finish when no live replica took
+        it). True if any replica has work left."""
+        progressed = False
+        for eng in self.replicas:
+            progressed = eng.step() or progressed
+        return progressed
+
+    def drain(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if not self.step():
+                return
+
+    # -- actuation surface (tpumon_torch.actuate) ---------------------------
+
+    def set_shed(self, tenant: str, fraction: float) -> float:
+        got = 0.0
+        for eng in self.replicas:
+            got = eng.set_shed(tenant, fraction)
+        return got
+
+    def shed_fractions(self) -> dict[str, float]:
+        return self.replicas[0].shed_fractions()
+
+    def nudge_capacity(self, prefill_budget: int | None = None,
+                       admit_lookahead: int | None = None) -> dict:
+        out: dict = {}
+        for eng in self.replicas:
+            out = eng.nudge_capacity(prefill_budget=prefill_budget,
+                                     admit_lookahead=admit_lookahead)
+        return out
+
+    def set_slices(self, names) -> None:
+        """The placement domains here are the replica ids, fixed at
+        construction; a sync only prunes drain marks of names that no
+        longer exist, as ServingEngine.set_slices does."""
+        with self._lock:
+            self.slices = tuple(str(n) for n in names)
+            self._drained &= set(self.slices)
+
+    def drain_slice(self, name: str) -> None:
+        """Drain one dp replica: the router stops admitting to it, and its
+        queued and in-flight requests move to the least loaded live
+        replicas (``evict_all`` / ``adopt``). With no live replica left
+        the work stays and finishes where it is."""
+        name = str(name)
+        with self._lock:
+            self._drained.add(name)
+        if name not in self.replica_ids:
+            return
+        live = self._live()
+        if not live:
+            return
+        evicted = self.replicas[self.replica_ids.index(name)].evict_all()
+        # adopt() pushes at the queue head: reversed keeps the evicted
+        # order (requeued in-flight first, then the queue) on each target.
+        for req in reversed(evicted):
+            target = min(live, key=lambda i: self.replicas[i].load())
+            self.replicas[target].adopt(req)
+
+    def undrain_slice(self, name: str) -> None:
+        with self._lock:
+            self._drained.discard(str(name))
+
+    def drained_slices(self) -> tuple[str, ...]:
+        with self._lock:
+            return tuple(sorted(self._drained))
+
+    # -- shared-surface passthroughs ----------------------------------------
+
+    @property
+    def paged(self) -> bool:
+        return self.replicas[0].paged
+
+    @property
+    def params(self) -> dict:
+        return self.replicas[0].params
+
+    @property
+    def prefix_cache(self):
+        return self.replicas[0].prefix_cache
+
+    @property
+    def reporter(self):
+        return self.replicas[0].reporter
+
+    @reporter.setter
+    def reporter(self, value) -> None:
+        for eng in self.replicas:
+            eng.reporter = value
+
+    @property
+    def tokens_total(self) -> int:
+        return sum(e.tokens_total for e in self.replicas)
+
+    @property
+    def requests_total(self) -> int:
+        return sum(e.requests_total for e in self.replicas)
+
+    @property
+    def completed_total(self) -> int:
+        return sum(e.completed_total for e in self.replicas)
+
+    @property
+    def rejected_total(self) -> int:
+        return self.router_rejected + sum(
+            e.rejected_total for e in self.replicas)
+
+    @property
+    def requeued_total(self) -> int:
+        return sum(e.requeued_total for e in self.replicas)
+
+    # -- metrics ------------------------------------------------------------
+
+    def metrics_text(self) -> str:
+        """One merged /metrics page for the mesh — fleet counters summed,
+        latency quantiles over every replica's recent window — plus the
+        ``tpumon_serving_replica_*`` family per replica."""
+        snaps = [eng._stats_snapshot() for eng in self.replicas]
+        rows = []
+        for name, snap in zip(self.replica_ids, snaps):
+            tq = quantiles(snap["ttft_recent"])
+            pq = quantiles(snap["tpot_recent"])
+            rows.append((name, snap["free"], snap["queue"],
+                         None if tq is None else tq[1] * 1e3,
+                         None if pq is None else pq[1] * 1e3))
+        merged = _merge_serving_snapshots(snaps)
+        with self._lock:
+            merged["rejected"] += self.router_rejected
+        return _render_serving_metrics(merged, replica_rows=rows)
+
+
+def make_serving_engine(cfg: ServeConfig | None = None, **kw):
+    """The engine the config asks for: a MeshServingEngine when
+    mesh_dp×mesh_tp describes a real mesh, a plain ServingEngine
+    otherwise (``devices`` dropped, ``device`` kept)."""
+    cfg = cfg or default_engine_config()
+    if cfg.mesh_dp * cfg.mesh_tp > 1:
+        return MeshServingEngine(cfg=cfg, **kw)
+    kw.pop("devices", None)
+    return ServingEngine(cfg=cfg, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -2019,7 +2592,9 @@ def start_background(rps: float = 0.5, max_new: int = 16,
     daemon thread + the /metrics endpoint. Returns (engine, url,
     stop_event); setting the event ends the loop and closes the listener,
     and its ``join()`` waits for that (``BackgroundStop``). The
-    reference's signature, plus ``device`` (as for ``ServingEngine``)."""
+    reference's signature, plus ``device`` (as for ``ServingEngine``; a
+    mesh spreads over ``visible_devices(device)``). mesh_dp×mesh_tp > 1
+    builds a MeshServingEngine (``make_serving_engine``)."""
     if cfg is None and (spec_len or prefix_cache or pool_pages
                         or kv_layout != "dense" or decode_block != 1
                         or kv_dtype != "compute"
@@ -2047,8 +2622,8 @@ def start_background(rps: float = 0.5, max_new: int = 16,
             scheduler=scheduler, prefill_chunk_budget=prefill_budget,
             admit_lookahead=admit_lookahead,
             mesh_dp=mesh_dp, mesh_tp=mesh_tp, ring_stripes=ring_stripes)
-    engine = ServingEngine(cfg=cfg, ckpt_dir=ckpt_dir, quantize=quantize,
-                           device=device)
+    engine = make_serving_engine(cfg=cfg, ckpt_dir=ckpt_dir,
+                                 quantize=quantize, device=device)
     server, bound = start_metrics_server(engine, port=port)
     stop = BackgroundStop()
 
@@ -2069,9 +2644,8 @@ def main(argv: list[str] | None = None) -> int:
     loadgen on the GPU: synthetic request arrivals + /metrics for tpumon
     to scrape. Same flags and defaults as ``python -m
     tpumon.loadgen.serving`` (dense layout, gather read path, the
-    workload self-report on); a flag asking for anything the port does
-    not have yet (the mesh and ring engines) exits with "not yet
-    ported"."""
+    workload self-report on), plus ``--device``; ``--mesh DP,TP`` spreads
+    over every visible device of ``--device``'s kind."""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -2119,13 +2693,18 @@ def main(argv: list[str] | None = None) -> int:
                          "with admission backpressure)")
     ap.add_argument("--paged-attn", choices=["gather", "kernel", "ring"],
                     default="gather",
-                    help="paged decode read path: the plain torch gather "
-                         "or the hand-written CUDA paged-attention "
-                         "kernel ('ring' not yet ported)")
+                    help="paged decode read path: the plain torch gather, "
+                         "the hand-written CUDA paged-attention kernel, or "
+                         "blockwise ring attention paging KV page by page "
+                         "(long-context ring layouts)")
     ap.add_argument("--mesh", default=None, metavar="DP,TP",
-                    help="dp×tp mesh serving (not yet ported)")
+                    help="serve over a dp×tp device mesh: DP "
+                         "data-parallel replicas behind the affinity "
+                         "router, each tensor-parallel over TP devices")
     ap.add_argument("--ring-attn", type=int, default=0, metavar="N",
-                    help="ring-attention engine mode (not yet ported)")
+                    help="ring-attention engine mode: admit prompts up "
+                         "to N x max_seq by paging KV block-wise "
+                         "(requires --kv-layout paged; 0 = off)")
     ap.add_argument("--scheduler", choices=["interleaved", "sequential"],
                     default="interleaved",
                     help="admission scheduler: interleaved chunked "
@@ -2151,14 +2730,6 @@ def main(argv: list[str] | None = None) -> int:
                     help="torch device (default: cuda; raises when no "
                          "GPU is present)")
     args = ap.parse_args(argv)
-    not_ported = [
-        (args.paged_attn == "ring", "--paged-attn ring"),
-        (args.mesh is not None, "--mesh"),
-        (args.ring_attn != 0, "--ring-attn"),
-    ]
-    for asked, flag in not_ported:
-        if asked:
-            ap.error(f"{flag} is not yet ported (ROADMAP queue 1)")
     if args.spec_draft_layers and not args.spec_len:
         ap.error("--spec-draft-layers requires --spec-len > 0")
     if args.spec_source == "prompt" and args.spec_draft_layers:
@@ -2183,6 +2754,21 @@ def main(argv: list[str] | None = None) -> int:
             args.kv_layout != "paged" or args.kv_dtype == "int8"):
         ap.error("--paged-attn kernel requires --kv-layout paged with "
                  "--kv-dtype compute (the kernel reads bf16/f32 pages)")
+    mesh_dp = mesh_tp = 1
+    if args.mesh is not None:
+        try:
+            mesh_dp, mesh_tp = (int(x) for x in args.mesh.split(","))
+        except ValueError:
+            ap.error(f"--mesh wants DP,TP (two integers), got "
+                     f"{args.mesh!r}")
+        if mesh_dp < 1 or mesh_tp < 1:
+            ap.error(f"--mesh shape must be >= 1,1, got {args.mesh}")
+    if args.ring_attn and args.ring_attn < 2:
+        ap.error("--ring-attn N needs N >= 2 stripes (1 stripe IS the "
+                 "flat layout; pass 0 to disable)")
+    if args.ring_attn and args.kv_layout != "paged":
+        ap.error("--ring-attn requires --kv-layout paged (the ring "
+                 "pages KV block-wise; a dense cache has no pages)")
 
     model = ModelConfig(vocab=2048, d_model=256, n_layers=4, n_heads=8,
                         n_kv_heads=4, d_ff=1024, max_seq=256,
@@ -2190,7 +2776,7 @@ def main(argv: list[str] | None = None) -> int:
     draft = (dc_replace(model, n_layers=args.spec_draft_layers)
              if args.spec_draft_layers else None)
     try:
-        engine = ServingEngine(cfg=ServeConfig(
+        engine = make_serving_engine(cfg=ServeConfig(
             model=model, slots=args.slots, prefill_len=32,
             quantize=args.quant, spec_len=args.spec_len, draft_model=draft,
             spec_source=args.spec_source,
@@ -2200,8 +2786,11 @@ def main(argv: list[str] | None = None) -> int:
             scheduler=args.scheduler,
             prefill_chunk_budget=args.prefill_budget,
             admit_lookahead=args.admit_lookahead,
+            mesh_dp=mesh_dp, mesh_tp=mesh_tp, ring_stripes=args.ring_attn,
         ), device=args.device)
     except ValueError as e:
+        # Mesh shapes that do not divide the device count, ring modes
+        # that do not compose: config errors, reported as such.
         ap.error(str(e))
     server, port = start_metrics_server(engine, args.port)
     print(f"serving loadgen: /metrics on :{port} "

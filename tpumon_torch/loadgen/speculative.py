@@ -30,9 +30,14 @@ def decode_block(cfg, params: dict, cache: dict, tokens: torch.Tensor,
     mask is ``row <= positions + t``. The write is
     ``lax.dynamic_update_slice``'s per slot: its start clamps to max_seq
     - T, so a block at a parked slot's row max_seq - 1 lands on the last
-    T rows, as in the reference.
+    T rows, as in the reference. Over a tensor-parallel mesh ``params`` and
+    ``cache`` are the shards' lists (``serving.decoder_forward``).
     """
-    from tpumon_torch.loadgen.serving import decoder_forward
+    from tpumon_torch.loadgen.serving import (
+        _logits,
+        _per_store,
+        decoder_forward,
+    )
 
     m = cfg.model
     b, t = tokens.shape
@@ -41,25 +46,36 @@ def decode_block(cfg, params: dict, cache: dict, tokens: torch.Tensor,
     pos = positions[:, None] + steps[None]  # [B, T]
     row = torch.arange(m.max_seq, dtype=torch.int32, device=dev)
     mask = (row[None, None] <= pos[:, :, None])[:, None]  # [B, 1, T, S]
-    rows = positions.long().clamp(0, m.max_seq - t)[:, None] + steps.long()
-    slots = torch.arange(b, device=dev)[:, None]
+    rows_all = (positions.long().clamp(0, m.max_seq - t)[:, None]
+                + steps.long())
+    slots_all = torch.arange(b, device=dev)[:, None]
 
-    def kv_update(li, k, v):
-        if "ks" in cache:  # the int8 cache layout (serving.init_cache)
-            from tpumon_torch.loadgen.serving import _kv_dequant, _kv_quant
+    def make(cache):
+        rows = rows_all.to(cache["k"].device)
+        slots = slots_all.to(cache["k"].device)
 
-            for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
-                qx, sx = _kv_quant(new)
-                cache[name][li][slots, rows] = qx
-                cache[sname][li][slots, rows] = sx
-            return (_kv_dequant(cache["k"][li], cache["ks"][li], k.dtype),
+        def kv_update(li, k, v):
+            if "ks" in cache:  # the int8 cache layout (serving.init_cache)
+                from tpumon_torch.loadgen.serving import (
+                    _kv_dequant,
+                    _kv_quant,
+                )
+
+                for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
+                    qx, sx = _kv_quant(new)
+                    cache[name][li][slots, rows] = qx
+                    cache[sname][li][slots, rows] = sx
+                return (
+                    _kv_dequant(cache["k"][li], cache["ks"][li], k.dtype),
                     _kv_dequant(cache["v"][li], cache["vs"][li], v.dtype))
-        cache["k"][li][slots, rows] = k
-        cache["v"][li][slots, rows] = v
-        return cache["k"][li], cache["v"][li]  # [B, S, nkv, hd]
+            cache["k"][li][slots, rows] = k
+            cache["v"][li][slots, rows] = v
+            return cache["k"][li], cache["v"][li]  # [B, S, nkv, hd]
+        return kv_update
 
-    x = decoder_forward(cfg, params, tokens, pos, mask, kv_update)
-    return (x @ params["lm_head"].to(m.torch_dtype)).float()
+    x = decoder_forward(cfg, params, tokens, pos, mask,
+                        _per_store(cache, make))
+    return _logits(cfg, params, x)
 
 
 def greedy_accept_len(proposed: list[int], target: list[int]) -> int:
