@@ -15,7 +15,9 @@ Phases, each of which exits non-zero on failure:
    page 128, 32-page tables drawn from a random permutation of a 513-page
    pool, lengths 0/1/127/128/129/2000/4096 and random; and at batch 4,
    lengths 2000/4096/129/0, over 4 and 8 splits), in bf16 and f32,
-   plus group-1 hd-64, the serving CLI's hd-32 and an odd page size; each
+   plus group-1 hd-64, the serving CLI's hd-32, an odd page size, head_dim
+   16 at tests/test_paged_attention.py's shape and a GQA group of 16 at
+   production width (two group tiles of 8 query heads); each
    held to its worst relative error over (sequence, head) rows and run
    twice to the same bits, with planted faults of a paged kernel and of
    its split design (at the wrapper's pages_per_split) read beside under
@@ -49,14 +51,17 @@ Phases, each of which exits non-zero on failure:
    the production training shape (BH 128 = batch 8 x 16 heads, T 1024,
    hd 128), the seq-8k shape (BH 16, T 8192) and small shapes (hd 32 and
    64, T 128 and 384; hd 64 and 128, T 192 and 320, where the bf16
-   forward's 128-row tiles reach past T), each output held to its worst
+   forward's 128-row tiles reach past T; hd 8, 16 and 48, which the
+   wrapper zero-pads to the hd-32 or hd-64 instance with the true scale),
+   each output held to its worst
    relative error over 64-row tiles; beside each case, planted faults of
    a tiled kernel, modelled in plain torch at the kernel's tiles (the
    forward's 128 rows; each backward kernel's 128 owned rows in two
    warpgroups of 64, and its 64-row streamed tiles), must read over the
    same limit where they apply. The bf16 forward's and backward's ptxas
    lines, shared memory and registers after setmaxnreg are printed after
-   the build. Then the bf16 gradients on more draws at the production
+   the build (phase 9 also times the pad route: hd 16 against hd 32). Then
+   the bf16 gradients on more draws at the production
    shape (numpy's from seeds 0-7, as tests/flash_spread.py gives them to
    the JAX reference's kernel on the CPU, and flash_variants' draw) under
    the same limit, each draw's worst slice saved to build/flash_spread/
@@ -282,6 +287,22 @@ Phases, each of which exits non-zero on failure:
     tpumon_torch.loadgen.serving --mesh 2,1 exits 2 with "divide the device
     count"; --kv-layout paged --ring-attn 2 answers a /generate past
     max_seq. Row 1's launches in the summary add (b)'s 2x1 run's.
+25. training over a mesh on the one card, at phase 8's production width
+    (bf16 over f32 masters, flash at block 512, batch 8): dp 2, tp 2, dp 2
+    x tp 2 (make_sharded_train_step) and a 2-stage pipeline of 4
+    microbatches at seq 1024, sp (zigzag) and sp-ring over 2 at seq 1025
+    (seq - 1 must divide by 2n), each on [cuda:0] x n. Three steps each
+    of the step function that is then timed: every step's loss and
+    gradients (those of the step's own call) held to the 1x1 step's on
+    the same params and tokens within phase 8's STEP_TOL, and its update
+    to -1e-3 x those gradients (MESH_UPDATE_TOL); then ten timed steps:
+    step ms, tokens/s, MFU, and each flash kernel's launches counted from
+    0 (6 a step for each (data, model) shard or pipeline microbatch; the
+    sequence rings are plain torch, as the reference's jnp). The sharded
+    MoE step (phase 19's width, ("data", "expert") = 2 x 2) matches the
+    unsharded FFN's loss and descends; ici_burn over [cuda:0] x 4 reports
+    the reference's bytes_shifted (device-local copies). The flash rows'
+    launches in the summary add phase 25's.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -313,7 +334,8 @@ PAGED_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SPLIT_FAULTS = ("split_partial_dropped", "merge_no_rescale",
                 "split_boundary_row_twice", "stale_stage")
 PAGED_FAULTS = ("last_page_dropped", "first_page_dropped", "no_rescale",
-                "last_page_unmasked", "wrong_kv_head", *SPLIT_FAULTS)
+                "last_page_unmasked", "wrong_kv_head", "group_tile_repeated",
+                *SPLIT_FAULTS)
 # Engine logits, kernel path vs gather path on the same pool. bf16: the
 # plain path rounds scores and probabilities to bf16 where the kernel
 # keeps f32, and logits near 4 have a bf16 spacing of 1/32, so 0.25 is
@@ -471,6 +493,8 @@ def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
       rises from one page to the next;
     - last_page_unmasked: the last live page is read whole, past lengths;
     - wrong_kv_head: each query group reads the next kv head's pages;
+    - group_tile_repeated: past 8 query heads a kv head, every group tile
+      after the first computes the first tile's queries;
 
     or one fault of the split design (SPLIT_FAULTS), modelled by
     paged_split_plain at the wrapper's own pages_per_split and ring stage.
@@ -488,6 +512,10 @@ def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
             min(STAGE_ROWS[q.dtype], ps))
     nkv, _, ps, _ = k_pages.shape
     s_max = table.shape[1] * ps
+    if fault == "group_tile_repeated":
+        qg = q.reshape(b, nkv, nh // nkv, hd)
+        q = qg[:, :, torch.arange(nh // nkv, device=q.device) % 8].reshape(
+            b, nh, hd)
     heads = torch.arange(nkv, device=q.device)
     if fault == "wrong_kv_head":
         heads = (heads + 1) % nkv
@@ -519,13 +547,16 @@ def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
 
 
 def paged_fault_applies(fault: str, nkv: int, lengths, ps: int,
-                        n_live=()) -> bool:
+                        n_live=(), group: int = 1) -> bool:
     """Whether a planted fault changes any live row of this case;
     ``n_live``: each sequence's live splits at the wrapper's rule (the
-    split faults need two, a dropped middle split three)."""
+    split faults need two, a dropped middle split three); ``group``: query
+    heads a kv head (a second group tile past 8)."""
     live = [n for n in lengths if n > 0]
     if fault == "wrong_kv_head":
         return nkv > 1
+    if fault == "group_tile_repeated":
+        return group > 8 and bool(live)
     if fault == "last_page_unmasked":
         return any(n % ps for n in live)
     if fault in SPLIT_FAULTS:
@@ -547,7 +578,8 @@ def paged_fault_readings(args, want) -> dict:
         table.shape[1])
     return {f: rows_rel_err(paged_faulty_plain(*args, f), want, lengths)
             for f in PAGED_FAULTS
-            if paged_fault_applies(f, nkv, lens, ps, n_live)}
+            if paged_fault_applies(f, nkv, lens, ps, n_live,
+                                   q.shape[1] // nkv)}
 
 
 def prod_lengths() -> list:
@@ -568,7 +600,8 @@ def print_paged_config() -> None:
     from tpumon_torch.ops.paged_attention import kernel_config
 
     configs = {f"{str(dt)[6:]}_hd{hd}": kernel_config(hd, dt, 128)
-               for dt in (torch.bfloat16, torch.float32) for hd in (32, 64, 128)}
+               for dt in (torch.bfloat16, torch.float32)
+               for hd in (16, 32, 64, 128)}
     print(f"paged_ptxas config={configs} "
           + " | ".join(_build.ptxas_report("paged_attention")), flush=True)
 
@@ -593,6 +626,13 @@ def check_kernel(gen) -> dict:
                           lengths=[0, 1, 33, 256])),
         ("odd_page40", dict(b=4, nh=8, nkv=2, hd=128, ps=40, max_pages=5,
                             lengths=[0, 39, 41, 200])),
+        # head_dim 16 at tests/test_paged_attention.py's shape (the 32-byte
+        # swizzled rows; f32: half the lanes own a column)
+        ("ref_hd16", dict(b=3, nh=4, nkv=2, hd=16, ps=8, max_pages=4,
+                          lengths=[5, 17, 32])),
+        # a GQA group of 16 at production width: two group tiles a kv head
+        ("group16", dict(b=16, nh=32, nkv=2, hd=128, ps=128, max_pages=32,
+                         lengths=prod_lengths())),
     ]
     worst = {}
     for name, case in cases:
@@ -1134,6 +1174,11 @@ BWD_FAULTS = ("diag_unmasked", "last_diag_dropped", "no_d", "unrounded",
 # T = 64 x odd: the forward's last 128-row q and k tiles reach past T.
 ODD_T_CASES = [(f"hd{hd}_t{t}", 6, t, hd) for hd in (64, 128)
                for t in (192, 320)]
+# Head dims under an instance (tests/test_loadgen.py's CFG has 8, tests/
+# test_flash_attention.py's 16): zero-padded along D to 32 or 64 by the
+# wrapper, with the true scale.
+SMALL_HD_CASES = [("hd8_t128", 6, 128, 8), ("hd16_t128", 6, 128, 16),
+                  ("hd16_t384", 6, 384, 16), ("hd48_t192", 6, 192, 48)]
 FLASH_OUTPUTS = {"flash_attention_tri_fwd": ("out",),
                  "flash_attention_tri_bwd_dq": ("dq",),
                  "flash_attention_tri_bwd_dkv": ("dk", "dv")}
@@ -1403,7 +1448,7 @@ def check_flash_kernels(gen) -> dict:
     cases = [("production", 128, 1024, 128), ("seq8k", 16, 8192, 128),
              ("hd64_t384", 6, 384, 64), ("hd32_t128", 6, 128, 32),
              ("hd64_t128", 6, 128, 64), ("hd32_t384", 6, 384, 32),
-             *ODD_T_CASES]
+             *ODD_T_CASES, *SMALL_HD_CASES]
     worst = {}
     for name, bh, t, hd in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1850,6 +1895,41 @@ def print_flash_config() -> None:
                 lines.append(ln)
         configs = {hd: config(hd) for hd in (32, 64, 128)}
         print(f"{tag} config={configs} " + " | ".join(lines), flush=True)
+
+
+def time_flash_pad(gen) -> None:
+    """The pad route's cost at BH 128 / T 1024 in bf16: each kernel's
+    wrapper at head_dim 16 (zero-padded to the hd-32 instance, outputs
+    sliced back) against the same wrapper at head_dim 32, which pads
+    nothing, and the bytes the padded copies add (each padded input
+    written and its source read; each output read and written by the
+    slice)."""
+    import torch
+
+    from tpumon_torch.ops import flash_attention as fa
+
+    bh, t = 128, 1024
+    before = flash_counts()
+    ms = {}
+    for hd in (16, 32):
+        q, k, v, g, _, lse, dvec = flash_inputs(gen, bh, t, hd,
+                                                torch.bfloat16)
+        ms[hd] = {
+            "fwd": cuda_ms(lambda: fa.flash_attention_tri_fwd(q, k, v),
+                           reps=20),
+            "dq": cuda_ms(lambda: fa.flash_attention_tri_bwd_dq(
+                q, k, v, g, lse, dvec), reps=20),
+            "dkv": cuda_ms(lambda: fa.flash_attention_tri_bwd_dkv(
+                q, k, v, g, lse, dvec), reps=20)}
+        del q, k, v, g, lse, dvec
+    row = bh * t * 2  # bytes of one bf16 column of [BH, T]
+    pad = {"fwd": 3 * row * (32 + 16) + row * (32 + 16),
+           "dq": 4 * row * (32 + 16) + row * (32 + 16),
+           "dkv": 4 * row * (32 + 16) + 2 * row * (32 + 16)}
+    print(f"flash_pad BH{bh}/T{t} bf16 hd16_padded_ms={ms[16]} "
+          f"hd32_ms={ms[32]} pad_bytes={pad}", flush=True)
+    set_flash_counts(before)
+    torch.cuda.empty_cache()
 
 
 def time_flash_kernels(gen, bw: float, peaks: dict) -> dict:
@@ -5871,6 +5951,287 @@ def phase24(device: str = "cuda") -> dict:
     return out
 
 
+# Phase 25: training over a mesh on the one card. Each layout runs at
+# phase 8's production width on [cuda:0] x n and is held step by step to the
+# 1x1 step on the same params and tokens (STEP_TOL); the flash kernels run
+# once a layer for each (data, model) shard and each pipeline microbatch, the
+# sequence rings in plain torch (as the reference's jnp), so no flash launch.
+MESH_TRAIN_CHECKED = 3  # steps held to 1x1
+# Steps timed after them: over 3 a layout's step read up to 1.4x apart
+# between calls, over 10 within 11% (same card, same code).
+MESH_TRAIN_TIMED = 10
+MESH_TRAIN_BATCH = 8
+MESH_TRAIN_LAYOUTS = (
+    # label, kind, mesh shape; flash launches of each kernel a step over
+    # n_layers (the shards or microbatches that run attention)
+    ("dp2", "auto", (2, 1), 2),
+    ("tp2", "auto", (1, 2), 2),
+    ("dp2_tp2", "auto", (2, 2), 4),
+    ("pipe2_mb4", "pipe", (1, 2), 4),
+    ("sp2", "sp", 2, 0),
+    ("sp_ring2", "sp-ring", 2, 0),
+)
+MESH_MOE_TRAIN_STEPS = 3
+# Each f32 master copy after a checked step against the master before it
+# minus 1e-3 x the step's own gradient: the same elementwise f32 ops, so 0
+# up to the last bit.
+MESH_UPDATE_TOL = 1e-6
+MOE_STEP_TOL = 1e-4  # f32 FFN: the sharded loss against the unsharded one
+
+
+def mesh_train_batches(vocab: int, seq: int, gen) -> list:
+    import torch
+
+    return [torch.randint(0, vocab, (MESH_TRAIN_BATCH, seq), generator=gen,
+                          device=gen.device, dtype=torch.int32)
+            for _ in range(MESH_TRAIN_CHECKED)]
+
+
+def one_by_one_steps(cfg, params, batches) -> list:
+    """The 1x1 trajectory: (loss, grads in param_leaves order) at each
+    batch, SGD at lr 1e-3 between, on a copy of params."""
+    import torch
+
+    from tpumon_torch.loadgen.model import (
+        map_params,
+        param_leaves,
+        value_and_grad,
+    )
+
+    p = map_params(params, lambda t: t.clone())
+    out = []
+    for tokens in batches:
+        loss, grads = value_and_grad(cfg, p, tokens)
+        out.append((float(loss), grads))
+        with torch.no_grad():
+            for x, g in zip(param_leaves(p), grads):
+                x.sub_(1e-3 * g)
+    del p
+    return out
+
+
+def mesh_train_layout(label, kind, shape, per_step, cfg, params, batches,
+                      ref, peak, device) -> dict:
+    """One layout: MESH_TRAIN_CHECKED steps of the step function itself
+    held to the 1x1 trajectory ``ref`` (the loss and every gradient of
+    the step's own call, read as it makes it, and its update: each copy
+    moved by exactly -1e-3 x that gradient), then MESH_TRAIN_TIMED timed
+    steps of the same function; each flash kernel's launches counted from
+    0 over both."""
+    import numpy as np
+    import torch
+
+    from tpumon_torch.loadgen import model as m
+    from tpumon_torch.loadgen.pipeline import (
+        PipelineConfig,
+        make_pipeline_train_step,
+        stack_pipeline_params,
+    )
+    from tpumon_torch.loadgen.sp_train import make_sp_train_step
+    from tpumon_torch.loadgen.train import flops_per_token
+
+    card = torch.device(device)
+    to_ref = m.param_leaves
+    if kind == "auto":
+        dp, tp = shape
+        mesh = m.Mesh(np.array([card] * (dp * tp), dtype=object).reshape(
+            dp, tp), ("data", "model"))
+        run, placed = m.make_sharded_train_step(cfg, mesh, params)
+    elif kind == "pipe":
+        pcfg = PipelineConfig(model=cfg, n_stages=shape[1], n_microbatches=4)
+        mesh = m.Mesh([[card] * shape[1]] * shape[0], ("data", "pipe"))
+        run, placed = make_pipeline_train_step(
+            pcfg, mesh, stack_pipeline_params(pcfg, params))
+
+        def to_ref(tree):
+            return m.param_leaves(stack_pipeline_params(pcfg, tree))
+    else:
+        mesh = m.Mesh([card] * shape, ("seq",))
+        step, placed = make_sp_train_step(
+            cfg, mesh, params, schedule="zigzag" if kind == "sp" else "ring")
+
+        def run(p, tokens):
+            return step(p, *step.prep(tokens))
+        run.specs = step.specs
+    specs = run.specs
+    tl, tg = STEP_TOL[cfg.compute_dtype]
+    # Every step function updates through model.mesh_sgd_step, which
+    # takes its gradients from model.mesh_value_and_grad: wrapped for the
+    # checked steps, it hands over the gradients of the step's own call.
+    real_vg, seen = m.mesh_value_and_grad, []
+
+    def recording_vg(*args, **kw):
+        seen.append(real_vg(*args, **kw))
+        return seen[-1]
+
+    def full_leaves(tree_list):
+        return m.param_leaves(m.unshard_params(mesh, tree_list, specs))
+
+    sync(device)
+    set_flash_counts(dict.fromkeys(FLASH_KERNELS, 0))
+    worst = {"loss": 0.0, "grad": 0.0, "update": 0.0}
+    for k, tokens in enumerate(batches):
+        # A block that needs no gathering comes back as itself: copy it
+        # before the step updates it in place.
+        before = [t.clone() for t in full_leaves(placed)]
+        m.mesh_value_and_grad = recording_vg
+        try:
+            placed, loss = run(placed, tokens)
+        finally:
+            m.mesh_value_and_grad = real_vg
+        _, grads = seen.pop()
+        full = full_leaves([m._regroup(p, g) for p, g in zip(placed, grads)])
+        ref_loss, ref_grads = ref[k]
+        want = to_ref(m._regroup(params, ref_grads))
+        errs = [rel_l2(a, b) for a, b in zip(full, want)]
+        loss_err = abs(float(loss) - ref_loss)
+        upd_err = max((a - (b - 1e-3 * g)).abs().max().item() for a, b, g
+                      in zip(full_leaves(placed), before, full))
+        worst["loss"] = max(worst["loss"], loss_err)
+        worst["grad"] = max(worst["grad"], max(errs))
+        worst["update"] = max(worst["update"], upd_err)
+        print(f"mesh_train {label} step {k}: loss={float(loss)!r} "
+              f"ref_loss={ref_loss!r} loss_abs_err={loss_err!r} "
+              f"grad_rel_l2_max={max(errs)!r} tol=({tl}, {tg}) "
+              f"update_max_abs_err={upd_err!r} tol={MESH_UPDATE_TOL}",
+              flush=True)
+        if not (np.isfinite(float(loss)) and loss_err <= tl
+                and max(errs) <= tg and upd_err <= MESH_UPDATE_TOL):
+            fail(f"mesh training {label} step {k} parts from 1x1")
+        del before, full, grads, want
+    tokens = batches[-1]
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(MESH_TRAIN_TIMED):
+        placed, loss = run(placed, tokens)
+    sync(device)
+    step_s = (time.perf_counter() - t0) / MESH_TRAIN_TIMED
+    launches = flash_counts()
+    want_n = per_step * cfg.n_layers * (MESH_TRAIN_CHECKED + MESH_TRAIN_TIMED)
+    seq = tokens.shape[1]
+    tps = MESH_TRAIN_BATCH * seq / step_s
+    mfu = 100.0 * tps * flops_per_token(cfg, seq) / peak
+    mem = (torch.cuda.max_memory_allocated() / 1e9 if device != "cpu"
+           else None)
+    print(f"mesh_train {label} mesh={mesh.shape} step_ms={step_s * 1e3!r} "
+          f"tokens_per_s={tps!r} mfu_pct={mfu!r} loss={float(loss)!r} "
+          f"flash_launches={launches} want={want_n} peak_mem_GB={mem!r}",
+          flush=True)
+    if device != "cpu" and any(n != want_n for n in launches.values()):
+        fail(f"mesh training {label}: flash launches {launches} != {want_n}")
+    del placed, run
+    empty_cache(device)
+    return {"launches": launches, "step_ms": step_s * 1e3, **worst}
+
+
+def empty_cache(device: str) -> None:
+    import torch
+
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+
+def mesh_moe_step(device: str = "cuda", d_model: int = 2048,
+                  d_ff: int = 8192, tokens: int = 8192) -> None:
+    """make_sharded_moe_step at phase 19's MoE width (d_model 2048, d_ff
+    8192, 8 experts, 8192 tokens, f32) over ("data", "expert") = 2 x 2 on
+    [cuda:0] x 4: the first loss is the unsharded FFN's, and it falls."""
+    import torch
+
+    from tpumon_torch.loadgen.model import Mesh
+    from tpumon_torch.loadgen.moe import (
+        MoEConfig,
+        init_moe_params,
+        make_sharded_moe_step,
+        moe_ffn,
+    )
+
+    cfg = MoEConfig(d_model=d_model, d_ff=d_ff, n_experts=MOE_EXPERTS)
+    gen = torch.Generator(device=device).manual_seed(25)
+    params = init_moe_params(cfg, gen)
+    x = torch.randn(tokens, cfg.d_model, generator=gen, device=device)
+    want = torch.square(moe_ffn(cfg, params, x) - x).mean().item()
+    mesh = Mesh([[torch.device(device)] * 2] * 2, ("data", "expert"))
+    step, placed = make_sharded_moe_step(cfg, mesh, params)
+    del params
+    losses = []
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(MESH_MOE_TRAIN_STEPS):
+        placed, loss = step(placed, x)
+        losses.append(loss.item())
+    step_s = (time.perf_counter() - t0) / MESH_MOE_TRAIN_STEPS
+    err = abs(losses[0] - want) / want
+    print(f"mesh_moe_step mesh={mesh.shape} losses={losses} "
+          f"unsharded_loss={want!r} rel_err={err!r} tol={MOE_STEP_TOL} "
+          f"step_ms={step_s * 1e3!r} (host loss read each step)", flush=True)
+    if not (err <= MOE_STEP_TOL and losses[-1] < losses[0]):
+        fail("the sharded MoE step parts from the unsharded FFN or does "
+             "not descend")
+    del placed, step, x
+    empty_cache(device)
+
+
+def mesh_ici_burn(device: str = "cuda") -> None:
+    """ici_burn over [cuda:0] x 4: every copy stays on the card."""
+    import torch
+
+    from tpumon_torch.loadgen.burn import ici_burn
+    from tpumon_torch.loadgen.model import Mesh
+
+    out = ici_burn(Mesh([torch.device(device)] * 4, ("ring",)))
+    want = 4 * 64 * 2**20 * 8
+    print(f"mesh_ici_burn {out} want_bytes_shifted={want} (device-local "
+          f"copies on one card: the card's copy rate, no NVLink)",
+          flush=True)
+    if out["bytes_shifted"] != want or not out["gbps"] > 0:
+        fail("ici_burn's bytes_shifted is not the reference's count")
+
+
+def phase25(peaks: dict, device: str = "cuda", cfg=None,
+            moe: dict | None = None) -> dict:
+    """Training over a mesh at phase 8's production width on [cuda:0] x n:
+    dp 2, tp 2, dp 2 x tp 2 and a 2-stage pipeline of 4 microbatches at
+    seq 1024; sp and sp-ring over 2 at seq 1025 (seq - 1 must divide by
+    2n); the sharded MoE step; ici_burn. Returns each flash kernel's
+    launches over the layouts."""
+    import torch
+
+    from tpumon_torch.loadgen.model import init_params
+
+    t0 = time.perf_counter()
+    cfg = cfg or train_model()
+    print("phase25 cuts: every shard on cuda:0 (dp, tp, pipe and seq share "
+          "one card, so the cross-shard copies and sums are device-local); "
+          f"batch {MESH_TRAIN_BATCH}; seq 1024 (dp/tp/pipe) and 1025 (sp, "
+          "sp-ring: seq - 1 divisible by 2 x 2)", flush=True)
+    gen = torch.Generator(device=device).manual_seed(25)
+    params = init_params(cfg, gen)
+    batches = {1024: mesh_train_batches(cfg.vocab, 1024, gen),
+               1025: mesh_train_batches(cfg.vocab, 1025, gen)}
+    before = flash_counts()
+    refs = {seq: one_by_one_steps(cfg, params, b)
+            for seq, b in batches.items()}
+    total = dict.fromkeys(FLASH_KERNELS, 0)
+    for label, kind, shape, per_step in MESH_TRAIN_LAYOUTS:
+        seq = 1025 if kind.startswith("sp") else 1024
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        out = mesh_train_layout(label, kind, shape, per_step, cfg, params,
+                                batches[seq], refs[seq], peaks["bfloat16"],
+                                device)
+        for n in FLASH_KERNELS:
+            total[n] += out["launches"][n]
+    del refs, params
+    empty_cache(device)
+    set_flash_counts(before)
+    mesh_moe_step(device, **(moe or {}))
+    mesh_ici_burn(device)
+    print(f"phase25 flash_launches={total} wall_s="
+          f"{time.perf_counter() - t0!r}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5918,6 +6279,7 @@ def main() -> int:
     check_small_trainer_against_cpu()
     check_served_checkpoint(trained)
     flash_times = time_flash_kernels(gen, bw, peaks)
+    time_flash_pad(gen)
     time_trainer(trained)
     check_train_metrics(trained)
     flash_launches = trained["launches"]
@@ -5955,6 +6317,7 @@ def main() -> int:
     app = phase22(keep_checkpoint=True)
     tree = phase23(app)
     mesh = phase24()
+    mesh_train = phase25(peaks)
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
@@ -5976,7 +6339,7 @@ def main() -> int:
         source, replaces = sources[kernel]
         rows.append({"name": kernel, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": flash_launches[kernel],
+                     "launches": flash_launches[kernel] + mesh_train[kernel],
                      "max_abs_err": flash_worst[kernel],
                      **flash_times[kernel]})
     rows.append({"name": "flash_attention", "route": "cuda",

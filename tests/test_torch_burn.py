@@ -189,8 +189,12 @@ def test_burn_result_keys_at_tiny_sizes():
     assert out["kernel"] is False and out["kv_gbps"] > 0
     with pytest.raises(ValueError, match="multiple of page_size"):
         burn.paged_burn(seconds=0.0, context=30, page_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        burn.ici_burn(None)
+    from tpumon_torch.loadgen.model import Mesh
+
+    out = burn.ici_burn(Mesh([torch.device("cpu")] * 4, ("ring",)),
+                        mb_per_shift=1, iters=4)
+    assert set(out) == {"devices", "bytes_shifted", "seconds", "gbps"}
+    assert out["devices"] == 4 and out["gbps"] > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             burn.mxu_burn(seconds=0.0, size=128, iters=1)
@@ -318,3 +322,25 @@ def test_burn_module_draws_no_torch_generator():
 
     src = inspect.getsource(burn)
     assert "zlib" not in src and "randn(" not in src
+
+
+@pytest.mark.parametrize("n,mb,iters", [(4, 1, 4), (2, 2, 3), (8, 1, 1)])
+def test_ici_burn_counts_as_the_reference(n, mb, iters):
+    """tests/test_loadgen.py::test_ici_burn_on_cpu_mesh through both
+    packages: the same devices and bytes_shifted (n x block x iters), and
+    after the rotation each device holds the block that started iters
+    places before it on the ring."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+
+    from tpumon.loadgen import burn as jax_burn
+    from tpumon_torch.loadgen.model import Mesh
+
+    want = jax_burn.ici_burn(JaxMesh(np.array(jax.devices()[:n]), ("ring",)),
+                             mb_per_shift=mb, iters=iters)
+    got = burn.ici_burn(Mesh([torch.device("cpu")] * n, ("ring",)),
+                        mb_per_shift=mb, iters=iters)
+    assert got["devices"] == want["devices"] == n
+    assert got["bytes_shifted"] == want["bytes_shifted"] == (
+        n * mb * 2**20 * iters)
+    assert got["gbps"] > 0 and got["seconds"] > 0

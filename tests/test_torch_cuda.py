@@ -46,6 +46,21 @@ from tpumon_torch.ops.paged_attention import (  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
+# The shapes the paged kernel took in PR 16, at PAGED_CARD_CASE's batch:
+# head_dim 16 at tests/test_paged_attention.py's heads and page, and a GQA
+# group of 16 (two group tiles of 8 query heads); and a split case with a
+# group of 12 (tiles of 8 and 4: the workspace's tile stride past the
+# last tile's heads).
+PAGED_WIDE_SHAPES = [
+    {"nh": 4, "nkv": 2, "hd": 16, "page_size": 8,
+     "lengths": (5, 17, 32, 0, 1, 31)},
+    {"nh": 32, "nkv": 2, "hd": 128, "page_size": 16,
+     "lengths": (0, 1, 15, 16, 17, 64)},
+]
+PAGED_WIDE_SPLIT_CASE = dict(b=3, nh=24, nkv=2, hd=64, page_size=8,
+                             max_pages=96, num_pages=200,
+                             lengths=(700, 0, 333), seed=14)
+
 
 @pytest.fixture
 def cuda_device():
@@ -57,7 +72,7 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", PAGED_CARD_SHAPES)
+@pytest.mark.parametrize("shape", PAGED_CARD_SHAPES + PAGED_WIDE_SHAPES)
 def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     case = paged_case(**PAGED_CARD_CASE, **shape)
     args = [t.to(cuda_device) for t in to_torch(case, dtype)]
@@ -73,10 +88,15 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
 
 
 def test_kernel_rejects_unsupported_sizes_on_card(cuda_device):
-    case = paged_case(nh=4, nkv=2, hd=16)
+    """A head dim that is not a multiple of 16 has no instance: the
+    wrapper raises, naming the instances, and never drops to the plain
+    version."""
+    case = paged_case(nh=4, nkv=2, hd=24)
     args = [t.to(cuda_device) for t in to_torch(case)]
-    with pytest.raises(ValueError, match="head_dim"):
+    before = paged_attention.launches
+    with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\)"):
         paged_attention(*args)
+    assert paged_attention.launches == before
 
 
 def test_kernel_reads_a_parked_slots_repeated_trash_page(cuda_device):
@@ -88,7 +108,7 @@ def test_kernel_reads_a_parked_slots_repeated_trash_page(cuda_device):
                            seed=9))
     case[3][0] = 0  # slot 0: parked — all-trash table at full length
     args = [t.to(cuda_device) for t in to_torch(case, torch.bfloat16)]
-    out = paged_attention(*args)  # group 8, the kernel's largest
+    out = paged_attention(*args)  # group 8, one group tile
     torch.cuda.synchronize()
     ref = paged_attention_reference(*args)
     assert torch.isfinite(out.float()).all()
@@ -116,7 +136,7 @@ def test_kernel_reads_prefix_shared_pages_on_card(cuda_device, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", range(len(PAGED_SPLIT_CARD_CASES)))
+@pytest.mark.parametrize("case", range(len(PAGED_SPLIT_CARD_CASES) + 1))
 def test_split_kernel_matches_plain_on_card(cuda_device, case, dtype):
     """The page axis split across CTAs at the wrapper's pages_per_split:
     a sequence over 4 splits ending in a partial page, mixed lengths whose
@@ -125,7 +145,7 @@ def test_split_kernel_matches_plain_on_card(cuda_device, case, dtype):
     order, whichever CTA arrives last)."""
     from tpumon_torch.ops.paged_attention import pages_per_split
 
-    spec = PAGED_SPLIT_CARD_CASES[case]
+    spec = (PAGED_SPLIT_CARD_CASES + [PAGED_WIDE_SPLIT_CASE])[case]
     args = [t.to(cuda_device) for t in to_torch(paged_case(**spec), dtype)]
     assert pages_per_split(spec["b"], spec["nkv"], spec["max_pages"],
                            spec["page_size"]) < spec["max_pages"]
@@ -168,7 +188,8 @@ def test_split_kernel_at_other_splits_and_rings_on_card(cuda_device, pages,
 # tests/test_torch_flash_attention.py checks on the CPU that the faults
 # read over these limits at this file's shapes.
 FLASH_CASES = [(hd, t) for hd in (32, 64, 128) for t in (128, 384)] + [
-    (hd, t) for hd in (64, 128) for t in (192, 320)]  # T = 64 x odd
+    (hd, t) for hd in (64, 128) for t in (192, 320)] + [  # T = 64 x odd
+    (8, 128), (16, 128), (16, 384), (48, 192)]  # D zero-padded to 32 / 64
 
 
 def flash_inputs(device, dtype, hd, t, bh=3, seed=7):
@@ -245,8 +266,8 @@ def test_flash_dkv_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
 def test_flash_kernels_reject_unsupported_sizes_on_card(cuda_device):
     from tpumon_torch.ops.flash_attention import flash_attention_tri_fwd
 
-    q = torch.randn(2, 128, 16, device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.randn(2, 128, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim up to 128"):
         flash_attention_tri_fwd(q, q, q)
     q = torch.randn(2, 96, 64, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 64"):

@@ -1,0 +1,132 @@
+"""The kernels' shape routing, checked on the CPU.
+
+The flash kernels have instances at head_dim 32, 64 and 128; a smaller
+head dim runs through the next one, zero-padded along D with the true
+scale ``1/sqrt(D)`` (``flash_attention.pad_head_dim``). Here that route
+runs the plain twins, which take the scale as the kernels do: at head_dim
+8, 16 and 48 the padded forward, lse and the three gradients must equal
+the plain twins at the true shape, and the padded columns of the
+gradients must be zero. Also: which instance a head dim runs at, and the
+``ValueError`` that names the limit for a shape no kernel takes (the paged
+kernel: head dims that are not a multiple of 16; the flash kernels: above
+128), raised before anything reaches the card.
+
+Tolerances: f32 1e-6 (the zero columns add exact zeros; only the products'
+blocking may reorder the sums); bf16 1e-3 of the tile norm (a bf16
+rounding of P or dS may fall the other way on a reordered f32 sum).
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tpumon_torch.ops import flash_attention as fa  # noqa: E402
+from tpumon_torch.ops import paged_attention as pa  # noqa: E402
+
+
+def inputs(hd, dtype, bh=3, t=64, seed=0):
+    gen = torch.Generator().manual_seed(seed + hd)
+    q, k, v, g = (torch.randn(bh, t, hd, generator=gen).to(dtype)
+                  for _ in range(4))
+    out, lse = fa.flash_attention_tri_fwd_reference(q, k, v)
+    dvec = (g.float() * out.float()).sum(-1)
+    return q, k, v, g, lse, dvec
+
+
+def close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    else:
+        err = (got.float() - want.float()).norm() / want.float().norm()
+        assert err <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 16, 48])
+def test_padded_route_equals_the_true_shape(hd, dtype):
+    q, k, v, g, lse, dvec = inputs(hd, dtype)
+    assert fa.kernel_head_dim(hd) == (32 if hd <= 32 else 64)
+    out, lse_p = fa.pad_head_dim(fa.flash_attention_tri_fwd_reference,
+                                 (q, k, v))
+    want_out, want_lse = fa.flash_attention_tri_fwd_reference(q, k, v)
+    assert out.shape == q.shape and out.is_contiguous()
+    close(out, want_out, dtype)
+    torch.testing.assert_close(lse_p, want_lse, atol=1e-5, rtol=1e-6)
+    (dq,) = fa.pad_head_dim(
+        lambda *a, scale: (fa.flash_attention_tri_bwd_dq_reference(
+            *a, scale=scale),), (q, k, v, g), (lse, dvec))
+    close(dq, fa.flash_attention_tri_bwd_dq_reference(q, k, v, g, lse,
+                                                      dvec), dtype)
+    dk, dv = fa.pad_head_dim(fa.flash_attention_tri_bwd_dkv_reference,
+                             (q, k, v, g), (lse, dvec))
+    want_dk, want_dv = fa.flash_attention_tri_bwd_dkv_reference(
+        q, k, v, g, lse, dvec)
+    close(dk, want_dk, dtype)
+    close(dv, want_dv, dtype)
+
+
+def test_padded_columns_come_back_zero():
+    """Zero columns of q, k, v and dO give zero columns of every output:
+    the slice drops nothing."""
+    q, k, v, g, lse, dvec = inputs(16, torch.float32)
+    wide = [torch.nn.functional.pad(x, (0, 16)) for x in (q, k, v, g)]
+    scale = 16**-0.5
+    out, _ = fa.flash_attention_tri_fwd_reference(*wide[:3], scale=scale)
+    dq = fa.flash_attention_tri_bwd_dq_reference(*wide, lse, dvec,
+                                                 scale=scale)
+    dk, dv = fa.flash_attention_tri_bwd_dkv_reference(*wide, lse, dvec,
+                                                      scale=scale)
+    for x in (out, dq, dk, dv):
+        assert torch.equal(x[..., 16:], torch.zeros_like(x[..., 16:]))
+
+
+def test_instances_and_limits():
+    assert [fa.kernel_head_dim(d) for d in (1, 8, 32, 40, 64, 72, 128)] == [
+        32, 32, 32, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        fa.kernel_head_dim(256)
+    # the paged kernel: a head dim that is not a multiple of 16 raises
+    # before any launch, naming the instances
+    q = torch.zeros(2, 4, 24)
+    pool = torch.zeros(2, 4, 8, 24)
+    table = torch.zeros(2, 2, dtype=torch.int32)
+    lengths = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\)"):
+        pa._launch(q, pool, pool, table, lengths)
+    assert pa.KERNEL_HEAD_DIMS == (16, 32, 64, 128)
+
+
+def test_cpu_tensors_run_the_plain_twins_at_any_head_dim():
+    """On the CPU the wrappers run the plain versions (no pad), at the
+    reference's small head dims too."""
+    q, k, v, g, lse, dvec = inputs(8, torch.float32)
+    before = fa.flash_attention_tri_fwd.launches
+    out, _ = fa.flash_attention_tri_fwd(q, k, v, block=32)
+    assert fa.flash_attention_tri_fwd.launches == before
+    assert torch.equal(out, fa.flash_attention_tri_fwd_reference(q, k, v)[0])
+
+
+def test_planted_faults_read_over_the_paged_limits_at_the_new_shapes():
+    """At the card tests' new paged shapes (tests/test_torch_cuda.py's
+    PAGED_WIDE_SHAPES and PAGED_WIDE_SPLIT_CASE), every planted fault that
+    applies, the group tiles' among them, reads over the limit the kernel
+    is held to; the split model without a fault stays within half of it."""
+    import chip_smoke
+    from tests.test_torch_cuda import PAGED_WIDE_SHAPES, PAGED_WIDE_SPLIT_CASE
+    from tests.torch_parity import PAGED_CARD_CASE, paged_case, to_torch
+
+    specs = [dict(PAGED_CARD_CASE, **s) for s in PAGED_WIDE_SHAPES]
+    specs.append(PAGED_WIDE_SPLIT_CASE)
+    for spec in specs:
+        for dtype in ("float32", "bfloat16"):
+            args = to_torch(paged_case(**spec), getattr(torch, dtype))
+            want = pa.paged_attention_reference(*args)
+            tol = chip_smoke.PAGED_TOL[dtype]
+            pages = pa.pages_per_split(spec["b"], spec["nkv"],
+                                       spec["max_pages"], spec["page_size"])
+            clean = chip_smoke.paged_split_plain(*args, pages)
+            assert chip_smoke.rows_rel_err(clean, want, args[4]) <= tol / 2
+            readings = chip_smoke.paged_fault_readings(args, want)
+            assert ("group_tile_repeated" in readings) == (
+                spec["nh"] // spec["nkv"] > 8)
+            assert min(readings.values()) > tol, (spec, readings)

@@ -256,8 +256,9 @@ def test_cli_trains_on_cpu(capsys):
                                    ["--parallel", "sp-ring"]])
 def test_cli_flags_outside_the_slice_exit(flags, capsys, monkeypatch,
                                           tmp_path):
-    """The MoE family trains now (with the workload self-report, on by
-    default, into tmp_path); the sequence-parallel modes still exit."""
+    """The MoE family trains (with the workload self-report, on by
+    default, into tmp_path); the sequence-parallel modes exit on a host
+    with one device, with the reference's refusal."""
     if flags[0] == "--experts":
         from tpumon_torch.loadgen import report
 
@@ -269,7 +270,7 @@ def test_cli_flags_outside_the_slice_exit(flags, capsys, monkeypatch,
     with pytest.raises(SystemExit) as exc:
         train.main(flags + ["--device", "cpu"])
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "needs >1 device (have 1)" in capsys.readouterr().err
 
 
 def test_configs_validate_like_the_reference():
@@ -277,8 +278,9 @@ def test_configs_validate_like_the_reference():
         port_cfg(attention="ring")
     with pytest.raises(ValueError, match="attn_block_k"):
         port_cfg(attn_block_k=0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.TrainConfig(model=port_cfg(), parallel="sp")
+    sp = train.TrainConfig(model=port_cfg(), parallel="sp")
+    with pytest.raises(ValueError, match="needs >1 device"):
+        train.run_train(sp, "cpu")
     with pytest.raises(ValueError, match="parallel"):
         train.TrainConfig(model=port_cfg(), parallel="pp")
     # The config fields are the reference's, in its order.

@@ -28,7 +28,8 @@ What differs from the reference:
   (``time.perf_counter``) around such a call, so they time finished
   device work.
 - Entry points run on the card unless given ``device="cpu"`` and raise
-  when there is no GPU. ``ici_burn`` is multi-GPU work, not yet ported.
+  when there is no GPU. ``ici_burn`` rotates its buffer round a
+  ``model.Mesh`` of devices by copies; on one card they are device-local.
 """
 
 from __future__ import annotations
@@ -610,9 +611,35 @@ def hbm_fill(fraction: float = 0.5, hbm_bytes: int | None = None,
     return arrays
 
 
-def ici_burn(*args, **kwargs) -> dict:
-    """The reference's interconnect burn rotates a sharded buffer around a
-    mesh of chips; its NVLink counterpart needs several GPUs."""
-    raise NotImplementedError(
-        "ici_burn is not yet ported: it is multi-GPU work (ROADMAP queue 1 "
-        "item 12)")
+def ici_burn(mesh, mb_per_shift: int = 64, iters: int = 8) -> dict:
+    """Rotate a buffer round the devices of the mesh's first axis,
+    ``iters`` times: each device's ``mb_per_shift`` MB block moves to the
+    next device of the ring by a copy (the reference's ``ppermute`` over
+    ICI). Returns {devices, bytes_shifted, seconds, gbps}, with
+    ``bytes_shifted`` = devices x block bytes x iters as the reference
+    counts it and the seconds from the first copy to the last one's
+    completion. On cards of their own the copies ride NVLink or PCIe; on
+    one card (a mesh that repeats it) every copy stays within the device,
+    so ``gbps`` is the card's copy rate, not an interconnect's."""
+    axis = mesh.axis_names[0]
+    n = mesh.shape[axis]
+    devs = [mesh.device_list[mesh.index(**{axis: i})] for i in range(n)]
+    floats = mb_per_shift * 2**20 // 4
+    blocks = [torch.arange(i * floats, (i + 1) * floats, dtype=torch.float32,
+                           device=d) for i, d in enumerate(devs)]
+    for b in blocks:
+        _sync(b[-1])
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        blocks = [blocks[(i - 1) % n].to(devs[i], copy=True)
+                  for i in range(n)]
+    for b in blocks:
+        _sync(b[-1])
+    dt = time.perf_counter() - t0
+    total_bytes = n * floats * 4 * iters
+    return {
+        "devices": n,
+        "bytes_shifted": total_bytes,
+        "seconds": dt,
+        "gbps": total_bytes / dt / 1e9,
+    }

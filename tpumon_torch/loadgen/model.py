@@ -15,17 +15,29 @@ FFN of ``tpumon_torch.loadgen.moe``). Params are a plain dict of tensors
 (the JAX pytree's exact structure), so the code reads
 ``params["layers"][li]["wq"]`` in both packages.
 
-The mesh (serving over a dp x tp layout): ``Mesh`` names a set of devices
-over the axes "data" and "model", as ``jax.sharding.Mesh`` does, for ONE
+The mesh: ``Mesh`` names a set of devices over named axes ("data",
+"model", "seq", "pipe", "expert"), as ``jax.sharding.Mesh`` does, for ONE
 controller process; a device may repeat, so dp x tp runs on one card (or
 on the CPU) through the same code as on many. ``PARAM_SPECS`` and
 ``param_shardings`` are the reference's Megatron split, ``shard_params``
-applies it (one param dict per shard, each its own allocation on its
-shard's device), and ``all_reduce_sum`` and ``gather_vocab`` are the two
-collectives XLA inserts there: the sum of row-parallel partials and the
-gather of vocab-split logits. ``replica_meshes`` carves the devices into
-dp tensor-parallel submeshes. The mesh-sharded train step is multi-GPU
-work, not yet ported (ROADMAP queue 1 item 12).
+applies a spec tree (one param dict per device, each leaf its block as its
+own allocation on that device), and ``all_reduce_sum`` and
+``gather_vocab`` are the two collectives XLA inserts there: the sum of
+row-parallel partials and the gather of vocab-split logits.
+``replica_meshes`` carves the devices into dp tensor-parallel submeshes
+(mesh serving).
+
+Training over a mesh: ``make_sharded_train_step`` is the dp x tp SGD step.
+Tokens split over "data", each device runs its shard's heads and FFN
+columns (``mesh_loss``), and autograd follows the ``.to()`` copies between
+devices, so one backward pass covers every shard. ``mesh_value_and_grad``
+then sums each block's gradient over the devices that hold it (the psum
+over "data" XLA inserts) and ``mesh_sgd_step`` applies the same update to
+every copy, so replicas stay bit-identical. ``shard_views`` gives the same
+blocks as differentiable views of one full param tree (the loss functions
+take either), and ``unshard_params`` puts the blocks back together. The
+sequence-parallel step (``sp_train``), the pipeline (``pipeline``) and the
+sharded MoE step (``moe.make_sharded_moe_step``) run on the same pieces.
 """
 
 from __future__ import annotations
@@ -37,7 +49,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from tpumon_torch.loadgen.moe import MoEConfig, init_moe_params, moe_ffn
+from tpumon_torch.loadgen.moe import (
+    MoEConfig,
+    expert_block_outputs,
+    init_moe_params,
+    moe_ffn,
+    route,
+)
 from tpumon_torch.loadgen.ring_attention import _block_attend
 from tpumon_torch.ops.flash_attention import (
     flash_attention_tri_bwd,
@@ -203,10 +221,10 @@ def _rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 def visible_devices(device=None) -> list[torch.device]:
     """The devices a mesh spreads over when none are named: every CUDA
-    device torch sees (``resolve_device``'s rule for the default), or the
-    one CPU device when ``device`` is a CPU."""
+    device torch sees (``resolve_device``'s rule for the default), or
+    ``device`` alone when it is a CPU or names its index (``cuda:1``)."""
     device = resolve_device(device)
-    if device.type != "cuda":
+    if device.type != "cuda" or device.index is not None:
         return [device]
     return [torch.device("cuda", i)
             for i in range(torch.cuda.device_count())]
@@ -368,37 +386,45 @@ class _FlashAttentionCore(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def _attention(cfg: ModelConfig, layer: dict, x: torch.Tensor,
-               positions: torch.Tensor | None = None) -> torch.Tensor:
-    """One attention sublayer: projections, RoPE, GQA widening, the
-    configured causal core, and wo."""
+def _qkv(cfg: ModelConfig, layer: dict, x: torch.Tensor,
+         positions: torch.Tensor | None = None) -> tuple:
+    """The attention sublayer's projections and RoPE: (q [B, T, nh, hd],
+    k and v [B, T, nkv, hd]), the heads those of ``layer``'s weights (a
+    tensor-parallel shard holds nh/tp and nkv/tp of them)."""
     b, t, _ = x.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     dt = x.dtype
-    q = (x @ layer["wq"].to(dt)).reshape(b, t, nh, hd)
-    k = (x @ layer["wk"].to(dt)).reshape(b, t, nkv, hd)
-    v = (x @ layer["wv"].to(dt)).reshape(b, t, nkv, hd)
+    q = (x @ layer["wq"].to(dt)).reshape(b, t, -1, hd)
+    k = (x @ layer["wk"].to(dt)).reshape(b, t, -1, hd)
+    v = (x @ layer["wv"].to(dt)).reshape(b, t, -1, hd)
     q = _rope(q, cfg.rope_theta, positions=positions)
     k = _rope(k, cfg.rope_theta, positions=positions)
+    return q, k, v
+
+
+def _core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+          v: torch.Tensor) -> torch.Tensor:
+    """The configured causal core over one block of whole sequences:
+    GQA widening, then flash, chunked or naive; [B, T, nh, hd]."""
+    t, nh, hd = q.shape[1:]
+    nkv = k.shape[2]
     if nkv != nh:  # grouped-query attention: each kv head serves a group
         k = torch.repeat_interleave(k, nh // nkv, dim=2)
         v = torch.repeat_interleave(v, nh // nkv, dim=2)
     if cfg.attention == "flash":
-        out = _FlashAttentionCore.apply(q, k, v, cfg.attn_block_k)
-    elif cfg.attention == "chunked" and t > cfg.attn_block_k:
-        out = _chunked_attention_core(q, k, v, cfg.attn_block_k)
-    else:
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / hd**0.5
-        causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-        scores = torch.where(causal[None, None], scores, _NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return out.reshape(b, t, nh * hd) @ layer["wo"].to(dt)
+        return _FlashAttentionCore.apply(q, k, v, cfg.attn_block_k)
+    if cfg.attention == "chunked" and t > cfg.attn_block_k:
+        return _chunked_attention_core(q, k, v, cfg.attn_block_k)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / hd**0.5
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(causal[None, None], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def _mlp(cfg: ModelConfig, layer: dict, x: torch.Tensor) -> torch.Tensor:
-    if "moe" in layer:
-        return _moe_mlp(cfg, layer["moe"], x)
+    """The dense SwiGLU FFN (over a tensor-parallel shard's weights, the
+    shard's row-parallel partial)."""
     dt = x.dtype
     h = F.silu(x @ layer["w_gate"].to(dt)) * (x @ layer["w_up"].to(dt))
     return h @ layer["w_down"].to(dt)
@@ -430,10 +456,87 @@ def _moe_mlp(cfg: ModelConfig, moe_params: dict, x: torch.Tensor,
     return out.reshape(b, t, d).to(dt)
 
 
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; with ``cfg.remat`` its activations are not kept but
+    recomputed in the backward pass (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint`` of each layer). Every layer loop, on
+    one device or over a mesh, goes through here."""
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _mesh_layer(cfg: ModelConfig, layers: dict, x: dict, pos: dict,
+                ring=None) -> dict:
+    """One transformer layer over a grid of cells (d, r, s): batch rows d
+    and sequence block s through tensor-parallel shard r, whose weights
+    are ``layers[d, r, s]``, activation ``x[d, r, s]`` [B/dp, T/sp, D] and
+    positions ``pos[d, r, s]`` (None: 0..T-1). Each sublayer's
+    row-parallel partials of one (d, s) line meet in ``all_reduce_sum``
+    over "model" and are added to the residual. Attention: with one
+    sequence block each (d, r) runs ``cfg.attention`` over whole
+    sequences (flash: the kernels, one call a shard); with more,
+    ``ring(qs, ks, vs)`` takes the blocks' (q, unwidened k, v) of one
+    (d, r) line and returns their outputs. A MoE layer routes the whole
+    batch at once (``_moe_layer``). Returns the new activations and
+    leaves ``x`` as it was, so a recomputing backward (``_remat``) reads
+    the same inputs. One cell is the single-device layer
+    (``_layer_block``)."""
+    dp, tp, sp = (1 + max(c[i] for c in x) for i in range(3))
+
+    def residual(x, parts):
+        out = {}
+        for d in range(dp):
+            for s in range(sp):
+                sums = all_reduce_sum([parts[d, r, s] for r in range(tp)])
+                for r in range(tp):
+                    out[d, r, s] = x[d, r, s] + sums[r]
+        return out
+
+    def attn_weights(d, r, s):
+        # With fewer kv heads than shards a shard's "model" block of wk/wv
+        # holds part of a kv head: it reads the kv heads its query heads
+        # use from its neighbours' blocks (an all-gather of the weight
+        # columns, as XLA's global product reads them).
+        own = layers[d, r, s]
+        if cfg.n_kv_heads % tp == 0:
+            return own
+        dev = x[d, r, s].device
+        return {**own, **{w: _kv_columns(
+            cfg, tp, r, lambda r2, w=w: layers[d, r2, s][w].to(dev))
+            for w in ("wk", "wv")}}
+
+    parts = {}
+    for d in range(dp):
+        for r in range(tp):
+            qkv = [_qkv(cfg, attn_weights(d, r, s),
+                        _rms_norm(x[d, r, s], layers[d, r, s]["attn_norm"]),
+                        pos[d, r, s]) for s in range(sp)]
+            outs = ([_core(cfg, *qkv[0])] if ring is None
+                    else ring(*zip(*qkv)))
+            for s, out in enumerate(outs):
+                h = x[d, r, s]
+                parts[d, r, s] = out.reshape(*h.shape[:2], -1) @ layers[
+                    d, r, s]["wo"].to(h.dtype)
+    x = residual(x, parts)
+    if "moe" in layers[0, 0, 0]:
+        if sp > 1:
+            raise ValueError("the MoE family does not run over a "
+                             "sequence axis")
+        parts = _moe_layer(cfg, layers, x, dp, tp)
+    else:
+        parts = {c: _mlp(cfg, layers[c], _rms_norm(x[c],
+                                                   layers[c]["mlp_norm"]))
+                 for c in x}
+    return residual(x, parts)
+
+
 def _layer_block(cfg: ModelConfig, x: torch.Tensor,
                  layer: dict) -> torch.Tensor:
-    x = x + _attention(cfg, layer, _rms_norm(x, layer["attn_norm"]))
-    return x + _mlp(cfg, layer, _rms_norm(x, layer["mlp_norm"]))
+    """One transformer layer on one device: ``_mesh_layer`` over a single
+    cell."""
+    one = (0, 0, 0)
+    return _mesh_layer(cfg, {one: layer}, {one: x}, {one: None})[one]
 
 
 def forward(cfg: ModelConfig, params: dict,
@@ -442,20 +545,22 @@ def forward(cfg: ModelConfig, params: dict,
     dt = cfg.torch_dtype
     x = params["embed"].to(dt)[tokens.long()]
     for layer in params["layers"]:
-        if cfg.remat:
-            x = checkpoint(_layer_block, cfg, x, layer, use_reentrant=False)
-        else:
-            x = _layer_block(cfg, x, layer)
+        x = _remat(cfg, _layer_block, cfg, x, layer)
     x = _rms_norm(x, params["final_norm"])
     return (x @ params["lm_head"].to(dt)).float()
+
+
+def _token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each position's cross-entropy [B, T] of [B, T, V] logits against
+    [B, T] targets."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
 
 
 def next_token_nll(logits: torch.Tensor,
                    targets: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of [B, T, V] logits against [B, T] targets."""
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return nll.mean()
+    return _token_nll(logits, targets).mean()
 
 
 def loss_fn(cfg: ModelConfig, params: dict,
@@ -520,11 +625,29 @@ class Mesh:
         """The devices in row-major order (shard order)."""
         return list(self.devices.flat)
 
+    def coords(self, i: int) -> dict:
+        """{axis name: coordinate} of the ``i``-th device of
+        ``device_list``."""
+        at = np.unravel_index(i, self.devices.shape)
+        return {a: int(c) for a, c in zip(self.axis_names, at)}
+
+    def index(self, **coords: int) -> int:
+        """The place in ``device_list`` of the device at ``coords``. An
+        axis left out is at 0, and so must be one the mesh lacks (its size
+        is 1)."""
+        stray = {a: c for a, c in coords.items()
+                 if a not in self.shape and c}
+        if stray:
+            raise ValueError(f"the mesh has no axes {sorted(stray)}; its "
+                             f"axes are {self.axis_names}")
+        return int(np.ravel_multi_index(
+            tuple(coords.get(a, 0) for a in self.axis_names),
+            self.devices.shape))
+
     def model_index(self, i: int) -> int:
         """The "model" coordinate of the ``i``-th device of
-        ``device_list``."""
-        coords = np.unravel_index(i, self.devices.shape)
-        return int(coords[self.axis_names.index("model")])
+        ``device_list`` (0 on a mesh without that axis)."""
+        return self.coords(i).get("model", 0)
 
 
 # The reference's Megatron split: column-parallel wq/wk/wv/w_gate/w_up and
@@ -580,50 +703,307 @@ def _check_moe_tp(cfg: ModelConfig, mesh: Mesh) -> None:
             f"'model' axis ({tp}) — experts shard over it")
 
 
-def _take_shard(t: torch.Tensor, spec: tuple, r: int, tp: int, device,
-                dtype) -> torch.Tensor:
-    """Shard ``r`` of ``tp`` of ``t`` under ``spec`` as a fresh allocation
-    on ``device`` (``dtype`` None: t's own)."""
-    if "model" in spec:
-        axis = spec.index("model")
-        if t.shape[axis] % tp:
+def _block(t: torch.Tensor, spec: tuple, coords: dict,
+           mesh: Mesh) -> torch.Tensor:
+    """The block of ``t`` that the device at ``coords`` holds under
+    ``spec`` (each dim named by a mesh axis split evenly over it), as a
+    view."""
+    for axis, name in enumerate(spec):
+        if name is None or name not in mesh.shape:
+            continue
+        n = mesh.shape[name]
+        if t.shape[axis] % n:
             raise ValueError(
                 f"a weight dim of {t.shape[axis]} does not split over "
-                f"tp={tp}")
-        n = t.shape[axis] // tp
-        t = t.narrow(axis, r * n, n)
-    out = torch.empty(t.shape, dtype=dtype or t.dtype, device=device)
-    return out.copy_(t)
+                f"{'tp' if name == 'model' else name}={n}")
+        size = t.shape[axis] // n
+        t = t.narrow(axis, coords[name] * size, size)
+    return t
 
 
-def shard_params(mesh: Mesh, params: dict,
-                 dtype: torch.dtype | None = None) -> list:
-    """One param dict per device of ``mesh`` (``device_list`` order), each
-    holding its "model" shard of every weight (``param_shardings``) as its
-    own allocation on its device, even where devices repeat. ``dtype``
-    casts every float leaf but the MoE router (f32, as the reference
-    routes); a quantized weight keeps its int8 codes and f32 scales."""
+def _spec_map(params, specs, fn, name: str = ""):
+    """``fn(leaf, spec, name)`` over a param tree and its spec tree (a
+    spec is a tuple, so tuples are leaves here); a quantized weight gets
+    its ``q`` and ``scale`` mapped each under its own spec, with name
+    None."""
     from tpumon_torch.loadgen.quant import QTensor
 
-    specs = param_shardings(mesh, params)
-    tp = mesh.shape.get("model", 1)
+    if isinstance(params, dict):
+        return {k: _spec_map(v, specs[k], fn, k) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_spec_map(v, s, fn, name) for v, s in zip(params, specs)]
+    if isinstance(params, QTensor):
+        return QTensor(q=fn(params.q, specs.q, None),
+                       scale=fn(params.scale, specs.scale, None))
+    return fn(params, specs, name)
 
-    def split(tree, spec, r, device, name=""):
-        if isinstance(tree, dict):
-            return {k: split(v, spec[k], r, device, k)
-                    for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return [split(v, s, r, device) for v, s in zip(tree, spec)]
-        if isinstance(tree, QTensor):
-            return QTensor(
-                q=_take_shard(tree.q, spec.q, r, tp, device, None),
-                scale=_take_shard(tree.scale, spec.scale, r, tp, device,
-                                  None))
-        dt = torch.float32 if name == "router" else dtype
-        return _take_shard(tree, spec, r, tp, device, dt)
 
-    return [split(params, specs, mesh.model_index(i), dev)
+def shard_params(mesh: Mesh, params: dict, dtype: torch.dtype | None = None,
+                 specs=None) -> list:
+    """One param dict per device of ``mesh`` (``device_list`` order), each
+    holding its block of every weight under ``specs`` (default
+    ``param_shardings``: the "model" split) as its own allocation on its
+    device, even where devices repeat. ``dtype`` casts every float leaf
+    but the MoE router (f32, as the reference routes); a quantized weight
+    keeps its int8 codes and f32 scales."""
+    specs = param_shardings(mesh, params) if specs is None else specs
+
+    def place(i, device):
+        coords = mesh.coords(i)
+
+        def leaf(t, spec, name):
+            # A quantized weight's parts (name None) keep their types.
+            dt = (torch.float32 if name == "router" else
+                  dtype if name is not None and t.is_floating_point()
+                  else None)
+            blk = _block(t, spec, coords, mesh)
+            return torch.empty(blk.shape, dtype=dt or blk.dtype,
+                               device=device).copy_(blk)
+
+        return _spec_map(params, specs, leaf)
+
+    return [place(i, dev) for i, dev in enumerate(mesh.device_list)]
+
+
+def shard_views(mesh: Mesh, params: dict, specs=None) -> list:
+    """``shard_params``'s blocks as differentiable views of one full
+    param tree: a gradient taken through them lands on ``params`` itself,
+    summed over every device that reads a block (the psum of a replicated
+    weight). On a device that already holds the tree nothing is copied."""
+    specs = param_shardings(mesh, params) if specs is None else specs
+    return [_spec_map(params, specs, lambda t, spec, _, c=mesh.coords(i),
+                      d=dev: _block(t, spec, c, mesh).to(d))
             for i, dev in enumerate(mesh.device_list)]
+
+
+def unshard_params(mesh: Mesh, placed: list, specs=None):
+    """The full tree from per-device blocks (``shard_params``' layout):
+    each leaf's blocks concatenated along its split dims, read from the
+    devices at coordinate 0 of every axis its spec does not name, on the
+    first device. ``specs`` default: ``param_shardings``."""
+    specs = param_shardings(mesh, placed[0]) if specs is None else specs
+    home = mesh.device_list[0]
+    leaves = [param_leaves(p) for p in placed]
+    return _regroup(placed[0], [
+        _gather_leaf(mesh, [ls[j] for ls in leaves], spec, home)
+        for j, spec in enumerate(_spec_leaves(specs))])
+
+
+def _gather_leaf(mesh: Mesh, blocks: list, spec: tuple, home,
+                 fixed: dict | None = None) -> torch.Tensor:
+    """One leaf put back together from its per-device ``blocks`` (device
+    order): concatenated along each dim that ``spec`` names, in axis
+    order."""
+    fixed = dict(fixed or {})
+    for axis, name in enumerate(spec):
+        if name in mesh.shape and name not in fixed:
+            return torch.cat([
+                _gather_leaf(mesh, blocks, spec, home, {**fixed, name: c})
+                for c in range(mesh.shape[name])], dim=axis)
+    return blocks[mesh.index(**fixed)].to(home)
+
+
+def _spec_leaves(specs) -> list:
+    """The specs of a spec tree in ``param_leaves`` order."""
+    if isinstance(specs, dict):
+        return [x for v in specs.values() for x in _spec_leaves(v)]
+    if isinstance(specs, list):
+        return [x for v in specs for x in _spec_leaves(v)]
+    return [specs]
+
+
+def replicated_specs(params):
+    """The spec tree that replicates every leaf of ``params``."""
+    return map_params(params, lambda t: (None,) * t.dim())
+
+
+def mesh_value_and_grad(mesh: Mesh, placed: list, specs, loss_fn):
+    """(loss, grads) of ``loss_fn(placed)`` over per-device param blocks:
+    one backward pass through every shard (autograd follows the ``.to()``
+    copies between devices), then each block's gradient summed, in device
+    order, over the devices that hold that block (those that agree on
+    every axis its spec names: the psum over "data" and the other
+    replicated axes). ``grads`` is one list per device in
+    ``param_leaves`` order, each entry that block's summed gradient on
+    that device (zeros where no device read it)."""
+    leaves = [param_leaves(p) for p in placed]
+    flat = [x for ls in leaves for x in ls]
+    for x in flat:
+        x.requires_grad_(True)
+    try:
+        loss = loss_fn(placed)
+        got = torch.autograd.grad(loss, flat, allow_unused=True)
+    finally:
+        for x in flat:
+            x.requires_grad_(False)
+    n = len(leaves[0])
+    per_dev = [got[i * n:(i + 1) * n] for i in range(len(placed))]
+    coords = [mesh.coords(i) for i in range(len(placed))]
+    grads = [[None] * n for _ in placed]
+    for j, spec in enumerate(_spec_leaves(specs)):
+        named = [a for a in spec if a in mesh.shape]
+        groups: dict = {}
+        for i, c in enumerate(coords):
+            groups.setdefault(tuple(c[a] for a in named), []).append(i)
+        for members in groups.values():
+            total = None
+            for i in members:
+                g = per_dev[i][j]
+                if g is not None:
+                    total = g if total is None else total + g.to(total.device)
+            if total is None:
+                total = torch.zeros_like(leaves[members[0]][j])
+            for i in members:
+                grads[i][j] = total.to(leaves[i][j].device)
+    return loss.detach(), grads
+
+
+def mesh_sgd_step(mesh: Mesh, placed: list, specs, loss_fn,
+                  lr: float = 1e-3):
+    """One SGD step over per-device param blocks: ``mesh_value_and_grad``,
+    then every copy of a block updated in place by the same summed
+    gradient, so replicas stay bit-identical. Returns (placed, loss)."""
+    loss, grads = mesh_value_and_grad(mesh, placed, specs, loss_fn)
+    with torch.no_grad():
+        for p, gs in zip(placed, grads):
+            for x, g in zip(param_leaves(p), gs):
+                x.sub_(lr * g)
+    return placed, loss
+
+
+def mesh_loss(cfg: ModelConfig, views: list, mesh: Mesh,
+              inputs: torch.Tensor, labels: torch.Tensor,
+              positions: torch.Tensor | None = None,
+              data_axis: str | None = "data", seq_axis: str | None = None,
+              ring=None) -> torch.Tensor:
+    """Mean next-token NLL of ``labels`` [B, T] given ``inputs`` [B, T]
+    over a mesh of (``data_axis``, "model", ``seq_axis``), any of them
+    absent; ``views`` holds each device's param blocks (``shard_params`` or
+    ``shard_views`` under ``param_shardings``).
+
+    Device (d, r, s) runs batch rows d and sequence block s through shard
+    r's heads, FFN columns or experts, one ``_mesh_layer`` a layer (under
+    ``_remat``), with ``ring`` as it takes it (``sp_train``'s ring or
+    zigzag when there is a sequence axis); the vocab-split logits meet in
+    ``gather_vocab``, and the loss is the sum of every (d, s) block's NLL
+    over the token count, on the first device. ``positions`` [T]: each
+    row's global position (default 0..T-1)."""
+    dp = mesh.shape[data_axis] if data_axis else 1
+    tp = mesh.shape.get("model", 1)
+    sp = mesh.shape[seq_axis] if seq_axis else 1
+    unused = set(mesh.axis_names) - {data_axis, "model", seq_axis}
+    if unused:
+        raise ValueError(f"mesh axes {sorted(unused)} carry nothing here")
+    b, t = inputs.shape
+    if b % dp or t % sp:
+        raise ValueError(f"a [{b}, {t}] batch does not split over "
+                         f"data={dp} x seq={sp}")
+    bd, ts = b // dp, t // sp
+    dt = cfg.torch_dtype
+    if positions is None:
+        positions = torch.arange(t)
+
+    def at(d, r, s):
+        return mesh.index(**{data_axis or "data": d, "model": r,
+                             seq_axis or "seq": s})
+
+    devs = mesh.device_list
+    cells = [(d, r, s) for d in range(dp) for r in range(tp)
+             for s in range(sp)]
+    x, pos = {}, {}
+    for d, r, s in cells:
+        i = at(d, r, s)
+        blk = inputs[d * bd:(d + 1) * bd, s * ts:(s + 1) * ts]
+        x[d, r, s] = views[i]["embed"].to(dt)[blk.to(devs[i]).long()]
+        pos[d, r, s] = positions[s * ts:(s + 1) * ts].to(devs[i])
+    for li in range(len(views[0]["layers"])):
+        layers = {c: views[at(*c)]["layers"][li] for c in cells}
+        x = _remat(cfg, _mesh_layer, cfg, layers, x, pos, ring)
+    home = devs[0]
+    total = None
+    for d in range(dp):
+        for s in range(sp):
+            logits = gather_vocab([
+                _rms_norm(x[d, r, s], views[at(d, r, s)]["final_norm"])
+                @ views[at(d, r, s)]["lm_head"].to(dt)
+                for r in range(tp)]).float()
+            lab = labels[d * bd:(d + 1) * bd, s * ts:(s + 1) * ts]
+            nll = _token_nll(logits, lab.to(logits.device)).sum().to(home)
+            total = nll if total is None else total + nll
+    return total / (b * t)
+
+
+def _kv_columns(cfg: ModelConfig, tp: int, r: int, block) -> torch.Tensor:
+    """The columns of wk (or wv) that shard ``r``'s query heads read, cut
+    from the weight's "model" blocks (``block(r2)``: block r2 on shard r's
+    device; only the blocks that hold those columns are read)."""
+    hd, group = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    qh = cfg.n_heads // tp
+    lo = (r * qh // group) * hd
+    hi = (((r + 1) * qh - 1) // group + 1) * hd
+    blk = cfg.n_kv_heads * hd // tp
+    first, last = lo // blk, (hi - 1) // blk
+    cols = torch.cat([block(r2) for r2 in range(first, last + 1)], dim=1)
+    return cols[:, lo - first * blk:hi - first * blk]
+
+
+def _moe_layer(cfg: ModelConfig, layers: dict, x: dict, dp: int,
+               tp: int) -> dict:
+    """The MoE FFN of one layer over a (data, model) grid of cells
+    (``_mesh_layer``'s): the whole batch routed at once by the first
+    cell's router (capacity from the global token count), each "model"
+    shard's block of experts run over every data row's tokens that it
+    owns; {(d, r, 0): partial [B/dp, T, D]}, zeros for tokens routed to
+    other shards."""
+    dt = x[0, 0, 0].dtype
+    hm = {(d, r): _rms_norm(x[d, r, 0], layers[d, r, 0]["mlp_norm"])
+          for d in range(dp) for r in range(tp)}
+    bd, t, dm = hm[0, 0].shape
+    home = hm[0, 0].device
+    router = layers[0, 0, 0]["moe"]["router"]
+    tokens = torch.cat([hm[d, 0].reshape(-1, dm).to(home)
+                        for d in range(dp)])
+    assign = route(router, tokens, _moe_config(cfg).capacity(len(tokens)))
+    e_loc = cfg.n_experts // tp
+    parts = {}
+    for d in range(dp):
+        rows = slice(d * bd * t, (d + 1) * bd * t)
+        for r in range(tp):
+            moe = layers[d, r, 0]["moe"]
+            out = expert_block_outputs(
+                {k: v.to(dt) for k, v in moe.items() if k != "router"},
+                hm[d, r].reshape(-1, dm), assign, rows, r * e_loc)
+            parts[d, r, 0] = out.reshape(bd, t, dm).to(dt)
+    return parts
+
+
+def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, params: dict):
+    """The dp x tp SGD step (lr 1e-3) over a ("data", "model") mesh;
+    returns (step_fn, placed).
+
+    ``placed`` holds each device's blocks of ``params`` under
+    ``PARAM_SPECS`` (``shard_params``: f32 masters, each its own
+    allocation). ``step_fn(placed, tokens)`` splits the [B, T+1] tokens
+    over "data", runs ``mesh_loss`` and updates every copy in place by its
+    block's gradient summed over "data" (``mesh_sgd_step``); it returns
+    (placed, loss). ``step_fn.specs`` is the spec tree of ``placed``."""
+    _check_moe_tp(cfg, mesh)
+    specs = param_shardings(mesh, params)
+    placed = shard_params(mesh, params, specs=specs)
+    data = "data" if "data" in mesh.shape else None
+
+    def step(p, tokens):
+        return mesh_sgd_step(mesh, p, specs, lambda v: mesh_loss(
+            cfg, v, mesh, tokens[:, :-1], tokens[:, 1:], data_axis=data))
+
+    step.specs = specs
+    return step, placed
+
+
+def _regroup(tree, flat: list):
+    """``flat`` (``param_leaves`` order) in ``tree``'s structure."""
+    it = iter(flat)
+    return map_params(tree, lambda _: next(it))
 
 
 def all_reduce_sum(parts: list) -> list:

@@ -24,18 +24,23 @@ O(G·E·C·d) products (one of them is 3.4e14 FLOP at the trainer's G 8192,
 E 8, C 1280, d 2048). ``_route`` still builds the tensors, for the tests
 that hold them to the reference's.
 
-Over a serving mesh each tensor-parallel shard holds a contiguous block
-of the experts (``model.PARAM_SPECS``) and runs ``moe_ffn`` with its
-``expert_offset``: routing is over every expert (the router replicates),
-and a shard returns only its experts' tokens, zeros elsewhere, so the sum
-over shards is each token's one expert output, exactly.
-``make_sharded_moe_step`` and ``MOE_PARAM_SPECS`` (the training mesh) are
-multi-GPU work, not yet ported (ROADMAP queue 1 item 12).
+Over a mesh each shard holds a contiguous block of the experts and runs
+them with its ``expert_offset``: routing is over every expert (the router
+replicates), and a shard returns only its experts' tokens, zeros
+elsewhere, so the sum over shards is each token's one expert output,
+exactly. Serving and the dp x tp trainer split the experts over "model"
+(``model.PARAM_SPECS``); ``make_sharded_moe_step`` is the reference's
+expert-parallel FFN step over a ("data", "expert") mesh
+(``MOE_PARAM_SPECS``): the whole batch is routed at once, as the
+reference's global computation is (``route``: capacity from the global
+token count), and device (d, e) runs expert block e over data row d's
+tokens (``expert_block_outputs``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -70,6 +75,38 @@ def init_moe_params(cfg: MoEConfig, generator: torch.Generator) -> dict:
         "w_in": normal((e, d, ff), scale_in),
         "w_out": normal((e, ff, d), scale_out),
     }
+
+
+MOE_PARAM_SPECS = {
+    "router": (None, None),
+    "w_in": ("expert", None, None),
+    "w_out": ("expert", None, None),
+}
+
+
+def moe_param_shardings(mesh, params: dict) -> dict:
+    """The spec of each leaf of an expert FFN's params (the mesh only
+    fixes the axis names)."""
+    del mesh
+    return {name: MOE_PARAM_SPECS[name] for name in params}
+
+
+class Assignment(NamedTuple):
+    """Top-1 routing of a batch of G tokens: each token's expert [G], its
+    place in that expert's queue [G], whether it is kept [G] (place below
+    ``capacity``) and its gate [G] f32."""
+
+    expert: torch.Tensor
+    position: torch.Tensor
+    kept: torch.Tensor
+    gate: torch.Tensor
+    capacity: int
+
+
+def route(router_w: torch.Tensor, x: torch.Tensor,
+          capacity: int) -> Assignment:
+    """Top-1 routing of x [G, d] at ``capacity`` (``_assign``)."""
+    return Assignment(*_assign(router_w, x, capacity), capacity)
 
 
 def _assign(router_w: torch.Tensor, x: torch.Tensor, capacity: int):
@@ -112,18 +149,83 @@ def moe_ffn(cfg: MoEConfig, params: dict, x: torch.Tensor,
     tokens. ``params`` may hold a block of the experts, the first being
     expert ``expert_offset`` (a tensor-parallel shard): tokens routed
     elsewhere return zeros."""
-    g, d = x.shape
+    capacity = cfg.capacity(x.shape[0]) if capacity is None else capacity
+    assign = route(params["router"], x, capacity)
+    return expert_block_outputs(params, x, assign, slice(None),
+                                expert_offset)
+
+
+def expert_block_outputs(params: dict, x: torch.Tensor, assign: Assignment,
+                         rows: slice, expert_offset: int) -> torch.Tensor:
+    """f32 [n, d]: the outputs of the block of experts ``params`` holds
+    (``w_in``/``w_out``, the first being expert ``expert_offset``) for the
+    tokens ``rows`` of a routed batch, given as x [n, d] on the block's
+    device; zeros for a token routed to another block or dropped."""
+    d = x.shape[1]
     e = params["w_in"].shape[0]
-    capacity = cfg.capacity(g) if capacity is None else capacity
-    expert, position, kept, gate = _assign(params["router"], x, capacity)
-    if e != cfg.n_experts:
-        expert = expert - expert_offset
-        kept = kept & (expert >= 0) & (expert < e)
-    slot = torch.where(kept, expert * capacity + position, e * capacity)
-    expert_in = _dispatch(x, slot, e * capacity).view(e, capacity, d)
+    cap = assign.capacity
+    dev = x.device
+    expert = assign.expert[rows].to(dev) - expert_offset
+    kept = assign.kept[rows].to(dev) & (expert >= 0) & (expert < e)
+    slot = torch.where(kept, expert * cap + assign.position[rows].to(dev),
+                       e * cap)
+    expert_in = _dispatch(x, slot, e * cap).view(e, cap, d)
     h = torch.relu(torch.bmm(expert_in, params["w_in"].float()))
     expert_out = torch.bmm(h, params["w_out"].float()).view(-1, d)
-    return _combine(expert_out, slot, kept, gate)
+    return _combine(expert_out, slot, kept, assign.gate[rows].to(dev))
+
+
+def make_sharded_moe_step(cfg: MoEConfig, mesh, params: dict):
+    """The expert-parallel FFN step over a ("data", "expert") mesh;
+    returns (step_fn, placed).
+
+    ``placed`` holds each device's blocks under ``MOE_PARAM_SPECS``
+    (``model.shard_params``). ``step_fn(placed, x)`` splits x [G, d] over
+    "data", routes the whole batch by the first device's router, runs
+    each (data row, expert block) on its device and sums the blocks
+    (``model.all_reduce_sum``), and takes one SGD step at lr 1e-2 on the
+    reference's autoencoding objective mean((y - x)^2), every copy of a
+    block updated by its gradient summed over "data"; it returns (placed,
+    loss)."""
+    from tpumon_torch.loadgen.model import (
+        all_reduce_sum,
+        mesh_sgd_step,
+        shard_params,
+    )
+
+    specs = moe_param_shardings(mesh, params)
+    placed = shard_params(mesh, params, specs=specs)
+    dp, ep = mesh.shape.get("data", 1), mesh.shape["expert"]
+    if cfg.n_experts % ep:
+        raise ValueError(f"n_experts={cfg.n_experts} must be divisible by "
+                         f"the mesh's 'expert' axis ({ep})")
+    devs = mesh.device_list
+
+    def loss(views, x):
+        g = x.shape[0]
+        if g % dp:
+            raise ValueError(f"{g} tokens do not split over data={dp}")
+        gb = g // dp
+        home = devs[0]
+        assign = route(views[0]["router"], x.to(home), cfg.capacity(g))
+        total = None
+        for d in range(dp):
+            rows = slice(d * gb, (d + 1) * gb)
+            parts = []
+            for e in range(ep):
+                i = mesh.index(data=d, expert=e)
+                parts.append(expert_block_outputs(
+                    views[i], x[rows].to(devs[i]), assign, rows,
+                    e * (cfg.n_experts // ep)))
+            y = all_reduce_sum(parts)[0]
+            sq = torch.square(y - x[rows].to(y.device)).sum().to(home)
+            total = sq if total is None else total + sq
+        return total / x.numel()
+
+    def step(p, x):
+        return mesh_sgd_step(mesh, p, specs, lambda v: loss(v, x), lr=1e-2)
+
+    return step, placed
 
 
 def _dispatch(x: torch.Tensor, slot: torch.Tensor,

@@ -1,14 +1,25 @@
-"""The online-softmax block update, the plain attention oracle and the
-paged ring decode read.
+"""Ring attention: sequence-parallel attention over the devices of a mesh.
 
-Counterpart of three pieces of ``tpumon/loadgen/ring_attention.py``:
-``_block_attend``, one online-softmax accumulation step (``loadgen.model``'s
-``attention="chunked"`` streams K/V blocks through it, and so does the
-ring read below, with a per-row query offset); ``reference_attention``,
-plain full-sequence softmax attention; and ``paged_ring_decode_attend``,
-the serving engine's ring read path (``ServeConfig.paged_attn="ring"``).
-The sequence-parallel ring and zigzag training schedules are multi-GPU
-work, not yet ported (ROADMAP queue 1).
+Counterpart of ``tpumon/loadgen/ring_attention.py``: ``_block_attend``,
+one online-softmax accumulation step (``loadgen.model``'s
+``attention="chunked"`` streams K/V blocks through it, and so do the rings
+below); ``reference_attention``, plain full-sequence softmax attention;
+``paged_ring_decode_attend``, the serving engine's ring read path
+(``ServeConfig.paged_attn="ring"``); and the sequence-parallel schedules,
+``ring_attention`` (contiguous blocks) and ``zigzag_ring_attention`` (the
+load-balanced causal layout: device i holds half-blocks i and 2n-1-i, see
+``zigzag_indices``), with their inner bodies ``ring_attend_inner`` and
+``zigzag_attend_inner``, which ``sp_train`` calls per layer.
+
+The reference runs each inner body inside a ``shard_map``, one program per
+device, and rotates K/V with ``lax.ppermute``. Here one controller holds
+every device's blocks: the inner bodies take the lists of each device's
+local q/k/v blocks and return the list of outputs, each block's Q stays on
+its device, and at each step device ``my`` receives the K/V block of
+device ``my - 1`` by ``.to()``, the same rotation, which autograd follows
+backwards. On one card (a mesh that repeats it) every copy is
+device-local. The block update is plain torch, as it is jnp in the
+reference, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -96,3 +107,170 @@ def paged_ring_decode_attend(pk: torch.Tensor, pv: torch.Tensor,
                                  m, el, o)
     # Every slot attends at least its own frontier row, so l > 0.
     return (o / el.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def _seq_devices(mesh, axis: str) -> list:
+    """The devices along ``axis`` of ``mesh`` (coordinate 0 elsewhere)."""
+    return [mesh.device_list[mesh.index(**{axis: i})]
+            for i in range(mesh.shape[axis])]
+
+
+def _split_seq(x: torch.Tensor, devs: list) -> list:
+    """x [B, T, ...] cut into len(devs) sequence blocks, one on each."""
+    n = len(devs)
+    if x.shape[1] % n:
+        raise ValueError(f"the sequence length {x.shape[1]} does not split "
+                         f"over {n} devices")
+    tb = x.shape[1] // n
+    return [x[:, i * tb:(i + 1) * tb].to(d) for i, d in enumerate(devs)]
+
+
+def _widen(x: torch.Tensor, kv_rep: int) -> torch.Tensor:
+    return torch.repeat_interleave(x, kv_rep, dim=2) if kv_rep > 1 else x
+
+
+def _rotate(blocks: list) -> list:
+    """One step of the ring: device ``my`` receives device ``my - 1``'s
+    block (the reference's ppermute over (i, i + 1))."""
+    n = len(blocks)
+    return [blocks[(my - 1) % n].to(blocks[my].device) for my in range(n)]
+
+
+def _finish(m_l_o, dtype) -> torch.Tensor:
+    _, el, o = m_l_o
+    l_safe = torch.where(el == 0.0, 1.0, el)  # [B, H, Tq]
+    return (o / l_safe.transpose(1, 2)[..., None]).to(dtype)
+
+
+def _fresh(q: torch.Tensor, rows: int) -> tuple:
+    b, _, h, d = q.shape
+    return (torch.full((b, h, rows), _NEG_INF, device=q.device),
+            torch.zeros((b, h, rows), device=q.device),
+            torch.zeros((b, rows, h, d), device=q.device))
+
+
+def ring_attend_inner(q_blks: list, k_blks: list, v_blks: list,
+                      causal: bool = True, kv_rep: int = 1) -> list:
+    """Ring attention over the devices' local blocks, one list entry a
+    device in ring order: each [B, T/n, H, D] q block (kv heads for k/v)
+    attends every K/V block as the blocks rotate round the ring, through
+    the online-softmax update in f32. ``kv_rep``: the GQA widening,
+    applied locally at each use, so the narrow nkv-head K/V is what
+    rotates. Returns each device's output block in q's dtype."""
+    n = len(q_blks)
+    tq, d = q_blks[0].shape[1], q_blks[0].shape[3]
+    scale = 1.0 / d**0.5
+    acc = [_fresh(q, tq) for q in q_blks]
+    k_cur, v_cur = list(k_blks), list(v_blks)
+    for step in range(n):
+        for my in range(n):
+            j = (my - step) % n  # block j visits device my at this step
+            acc[my] = _block_attend(
+                q_blks[my], _widen(k_cur[my], kv_rep),
+                _widen(v_cur[my], kv_rep), my * tq, j * tq, scale, causal,
+                *acc[my])
+        if step != n - 1:
+            k_cur, v_cur = _rotate(k_cur), _rotate(v_cur)
+    return [_finish(a, q.dtype) for a, q in zip(acc, q_blks)]
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                   axis: str = "seq", causal: bool = True) -> torch.Tensor:
+    """Attention with q/k/v [B, T, H, D] split over ``axis`` on the
+    sequence dimension (T divisible by the axis size): each block on its
+    device of the axis, ``ring_attend_inner``, and the output blocks put
+    back together on q's device."""
+    devs = _seq_devices(mesh, axis)
+    outs = ring_attend_inner(*(_split_seq(x, devs) for x in (q, k, v)),
+                             causal=causal)
+    return torch.cat([o.to(q.device) for o in outs], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Zigzag schedule: load-balanced causal ring attention. Under a causal mask
+# the plain ring's last device is needed in every step and its first in
+# one; the zigzag layout gives device i one early and one late half-block
+# (i and 2n-1-i of the sequence cut into 2n), so every device has about
+# the same causally live (q half, k half) pairs at every step.
+# ---------------------------------------------------------------------------
+
+
+def zigzag_indices(t: int, n: int) -> torch.Tensor:
+    """Gather indices mapping a contiguous sequence to zigzag order:
+    ``x[:, zigzag_indices(t, n)]`` puts the rows so that an even split over
+    n devices gives device i the half-blocks (i, 2n-1-i). 2n must divide
+    t (ValueError otherwise)."""
+    if t % (2 * n):
+        raise ValueError(
+            f"zigzag layout needs 2*n ({2 * n}) to divide t ({t})")
+    hb = t // (2 * n)
+    order: list[int] = []
+    for i in range(n):
+        order.extend(range(i * hb, (i + 1) * hb))
+        order.extend(range((2 * n - 1 - i) * hb, (2 * n - i) * hb))
+    return torch.tensor(order, dtype=torch.long)
+
+
+def zigzag_inverse(t: int, n: int) -> torch.Tensor:
+    """Inverse permutation: zigzag order back to contiguous."""
+    return torch.argsort(zigzag_indices(t, n))
+
+
+def zigzag_attend_inner(q_blks: list, k_blks: list, v_blks: list,
+                        kv_rep: int = 1) -> list:
+    """Causal ring attention over zigzag blocks, one list entry a device:
+    device ``my``'s [B, 2hb, H, D] block holds the half-blocks (my,
+    2n-1-my). At each step each q half attends the visiting K/V halves it
+    can see causally (an early q half never sees a late k half; a pair is
+    live when its k half starts at or before its q half's last row), so
+    skipped pairs cost nothing. Returns each device's output block, in
+    the same layout and q's dtype."""
+    n = len(q_blks)
+    tq, d = q_blks[0].shape[1], q_blks[0].shape[3]
+    hb = tq // 2
+    scale = 1.0 / d**0.5
+    acc = [{"a": _fresh(q, hb), "b": _fresh(q, hb)} for q in q_blks]
+    k_cur, v_cur = list(k_blks), list(v_blks)
+    for step in range(n):
+        for my in range(n):
+            j = (my - step) % n  # owner of the visiting K/V
+            q_a, q_b = q_blks[my][:, :hb], q_blks[my][:, hb:]
+            k_a, k_b = k_cur[my][:, :hb], k_cur[my][:, hb:]
+            v_a, v_b = v_cur[my][:, :hb], v_cur[my][:, hb:]
+            qa_off, qb_off = my * hb, (2 * n - 1 - my) * hb
+            ka_off, kb_off = j * hb, (2 * n - 1 - j) * hb
+            for q_half, q_off, tag, kvs in (
+                    (q_a, qa_off, "a", ((k_a, v_a, ka_off),)),
+                    (q_b, qb_off, "b", ((k_a, v_a, ka_off),
+                                        (k_b, v_b, kb_off)))):
+                for k_half, v_half, k_off in kvs:
+                    if k_off <= q_off + hb - 1:  # causally live
+                        acc[my][tag] = _block_attend(
+                            q_half, _widen(k_half, kv_rep),
+                            _widen(v_half, kv_rep), q_off, k_off, scale,
+                            True, *acc[my][tag])
+        if step != n - 1:
+            k_cur, v_cur = _rotate(k_cur), _rotate(v_cur)
+    return [torch.cat([_finish(a["a"], q.dtype), _finish(a["b"], q.dtype)],
+                      dim=1) for a, q in zip(acc, q_blks)]
+
+
+def zigzag_ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mesh, axis: str = "seq") -> torch.Tensor:
+    """Causal ring attention over zigzag-ordered q/k/v [B, T, H, D] (the
+    sequence axis already in ``zigzag_indices`` order, 2n dividing T),
+    split over ``axis``; the output comes back in the same zigzag layout,
+    on q's device:
+
+        zi = zigzag_indices(t, n)
+        out = zigzag_ring_attention(q[:, zi], k[:, zi], v[:, zi], mesh)
+        out = out[:, zigzag_inverse(t, n)]
+    """
+    n = mesh.shape[axis]
+    if q.shape[1] % (2 * n):
+        raise ValueError(
+            f"zigzag ring attention needs 2*n ({2 * n}) to divide the "
+            f"sequence length ({q.shape[1]})")
+    devs = _seq_devices(mesh, axis)
+    outs = zigzag_attend_inner(*(_split_seq(x, devs) for x in (q, k, v)))
+    return torch.cat([o.to(q.device) for o in outs], dim=1)

@@ -2135,7 +2135,8 @@ class MeshServingEngine:
 
     ``devices`` lists the devices the replicas take in order (a device
     may repeat: dp x tp on one card); None takes ``visible_devices(device)``
-    — every CUDA device, or the one CPU for ``device="cpu"``."""
+    — every CUDA device, or ``device`` alone when it is a CPU or names its
+    index."""
 
     def __init__(self, cfg: ServeConfig | None = None,
                  params: dict | None = None, seed: int = 0,

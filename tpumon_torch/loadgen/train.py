@@ -8,13 +8,18 @@ card, saving checkpoints (``tpumon_torch.loadgen.checkpoint``) every
 serves the same ``tpumon_train_*`` Prometheus text as the reference, so
 the unchanged monitor scrapes it through ``TPUMON_SERVING_TARGETS``.
 
-Ported here: ``parallel="auto"`` on one device, for the dense and the MoE
-families (``--experts``); the workload self-report (``run_train(reporter=
-...)``, on by default in the CLI); and ``train_induction``, the Adam
-trainer of the induction (copy) task that gives prompt-lookup speculation
-a target that really copies. Sequence parallelism (``"sp"``/``"sp-ring"``)
-and the dp x tp mesh are multi-GPU work, not yet ported (ROADMAP queue 1
-item 12).
+Parallel modes, as in the reference: ``parallel="auto"`` runs the dp x tp
+step over a ("data", "model") mesh of the devices (``model.
+make_sharded_train_step``; ``_default_mesh``), or one device when there is
+one, for the dense and the MoE families (``--experts``); ``"sp"`` and
+``"sp-ring"`` run sequence parallelism over a 1-D "seq" mesh through
+zigzag or plain ring attention (``sp_train``). ``run_train(devices=...)``
+names the devices (one card may stand for n, as in ``[cuda:0] * n``); by
+default they are every CUDA device torch sees (one, when ``device`` names
+its index). Also here: the workload
+self-report (``run_train(reporter=...)``, on by default in the CLI); and
+``train_induction``, the Adam trainer of the induction (copy) task that
+gives prompt-lookup speculation a target that really copies.
 """
 
 from __future__ import annotations
@@ -30,12 +35,16 @@ import torch
 from tpumon_torch import prng
 from tpumon_torch.loadgen.checkpoint import restore_checkpoint, save_checkpoint
 from tpumon_torch.loadgen.model import (
+    Mesh,
     ModelConfig,
     init_params,
+    make_sharded_train_step,
     param_leaves,
     resolve_device,
     sgd_train_step,
+    unshard_params,
     value_and_grad,
+    visible_devices,
 )
 from tpumon_torch.ops import threefry
 
@@ -50,8 +59,11 @@ class TrainConfig:
     ckpt_dir: str | None = None
     ckpt_every: int = 20
     seed: int = 0
-    # "auto": one device. The reference's "sp" / "sp-ring" sequence
-    # parallelism runs across devices and is not yet ported.
+    # "auto": dp×tp over the devices (single-device when alone).
+    # "sp" / "sp-ring": sequence parallelism over a 1-D "seq" mesh of the
+    # devices — activations sequence-sharded through zigzag (sp) or plain
+    # ring (sp-ring) attention (loadgen.sp_train); needs seq-1 divisible
+    # by 2×devices (sp) / devices (sp-ring).
     parallel: str = "auto"
 
     def __post_init__(self) -> None:
@@ -62,10 +74,21 @@ class TrainConfig:
                 "the MoE family does not compose with parallel="
                 f"{self.parallel!r} yet (the sp step's layer body runs "
                 "the dense family only); train MoE with parallel='auto'")
-        if self.parallel != "auto":
-            raise NotImplementedError(
-                f"parallel={self.parallel!r} is not yet ported (ROADMAP "
-                "queue 1 item 12)")
+
+
+def _default_mesh(devices: list) -> Mesh | None:
+    """The reference's dp×tp mesh over ``devices``: tp the first of 4, 8,
+    2 that divides the count; None for a single device."""
+    if len(devices) < 2:
+        return None
+    tp = 1
+    for cand in (4, 8, 2):
+        if len(devices) % cand == 0:
+            tp = cand
+            break
+    dp = len(devices) // tp
+    return Mesh(np.array(devices, dtype=object).reshape(dp, tp),
+                ("data", "model"))
 
 
 def _tokens(k, cfg: TrainConfig, device) -> torch.Tensor:
@@ -376,14 +399,49 @@ def train_induction(model: ModelConfig, steps: int = 2000, period: int = 16,
 
 
 def run_train(cfg: TrainConfig, device=None, log=lambda s: None,
-              metrics: TrainMetrics | None = None, reporter=None) -> dict:
-    """Run (or resume) the loop on one device (CUDA unless asked
-    otherwise); returns {step, loss, resumed_from, tokens_per_sec, mesh,
-    params}. With a ``reporter`` (``report.WorkloadReporter``), each step
-    and its loss's read-back count as declared device work."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    params = init_params(cfg.model, gen)
+              metrics: TrainMetrics | None = None, reporter=None,
+              mesh: Mesh | None = None, devices: list | None = None) -> dict:
+    """Run (or resume) the loop; returns {step, loss, resumed_from,
+    tokens_per_sec, mesh, params}. ``devices`` (default: ``mesh``'s, else
+    ``visible_devices(device)``: every CUDA device torch sees, or just
+    ``device`` when it is a CPU or names its index) carry the parallel
+    mode: "auto" runs the dp×tp step over ``mesh`` or ``_default_mesh
+    (devices)``, or one device when there is one; "sp"/"sp-ring" run
+    sequence parallelism over a "seq" mesh of them. Checkpoints and the
+    returned ``params`` hold the full tree on the first device, whatever
+    the layout, as the reference's global arrays do, so a run resumes on
+    another device count and a serving engine loads what it saved. With a
+    ``reporter`` (``report.WorkloadReporter``), each step and its loss's
+    read-back count as declared device work."""
+    if devices is None:
+        devices = (visible_devices(device) if mesh is None
+                   else mesh.device_list)
+    devices = [resolve_device(d) for d in devices]
+    if cfg.parallel != "auto":
+        # Explicit over silent: a 1-device "sp" run would really run the
+        # dense step; a caller's dp×tp mesh cannot carry the sp step.
+        if len(devices) < 2:
+            raise ValueError(
+                f"parallel={cfg.parallel!r} needs >1 device "
+                f"(have {len(devices)})")
+        if mesh is not None:
+            raise ValueError(
+                "pass either mesh= or parallel=; the sp modes build "
+                "their own 1-D 'seq' mesh over the devices")
+        # Each synthetic [B, seq] batch trains on seq-1 tokens.
+        n = len(devices)
+        need = 2 * n if cfg.parallel == "sp" else n
+        if (cfg.seq - 1) % need:
+            raise ValueError(
+                f"parallel={cfg.parallel!r} over {n} devices needs "
+                f"seq-1 divisible by {need} (got seq={cfg.seq})")
+        mesh = Mesh(devices, ("seq",))
+    elif mesh is None:
+        mesh = _default_mesh(devices)
+    device = devices[0]
+    params = init_params(
+        cfg.model, torch.Generator(device=device).manual_seed(cfg.seed))
+
     start = 0
     resumed_from = None
     if cfg.ckpt_dir:
@@ -392,24 +450,46 @@ def run_train(cfg: TrainConfig, device=None, log=lambda s: None,
             params, saved_step = restored
             start = resumed_from = saved_step + 1
             log(f"resumed from step {saved_step}")
-    return _train_loop(cfg, device, log, metrics, params, start, resumed_from,
-                       reporter)
+
+    specs = None
+    if cfg.parallel != "auto":
+        from tpumon_torch.loadgen.sp_train import make_sp_train_step
+
+        sp_step, params = make_sp_train_step(
+            cfg.model, mesh, params,
+            schedule="zigzag" if cfg.parallel == "sp" else "ring",
+            lr=cfg.lr)
+        specs = sp_step.specs
+
+        def step_fn(p, tokens):
+            return sp_step(p, *sp_step.prep(tokens))
+    elif mesh is not None:
+        step_fn, params = make_sharded_train_step(cfg.model, mesh, params)
+        specs = step_fn.specs
+    else:
+        def step_fn(p, tokens):
+            return sgd_train_step(cfg.model, p, tokens, lr=cfg.lr)
+
+    def full(p):  # the global tree of the per-device blocks
+        return p if specs is None else unshard_params(mesh, p, specs)
+
+    return _train_loop(cfg, devices, mesh, log, metrics, step_fn, params,
+                       full, start, resumed_from, reporter)
 
 
-def _train_loop(cfg, device, log, metrics, params, start, resumed_from,
-                reporter) -> dict:
+def _train_loop(cfg, devices, mesh, log, metrics, step_fn, params, full,
+                start, resumed_from, reporter) -> dict:
     loss = None  # stays None when resume lands at/past the final step
     t0 = time.perf_counter()
     tokens_seen = 0
     for step in range(start, cfg.steps):
         t_step = time.perf_counter()
-        tokens = synthetic_batch(cfg, step, device)
+        tokens = synthetic_batch(cfg, step, devices[0])
         # Self-report: torch queues the step asynchronously, so the
         # declared device work ends in the loss's read-back (a sync).
         with (reporter.device_work() if reporter is not None
               else contextlib.nullcontext()):
-            params, loss_t = sgd_train_step(cfg.model, params, tokens,
-                                            lr=cfg.lr)
+            params, loss_t = step_fn(params, tokens)
             if reporter is not None:
                 loss_t.item()
         tokens_seen += cfg.batch * cfg.seq
@@ -421,7 +501,8 @@ def _train_loop(cfg, device, log, metrics, params, start, resumed_from,
                 step, time.perf_counter() - t_step, cfg.batch * cfg.seq)
         if cfg.ckpt_dir and (
                 (step + 1) % cfg.ckpt_every == 0 or step == cfg.steps - 1):
-            save_checkpoint(cfg.ckpt_dir, params, step=step, cfg=cfg.model)
+            save_checkpoint(cfg.ckpt_dir, full(params), step=step,
+                            cfg=cfg.model)
             if metrics is not None:
                 metrics.ckpt_step = step
                 metrics.loss = float(loss_t)
@@ -429,23 +510,24 @@ def _train_loop(cfg, device, log, metrics, params, start, resumed_from,
         loss = loss_t
     if metrics is not None and loss is not None:
         metrics.loss = float(loss)
-    _sync(device)
+    for d in set(devices):
+        _sync(d)
     dt = time.perf_counter() - t0
     return {
         "step": cfg.steps - 1,
         "loss": float(loss) if loss is not None else None,
         "resumed_from": resumed_from,
         "tokens_per_sec": round(tokens_seen / dt, 1) if dt > 0 else 0.0,
-        "mesh": None,
-        "params": params,
+        "mesh": dict(mesh.shape) if mesh is not None else None,
+        "params": full(params),
     }
 
 
 def main(argv: list[str] | None = None) -> int:
     """``python -m tpumon_torch.loadgen.train`` — the loadgen trainer on
     the GPU, with the reference's flags (the workload self-report on
-    unless ``--no-report``). Multi-device modes exit with "not yet
-    ported"."""
+    unless ``--no-report``); ``--parallel sp``/``sp-ring`` over the CUDA
+    devices torch sees (more than one)."""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -479,10 +561,12 @@ def main(argv: list[str] | None = None) -> int:
                     help="MoE model family: replace each layer's dense "
                     "SwiGLU with this many top-1-routed experts "
                     "(0 = dense; GShard capacity-factor routing)")
-    ap.add_argument("--parallel", choices=["auto", "sp", "sp-ring"],
-                    default="auto",
-                    help="'auto': one device; 'sp'/'sp-ring' sequence "
-                    "parallelism is not yet ported")
+    ap.add_argument(
+        "--parallel", choices=["auto", "sp", "sp-ring"], default="auto",
+        help="'auto': dp×tp over the devices; 'sp'/'sp-ring': "
+        "sequence parallelism through zigzag/plain ring attention "
+        "(long-context mode; needs seq-1 divisible by 2×devices / "
+        "devices)")
     ap.add_argument("--no-report", action="store_true",
                     help="disable the workload self-report (HBM "
                     "footprint + activity to the monitor's "
@@ -491,9 +575,6 @@ def main(argv: list[str] | None = None) -> int:
                     help="torch device (default: cuda; raises when no GPU "
                     "is present)")
     args = ap.parse_args(argv)
-    if args.parallel != "auto":
-        ap.error(f"--parallel {args.parallel} is not yet ported (ROADMAP "
-                 "queue 1 item 12)")
 
     cfg = TrainConfig(
         model=ModelConfig(
@@ -504,8 +585,12 @@ def main(argv: list[str] | None = None) -> int:
         ),
         steps=args.steps, batch=args.batch, seq=args.seq,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        parallel=args.parallel,
     )
     device = resolve_device(args.device)
+    ndev = len(visible_devices(device))
+    if args.parallel != "auto" and ndev < 2:
+        ap.error(f"--parallel {args.parallel} needs >1 device (have {ndev})")
     metrics = httpd = None
     if args.metrics_port is not None:
         if args.peak_tflops is None:
@@ -514,6 +599,8 @@ def main(argv: list[str] | None = None) -> int:
             peak = args.peak_tflops * 1e12
         else:
             peak = None  # explicit 0 disables MFU even on known cards
+        if peak is not None:
+            peak *= ndev  # the reference's total over the local devices
         metrics = TrainMetrics(
             flops_per_token=flops_per_token(cfg.model, cfg.seq),
             peak_flops=peak)

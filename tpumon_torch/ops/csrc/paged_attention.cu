@@ -27,8 +27,8 @@
 //   `stages` shared-memory stages, by TMA over 3-d [kv head x page,
 //   page_size, head_dim] tensor maps (any page size: a tile that reaches
 //   past its page loads zeros there, not the next page's rows) with
-//   128-byte (64 at bf16 head dim 32) swizzled rows, so the consumers'
-//   ldmatrix reads are free of bank conflicts. Each stage has a full and
+//   swizzled rows (128-byte; 64 at bf16 head dim 32 and f32 16; 32 at bf16
+//   16), so the consumers' ldmatrix reads are free of bank conflicts. Each stage has a full and
 //   an empty mbarrier; nothing synchronises the CTA per tile.
 // - Four consumer warps split each tile's rows and each keeps its own
 //   online softmax state over the keys it has seen, in f32. bf16: the
@@ -38,7 +38,12 @@
 //   accumulator rounded to bf16 and transposed in registers (movmatrix);
 //   O^T = V^T P^T takes V^T by ldmatrix.trans from the row-major tile.
 //   f32: CUDA cores (tensor cores would round f32 to TF32), a lane per
-//   head_dim / 32 columns, scores reduced over the warp.
+//   head_dim / 32 columns (at head dim 16, lanes 16-31 hold zeros),
+//   scores reduced over the warp.
+// - A GQA group above 8 query heads is cut into tiles of 8: the grid's
+//   y axis runs over (kv head, group tile), and each tile's CTAs read the
+//   kv head's pages for their 8 query heads (a group of 16 reads the pool
+//   twice, in one launch).
 // - The end of a split: the four warps' states merge in shared memory in
 //   warp order. A sequence with one live split writes its output; else
 //   each split writes its partial (m, l, acc) in f32 to a workspace, and
@@ -56,8 +61,10 @@
 // zeroed before P V, so rows past the length that hold anything (NaN
 // included) do not reach the output.
 //
-// Supported: float32 and bfloat16, head_dim 32, 64 or 128, GQA group 1-8,
-// any page size. The Python wrapper (tpumon_torch/ops/paged_attention.py)
+// Supported: float32 and bfloat16, head_dim 16, 32, 64 or 128 (bf16's
+// mma.sync takes 16 columns a k-step, so a head dim that is not a multiple
+// of 16 has no instance; 256 would not fit the f32 consumer's registers),
+// any GQA group, any page size. The Python wrapper (tpumon_torch/ops/paged_attention.py)
 // checks shapes and types; the launcher below re-checks what it indexes by.
 
 #include <cuda_bf16.h>
@@ -76,7 +83,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kConsumerWarps = 4;
 constexpr int kThreads = 32 * (kConsumerWarps + 1);  // + the load warp
-constexpr int kMaxGroup = 8;                         // query heads per kv head
+constexpr int kMaxGroup = 8;                         // query heads per group tile
 constexpr int kMaxStages = 8;
 constexpr int kDefaultStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -84,28 +91,31 @@ constexpr float kLog2e = 1.4426950408889634f;
 // A tile of up to kRows rows of one page, as TMA writes it: boxes of
 // kBoxCols columns whose kRowBytes-byte rows are swizzled (the 16-byte
 // chunk c of row r sits at chunk c ^ (r % 8) for 128-byte rows, c ^ (r / 2
-// % 4) for 64-byte rows), kRows rows apart. Consumer warp w reads rows
+// % 4) for 64-byte rows, c ^ (r / 4 % 2) for 32-byte rows), kRows rows
+// apart. Consumer warp w reads rows
 // w * kKeysPerWarp .. of it.
 template <typename T, int HD>
 struct Tile {
-  static_assert(HD == 32 || HD == 64 || HD == 128, "head dim 32, 64 or 128");
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "head dim 16, 32, 64 or 128");
   static constexpr int kElem = sizeof(T);
   static constexpr int kRows = kElem == 2 ? 64 : 32;
   static constexpr int kKeysPerWarp = kRows / kConsumerWarps;  // bf16: one m16 tile
-  static constexpr int kRowBytes = HD * kElem >= 128 ? 128 : 64;
+  static constexpr int kRowBytes = HD * kElem >= 128 ? 128 : HD * kElem >= 64 ? 64 : 32;
   static constexpr int kBoxCols = kRowBytes / kElem;
   static constexpr int kBoxes = HD / kBoxCols;
   static constexpr int kBoxBytes = kRows * kRowBytes;  // a multiple of 1024
   static constexpr int kBytes = kBoxes * kBoxBytes;
   static constexpr CUtensorMapSwizzle kSwizzle =
-      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+      kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
   static constexpr CUtensorMapDataType kType =
       kElem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 
   // Byte offset of element (row, col) in the tile.
   __device__ static int offset(int row, int col) {
     const int chunk = (col % kBoxCols) * kElem / 16;
-    const int swz = kRowBytes == 128 ? (row & 7) : ((row >> 1) & 3);
+    const int swz = kRowBytes == 128 ? (row & 7) : kRowBytes == 64 ? ((row >> 1) & 3) : ((row >> 2) & 1);
     return (col / kBoxCols) * kBoxBytes + row * kRowBytes + ((chunk ^ swz) << 4) +
            (col * kElem) % 16;
   }
@@ -160,8 +170,8 @@ struct Params {
   void* out;
   const int* table;
   const int* lengths;
-  float* partials;  // [B, nkv, splits] x group x HD acc, then the (m, l) pairs
-  int* counters;    // [B, nkv] arrivals, 0 between launches
+  float* partials;  // [B, nkv, group tiles, splits] x tile stride x HD acc, then the (m, l) pairs
+  int* counters;    // [B, nkv, group tiles] arrivals, 0 between launches
   int num_heads, num_kv_heads, num_pages, page_size, max_pages;
   int pages_per_split, tile_rows, stages;
   float scale_log2;
@@ -196,25 +206,24 @@ __device__ __forceinline__ void for_each_tile(const Params& p, int page0, int pa
 // warp's state.
 template <int HD>
 __device__ __forceinline__ void consume_bf16(const Params& p, const uint8_t* ring,
-                                             uint64_t* full, uint64_t* empty, int b, int h,
-                                             int page0, int page1, int len, float* ep_acc,
-                                             float (*ep_m)[kMaxGroup], float (*ep_l)[kMaxGroup]) {
+                                             uint64_t* full, uint64_t* empty, int b, int head0,
+                                             int gsz, int page0, int page1, int len,
+                                             float* ep_acc, float (*ep_m)[kMaxGroup],
+                                             float (*ep_l)[kMaxGroup]) {
   using L = Tile<bf16, HD>;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int quad = lane >> 2, t4 = lane & 3;
-  const int group = p.num_heads / p.num_kv_heads;
 
-  // Q^T as the B fragment of S^T = K Q^T: query lane / 4 (0 past the
-  // group), head-dim pairs 16 ks + 2 t4 and + 8.
+  // Q^T as the B fragment of S^T = K Q^T: query head0 + lane / 4 (0 past
+  // the group tile's gsz heads), head-dim pairs 16 ks + 2 t4 and + 8.
   uint32_t qf[HD / 16][2];
-  const bf16* qrow =
-      static_cast<const bf16*>(p.q) + ((size_t)b * p.num_heads + h * group + quad) * HD;
+  const bf16* qrow = static_cast<const bf16*>(p.q) + ((size_t)b * p.num_heads + head0 + quad) * HD;
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       qf[ks][i] =
-          quad < group ? *reinterpret_cast<const uint32_t*>(qrow + 16 * ks + 8 * i + 2 * t4) : 0u;
+          quad < gsz ? *reinterpret_cast<const uint32_t*>(qrow + 16 * ks + 8 * i + 2 * t4) : 0u;
 
   float o[HD / 16][4];
 #pragma unroll
@@ -310,23 +319,24 @@ __device__ __forceinline__ void consume_bf16(const Params& p, const uint8_t* rin
 }
 
 // f32 consumer warp w: keys w * 8 .. + 7 of every tile, kSub at a time;
-// lane owns head-dim columns kCols * lane .. + kCols - 1. Every lane holds
-// the whole state.
+// lane owns head-dim columns kCols * lane .. + kCols - 1 (head dim 16:
+// lanes 16-31 own none and hold zeros). Every lane holds the whole state.
 template <int HD>
 __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring,
-                                            uint64_t* full, uint64_t* empty, int b, int h,
-                                            int page0, int page1, int len, float* ep_acc,
-                                            float (*ep_m)[kMaxGroup], float (*ep_l)[kMaxGroup]) {
+                                            uint64_t* full, uint64_t* empty, int b, int head0,
+                                            int gsz, int page0, int page1, int len,
+                                            float* ep_acc, float (*ep_m)[kMaxGroup],
+                                            float (*ep_l)[kMaxGroup]) {
   using L = Tile<float, HD>;
-  constexpr int kCols = HD / 32;
+  constexpr int kCols = HD >= 32 ? HD / 32 : 1;
   constexpr int kKeys = L::kKeysPerWarp;
   constexpr int kSub = kCols == 1 ? 8 : 4;  // keys a block: no instance spills
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = p.num_heads / p.num_kv_heads;
   const int col = kCols * lane;
+  const bool owns = col < HD;  // false only past head dim 16's columns
 
   auto load = [&](const uint8_t* tile, int row, float (&x)[kCols]) {
-    const uint8_t* src = tile + L::offset(row, col);
+    const uint8_t* src = tile + L::offset(row, owns ? col : 0);
     if constexpr (kCols == 4) {
       const float4 v = *reinterpret_cast<const float4*>(src);
       x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
@@ -334,19 +344,19 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
       const float2 v = *reinterpret_cast<const float2*>(src);
       x[0] = v.x, x[1] = v.y;
     } else {
-      x[0] = *reinterpret_cast<const float*>(src);
+      x[0] = owns ? *reinterpret_cast<const float*>(src) : 0.f;
     }
   };
 
   float q[kMaxGroup][kCols], o[kMaxGroup][kCols], m[kMaxGroup], l[kMaxGroup];
-  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.num_heads + h * group) * HD;
+  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.num_heads + head0) * HD;
 #pragma unroll
   for (int g = 0; g < kMaxGroup; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      q[g][j] = g < group ? qb[g * HD + col + j] : 0.f;
+      q[g][j] = g < gsz && owns ? qb[g * HD + col + j] : 0.f;
       o[g][j] = 0.f;
     }
   }
@@ -371,7 +381,7 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
 #pragma unroll
           for (int g = 0; g < kMaxGroup; ++g) {
             s[kk][g] = kNegInf;
-            if (live && g < group) {
+            if (live && g < gsz) {
               float d = 0.f;
 #pragma unroll
               for (int j = 0; j < kCols; ++j) d = fmaf(q[g][j], x[j], d);
@@ -381,7 +391,7 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
         }
 #pragma unroll
         for (int g = 0; g < kMaxGroup; ++g) {
-          if (g >= group) continue;
+          if (g >= gsz) continue;
           float mx = s[0][g];
 #pragma unroll
           for (int kk = 1; kk < kSub; ++kk) mx = fmaxf(mx, s[kk][g]);
@@ -405,7 +415,7 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
             load(vt, key0 + k0 + kk, x);
 #pragma unroll
             for (int g = 0; g < kMaxGroup; ++g)
-              if (g < group)
+              if (g < gsz)
 #pragma unroll
                 for (int j = 0; j < kCols; ++j) o[g][j] = fmaf(s[kk][g], x[j], o[g][j]);
           }
@@ -424,14 +434,15 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
     }
   named_sync(1, 32 * kConsumerWarps);  // every warp is done with the ring
   float* acc = ep_acc + w * kMaxGroup * HD;
+  if (owns)
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g)
+    for (int g = 0; g < kMaxGroup; ++g)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[g * HD + col + j] = o[g][j];
+      for (int j = 0; j < kCols; ++j) acc[g * HD + col + j] = o[g][j];
 }
 
-// grid (splits, n_kv_heads, batch), kThreads threads, 1024 + stages * 2 *
-// Tile::kBytes bytes of dynamic shared memory. tma_k / tma_v map the pools
+// grid (splits, n_kv_heads x group tiles, batch), kThreads threads, 1024 +
+// stages * 2 * Tile::kBytes bytes of dynamic shared memory. tma_k / tma_v map the pools
 // as [kv head x page, page_size, HD] in boxes of Tile's columns and
 // tile_rows rows.
 template <typename T, int HD>
@@ -446,18 +457,25 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
   uint8_t* ring = align1024(smem_raw);
   float* ep_acc = reinterpret_cast<float*>(ring);  // [warp][query][HD], once the ring is idle
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int splits = gridDim.x;
   const int group = p.num_heads / p.num_kv_heads;
+  // Group tile gt of kv head h: query heads head0 .. head0 + gsz - 1;
+  // stride = min(group, 8), the tile's room in the workspace.
+  const int gtiles = (group + kMaxGroup - 1) / kMaxGroup;
+  const int h = blockIdx.y / gtiles, gt = blockIdx.y % gtiles;
+  const int head0 = h * group + gt * kMaxGroup;
+  const int gsz = min(kMaxGroup, group - gt * kMaxGroup);
+  const int stride = min(kMaxGroup, group);
   // The reference masks key positions >= length over max_pages*page_size
   // rows, so a length outside [0, that] behaves as its clamp.
   const int len = min(max(p.lengths[b], 0), p.max_pages * p.page_size);
   const int n_pages = (len + p.page_size - 1) / p.page_size;
   const int n_live = (n_pages + p.pages_per_split - 1) / p.pages_per_split;
-  T* out = static_cast<T*>(p.out) + ((size_t)b * p.num_heads + (size_t)h * group) * HD;
+  T* out = static_cast<T*>(p.out) + ((size_t)b * p.num_heads + head0) * HD;
   if (split >= n_live) {
     if (split == 0)  // length 0
-      for (int i = threadIdx.x; i < group * HD; i += kThreads) out[i] = from_float<T>(0.f);
+      for (int i = threadIdx.x; i < gsz * HD; i += kThreads) out[i] = from_float<T>(0.f);
     return;
   }
   const int page0 = split * p.pages_per_split;
@@ -501,20 +519,21 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
       __syncwarp();
     });
   } else if constexpr (sizeof(T) == 2) {
-    consume_bf16<HD>(p, ring, full, empty, b, h, page0, page1, len, ep_acc, ep_m, ep_l);
+    consume_bf16<HD>(p, ring, full, empty, b, head0, gsz, page0, page1, len, ep_acc, ep_m,
+                     ep_l);
   } else {
-    consume_f32<HD>(p, ring, full, empty, b, h, page0, page1, len, ep_acc, ep_m, ep_l);
+    consume_f32<HD>(p, ring, full, empty, b, head0, gsz, page0, page1, len, ep_acc, ep_m, ep_l);
   }
   __syncthreads();
 
   // Merge the four warps' states, in warp order. Warp 0 saw the split's
   // first key, so mx is a score and sum > 0.
-  const int bh = b * p.num_kv_heads + h;
+  const int bh = b * gridDim.y + blockIdx.y;  // (sequence, kv head, group tile)
   const int part = bh * splits + split;
   float* part_acc = p.partials;
-  float2* part_ml = reinterpret_cast<float2*>(p.partials + (size_t)gridDim.z * p.num_kv_heads *
-                                                               splits * group * HD);
-  for (int i = threadIdx.x; i < group * HD; i += kThreads) {
+  float2* part_ml = reinterpret_cast<float2*>(p.partials + (size_t)gridDim.z * gridDim.y *
+                                                               splits * stride * HD);
+  for (int i = threadIdx.x; i < gsz * HD; i += kThreads) {
     const int g = i / HD, d = i % HD;
     float mx = kNegInf;
 #pragma unroll
@@ -529,13 +548,14 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
     if (n_live == 1) {
       out[i] = from_float<T>(acc / sum);
     } else {
-      part_acc[(size_t)part * group * HD + i] = acc;
-      if (d == 0) part_ml[(size_t)part * group + g] = make_float2(mx, sum);
+      part_acc[(size_t)part * stride * HD + i] = acc;
+      if (d == 0) part_ml[(size_t)part * stride + g] = make_float2(mx, sum);
     }
   }
   if (n_live == 1) return;
 
-  // The last split of (b, h) to arrive merges the partials in split order.
+  // The last split of (b, h, gt) to arrive merges the partials in split
+  // order.
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) is_last = atomicAdd(&p.counters[bh], 1) == n_live - 1;
@@ -543,16 +563,17 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
   if (!is_last) return;
   __threadfence();
   const int first = bh * splits;
-  for (int i = threadIdx.x; i < group * HD; i += kThreads) {
+  for (int i = threadIdx.x; i < gsz * HD; i += kThreads) {
     const int g = i / HD;
     float mx = kNegInf;
-    for (int s = 0; s < n_live; ++s) mx = fmaxf(mx, __ldcg(&part_ml[(size_t)(first + s) * group + g]).x);
+    for (int s = 0; s < n_live; ++s)
+      mx = fmaxf(mx, __ldcg(&part_ml[(size_t)(first + s) * stride + g]).x);
     float sum = 0.f, acc = 0.f;
     for (int s = 0; s < n_live; ++s) {
-      const float2 ml = __ldcg(&part_ml[(size_t)(first + s) * group + g]);
+      const float2 ml = __ldcg(&part_ml[(size_t)(first + s) * stride + g]);
       const float e = ex2(ml.x - mx);
       sum += ml.y * e;
-      acc += __ldcg(&part_acc[(size_t)(first + s) * group * HD + i]) * e;
+      acc += __ldcg(&part_acc[(size_t)(first + s) * stride * HD + i]) * e;
     }
     out[i] = from_float<T>(acc / sum);
   }
@@ -581,8 +602,9 @@ cudaError_t launch(const void* k_pages, const void* v_pages, Params p, int batch
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   p.scale_log2 = kLog2e / sqrtf((float)HD);
-  const dim3 grid((p.max_pages + p.pages_per_split - 1) / p.pages_per_split, p.num_kv_heads,
-                  batch);
+  const int group = p.num_heads / p.num_kv_heads;
+  const dim3 grid((p.max_pages + p.pages_per_split - 1) / p.pages_per_split,
+                  p.num_kv_heads * ((group + kMaxGroup - 1) / kMaxGroup), batch);
   paged_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(maps[0], maps[1], p);
   return cudaGetLastError();
 }
@@ -591,6 +613,8 @@ template <typename T>
 cudaError_t launch_hd(int head_dim, const void* k_pages, const void* v_pages, const Params& p,
                       int batch, cudaStream_t stream) {
   switch (head_dim) {
+    case 16:
+      return launch<T, 16>(k_pages, v_pages, p, batch, stream);
     case 32:
       return launch<T, 32>(k_pages, v_pages, p, batch, stream);
     case 64:
@@ -607,9 +631,8 @@ int launch_checked(const void* q, const void* k_pages, const void* v_pages, cons
                    int num_pages, int page_size, int max_pages, int head_dim, int dtype,
                    int pages_per_split, int stages, void* partials, void* counters,
                    void* stream) {
-  if (batch < 1 || num_kv_heads < 1 || num_heads % num_kv_heads != 0 ||
-      num_heads / num_kv_heads > kMaxGroup || num_pages < 1 || page_size < 1 || max_pages < 1 ||
-      pages_per_split < 1 || stages < 2 || stages > kMaxStages)
+  if (batch < 1 || num_kv_heads < 1 || num_heads % num_kv_heads != 0 || num_pages < 1 ||
+      page_size < 1 || max_pages < 1 || pages_per_split < 1 || stages < 2 || stages > kMaxStages)
     return (int)cudaErrorInvalidValue;
   if (pages_per_split < max_pages && (partials == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -646,8 +669,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. q/out [batch, num_heads, head_dim];
 // k_pages/v_pages [num_kv_heads, num_pages, page_size, head_dim]; table
 // [batch, max_pages] int32; lengths [batch] int32; all contiguous, 16-byte
-// aligned, on the current device. One split per (sequence, kv head), the
-// default ring: needs no workspace. Launches on `stream` and returns
+// aligned, on the current device. One split per (sequence, kv head, group
+// tile of 8 query heads), the default ring: needs no workspace. Launches on `stream` and returns
 // cudaGetLastError() (0 on success); allocates nothing.
 int tpumon_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                            const void* table, const void* lengths, void* out, int batch,
@@ -659,10 +682,12 @@ int tpumon_paged_attention(const void* q, const void* k_pages, const void* v_pag
 }
 
 // The same with the page axis split into ceil(max_pages / pages_per_split)
-// CTAs per (sequence, kv head) and a ring of `stages` stages (0: the
-// default). partials: f32, batch * num_kv_heads * splits * group *
-// (head_dim + 2) values, any contents; counters: int32, batch *
-// num_kv_heads values, all 0 (the kernel leaves them 0 again).
+// CTAs per (sequence, kv head, group tile) and a ring of `stages` stages
+// (0: the default). With group = num_heads / num_kv_heads, tiles =
+// ceil(group / 8) and stride = min(group, 8): partials, f32, batch *
+// num_kv_heads * tiles * splits * stride * (head_dim + 2) values, any
+// contents; counters, int32, batch * num_kv_heads * tiles values, all 0
+// (the kernel leaves them 0 again).
 int tpumon_paged_attention_split(const void* q, const void* k_pages, const void* v_pages,
                                  const void* table, const void* lengths, void* out, int batch,
                                  int num_heads, int num_kv_heads, int num_pages, int page_size,
@@ -682,12 +707,14 @@ int tpumon_paged_attention_config(int head_dim, int dtype, int stages, int page_
   int smem = 0, rows = 0;
   if (dtype == 1) {
     rows = Tile<bf16, 32>::kRows;
-    smem = head_dim == 32 ? smem_bytes<bf16, 32>(st)
+    smem = head_dim == 16 ? smem_bytes<bf16, 16>(st)
+           : head_dim == 32 ? smem_bytes<bf16, 32>(st)
            : head_dim == 64 ? smem_bytes<bf16, 64>(st)
            : head_dim == 128 ? smem_bytes<bf16, 128>(st) : 0;
   } else if (dtype == 0) {
     rows = Tile<float, 32>::kRows;
-    smem = head_dim == 32 ? smem_bytes<float, 32>(st)
+    smem = head_dim == 16 ? smem_bytes<float, 16>(st)
+           : head_dim == 32 ? smem_bytes<float, 32>(st)
            : head_dim == 64 ? smem_bytes<float, 64>(st)
            : head_dim == 128 ? smem_bytes<float, 128>(st) : 0;
   }

@@ -25,6 +25,17 @@ tensors it runs its plain version (``*_reference``); any other device
 raises. The plain versions mirror the reference kernels' numerics: f32
 scores and softmax, masked scores at -1e30, and the rounding of P and dS
 to the input dtype right before their products.
+
+The kernels have instances at head dims 32, 64 and 128
+(``KERNEL_HEAD_DIMS``). A smaller head dim (8, 16, 48, ...) runs through
+the next instance: ``pad_head_dim`` zero-pads q, k, v (and dO) along D,
+passes the true scale ``1/sqrt(D)`` and slices the outputs back. Zero
+columns change neither QK^T nor the softmax, and they come back as zero
+gradient columns, so this is the same kernel at a wider shape (it costs
+the padded copies' bytes). A head dim above 128 has no instance and
+raises ``ValueError``, as does a T that is not a multiple of
+``KERNEL_TILE`` (64): the training schedule pads T to its block grid
+(multiples of 128) before it calls the kernels.
 """
 
 from __future__ import annotations
@@ -32,12 +43,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from tpumon_torch.ops import _build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128)  # instances; a smaller D pads to the next
 KERNEL_TILE = 64  # the kernels need T % 64 == 0 (bf16 forward: 128-row tiles)
 # The plain versions materialise [chunk, T, T] f32 tensors; chunking the
 # folded batch keeps each near 1 GiB at long T.
@@ -65,6 +77,18 @@ def _check(q, k, v, block: int, *more, block_k: int | None = None) -> None:
         raise ValueError("flash attention's tensors must share one device")
 
 
+def kernel_head_dim(d: int) -> int:
+    """The instance a head dim ``d`` runs at on the card: the least of
+    ``KERNEL_HEAD_DIMS`` not below it. Raises ValueError above 128."""
+    for hd in KERNEL_HEAD_DIMS:
+        if d <= hd:
+            return hd
+    raise ValueError(
+        f"the CUDA kernels take head_dim up to {KERNEL_HEAD_DIMS[-1]} "
+        f"(instances {KERNEL_HEAD_DIMS}; a smaller one is zero-padded to the "
+        f"next); got head_dim={d}")
+
+
 def _on_cuda(*tensors) -> bool:
     """False for CPU tensors (the plain versions run); True for CUDA
     tensors the kernels take; raises for anything else."""
@@ -74,15 +98,28 @@ def _on_cuda(*tensors) -> bool:
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
     _, t, d = q.shape
-    if d not in KERNEL_HEAD_DIMS or t % KERNEL_TILE:
+    if t % KERNEL_TILE:
         raise ValueError(
-            f"the CUDA kernels take head_dim in {KERNEL_HEAD_DIMS} and T a "
-            f"multiple of {KERNEL_TILE}; got head_dim={d}, T={t}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("the CUDA kernels take contiguous tensors only")
-    if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError("the CUDA kernels need 16-byte aligned tensors")
+            f"the CUDA kernels take T a multiple of {KERNEL_TILE}; got T={t}")
+    kernel_head_dim(d)
     return True
+
+
+def pad_head_dim(run, padded: tuple, rest: tuple = ()):
+    """``run(*padded, *rest, scale=...)`` at the kernels' head dim: the
+    [BH, T, D] tensors of ``padded`` zero-padded along D to
+    ``kernel_head_dim(D)``, the true scale ``1/sqrt(D)`` passed, and every
+    [BH, T, D'] output sliced back to D (``rest``, such as lse, is passed
+    as it is). With D an instance itself nothing is copied."""
+    d = padded[0].shape[-1]
+    dk = kernel_head_dim(d)
+    if dk != d:
+        padded = tuple(F.pad(x, (0, dk - d)) for x in padded)
+    outs = run(*padded, *rest, scale=d**-0.5)
+    if dk == d:
+        return outs
+    return tuple(o[..., :d].contiguous() if o.dim() == 3 else o
+                 for o in outs)
 
 
 def _kernel(source: str, symbol: str, n_ptr: int, n_int: int):
@@ -99,13 +136,17 @@ def _kernel(source: str, symbol: str, n_ptr: int, n_int: int):
     return lib, fn
 
 
-def _launch(source: str, symbol: str, tensors, q, *flags: int) -> None:
+def _launch(source: str, symbol: str, tensors, q, *flags: int,
+            scale: float) -> None:
     bh, t, d = q.shape
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("the CUDA kernels take contiguous tensors only")
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("the CUDA kernels need 16-byte aligned tensors")
     lib, fn = _kernel(source, symbol, len(tensors), 4 + len(flags))
     with torch.cuda.device(q.device):
         err = fn(*(x.data_ptr() for x in tensors), bh, t, d, _DTYPES[q.dtype],
-                 *flags, 1.0 / d**0.5,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 *flags, scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, f"{symbol} launch")
 
 
@@ -118,12 +159,13 @@ def _causal(t: int, device) -> torch.Tensor:
     return torch.ones(t, t, dtype=torch.bool, device=device).tril()
 
 
-def _plain_fwd(q, k, v, causal: bool):
+def _plain_fwd(q, k, v, causal: bool, scale: float | None = None):
     """(out, lse) of softmax attention, as one online-softmax block per
     row: f32 scores, P = exp(s - rowmax) rounded to v's dtype before P V,
-    divided by the unrounded row sum; lse = rowmax + log(row sum)."""
+    divided by the unrounded row sum; lse = rowmax + log(row sum). The
+    scale is 1/sqrt(D) unless given."""
     bh, t, d = q.shape
-    scale = 1.0 / d**0.5
+    scale = d**-0.5 if scale is None else scale
     mask = _causal(t, q.device) if causal else None
     out = torch.empty_like(q)
     lse = torch.empty(bh, t, dtype=torch.float32, device=q.device)
@@ -141,10 +183,10 @@ def _plain_fwd(q, k, v, causal: bool):
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor,
-                              causal: bool = True) -> torch.Tensor:
+                              v: torch.Tensor, causal: bool = True,
+                              scale: float | None = None) -> torch.Tensor:
     """Plain version of the rectangular forward kernel."""
-    return _plain_fwd(q, k, v, causal)[0]
+    return _plain_fwd(q, k, v, causal, scale)[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -159,21 +201,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, block_q, block_k=block_k)
     if not _on_cuda(q, k, v):
         return flash_attention_reference(q, k, v, causal)
-    out = torch.empty_like(q)
-    _launch("flash_attention", "tpumon_flash_fwd", (q, k, v, out), q,
-            int(bool(causal)))
-    flash_attention.launches += 1
-    return out
+
+    def run(q, k, v, scale):
+        out = torch.empty_like(q)
+        _launch("flash_attention", "tpumon_flash_fwd", (q, k, v, out), q,
+                int(bool(causal)), scale=scale)
+        flash_attention.launches += 1
+        return (out,)
+
+    return pad_head_dim(run, (q, k, v))[0]
 
 
 flash_attention.launches = 0
 
 
 def flash_attention_tri_fwd_reference(q: torch.Tensor, k: torch.Tensor,
-                                      v: torch.Tensor):
+                                      v: torch.Tensor,
+                                      scale: float | None = None):
     """Plain version of the triangle forward kernel: (out, lse) of causal
     softmax attention (``_plain_fwd``)."""
-    return _plain_fwd(q, k, v, True)
+    return _plain_fwd(q, k, v, True, scale)
 
 
 def flash_attention_tri_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -188,10 +235,14 @@ def flash_attention_tri_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, block)
     if not _on_cuda(q, k, v):
         return flash_attention_tri_fwd_reference(q, k, v)
+    return pad_head_dim(_tri_fwd_kernel, (q, k, v))
+
+
+def _tri_fwd_kernel(q, k, v, scale):
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _launch("flash_attention_tri_fwd", "tpumon_flash_tri_fwd",
-            (q, k, v, out, lse), q)
+            (q, k, v, out, lse), q, scale=scale)
     flash_attention_tri_fwd.launches += 1
     return out, lse
 
@@ -230,34 +281,38 @@ def flash_attention_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_tri_fwd(q, k, v, block=block)[0]
 
 
-def _probs_and_dscores(q, k, v, dout, lse, dvec):
+def _probs_and_dscores(q, k, v, dout, lse, dvec, scale=None):
     """P = exp(s - lse) (0 above the diagonal) and dS = P * (dO V^T - D)
     * scale for one chunk, in f32: what both backward passes rebuild."""
     t, d = q.shape[1:]
-    scale = 1.0 / d**0.5
+    scale = d**-0.5 if scale is None else scale
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     p = torch.where(_causal(t, q.device), torch.exp(s - lse[..., None]), 0.0)
     dp = torch.matmul(dout.float(), v.float().transpose(1, 2))
     return p, p * (dp - dvec[..., None]) * scale
 
 
-def flash_attention_tri_bwd_dq_reference(q, k, v, dout, lse, dvec):
+def flash_attention_tri_bwd_dq_reference(q, k, v, dout, lse, dvec,
+                                         scale=None):
     """Plain version of the dQ kernel: dQ = dS K, dS rounded to k's dtype
     first, accumulated in f32, returned in q's dtype."""
     dq = torch.empty_like(q)
     for c in _chunks(*q.shape[:2]):
-        _, ds = _probs_and_dscores(q[c], k[c], v[c], dout[c], lse[c], dvec[c])
+        _, ds = _probs_and_dscores(q[c], k[c], v[c], dout[c], lse[c], dvec[c],
+                                   scale)
         dq[c] = torch.matmul(ds.to(k.dtype).float(), k[c].float()).to(q.dtype)
     return dq
 
 
-def flash_attention_tri_bwd_dkv_reference(q, k, v, dout, lse, dvec):
+def flash_attention_tri_bwd_dkv_reference(q, k, v, dout, lse, dvec,
+                                          scale=None):
     """Plain version of the dK/dV kernel: dV = P^T dO and dK = dS^T Q,
     P and dS rounded to the input dtype first, accumulated in f32,
     returned in the input dtype."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     for c in _chunks(*q.shape[:2]):
-        p, ds = _probs_and_dscores(q[c], k[c], v[c], dout[c], lse[c], dvec[c])
+        p, ds = _probs_and_dscores(q[c], k[c], v[c], dout[c], lse[c], dvec[c],
+                                   scale)
         dv[c] = torch.matmul(p.to(dout.dtype).float().transpose(1, 2),
                              dout[c].float()).to(v.dtype)
         dk[c] = torch.matmul(ds.to(q.dtype).float().transpose(1, 2),
@@ -282,11 +337,15 @@ def flash_attention_tri_bwd_dq(q, k, v, dout, lse, dvec, block: int = 128):
     _check_residuals(q, lse, dvec)
     if not _on_cuda(q, k, v, dout, lse, dvec):
         return flash_attention_tri_bwd_dq_reference(q, k, v, dout, lse, dvec)
+    return pad_head_dim(_dq_kernel, (q, k, v, dout), (lse, dvec))[0]
+
+
+def _dq_kernel(q, k, v, dout, lse, dvec, scale):
     dq = torch.empty_like(q)
     _launch("flash_attention_tri_bwd", "tpumon_flash_tri_bwd_dq",
-            (q, k, v, dout, lse, dvec, dq), q)
+            (q, k, v, dout, lse, dvec, dq), q, scale=scale)
     flash_attention_tri_bwd_dq.launches += 1
-    return dq
+    return (dq,)
 
 
 flash_attention_tri_bwd_dq.launches = 0
@@ -298,9 +357,13 @@ def flash_attention_tri_bwd_dkv(q, k, v, dout, lse, dvec, block: int = 128):
     _check_residuals(q, lse, dvec)
     if not _on_cuda(q, k, v, dout, lse, dvec):
         return flash_attention_tri_bwd_dkv_reference(q, k, v, dout, lse, dvec)
+    return pad_head_dim(_dkv_kernel, (q, k, v, dout), (lse, dvec))
+
+
+def _dkv_kernel(q, k, v, dout, lse, dvec, scale):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_attention_tri_bwd", "tpumon_flash_tri_bwd_dkv",
-            (q, k, v, dout, lse, dvec, dk, dv), q)
+            (q, k, v, dout, lse, dvec, dk, dv), q, scale=scale)
     flash_attention_tri_bwd_dkv.launches += 1
     return dk, dv
 

@@ -23,8 +23,12 @@ from tpumon_torch.ops import _build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (32, 64, 128)
-KERNEL_MAX_GROUP = 8
+# The head dims the kernel has instances for: bf16's mma.sync takes 16
+# columns a k-step, so a head dim that is not a multiple of 16 has none, and
+# 256 would not fit the f32 consumer's registers. Any GQA group runs: the
+# kernel takes query heads in tiles of GROUP_TILE per kv head.
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+GROUP_TILE = 8
 # The split rule (pages_per_split): about SPLIT_TARGET_CTAS CTAs a call
 # (two resident on each of an H100's 132 SMs), none shorter than
 # SPLIT_MIN_ROWS rows; a call whose tables hold no more than that keeps
@@ -192,11 +196,11 @@ def _launch(q, k_pages, v_pages, page_table, lengths, pages: int = 0,
     b, nh, hd = q.shape
     nkv, num_pages, page_size, _ = k_pages.shape
     max_pages = page_table.shape[1]
-    if hd not in KERNEL_HEAD_DIMS or nh // nkv > KERNEL_MAX_GROUP:
+    if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"the CUDA kernel takes head_dim in {KERNEL_HEAD_DIMS} and GQA "
-            f"groups of 1-{KERNEL_MAX_GROUP}; got head_dim={hd}, "
-            f"group={nh // nkv}")
+            f"the CUDA kernel takes head_dim in {KERNEL_HEAD_DIMS} (a head "
+            f"dim that is not a multiple of 16, or above 128, has no "
+            f"instance); got head_dim={hd}")
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("the CUDA kernel needs 16-byte aligned q/k/v")
     out = torch.empty_like(q)
@@ -214,9 +218,12 @@ def _launch(q, k_pages, v_pages, page_table, lengths, pages: int = 0,
             err = one(*args, stream.cuda_stream)
         else:
             splits = -(-max_pages // pages)
-            partials = torch.empty(b * splits * nh * (hd + 2),
-                                   dtype=torch.float32, device=q.device)
-            counters = _arrival_counters(q.device, stream, b * nkv)
+            group = nh // nkv
+            tiles = -(-group // GROUP_TILE)
+            rows = b * nkv * tiles * splits * min(group, GROUP_TILE)
+            partials = torch.empty(rows * (hd + 2), dtype=torch.float32,
+                                   device=q.device)
+            counters = _arrival_counters(q.device, stream, b * nkv * tiles)
             err = split(*args, pages, stages, partials.data_ptr(),
                         counters.data_ptr(), stream.cuda_stream)
     _build.check(lib, err, "paged_attention launch")
