@@ -303,6 +303,29 @@ Phases, each of which exits non-zero on failure:
     unsharded FFN's loss and descends; ici_burn over [cuda:0] x 4 reports
     the reference's bytes_shifted (device-local copies). The flash rows'
     launches in the summary add phase 25's.
+26. every shape the reference's kernels take: a head dim above 256 is
+    refused by the paged and the flash wrappers before any launch; the
+    paged kernel at head dims 8, 24, 72, 96, 192 and 256 and at 5, 12, 30
+    and 250 (rows TMA cannot describe, copied by the load warp), GQA
+    groups 1, 8 and 16, pages of 8 and 16, plus Phi-3-mini's decode shape
+    (B 16, 32/32 heads, hd 96, page 128) and the hd-256 engine's (B 16,
+    8/1 heads, page 128, 64-page tables); the flash forward, dQ, dK/dV and
+    the rectangular forward at hd 192 and 256, at T 96 (block 32) and T
+    40 (block 8), and at the hd-256 training shape (BH 8, T 2048); both
+    GEMMs at (16, 40, 48), (24, 20, 36) and (200, 136, 264) with blocks
+    equal to the shape: each against its plain version under phase 3's,
+    7's and 11's limits, every planted fault that applies over them, each
+    call one launch. Then google/gemma-2b's widths (vocab 256000, d_model
+    2048, 8/1 heads, head_dim 256, d_ff 16384, max_seq 8192) at 2 layers:
+    phase 4's 16 greedy prompts through the paged engine with the kernel
+    read path (2 launches a decode step) and the gather path, in bf16 and
+    f32, streams equal up to near-ties (ENGINE_TOL of the type; margins
+    printed); run_train at B 1, T 2048 in bf16 with flash (6 launches a
+    step in all), the steady step timed,
+    and one step flash against naive within STEP_TOL; the kernels timed
+    at those shapes beside their bounds, plain versions and library calls
+    (gather + SDPA, SDPA under pinned backends, torch.matmul). The paged,
+    flash and rectangular rows' launches in the summary add phase 26's.
 
 The last three lines are the kernels summary (JSON), nvidia-smi's name
 and power limit, and the contract line {"ok": true, "device": {...}}.
@@ -493,15 +516,20 @@ def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
       rises from one page to the next;
     - last_page_unmasked: the last live page is read whole, past lengths;
     - wrong_kv_head: each query group reads the next kv head's pages;
-    - group_tile_repeated: past 8 query heads a kv head, every group tile
-      after the first computes the first tile's queries;
+    - group_tile_repeated: past a group tile of query heads a kv head (8;
+      f32 at the 256 instance: 4), every group tile after the first
+      computes the first tile's queries;
 
     or one fault of the split design (SPLIT_FAULTS), modelled by
     paged_split_plain at the wrapper's own pages_per_split and ring stage.
     """
     import torch
 
-    from tpumon_torch.ops.paged_attention import STAGE_ROWS, pages_per_split
+    from tpumon_torch.ops.paged_attention import (
+        STAGE_ROWS,
+        group_tile,
+        pages_per_split,
+    )
 
     b, nh, hd = q.shape
     if fault in SPLIT_FAULTS:
@@ -514,7 +542,8 @@ def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
     s_max = table.shape[1] * ps
     if fault == "group_tile_repeated":
         qg = q.reshape(b, nkv, nh // nkv, hd)
-        q = qg[:, :, torch.arange(nh // nkv, device=q.device) % 8].reshape(
+        tile = group_tile(q.dtype, hd)
+        q = qg[:, :, torch.arange(nh // nkv, device=q.device) % tile].reshape(
             b, nh, hd)
     heads = torch.arange(nkv, device=q.device)
     if fault == "wrong_kv_head":
@@ -547,16 +576,16 @@ def paged_faulty_plain(q, k_pages, v_pages, table, lengths,
 
 
 def paged_fault_applies(fault: str, nkv: int, lengths, ps: int,
-                        n_live=(), group: int = 1) -> bool:
+                        n_live=(), group: int = 1, tile: int = 8) -> bool:
     """Whether a planted fault changes any live row of this case;
     ``n_live``: each sequence's live splits at the wrapper's rule (the
     split faults need two, a dropped middle split three); ``group``: query
-    heads a kv head (a second group tile past 8)."""
+    heads a kv head (a second group tile past ``tile``)."""
     live = [n for n in lengths if n > 0]
     if fault == "wrong_kv_head":
         return nkv > 1
     if fault == "group_tile_repeated":
-        return group > 8 and bool(live)
+        return group > tile and bool(live)
     if fault == "last_page_unmasked":
         return any(n % ps for n in live)
     if fault in SPLIT_FAULTS:
@@ -568,7 +597,7 @@ def paged_fault_applies(fault: str, nkv: int, lengths, ps: int,
 def paged_fault_readings(args, want) -> dict:
     """{fault: rows_rel_err against the plain version} for every planted
     fault that applies to the case (``args`` as paged_attention takes)."""
-    from tpumon_torch.ops.paged_attention import pages_per_split
+    from tpumon_torch.ops.paged_attention import group_tile, pages_per_split
 
     q, k_pages, _, table, lengths = args
     lens = lengths.tolist()
@@ -579,7 +608,8 @@ def paged_fault_readings(args, want) -> dict:
     return {f: rows_rel_err(paged_faulty_plain(*args, f), want, lengths)
             for f in PAGED_FAULTS
             if paged_fault_applies(f, nkv, lens, ps, n_live,
-                                   q.shape[1] // nkv)}
+                                   q.shape[1] // nkv,
+                                   group_tile(q.dtype, q.shape[2]))}
 
 
 def prod_lengths() -> list:
@@ -601,7 +631,7 @@ def print_paged_config() -> None:
 
     configs = {f"{str(dt)[6:]}_hd{hd}": kernel_config(hd, dt, 128)
                for dt in (torch.bfloat16, torch.float32)
-               for hd in (16, 32, 64, 128)}
+               for hd in (16, 32, 64, 128, 256)}
     print(f"paged_ptxas config={configs} "
           + " | ".join(_build.ptxas_report("paged_attention")), flush=True)
 
@@ -1151,7 +1181,7 @@ FLASH_KERNELS = ("flash_attention_tri_fwd", "flash_attention_tri_bwd_dq",
 # between, 1.2x from each.
 FLASH_TOL = {"float32": {"out": 1e-4, "grad": 1e-4, "lse": 2e-5},
              "bfloat16": {"out": 1.5e-2, "grad": 2.3e-3, "lse": 2e-5}}
-FLASH_TILE = 64  # rows of the tiles tile_rel_err runs over (T % 64 == 0)
+FLASH_TILE = 64  # rows of the tiles tile_rel_err runs over
 # The tiles a kernel's planted faults are modelled at: the bf16 forward's
 # 128-row q and k tiles (csrc/flash_fwd.cuh); the backward kernels' (csrc/
 # flash_attention_tri_bwd.cu) owned tile (128 rows, two warpgroups of 64)
@@ -1258,9 +1288,15 @@ def flash_inputs(gen, bh, t, hd, dtype):
 
 def tile_rel_err(got, want) -> float:
     """The worst relative error over 64-row tiles of [BH, T, D] tensors:
-    max over (bh, tile) of ||got - want|| / ||want||."""
+    max over (bh, tile) of ||got - want|| / ||want|| (a last tile of a T
+    that is no multiple of 64 holds the rows left)."""
+    import torch.nn.functional as F
+
     bh, t, _ = want.shape
-    a, b = (x.float().reshape(bh, t // FLASH_TILE, -1) for x in (got, want))
+    pad = -t % FLASH_TILE
+    a, b = (F.pad(x.float(), (0, 0, 0, pad)).reshape(bh, -1, FLASH_TILE
+                                                      * x.shape[-1])
+            for x in (got, want))
     return ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max(
         ).item()
 
@@ -1893,7 +1929,7 @@ def print_flash_config() -> None:
                 keep = "wgmma" in ln
             if keep:
                 lines.append(ln)
-        configs = {hd: config(hd) for hd in (32, 64, 128)}
+        configs = {hd: config(hd) for hd in (32, 64, 128, 256)}
         print(f"{tag} config={configs} " + " | ".join(lines), flush=True)
 
 
@@ -2202,10 +2238,14 @@ def set_gemm_counts(counts: dict) -> None:
 
 def gemm_tile_rel_err(got, want) -> float:
     """The worst relative error over 128 x 128 output tiles of [M, N]
-    tensors (the whole tensor where a side is shorter)."""
+    tensors (the whole tensor where a side is shorter; edge tiles hold the
+    rows and columns left)."""
+    import torch.nn.functional as F
+
     m, n = want.shape
     tm, tn = min(GEMM_TILE, m), min(GEMM_TILE, n)
-    a, b = (x.float().reshape(m // tm, tm, n // tn, tn) for x in (got, want))
+    a, b = (F.pad(x.float(), (0, -n % tn, 0, -m % tm)).reshape(
+        -(-m // tm), tm, -(-n // tn), tn) for x in (got, want))
     num = (a - b).square().sum((1, 3)).sqrt()
     return (num / b.square().sum((1, 3)).sqrt().clamp_min(1e-30)).max().item()
 
@@ -2246,11 +2286,11 @@ def gemm_faulty_plain(a, b, scale, fault: str | None):
         c = c * scale.float()
     if fault in ("tile_from_neighbour", "last_tile_unwritten"):
         (tm, tn), (m, n) = GEMM_KERNEL_TILE, c.shape
-        m0, n0 = m - tm, (n - 1) // tn * tn
+        m0, n0 = (m - 1) // tm * tm, (n - 1) // tn * tn  # the last tile
         if fault == "last_tile_unwritten":
             c[m0:, n0:] = 0
         elif m0 > 0:
-            c[m0:, n0:] = c[m0 - tm:m0, n0:].clone()
+            c[m0:, n0:] = c[m0 - tm:m0 - tm + (m - m0), n0:].clone()
         else:
             c[m0:, n0:] = c[m0:, n0 - tn:n0 - tn + (n - n0)].clone()
     return c.to(a.dtype)
@@ -2911,10 +2951,11 @@ def serve_traffic(cfg, label: str, max_new: int = 32) -> tuple:
 
 
 def greedy_divergence(eng, prompt, a, b) -> str | None:
-    """Where two bf16 greedy streams of one request part: None when equal;
+    """Where two greedy streams of one request part: None when equal;
     else the index and the top-2 margin of the full forward's logits at
-    that prefix (the port's plain training forward, bf16), which must be a
-    near-tie (within the engine paths' logit tolerance, ENGINE_TOL)."""
+    that prefix (the port's plain training forward, in the engine's
+    dtype), which must be a near-tie (within the engine paths' logit
+    tolerance for that dtype, ENGINE_TOL)."""
     import torch
 
     from tpumon_torch.loadgen.model import forward
@@ -2927,7 +2968,7 @@ def greedy_divergence(eng, prompt, a, b) -> str | None:
     logits = forward(eng.cfg.model, eng.params, seq)[0, -1]
     top2 = torch.topk(logits, 2).values
     margin = float(top2[0] - top2[1])
-    if margin > ENGINE_TOL["bfloat16"]:
+    if margin > ENGINE_TOL[eng.cfg.model.compute_dtype]:
         fail(f"greedy streams part at token {i} where the forward's margin "
              f"is {margin!r}, not a near-tie")
     return f"token {i} (forward top-2 margin {margin!r})"
@@ -6232,6 +6273,628 @@ def phase25(peaks: dict, device: str = "cuda", cfg=None,
     return total
 
 
+# --- phase 26: every shape the reference's kernels take -------------------
+
+# Phase 26: the kernels at the shapes the reference's contracts admit (its
+# paged_attention asserts matching shapes and n_heads % n_kv_heads == 0,
+# its flash functions that T divides the caller's block, its GEMMs that
+# the shapes divide the blocks): the paged kernel at head dims between and
+# up to its instances (16 ... 256), the flash kernels at head dims 192 and
+# 256 and at T no multiple of their tiles, the GEMMs at edge shapes. Each
+# against its plain version under phase 3's, 7's and 11's limits
+# (PAGED_TOL, FLASH_TOL, GEMM_TOL), every planted fault that applies over
+# them, and a head dim above 256 refused before any launch. Then a model
+# at head dim 256 served and trained through the normal entry points, and
+# the kernels timed at its shapes.
+PAGED_HEAD_DIMS = (8, 24, 72, 96, 192, 256)
+# Head dims whose rows TMA cannot describe (a row stride that is not a
+# multiple of 16 bytes: bf16 head dim % 8, f32 % 4): the kernel's load
+# warp copies those rows into the tile itself.
+PAGED_COPY_HEAD_DIMS = (5, 12, 30, 250)
+PAGED_GROUPS = ((2, 2), (8, 1), (16, 1))  # (n_heads, n_kv_heads): 1, 8, 16
+PAGED_PAGE_SIZES = (8, 16)
+# Flash (head_dim, T, block), T a multiple of the block as the reference
+# asserts: head dims 192 (zero-padded to the 256 instance) and 256, and T
+# no multiple of the kernels' tiles (96 at block 32, 40 at block 8).
+FLASH_SHAPE_CASES = [(192, 128, 64), (256, 128, 64), (64, 96, 32),
+                     (32, 40, 8), (256, 40, 8)]
+# GEMM (M, K, N) at blocks equal to the shape: tiles past every edge
+# (16, 40, 48: the reference takes block_m 16), a K and N that TMA's
+# 16-byte strides do not take in bf16 (the wrapper's zero-pad route), and
+# several tiles with partial last ones.
+GEMM_EDGE_CASES = [(16, 40, 48), (24, 20, 36), (200, 136, 264)]
+# The model: google/gemma-2b's published widths (config.json: hidden 2048,
+# 8 heads, 1 kv head, head_dim 256, intermediate 16384, vocab 256000, max
+# position 8192) in the repo's Llama-style ModelConfig (SwiGLU, RMSNorm,
+# RoPE; not Gemma's GeGLU, embedding scale or tied head), at the repo's
+# 2-layer depth cut (bench.py:223-227), bf16 over f32 masters.
+HD256_MODEL = dict(vocab=256000, d_model=2048, n_layers=2, n_heads=8,
+                   n_kv_heads=1, d_ff=16384, max_seq=8192)
+HD256_TRAIN = dict(batch=1, seq=2048, steps=3, block=512)
+HD256_TIMED_STEPS = 3
+# Decode shapes at phase 3's batch and page: the hd-256 engine's (16 slots,
+# 8 query heads on 1 kv head, 64 pages of 128 rows: max_seq 8192) and
+# Phi-3-mini's (microsoft/Phi-3-mini-4k-instruct config.json: hidden 3072,
+# 32 heads, 32 kv heads, head_dim 96, max position 4096).
+HD256_DECODE = dict(b=16, nh=8, nkv=1, hd=256, ps=128, max_pages=64)
+PHI3_DECODE = dict(b=16, nh=32, nkv=32, hd=96, ps=128, max_pages=32)
+# GEMM edge shapes timed: the smallest above, and a burn-sized product
+# whose M, N and K are no multiple of the kernel's tiles.
+GEMM_TIMED_EDGES = [(16, 40, 48), (4000, 4000, 4000)]
+
+
+def paged_head_dim_shape(hd: int, nh: int, nkv: int, ps: int) -> dict:
+    """One of phase 26's small paged shapes (paged_inputs' keywords): four
+    sequences of mixed lengths (a single token, two pages and a bit, none,
+    a full five-page table)."""
+    return dict(b=4, nh=nh, nkv=nkv, hd=hd, ps=ps, max_pages=5,
+                lengths=(1, 2 * ps + 3, 0, 5 * ps))
+
+
+def hd256_model(dtype: str = "bfloat16", **over):
+    from tpumon_torch.loadgen.model import ModelConfig
+
+    return ModelConfig(**dict(HD256_MODEL, compute_dtype=dtype, **over))
+
+
+def p26_paged_cases() -> list:
+    cases = [(f"hd{hd}_group{nh // nkv}_page{ps}",
+              paged_head_dim_shape(hd, nh, nkv, ps))
+             for hd in PAGED_HEAD_DIMS + PAGED_COPY_HEAD_DIMS
+             for nh, nkv in PAGED_GROUPS for ps in PAGED_PAGE_SIZES]
+    return cases + [
+        ("phi3_mini_decode", dict(PHI3_DECODE, lengths=prod_lengths())),
+        ("hd256_engine_decode", dict(HD256_DECODE, lengths=prod_lengths()))]
+
+
+def p26_refusals() -> None:
+    """A head dim above 256 raises ValueError, naming 256, before any
+    launch of the paged or the flash kernels."""
+    import torch
+
+    from tpumon_torch.ops import flash_attention as fa
+    from tpumon_torch.ops import paged_attention as pa
+
+    args = paged_inputs(torch.Generator(device="cuda").manual_seed(26), 2,
+                        4, 2, 264, 8, 2, (5, 9), torch.bfloat16)
+    q = torch.zeros(2, 128, 264, device="cuda", dtype=torch.bfloat16)
+    before = (pa.paged_attention.launches, flash_counts())
+    raised = []
+    for fn in (lambda: pa.paged_attention(*args),
+               lambda: fa.flash_attention_tri_fwd(q, q, q)):
+        try:
+            fn()
+        except ValueError as e:
+            raised.append("head_dim up to 256" in str(e))
+    same = before == (pa.paged_attention.launches, flash_counts())
+    print(f"p26_refusals head_dim=264 raised_naming_256={raised} "
+          f"no_launch={same}", flush=True)
+    if raised != [True, True] or not same:
+        fail("a head dim above 256 was not refused before any launch")
+
+
+def p26_check_paged(gen) -> None:
+    """The paged kernel against its plain version at every phase 26 shape,
+    bf16 and f32: rows_rel_err under PAGED_TOL, length-0 rows zero, every
+    planted fault that applies over the limit, one launch a call."""
+    import torch
+
+    from tpumon_torch.ops import paged_attention as pa
+
+    before = pa.paged_attention.launches
+    calls, least = 0, {}
+    for name, shape in p26_paged_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            tol = PAGED_TOL[dname]
+            args = paged_inputs(gen, **shape, dtype=dtype)
+            got = pa.paged_attention(*args)
+            calls += 1
+            torch.cuda.synchronize()
+            want = pa.paged_attention_reference(*args)
+            rel = rows_rel_err(got, want, args[4])
+            err = (got.float() - want.float()).abs().max().item()
+            zero = args[4] <= 0
+            zeros = bool((got[zero].float() == 0).all().item())
+            finite = bool(torch.isfinite(got.float()).all().item())
+            faults = paged_fault_readings(args, want)
+            missed = [f for f, r in faults.items() if not r > tol]
+            low = min(faults.items(), key=lambda kv: kv[1], default=None)
+            if low is not None:
+                least[dname] = min(least.get(dname, low), low,
+                                   key=lambda kv: kv[1])
+            ok = finite and zeros and rel <= tol
+            print(f"p26_paged {name} {dname} rows_rel_err={rel!r} tol={tol} "
+                  f"max_abs_err={err!r} zero_rows={zeros} least_fault={low} "
+                  f"missed={missed} {'ok' if ok else 'MISS'}", flush=True)
+            if not ok:
+                fail(f"paged kernel disagrees with its plain version "
+                     f"({name}, {dname})")
+            if missed:
+                fail(f"PAGED_TOL passes planted faults {missed} ({name}, "
+                     f"{dname})")
+            del args, got, want
+    launches = pa.paged_attention.launches - before
+    print(f"p26_paged checks={calls} launches={launches} least_fault="
+          f"{least}", flush=True)
+    if launches != calls:
+        fail(f"paged checks launched {launches} times for {calls} calls")
+    pa.paged_attention.launches = before
+
+
+def p26_check_flash(gen) -> dict:
+    """The triangle forward, dQ, dK/dV and the rectangular forward (causal
+    and not) against their plain versions at FLASH_SHAPE_CASES and the
+    hd-256 training shape, bf16 and f32, each call one launch, under
+    FLASH_TOL, with every planted fault that applies over it. Returns the
+    rectangular forward's launches (it lies on no path: its checks are
+    what the summary counts for it, as phase 15's)."""
+    import torch
+
+    from tpumon_torch.ops import flash_attention as fa
+
+    cases = [(f"hd{hd}_t{t}_block{blk}", 6, t, hd, blk)
+             for hd, t, blk in FLASH_SHAPE_CASES]
+    cases.append(("hd256_train", HD256_TRAIN["batch"] * HD256_MODEL["n_heads"],
+                  HD256_TRAIN["seq"], 256, HD256_TRAIN["block"]))
+    before, rect_before = flash_counts(), fa.flash_attention.launches
+    set_flash_counts(dict.fromkeys(FLASH_KERNELS, 0))
+    fa.flash_attention.launches = 0
+    for name, bh, t, hd, blk in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            tol = FLASH_TOL[dname]
+            q, k, v, g, want_out, want_lse, dvec = flash_inputs(
+                gen, bh, t, hd, dtype)
+            got = {}
+            got["out"], got["lse"] = fa.flash_attention_tri_fwd(q, k, v,
+                                                                block=blk)
+            got["dq"] = fa.flash_attention_tri_bwd_dq(q, k, v, g, want_lse,
+                                                      dvec, block=blk)
+            got["dk"], got["dv"] = fa.flash_attention_tri_bwd_dkv(
+                q, k, v, g, want_lse, dvec, block=blk)
+            rect = {c: fa.flash_attention(q, k, v, causal=c, block_q=blk,
+                                          block_k=blk) for c in (True, False)}
+            torch.cuda.synchronize()
+            want = {"out": want_out, "lse": want_lse}
+            want["dq"] = fa.flash_attention_tri_bwd_dq_reference(
+                q, k, v, g, want_lse, dvec)
+            want["dk"], want["dv"] = fa.flash_attention_tri_bwd_dkv_reference(
+                q, k, v, g, want_lse, dvec)
+            abs_err = {key: (got[key].float() - want[key].float()).abs().max(
+                ).item() for key in got}
+            rel = {o: tile_rel_err(got[o], want[o])
+                   for outs in FLASH_OUTPUTS.values() for o in outs}
+            finite = all(bool(torch.isfinite(x).all().item())
+                         for x in (*got.values(), *rect.values()))
+            faults = fault_readings(q, k, v, g, want_lse, dvec, want)
+            missed = [f"{kern}:{f}" for kern, fs in faults.items()
+                      for f, r in fs.items() if fault_required(kern, f)
+                      and not r > flash_limit(kern, dname)]
+            rect_rel = {}
+            for causal, out in rect.items():
+                want_r = fa.flash_attention_reference(q, k, v, causal)
+                rect_rel[causal] = tile_rel_err(out, want_r)
+                for f in FLASH_RECT_FAULTS:
+                    if fault_applies(f, t, causal) and not tile_rel_err(
+                            faulty_plain(q, k, v, f, causal), want_r) > (
+                            tol["out"]):
+                        missed.append(f"flash_attention:{f}:causal={causal}")
+            ok = finite and abs_err["lse"] <= tol["lse"] and all(
+                rel[o] <= flash_limit(kern, dname)
+                for kern, outs in FLASH_OUTPUTS.items() for o in outs) and (
+                max(rect_rel.values()) <= tol["out"])
+            print(f"p26_flash {name} BH{bh}/T{t}/hd{hd}/block{blk} {dname} "
+                  f"tile_rel_err={rel} rect_tile_rel_err={rect_rel} "
+                  f"lse_max_abs_err={abs_err['lse']!r} tol={tol} "
+                  f"finite={finite} {'ok' if ok else 'MISS'}", flush=True)
+            print(f"p26_flash_planted_faults {name} {dname} tile_rel_err="
+                  f"{faults} missed={missed}", flush=True)
+            if not ok:
+                fail(f"flash kernels disagree with their plain versions "
+                     f"({name}, {dname})")
+            if missed:
+                fail(f"FLASH_TOL passes planted faults {missed} ({name}, "
+                     f"{dname})")
+            del q, k, v, g, want_out, want_lse, dvec, got, want, rect
+            torch.cuda.empty_cache()
+    counts, rect_launches = flash_counts(), fa.flash_attention.launches
+    calls = 2 * len(cases)
+    print(f"p26_flash checks={calls} launches={counts} rect_launches="
+          f"{rect_launches}", flush=True)
+    if any(n != calls for n in counts.values()) or rect_launches != 2 * calls:
+        fail(f"flash checks launched {counts} / {rect_launches} times for "
+             f"{calls} calls each")
+    set_flash_counts(before)
+    fa.flash_attention.launches = rect_before
+    return rect_launches
+
+
+def p26_check_gemm(gen) -> None:
+    """Both GEMM kernels against their plain versions at GEMM_EDGE_CASES
+    (blocks equal to the shape), bf16 and f32, each call one launch, under
+    GEMM_TOL, with every planted fault that applies over it."""
+    import torch
+
+    from tpumon_torch.ops import matmul as mm
+    from tpumon_torch.ops import quant_matmul as qm
+
+    before, padded = gemm_counts(), mm.matmul.padded
+    set_gemm_counts(dict.fromkeys(GEMM_KERNELS, 0))
+    calls = 0
+    for m, k, n in GEMM_EDGE_CASES:
+        blocks = dict(block_m=m, block_n=n, block_k=k)
+        for kern in GEMM_KERNELS:
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype)[6:]
+                tol = GEMM_TOL[dname]
+                quant = kern != "matmul"
+                a, b, sc = gemm_case(gen, m, k, n, dtype, quant)
+                if quant:
+                    got = qm.quantized_matmul_kernel(a, b, sc, **blocks)
+                    want = qm.quantized_matmul_reference(a, b, sc)
+                else:
+                    got = mm.matmul(a, b, **blocks)
+                    want = mm.matmul_reference(a, b)
+                calls += 1
+                torch.cuda.synchronize()
+                rel = gemm_tile_rel_err(got, want)
+                finite = bool(torch.isfinite(got.float()).all().item())
+                faults = gemm_fault_readings(a, b, sc, want)
+                clean = gemm_tile_rel_err(gemm_faulty_plain(a, b, sc, None),
+                                          want)
+                missed = [f for f, r in faults.items() if not r > tol]
+                ok = (finite and got.shape == (m, n) and got.dtype == dtype
+                      and rel <= tol)
+                print(f"p26_gemm {kern} {m}x{k}x{n} {dname} tile_rel_err="
+                      f"{rel!r} tol={tol} faults={faults} missed={missed} "
+                      f"{'ok' if ok else 'MISS'}", flush=True)
+                if not ok:
+                    fail(f"{kern} disagrees with its plain version at "
+                         f"{m}x{k}x{n} ({dname})")
+                if missed or clean > 1e-6:
+                    fail(f"GEMM_TOL passes planted faults {missed} or the "
+                         f"fault model is off ({m}x{k}x{n}, {dname})")
+    counts = gemm_counts()
+    print(f"p26_gemm checks={calls} launches={counts} pad_route_calls="
+          f"{mm.matmul.padded - padded}", flush=True)
+    if sum(counts.values()) != calls:
+        fail(f"GEMM checks launched {counts} times for {calls} calls")
+    set_gemm_counts(before)
+
+
+def p26_serve(dtype: str) -> dict:
+    """The hd-256 model served in ``dtype``: phase 4's 16 prompts (64-3000
+    tokens), greedy, 32 new tokens each, through the paged engine (16
+    slots, page 128) with the kernel read path, then the gather path (the
+    plain read path) on the same seed. Each run's paged launches are
+    counted from 0 (the kernel: 2 a decode step, the gather path: none);
+    the greedy streams must agree up to near-ties (ENGINE_TOL of the
+    dtype), whose margins are printed. Returns the kernel run's launches
+    and readings."""
+    import torch
+
+    from tpumon_torch.loadgen.serving import ServeConfig, ServingEngine
+    from tpumon_torch.ops.paged_attention import paged_attention
+    from tpumon_torch.tracing import quantiles
+
+    _, prompts, _ = engine_traffic()
+    max_new, runs, keep = 32, {}, None
+    for attn in ("kernel", "gather"):
+        cfg = ServeConfig(model=hd256_model(dtype), slots=16,
+                          prefill_len=128, kv_layout="paged",
+                          paged_attn=attn)
+        eng = ServingEngine(cfg=cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        paged_attention.launches = 0
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new=max_new) for p in prompts]
+        step_ms = []
+        while True:
+            before = eng.decode_steps_total
+            pure = all(w is None for w in eng._prefill_work)
+            s0 = time.perf_counter()
+            if not eng.step():
+                break
+            if pure and eng.decode_steps_total == before + 1:
+                step_ms.append((time.perf_counter() - s0) * 1e3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, steps = paged_attention.launches, eng.decode_steps_total
+        want = cfg.model.n_layers * steps if attn == "kernel" else 0
+        pool = sum(t.numel() * t.element_size() for t in eng.pool.values())
+        ttft = quantiles([t * 1e3 for t in eng._ttft_recent])
+        runs[attn] = {"streams": [r.output for r in reqs], "wall_s": wall,
+                      "tokens_per_s": eng.tokens_total / wall,
+                      "decode_steps": steps, "launches": launches,
+                      "decode_step_ms_p50": quantiles(step_ms)[0]
+                      if step_ms else None, "ttft_p50_ms": ttft[0]}
+        print(f"p26_serve hd256 {dtype} paged_attn={attn} "
+              f"decode_steps={steps} "
+              f"launches={launches} want={want} tokens={eng.tokens_total} "
+              f"wall_s={wall!r} tokens_per_s={runs[attn]['tokens_per_s']!r} "
+              f"decode_only_step_ms_p50={runs[attn]['decode_step_ms_p50']!r} "
+              f"({len(step_ms)} steps) ttft_p50_ms={ttft[0]!r} "
+              f"ttft_p95_ms={ttft[1]!r} pool_bytes={pool} "
+              f"peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9!r}",
+              flush=True)
+        bad = [r.rid for r in reqs
+               if r.status != "completed" or len(r.output) != max_new + 1]
+        if bad:
+            fail(f"hd256 {dtype} {attn}: requests {bad} did not complete")
+        if launches != want or steps == 0:
+            fail(f"hd256 {dtype} {attn}: paged launches {launches} != "
+                 f"{want}")
+        if attn == "kernel":
+            keep = eng
+        else:
+            del eng
+        torch.cuda.empty_cache()
+    ties = 0
+    for i, prompt in enumerate(prompts):
+        where = greedy_divergence(keep, prompt, runs["kernel"]["streams"][i],
+                                  runs["gather"]["streams"][i])
+        ties += where is not None
+        print(f"p26_serve_greedy {dtype} request={i} kernel_vs_gather "
+              f"{'identical' if where is None else 'near-tie at ' + where}",
+              flush=True)
+    print(f"p26_serve_greedy {dtype} identical={len(prompts) - ties} "
+          f"near_ties={ties} of {len(prompts)}", flush=True)
+    del keep
+    torch.cuda.empty_cache()
+    return runs["kernel"]
+
+
+def p26_train(peak: float) -> dict:
+    """The hd-256 model trained: run_train at B 1, T 2048, flash (block
+    512), each flash kernel's launches counted from 0 (n_layers a step);
+    then HD256_TIMED_STEPS steady steps timed; then one step's loss and
+    gradients, flash against naive on the same params and tokens, within
+    phase 8's STEP_TOL."""
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen.model import sgd_train_step, value_and_grad
+    from tpumon_torch.loadgen.train import (
+        TrainConfig,
+        flops_per_token,
+        run_train,
+    )
+
+    model = hd256_model(attention="flash", attn_block_k=HD256_TRAIN["block"])
+    cfg = TrainConfig(model=model, steps=HD256_TRAIN["steps"],
+                      batch=HD256_TRAIN["batch"], seq=HD256_TRAIN["seq"])
+    before = flash_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_flash_counts(dict.fromkeys(FLASH_KERNELS, 0))
+    out = run_train(cfg, "cuda")
+    launches = flash_counts()
+    want_n = model.n_layers * cfg.steps
+    params = out["params"]
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    tokens = torch.randint(0, model.vocab, (cfg.batch, cfg.seq),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    sgd_train_step(model, params, tokens)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HD256_TIMED_STEPS):
+        params, loss = sgd_train_step(model, params, tokens)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / HD256_TIMED_STEPS
+    mem = torch.cuda.max_memory_allocated() / 1e9
+    tps = cfg.batch * cfg.seq / step_s
+    mfu = 100.0 * tps * flops_per_token(model, cfg.seq) / peak
+    print(f"p26_train hd256 steps={cfg.steps} loss={out['loss']!r} "
+          f"launches={launches} want={want_n} run_tokens_per_s="
+          f"{out['tokens_per_sec']!r} (first step included) "
+          f"step_ms={step_s * 1e3!r} ({HD256_TIMED_STEPS} steady steps) "
+          f"tokens_per_s={tps!r} mfu_pct={mfu!r} peak_mem_GB={mem!r}",
+          flush=True)
+    if not (out["loss"] is not None and torch.isfinite(
+            torch.tensor(out["loss"])) and torch.isfinite(loss)):
+        fail("the hd-256 trainer's loss is not finite")
+    if any(n != want_n for n in launches.values()):
+        fail(f"hd-256 flash launches {launches} != n_layers x steps "
+             f"({want_n})")
+    counted = flash_counts()
+    loss, grads = {}, {}
+    for att in ("flash", "naive"):
+        loss[att], grads[att] = value_and_grad(
+            dataclasses.replace(model, attention=att), params, tokens)
+        torch.cuda.synchronize()
+    dl = abs(float(loss["flash"]) - float(loss["naive"]))
+    dg = max(rel_l2(a, b) for a, b in zip(grads["flash"], grads["naive"]))
+    finite = all(bool(torch.isfinite(x).all().item()) for x in grads["flash"])
+    tl, tg = STEP_TOL["bfloat16"]
+    ok = finite and dl <= tl and dg <= tg
+    print(f"p26_train_flash_vs_naive hd256 loss_flash={float(loss['flash'])!r} "
+          f"loss_naive={float(loss['naive'])!r} loss_abs_err={dl!r} "
+          f"grad_max_rel_l2={dg!r} tol=({tl}, {tg}) finite={finite} "
+          f"{'ok' if ok else 'MISS'}", flush=True)
+    if not ok:
+        fail("the hd-256 train step, flash vs naive")
+    del params, grads, out
+    torch.cuda.empty_cache()
+    total = {n: before[n] + counted[n] for n in FLASH_KERNELS}
+    set_flash_counts(total)
+    return {"launches": launches, "step_ms": step_s * 1e3,
+            "tokens_per_s": tps, "mfu_pct": mfu}
+
+
+def p26_time_paged(gen, bw: float, peaks: dict) -> None:
+    """The paged kernel at the hd-256 engine's decode shape (every table
+    full, 8192 rows, and at phase 3's mixed lengths) and at Phi-3-mini's:
+    kernel, plain and gather + SDPA times beside the bound of the bytes
+    these lengths need."""
+    import torch
+
+    from tpumon_torch.ops import paged_attention as pa
+
+    before = pa.paged_attention.launches
+    for label, shape, lengths in (
+            ("hd256_full", HD256_DECODE, [64 * 128] * 16),
+            ("hd256_prod_lengths", HD256_DECODE, prod_lengths()),
+            ("phi3_mini_prod_lengths", PHI3_DECODE, prod_lengths())):
+        args = paged_inputs(gen, **shape, lengths=lengths,
+                            dtype=torch.bfloat16)
+        q, k_pages, _, table, lens = args
+        b, nh, hd = q.shape
+        nkv, _, ps, _ = k_pages.shape
+        rows = int(lens.clamp(0, table.shape[1] * ps).sum().item())
+        nbytes = 2 * rows * nkv * hd * 2 + 2 * b * nh * hd * 2 + (
+            table.numel() + b) * 4
+        ops = 4 * rows * nh * hd
+        bound_ms, bound_by = max((nbytes / bw * 1e3, "bytes"),
+                                 (ops / peaks["bfloat16"] * 1e3, "operations"))
+        ms = cuda_ms(lambda: pa.paged_attention(*args), reps=50)
+        plain_ms = cuda_ms(lambda: pa.paged_attention_reference(*args),
+                           reps=5)
+        lib_ms = cuda_ms(lambda: library_attention(*args), reps=5)
+        print(f"p26_time_paged_attention {label} B{b}/h{nh}/kv{nkv}/hd{hd}/"
+              f"page{ps} bf16 kernel_ms={ms!r} plain_ms={plain_ms!r} "
+              f"library_gather_sdpa_ms={lib_ms!r} bound_ms={bound_ms!r} "
+              f"({bound_by}: {nbytes} B, {ops} op) kernel_over_bound="
+              f"{ms / bound_ms!r} config={pa.kernel_config(hd, q.dtype, ps)}",
+              flush=True)
+        del args, q, k_pages, table, lens
+        torch.cuda.empty_cache()
+    pa.paged_attention.launches = before
+
+
+def p26_time_flash(gen, bw: float, peaks: dict) -> None:
+    """The triangle forward, dQ, dK/dV and the rectangular forward at the
+    hd-256 training shape (BH 8, T 2048), bf16: kernel, plain and SDPA
+    (pinned backends) times beside their bounds."""
+    import torch
+
+    from tpumon_torch.ops import flash_attention as fa
+
+    bh = HD256_TRAIN["batch"] * HD256_MODEL["n_heads"]
+    t, hd = HD256_TRAIN["seq"], 256
+    before, rect_before = flash_counts(), fa.flash_attention.launches
+    q, k, v, g, _, lse, dvec = flash_inputs(gen, bh, t, hd, torch.bfloat16)
+    bounds = flash_bounds(bh, t, hd, 2, bw, peaks["bfloat16"])
+    ops = flash_ops(bh, t, hd)
+    sdpa = time_sdpa(q, k, v, g, f"BH{bh}/T{t}/hd{hd}", batch=1, reps=10)
+    calls = {
+        "flash_attention_tri_fwd": (
+            lambda: fa.flash_attention_tri_fwd(q, k, v),
+            lambda: fa.flash_attention_tri_fwd_reference(q, k, v)),
+        "flash_attention_tri_bwd_dq": (
+            lambda: fa.flash_attention_tri_bwd_dq(q, k, v, g, lse, dvec),
+            lambda: fa.flash_attention_tri_bwd_dq_reference(
+                q, k, v, g, lse, dvec)),
+        "flash_attention_tri_bwd_dkv": (
+            lambda: fa.flash_attention_tri_bwd_dkv(q, k, v, g, lse, dvec),
+            lambda: fa.flash_attention_tri_bwd_dkv_reference(
+                q, k, v, g, lse, dvec)),
+    }
+    for name, (kernel, plain) in calls.items():
+        ms = cuda_ms(kernel, reps=10)
+        plain_ms = cuda_ms(plain, reps=3)
+        bound_ms, bound_by = bounds[name]
+        lib, backend = fastest(sdpa["fwd" if name.endswith("fwd") else "bwd"])
+        print(f"p26_time_{name} BH{bh}/T{t}/hd{hd} bf16 kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r} library_sdpa_ms={lib!r} (backend "
+              f"{backend}) bound_ms={bound_ms!r} ({bound_by}) "
+              f"kernel_over_bound={ms / bound_ms!r} "
+              f"kernel_tflops={ops[name] / ms / 1e9!r}", flush=True)
+    nbytes = 4 * bh * t * hd * 2
+    for causal in (True, False):
+        pairs = bh * (t * (t + 1) // 2 if causal else t * t)
+        bound_ms, bound_by = max((nbytes / bw * 1e3, "bytes"),
+                                 (2 * 2 * hd * pairs / peaks["bfloat16"] * 1e3,
+                                  "operations"))
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                     reps=10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, causal), reps=3)
+        lib, backend = fastest(time_sdpa(
+            q, k, v, None, f"rect BH{bh}/T{t}/hd{hd}", causal=causal,
+            batch=1, reps=10)["fwd"])
+        print(f"p26_time_flash_attention BH{bh}/T{t}/hd{hd} bf16 "
+              f"causal={causal} kernel_ms={ms!r} plain_ms={plain_ms!r} "
+              f"library_sdpa_ms={lib!r} (backend {backend}) "
+              f"bound_ms={bound_ms!r} ({bound_by}) "
+              f"kernel_over_bound={ms / bound_ms!r}", flush=True)
+    print(f"p26_flash_config fwd={fa.fwd_kernel_config(256)} "
+          f"bwd={fa.bwd_kernel_config(256)}", flush=True)
+    set_flash_counts(before)
+    fa.flash_attention.launches = rect_before
+    del q, k, v, g, lse, dvec
+    torch.cuda.empty_cache()
+
+
+def p26_time_gemm(gen, bw: float, peaks: dict) -> None:
+    """Both GEMM kernels at GEMM_TIMED_EDGES in bf16: kernel, plain and
+    library (torch.matmul; the int8 product dequantized first) times
+    beside their bounds."""
+    import torch
+
+    from tpumon_torch.loadgen.burn import _dequant_matmul
+    from tpumon_torch.ops import matmul as mm
+    from tpumon_torch.ops import quant_matmul as qm
+
+    before = gemm_counts()
+    for m, k, n in GEMM_TIMED_EDGES:
+        blocks = dict(block_m=m, block_n=n, block_k=k)
+        a, b, _ = gemm_case(gen, m, k, n, torch.bfloat16, False)
+        _, q, sc = gemm_case(gen, m, k, n, torch.bfloat16, True)
+        ops = 2 * m * k * n
+        for name, kernel, plain, library, nbytes in (
+                ("matmul", lambda: mm.matmul(a, b, **blocks),
+                 lambda: mm.matmul_reference(a, b),
+                 lambda: torch.matmul(a, b), (m * k + k * n + m * n) * 2),
+                ("quantized_matmul_kernel",
+                 lambda: qm.quantized_matmul_kernel(a, q, sc, **blocks),
+                 lambda: qm.quantized_matmul_reference(a, q, sc),
+                 lambda: _dequant_matmul(a, q, sc),
+                 (m * k + m * n) * 2 + k * n + 4 * n)):
+            bound_ms, bound_by = max(
+                (nbytes / bw * 1e3, "bytes"),
+                (ops / peaks["bfloat16"] * 1e3, "operations"))
+            ms = cuda_ms(kernel, reps=20)
+            plain_ms = cuda_ms(plain, reps=5)
+            lib_ms = cuda_ms(library, reps=20)
+            print(f"p26_time_{name} {m}x{k}x{n} bf16 kernel_ms={ms!r} "
+                  f"plain_ms={plain_ms!r} library_ms={lib_ms!r} "
+                  f"bound_ms={bound_ms!r} ({bound_by}: {nbytes} B, {ops} "
+                  f"FLOP) kernel_over_bound={ms / bound_ms!r}", flush=True)
+        del a, b, q, sc
+        torch.cuda.empty_cache()
+    set_gemm_counts(before)
+
+
+def phase26(gen, bw: float, peaks: dict) -> dict:
+    """Phase 26 (see above). Returns the main paths' launches: the hd-256
+    engine's paged launches, the hd-256 trainer's flash launches, and the
+    rectangular forward's check launches (it lies on no path)."""
+    import torch
+
+    t0 = time.perf_counter()
+    print("phase26 cuts: the hd-256 model at 2 layers (bench.py:223-227's "
+          "depth cut; google/gemma-2b has 18); widths uncut", flush=True)
+    p26_refusals()
+    p26_check_paged(gen)
+    rect = p26_check_flash(gen)
+    p26_check_gemm(gen)
+    print(f"phase26 checks wall_s={time.perf_counter() - t0!r}", flush=True)
+    served = {dt: p26_serve(dt) for dt in ("bfloat16", "float32")}
+    trained = p26_train(peaks["bfloat16"])
+    p26_time_paged(gen, bw, peaks)
+    p26_time_flash(gen, bw, peaks)
+    p26_time_gemm(gen, bw, peaks)
+    torch.cuda.empty_cache()
+    paged = sum(run["launches"] for run in served.values())
+    print(f"phase26 paged_launches={paged} flash_launches="
+          f"{trained['launches']} wall_s={time.perf_counter() - t0!r}",
+          flush=True)
+    return {"paged": paged, "flash": trained["launches"],
+            "rect": rect}
+
+
 def main() -> int:
     import torch
 
@@ -6318,12 +6981,13 @@ def main() -> int:
     tree = phase23(app)
     mesh = phase24()
     mesh_train = phase25(peaks)
+    shapes = phase26(gen, bw, peaks)
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
              "replaces": "tpumon/ops/paged_attention.py:65",
              "launches": (stats["launches"] + monitor["paged"] + app["paged"]
-                          + tree["paged"] + mesh["paged"]),
+                          + tree["paged"] + mesh["paged"] + shapes["paged"]),
              "max_abs_err": worst["bfloat16"],
              **times}]
     sources = {"flash_attention_tri_fwd": (
@@ -6339,13 +7003,14 @@ def main() -> int:
         source, replaces = sources[kernel]
         rows.append({"name": kernel, "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": flash_launches[kernel] + mesh_train[kernel],
+                     "launches": (flash_launches[kernel] + mesh_train[kernel]
+                                  + shapes["flash"][kernel]),
                      "max_abs_err": flash_worst[kernel],
                      **flash_times[kernel]})
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": "tpumon_torch/ops/csrc/flash_attention.cu",
                  "replaces": "tpumon/ops/flash_attention.py:62",
-                 "launches": rect["launches"],
+                 "launches": rect["launches"] + shapes["rect"],
                  "max_abs_err": rect["max_abs_err"], **rect_times})
     for kernel, source, replaces in (
             ("matmul", "tpumon_torch/ops/csrc/matmul.cu",

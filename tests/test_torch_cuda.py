@@ -31,12 +31,21 @@ from chip_smoke import (  # noqa: E402
     rows_rel_err,
     tile_rel_err,
 )
+from chip_smoke import (  # noqa: E402
+    FLASH_SHAPE_CASES,
+    GEMM_EDGE_CASES,
+    PAGED_COPY_HEAD_DIMS,
+    PAGED_GROUPS,
+    PAGED_HEAD_DIMS,
+    PAGED_PAGE_SIZES,
+)
 from torch_parity import (  # noqa: E402
     GEMM_CARD_CASES,
     PAGED_CARD_CASE,
     PAGED_CARD_SHAPES,
     PAGED_SPLIT_CARD_CASES,
     paged_case,
+    paged_head_dim_case,
     to_torch,
 )
 from tpumon_torch.ops.paged_attention import (  # noqa: E402
@@ -88,15 +97,59 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
 
 
 def test_kernel_rejects_unsupported_sizes_on_card(cuda_device):
-    """A head dim that is not a multiple of 16 has no instance: the
-    wrapper raises, naming the instances, and never drops to the plain
-    version."""
-    case = paged_case(nh=4, nkv=2, hd=24)
+    """A head dim above 256 has no instance: the wrapper raises, naming
+    256, before any launch, and never drops to the plain version."""
+    case = paged_case(nh=4, nkv=2, hd=264)
     args = [t.to(cuda_device) for t in to_torch(case)]
     before = paged_attention.launches
-    with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\)"):
+    with pytest.raises(ValueError, match="head_dim up to 256"):
         paged_attention(*args)
     assert paged_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page_size", PAGED_PAGE_SIZES)
+@pytest.mark.parametrize("nh,nkv", PAGED_GROUPS)
+@pytest.mark.parametrize("hd", PAGED_HEAD_DIMS + PAGED_COPY_HEAD_DIMS)
+def test_kernel_takes_every_head_dim_on_card(cuda_device, hd, nh, nkv,
+                                             page_size, dtype):
+    """Every head dim up to 256 runs in the next instance's tile (the
+    columns past it zeros, the pool read in place), at GQA groups 1, 8 and
+    16 (f32 at the 256 instance: group tiles of 4), against the plain
+    version; one launch, no copy of the pool."""
+    args = [t.to(cuda_device) for t in to_torch(
+        paged_head_dim_case(hd, nh, nkv, page_size), dtype)]
+    pool = args[1].clone()
+    before = paged_attention.launches
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert out.shape == args[0].shape and torch.equal(args[1], pool)
+    ref = paged_attention_reference(*args)
+    assert torch.isfinite(out.float()).all()
+    assert rows_rel_err(out, ref, args[4]) <= PAGED_TOL[str(dtype)[6:]]
+    assert torch.equal(out[2].float(), torch.zeros_like(out[2].float()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [96, 192, 256, 12])
+def test_split_kernel_at_wide_head_dims_on_card(cuda_device, hd, dtype):
+    """The split design at head dims past 128 and between instances: a
+    table the rule splits several ways, a group of 12 (f32 at 256: tiles
+    of 4, 4 and 4), the partials merged in one launch, the same bits on a
+    second call."""
+    from tpumon_torch.ops.paged_attention import pages_per_split
+
+    spec = dict(PAGED_WIDE_SPLIT_CASE, hd=hd)
+    args = [t.to(cuda_device) for t in to_torch(paged_case(**spec), dtype)]
+    assert pages_per_split(spec["b"], spec["nkv"], spec["max_pages"],
+                           spec["page_size"]) < spec["max_pages"]
+    out = paged_attention(*args)
+    again = paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = paged_attention_reference(*args)
+    assert rows_rel_err(out, ref, args[4]) <= PAGED_TOL[str(dtype)[6:]]
+    assert torch.equal(out, again)
 
 
 def test_kernel_reads_a_parked_slots_repeated_trash_page(cuda_device):
@@ -264,14 +317,74 @@ def test_flash_dkv_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
 
 
 def test_flash_kernels_reject_unsupported_sizes_on_card(cuda_device):
-    from tpumon_torch.ops.flash_attention import flash_attention_tri_fwd
+    """A head dim above 256 raises, naming 256, before any launch; T is
+    held to the caller's block alone (96 at block 32 runs)."""
+    from tpumon_torch.ops import flash_attention as fa
 
-    q = torch.randn(2, 128, 256, device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim up to 128"):
-        flash_attention_tri_fwd(q, q, q)
+    q = torch.randn(2, 128, 264, device=cuda_device)
+    before = fa.flash_attention_tri_fwd.launches
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        fa.flash_attention_tri_fwd(q, q, q)
+    assert fa.flash_attention_tri_fwd.launches == before
     q = torch.randn(2, 96, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        flash_attention_tri_fwd(q, q, q, block=32)
+    out, _ = fa.flash_attention_tri_fwd(q, q, q, block=32)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_tri_fwd.launches == before + 1
+    _close(out, fa.flash_attention_tri_fwd_reference(q, q, q)[0], "out")
+
+
+# (head_dim, T, block) beside the shared list: T past several 128-row
+# tiles with ragged last ones, T % 4 != 0 (dK/dV's lse and D written by
+# the loading thread on every stage), T below a tile.
+FLASH_WIDE_CASES = FLASH_SHAPE_CASES + [
+    (256, 320, 64), (128, 200, 8), (256, 1000, 8), (64, 50, 5), (256, 7, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,t,block", FLASH_WIDE_CASES)
+def test_flash_kernels_at_wide_head_dims_and_ragged_t_on_card(
+        cuda_device, dtype, hd, t, block):
+    """The forward (out, lse), dQ and dK/dV kernels at head dims past 128
+    and at T no multiple of their tiles, each one launch, against the
+    plain versions."""
+    from tpumon_torch.ops import flash_attention as fa
+
+    q, k, v, g, want, want_lse, dvec = flash_inputs(cuda_device, dtype, hd,
+                                                    t)
+    kernels = (fa.flash_attention_tri_fwd, fa.flash_attention_tri_bwd_dq,
+               fa.flash_attention_tri_bwd_dkv)
+    before = [x.launches for x in kernels]
+    out, lse = fa.flash_attention_tri_fwd(q, k, v, block=block)
+    dq = fa.flash_attention_tri_bwd_dq(q, k, v, g, want_lse, dvec,
+                                       block=block)
+    dk, dv = fa.flash_attention_tri_bwd_dkv(q, k, v, g, want_lse, dvec,
+                                            block=block)
+    torch.cuda.synchronize()
+    assert [x.launches - b for x, b in zip(kernels, before)] == [1, 1, 1]
+    _close(out, want, "out")
+    _close(lse, want_lse, "lse")
+    _close(dq, fa.flash_attention_tri_bwd_dq_reference(q, k, v, g, want_lse,
+                                                       dvec), "grad")
+    want_dk, want_dv = fa.flash_attention_tri_bwd_dkv_reference(
+        q, k, v, g, want_lse, dvec)
+    _close(dk, want_dk, "grad")
+    _close(dv, want_dv, "grad")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,t,block", FLASH_WIDE_CASES)
+def test_flash_rect_at_wide_head_dims_and_ragged_t_on_card(
+        cuda_device, dtype, hd, t, block, causal):
+    from tpumon_torch.ops import flash_attention as fa
+
+    q, k, v = flash_inputs(cuda_device, dtype, hd, t)[:3]
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, causal=causal, block_q=block,
+                             block_k=block)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    _close(out, fa.flash_attention_reference(q, k, v, causal), "out")
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -388,9 +501,49 @@ def test_gemm_fallback_and_rejects_on_card(cuda_device):
     out = quantized_matmul(a[:4], q[:, :48].contiguous(), scale[:48])
     assert quantized_matmul_kernel.launches == before
     assert torch.equal(out, a[:4] @ (q[:, :48].float() * scale[:48]))
+    # 64 x 64 at blocks of 64, which the reference takes, runs the kernel
     x = torch.randn(64, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="multiples of 128"):
-        matmul(x, x, block_m=64, block_n=64, block_k=64)
+    before = matmul.launches
+    out = matmul(x, x, block_m=64, block_n=64, block_k=64)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    assert gemm_tile_rel_err(out, x @ x) <= GEMM_TOL["float32"]
+
+
+# (M, K, N) beside the shared edge list: a single row, and tiles past
+# every edge at once with the pad route in bf16 and int8.
+GEMM_WIDE_CASES = GEMM_EDGE_CASES + [(1, 8, 16), (130, 264, 136),
+                                     (300, 37, 77)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", GEMM_WIDE_CASES)
+def test_gemm_kernels_at_edge_shapes_on_card(cuda_device, dtype, m, k, n,
+                                             quant):
+    """Any M, N, K the blocks admit (here blocks equal to the shape):
+    edge tiles zero-filled and clipped, the bf16 pad route where TMA's
+    16-byte strides do not fit; one launch, against the plain version."""
+    from tpumon_torch.ops.matmul import matmul, matmul_reference
+    from tpumon_torch.ops.quant_matmul import (
+        quantized_matmul_kernel,
+        quantized_matmul_reference,
+    )
+
+    a, b, q, scale = gemm_inputs(cuda_device, dtype, m, k, n)
+    kernel = quantized_matmul_kernel if quant else matmul
+    before = kernel.launches
+    if quant:
+        c = kernel(a, q, scale, block_m=m, block_n=n, block_k=k)
+        want = quantized_matmul_reference(a, q, scale)
+    else:
+        c = kernel(a, b, block_m=m, block_n=n, block_k=k)
+        want = matmul_reference(a, b)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert c.shape == (m, n) and c.dtype == dtype
+    assert torch.isfinite(c.float()).all()
+    assert gemm_tile_rel_err(c, want) <= GEMM_TOL[str(dtype)[6:]]
 
 
 def test_burn_programs_launch_once_per_link_on_card(cuda_device):

@@ -1,15 +1,16 @@
 """The kernels' shape routing, checked on the CPU.
 
-The flash kernels have instances at head_dim 32, 64 and 128; a smaller
-head dim runs through the next one, zero-padded along D with the true
-scale ``1/sqrt(D)`` (``flash_attention.pad_head_dim``). Here that route
-runs the plain twins, which take the scale as the kernels do: at head_dim
-8, 16 and 48 the padded forward, lse and the three gradients must equal
-the plain twins at the true shape, and the padded columns of the
-gradients must be zero. Also: which instance a head dim runs at, and the
-``ValueError`` that names the limit for a shape no kernel takes (the paged
-kernel: head dims that are not a multiple of 16; the flash kernels: above
-128), raised before anything reaches the card.
+The flash kernels have instances at head_dim 32, 64, 128 and 256; a head
+dim between them runs through the next one, zero-padded along D with the
+true scale ``1/sqrt(D)`` (``flash_attention.pad_head_dim``). Here that
+route runs the plain twins, which take the scale as the kernels do: at
+head_dim 8, 16 and 48 the padded forward, lse and the three gradients must
+equal the plain twins at the true shape, and the padded columns of the
+gradients must be zero. Also: which instance a head dim runs at (the paged
+kernel's 16 ... 256 read the pool at its true head dim; the flash
+kernels' 32 ... 256 through the pad), and the ``ValueError`` that names
+the limit for a shape no kernel takes (both: a head dim above 256),
+raised before anything reaches the card.
 
 Tolerances: f32 1e-6 (the zero columns add exact zeros; only the products'
 blocking may reorder the sums); bf16 1e-3 of the tile norm (a bf16
@@ -81,19 +82,24 @@ def test_padded_columns_come_back_zero():
 
 
 def test_instances_and_limits():
-    assert [fa.kernel_head_dim(d) for d in (1, 8, 32, 40, 64, 72, 128)] == [
-        32, 32, 32, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="head_dim up to 128"):
-        fa.kernel_head_dim(256)
-    # the paged kernel: a head dim that is not a multiple of 16 raises
-    # before any launch, naming the instances
-    q = torch.zeros(2, 4, 24)
-    pool = torch.zeros(2, 4, 8, 24)
+    assert [fa.kernel_head_dim(d) for d in (
+        1, 8, 32, 40, 64, 72, 128, 129, 192, 255, 256)] == [
+        32, 32, 32, 64, 64, 128, 128, 256, 256, 256, 256]
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        fa.kernel_head_dim(257)
+    assert fa.KERNEL_HEAD_DIMS == (32, 64, 128, 256)
+    # the paged kernel: any head dim up to 256 runs in the next instance;
+    # above 256 raises before any launch, naming 256
+    assert [pa.kernel_head_dim(d) for d in (
+        1, 8, 16, 24, 72, 96, 129, 192, 256)] == [
+        16, 16, 16, 32, 128, 128, 256, 256, 256]
+    q = torch.zeros(2, 4, 264)
+    pool = torch.zeros(2, 4, 8, 264)
     table = torch.zeros(2, 2, dtype=torch.int32)
     lengths = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\)"):
+    with pytest.raises(ValueError, match="head_dim up to 256"):
         pa._launch(q, pool, pool, table, lengths)
-    assert pa.KERNEL_HEAD_DIMS == (16, 32, 64, 128)
+    assert pa.KERNEL_HEAD_DIMS == (16, 32, 64, 128, 256)
 
 
 def test_cpu_tensors_run_the_plain_twins_at_any_head_dim():
@@ -130,3 +136,88 @@ def test_planted_faults_read_over_the_paged_limits_at_the_new_shapes():
             assert ("group_tile_repeated" in readings) == (
                 spec["nh"] // spec["nkv"] > 8)
             assert min(readings.values()) > tol, (spec, readings)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [8, 96, 256, 12])
+def test_planted_faults_read_over_the_paged_limits_at_every_head_dim(
+        hd, dtype):
+    """At chip_smoke phase 26's paged shapes (groups 1, 8 and 16, pages of
+    8 and 16), every planted fault that applies reads over the limit the
+    kernel is held to, the group tile's among them (f32 at the 256
+    instance: tiles of 4 query heads)."""
+    import chip_smoke
+
+    tol = chip_smoke.PAGED_TOL[dtype]
+    tdt = getattr(torch, dtype)
+    for nh, nkv in chip_smoke.PAGED_GROUPS:
+        for ps in chip_smoke.PAGED_PAGE_SIZES:
+            shape = chip_smoke.paged_head_dim_shape(hd, nh, nkv, ps)
+            args = chip_smoke.paged_inputs(torch.Generator().manual_seed(hd),
+                                           **shape, dtype=tdt)
+            want = pa.paged_attention_reference(*args)
+            readings = chip_smoke.paged_fault_readings(args, want)
+            tile = pa.group_tile(tdt, hd)
+            assert ("group_tile_repeated" in readings) == (nh // nkv > tile)
+            assert readings and min(readings.values()) > tol, (
+                shape, readings)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,t,block", [(192, 128, 64), (64, 96, 32),
+                                        (256, 40, 8)])
+def test_planted_faults_read_over_the_flash_limits_at_ragged_t(
+        hd, t, block, dtype):
+    """At phase 26's flash shapes (head dims past 128, T no multiple of
+    the kernels' tiles) the forward, backward and rectangular faults that
+    apply read over their limits, and each fault model without its fault
+    is the plain version."""
+    import chip_smoke
+
+    tdt = getattr(torch, dtype)
+    q, k, v, g, out, lse, dvec = chip_smoke.flash_inputs(
+        torch.Generator().manual_seed(t), 2, t, hd, tdt)
+    want = {"out": out}
+    want["dq"] = fa.flash_attention_tri_bwd_dq_reference(q, k, v, g, lse,
+                                                         dvec)
+    want["dk"], want["dv"] = fa.flash_attention_tri_bwd_dkv_reference(
+        q, k, v, g, lse, dvec)
+    assert chip_smoke.tile_rel_err(chip_smoke.faulty_plain(q, k, v, None),
+                                   out) <= 1e-6
+    readings = chip_smoke.fault_readings(q, k, v, g, lse, dvec, want)
+    caught = [r / chip_smoke.flash_limit(kern, dtype)
+              for kern, faults in readings.items()
+              for f, r in faults.items()
+              if chip_smoke.fault_required(kern, f)]
+    for causal in (True, False):
+        want_r = fa.flash_attention_reference(q, k, v, causal)
+        caught += [chip_smoke.tile_rel_err(chip_smoke.faulty_plain(
+            q, k, v, f, causal), want_r) / chip_smoke.FLASH_TOL[dtype]["out"]
+            for f in chip_smoke.FLASH_RECT_FAULTS
+            if chip_smoke.fault_applies(f, t, causal)]
+    assert caught and min(caught) > 1
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(16, 40, 48), (24, 20, 36),
+                                   (200, 136, 264)])
+def test_planted_faults_read_over_the_gemm_limits_at_edge_shapes(
+        m, k, n, dtype, quant):
+    """At phase 26's GEMM edge shapes every planted fault that applies
+    reads over GEMM_TOL, the last-tile faults at the kernel's ragged last
+    tile, and the fault model without a fault is the plain version."""
+    import chip_smoke
+
+    from tpumon_torch.ops import matmul as mm
+    from tpumon_torch.ops import quant_matmul as qm
+
+    a, b, sc = chip_smoke.gemm_case(torch.Generator().manual_seed(m), m, k,
+                                    n, getattr(torch, dtype), quant)
+    want = (qm.quantized_matmul_reference(a, b, sc) if quant
+            else mm.matmul_reference(a, b))
+    assert chip_smoke.gemm_tile_rel_err(
+        chip_smoke.gemm_faulty_plain(a, b, sc, None), want) <= 1e-6
+    readings = chip_smoke.gemm_fault_readings(a, b, sc, want)
+    assert "last_tile_unwritten" in readings
+    assert min(readings.values()) > chip_smoke.GEMM_TOL[dtype], readings

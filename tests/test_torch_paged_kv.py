@@ -38,11 +38,11 @@ NUM_PAGES = SLOTS * MAX_PAGES + 1
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def configs(paged_attn):
-    jcfg = JaxServeConfig(model=JaxModelConfig(**SMALL), slots=SLOTS,
+def configs(paged_attn, model=SMALL):
+    jcfg = JaxServeConfig(model=JaxModelConfig(**model), slots=SLOTS,
                           prefill_len=PS, kv_layout="paged",
                           paged_attn=paged_attn)
-    tcfg = ServeConfig(model=ModelConfig(**SMALL), slots=SLOTS,
+    tcfg = ServeConfig(model=ModelConfig(**model), slots=SLOTS,
                        prefill_len=PS, kv_layout="paged",
                        paged_attn=paged_attn)
     return jcfg, tcfg
@@ -57,9 +57,9 @@ def assert_pools_match(jpool, tpool):
 class Pair:
     """One reference pool and one port pool driven in lockstep."""
 
-    def __init__(self, paged_attn):
-        self.jcfg, self.tcfg = configs(paged_attn)
-        self.jparams, tree = bridged_params(self.jcfg.model, seed=7)
+    def __init__(self, paged_attn, model=SMALL, seed=7):
+        self.jcfg, self.tcfg = configs(paged_attn, model)
+        self.jparams, tree = bridged_params(self.jcfg.model, seed=seed)
         self.tparams = params_from_jax(tree)
         self.jpool = jax_kv.init_pool(self.jcfg, NUM_PAGES)
         self.tpool = paged_kv.init_pool(self.tcfg, NUM_PAGES, "cpu")
@@ -318,3 +318,62 @@ def test_paged_decode_rounds_kernel_route_counts_nothing_on_the_cpu():
         torch.zeros(3, dtype=torch.int32), torch.zeros(3),
         torch.zeros(3, dtype=torch.int32), steps=2)
     assert paged_attention.launches == before
+
+
+# A head-dim-256 model (d_model 512 over 2 heads on 1 kv head: the head
+# dim and GQA layout of google/gemma-2b, at a small width), f32.
+HD256 = dict(vocab=128, d_model=512, n_layers=2, n_heads=2, n_kv_heads=1,
+             d_ff=256, max_seq=64, compute_dtype="float32")
+HD256_PROMPTS = [[int(t) for t in np.random.default_rng(4).integers(
+    0, 128, n)] for n in (19, 5, 33, 1)]
+
+
+@pytest.fixture(scope="module")
+def hd256_weights():
+    return bridged_params(JaxModelConfig(**HD256), seed=3)
+
+
+@pytest.mark.parametrize("paged_attn", ["gather", "kernel"])
+def test_head_dim_256_engine_streams_identical_to_reference(hd256_weights,
+                                                            paged_attn):
+    """The paged engine at head_dim 256 on the reference's weights gives
+    the reference engine's greedy streams exactly, step for step (the
+    kernel read path: the port's plain version against the reference's
+    Pallas kernel in interpret mode)."""
+    from tpumon.loadgen import serving as jax_serving
+    from tpumon_torch.loadgen.serving import ServingEngine
+
+    jparams, tree = hd256_weights
+    assert ModelConfig(**HD256).head_dim == 256
+    jcfg = JaxServeConfig(model=JaxModelConfig(**HD256), slots=2,
+                          prefill_len=PS, kv_layout="paged",
+                          paged_attn=paged_attn)
+    tcfg = ServeConfig(model=ModelConfig(**HD256), slots=2, prefill_len=PS,
+                       kv_layout="paged", paged_attn=paged_attn)
+    streams = []
+    for eng in (jax_serving.ServingEngine(cfg=jcfg, params=jparams),
+                ServingEngine(cfg=tcfg, params=params_from_jax(tree),
+                              device="cpu")):
+        reqs = [eng.submit(p, max_new=6) for p in HD256_PROMPTS]
+        eng.drain()
+        assert all(r.status == "completed" for r in reqs)
+        streams.append(([r.output for r in reqs], eng.decode_steps_total))
+    assert streams[1] == streams[0]
+
+
+def test_head_dim_256_decode_steps_match():
+    """Decode logits and pool pages at head_dim 256 agree with the
+    reference step by step through the kernel read path (one live slot,
+    two parked ones)."""
+    pair = Pair("kernel", model=HD256, seed=8)
+    pair.prefill(PROMPT_A, PAGES_A)
+    tables = np.zeros((SLOTS, MAX_PAGES), np.int32)
+    tables[0, :3] = PAGES_A
+    positions = [len(PROMPT_A), HD256["max_seq"] - 1, HD256["max_seq"] - 1]
+    last = [11, 0, 0]
+    for _ in range(3):
+        jl, tl = pair.decode(last, positions, tables)
+        np.testing.assert_allclose(tl[:1], jl[:1], **TOL)
+        assert_pools_match(pair.jpool, pair.tpool)
+        last = [int(jl[0].argmax()), 0, 0]
+        positions = [positions[0] + 1, positions[1], positions[2]]

@@ -88,6 +88,35 @@ def test_schedule_matches_reference(weights, attention, t):
     assert_trees_close(grads, grads_tree(params, tgrads), rtol=2e-4, atol=1e-5)
 
 
+# A head-dim-256 model (d_model 512 over 2 heads on 1 kv head: the head
+# dim and GQA layout of google/gemma-2b, at a small width), f32.
+HD256 = dict(SMALL, d_model=512, n_heads=2, n_kv_heads=1, d_ff=256)
+
+
+@pytest.mark.parametrize("attention,t", [("flash", 100), ("naive", 64)])
+def test_head_dim_256_step_matches_reference(attention, t):
+    """One training step's logits, loss and every gradient at head_dim 256
+    (flash: the kernels' 256 instance on the card; T = 100 unaligned to
+    the block grid) against the reference's, within the tolerances
+    above."""
+    jcfg = jax_model.ModelConfig(**HD256, attention=attention,
+                                 attn_block_k=32)
+    tcfg = model.ModelConfig(**HD256, attention=attention, attn_block_k=32)
+    assert tcfg.head_dim == 256
+    jparams, tree = bridged_params(jcfg, seed=6)
+    toks = tokens_np(t, seed=t + 256)
+    loss, grads = jax.value_and_grad(partial(jax_model.loss_fn, jcfg))(
+        jparams, jnp.asarray(toks))
+    logits = jax_model.forward(jcfg, jparams, jnp.asarray(toks[:, :-1]))
+    params = model.params_from_jax(tree)
+    got = model.forward(tcfg, params, torch.from_numpy(toks[:, :-1]))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(logits),
+                               rtol=2e-5, atol=2e-5)
+    tloss, tgrads = model.value_and_grad(tcfg, params, torch.from_numpy(toks))
+    assert abs(float(tloss) - float(loss)) < 1e-5
+    assert_trees_close(grads, grads_tree(params, tgrads), rtol=2e-4, atol=1e-5)
+
+
 def test_flash_schedule_on_cpu_launches_no_kernel(weights):
     _, tree = weights
     before = (fa.flash_attention_tri_fwd.launches,

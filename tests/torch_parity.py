@@ -75,6 +75,29 @@ GEMM_CARD_CASES = [(128, 64, 128), (256, 128, 256), (256, 256, 128),
                    (2176, 192, 2048), (256, 128, 384), (128, 96, 256)]
 
 
+# The shapes the kernels take since they follow the reference's contracts
+# (chip_smoke.py phase 26 defines them; tests/test_torch_head_dims.py holds
+# the plain twins to the reference there, tests/test_torch_cuda.py the
+# kernels to the plain twins on the card).
+from chip_smoke import (  # noqa: E402
+    FLASH_SHAPE_CASES,
+    GEMM_EDGE_CASES,
+    PAGED_GROUPS,
+    PAGED_HEAD_DIMS,
+    PAGED_PAGE_SIZES,
+    paged_head_dim_shape,
+)
+
+
+def paged_head_dim_case(hd, nh, nkv, page_size, seed=17):
+    """paged_case at one of phase 26's paged shapes (paged_head_dim_shape)
+    over a 24-page pool."""
+    shape = paged_head_dim_shape(hd, nh, nkv, page_size)
+    return paged_case(b=shape["b"], nh=nh, nkv=nkv, hd=hd, num_pages=24,
+                      page_size=page_size, max_pages=shape["max_pages"],
+                      lengths=shape["lengths"], seed=seed + hd)
+
+
 def to_jax(arrays, dtype=None):
     import jax.numpy as jnp
 

@@ -26,10 +26,10 @@
 // softmax with its previous tile's P V and with the other's products. Q, the scores, the running max and denominator and the
 // accumulator stay on chip, and each K/V tile is read once per 128-row q
 // tile. Without the mask the keys past T of a last tile that reaches past
-// it (T = 64 x odd) are masked; TMA zero-fills them within each bh.
+// it (any T) are masked; TMA zero-fills them within each bh.
 //
-// Supported: float32 and bfloat16, head dim 32, 64 or 128, T a multiple
-// of 64. The Python wrapper (tpumon_torch/ops/flash_attention.py) checks
+// Supported: float32 and bfloat16, head dim 32, 64, 128 or 256, any T >= 1.
+// The Python wrapper (tpumon_torch/ops/flash_attention.py) checks
 // shapes and types; the launcher re-checks what it indexes by.
 
 #include "flash_fwd.cuh"
@@ -37,8 +37,8 @@
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; causal: 0 or 1. q/k/v/out [bh, t,
-// head_dim], contiguous, 16-byte aligned, on the current device; t a
-// positive multiple of 64. Launches on `stream` and returns
+// head_dim], contiguous, 16-byte aligned, on the current device; t >= 1.
+// Launches on `stream` and returns
 // cudaGetLastError() (0 on success); allocates nothing.
 int tpumon_flash_fwd(const void* q, const void* k, const void* v, void* out, int bh, int t,
                      int head_dim, int dtype, int causal, float scale, void* stream) {

@@ -56,6 +56,12 @@
 //   elementwise work runs under the other warpgroup's products. The
 //   first k16 slice of each score product overwrites its accumulator
 //   write-only (hopper.cuh), so the last tile's scores die once packed.
+// - At head dim 256 (Cfg) the CTA owns 64 rows and the two warpgroups
+//   split the output's columns, 128 each: an m64n256 accumulator is 128
+//   registers a thread, so dK and dV together fit no warpgroup. Each
+//   warpgroup computes the tile's S and dP over all 256 columns itself (2
+//   score products a warpgroup where one would do: a simple schedule, not
+//   a fast one), and two streamed stages fit 227 KB.
 // - Only the warpgroup's diagonal tile is masked. dQ's warpgroup 0 needs
 //   one k tile fewer than warpgroup 1, and dK/dV's warpgroup 1 one q tile
 //   fewer than warpgroup 0 (its keys start 64 rows later); each still
@@ -65,13 +71,16 @@
 //   the last q tile; dK/dV: the first k tile), so the CTAs in flight
 //   share few bhs' streamed tiles in L2.
 // - Tiles sit in shared memory as TMA writes them (flash_wgmma.cuh); the
-//   maps are 3-d [BH, T, D], so an owned 128-row tile that reaches past T
-//   (T = 64 x odd) loads zeros there. A streamed 64-row tile never does,
-//   and neither do dK/dV's lse and D copies. dQ's rows past T read lse
-//   and D as 0 (zero rows then give dS = 0). Stores are clipped to T.
+//   maps are 3-d [BH, T, D], so a tile that reaches past T (any T) loads
+//   zeros there. dQ's rows past T read lse and D as 0 (zero rows then
+//   give dS = 0); dK/dV's query rows past T get lse 1e30 (P = 0) and D 0,
+//   written by the loading thread where the bulk copy would read past T.
+//   Stores are clipped to T.
 // The f32 kernels run the products on CUDA cores in f32 (tensor cores
 // would round f32 to TF32): 64 owned rows, 32-row streamed tiles with
-// synchronous loads, bound by the f32 FMA rate.
+// synchronous loads (rows past T staged as zeros), bound by the f32 FMA
+// rate; at head dim 256 the dK/dV kernel runs once per half of the
+// columns (grid z), each recomputing S and dP.
 //
 // Numerics follow the reference: S, P, dP and dS in f32, P and dS rounded
 // to the input type right before their products (`pmat.astype(do.dtype)`,
@@ -79,8 +88,8 @@
 // bf16 kernels take P as ex2.approx of a pre-scaled FFMA (prob; relative
 // error about 2^-22, results below 2^-126 flushed to 0).
 //
-// Supported: float32 and bfloat16, head dim 32, 64 or 128, T a multiple
-// of 64. The Python wrapper (tpumon_torch/ops/flash_attention.py) checks
+// Supported: float32 and bfloat16, head dim 32, 64, 128 or 256, any T >= 1.
+// The Python wrapper (tpumon_torch/ops/flash_attention.py) checks
 // shapes and types; the launchers re-check what they index by.
 
 #include "flash_tri_common.cuh"
@@ -91,7 +100,7 @@ namespace {
 
 using namespace tpumon::flash;
 
-// f32: CUDA cores. grid (T / 64, BH). Owned rows: 64 query rows;
+// f32: CUDA cores. grid (ceil(T / 64), BH). Owned rows: 64 query rows;
 // streamed: 32 key rows.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -113,24 +122,25 @@ flash_tri_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   const size_t base = (size_t)bh * t * HD;
   const int tx = lane_tx(), ty = lane_ty();
 
-  stage<HD, kOwn>(sq, q + base + (size_t)q0 * HD);
-  stage<HD, kOwn>(sdo, dout + base + (size_t)q0 * HD);
-  float lse_r[kRows], d_r[kRows];
+  stage<HD, kOwn>(sq, q + base + (size_t)q0 * HD, t - q0);
+  stage<HD, kOwn>(sdo, dout + base + (size_t)q0 * HD, t - q0);
+  float lse_r[kRows], d_r[kRows];  // rows past T (not stored) read 0
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    const size_t row = (size_t)bh * t + q0 + ty + kRowGroups * r;
-    lse_r[r] = lse[row];
-    d_r[r] = dvec[row];
+    const int qpos = q0 + ty + kRowGroups * r;
+    lse_r[r] = qpos < t ? lse[(size_t)bh * t + qpos] : 0.f;
+    d_r[r] = qpos < t ? dvec[(size_t)bh * t + qpos] : 0.f;
   }
   float acc[kRows][kOut];
   zero(acc);
 
-  const int n_k = (q0 + kOwn) / kStream;  // k tiles at or below the diagonal
+  // k tiles at or below the diagonal, none wholly past T
+  const int n_k = min((q0 + kOwn) / kStream, (t + kStream - 1) / kStream);
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kStream;
     __syncthreads();  // the previous tile is consumed
-    stage<HD, kStream>(sk, k + base + (size_t)k0 * HD);
-    stage<HD, kStream>(sv, v + base + (size_t)k0 * HD);
+    stage<HD, kStream>(sk, k + base + (size_t)k0 * HD, t - k0);
+    stage<HD, kStream>(sv, v + base + (size_t)k0 * HD, t - k0);
     __syncthreads();
 
     float s[kRows][kCols], dp[kRows][kCols];
@@ -154,12 +164,20 @@ flash_tri_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
     __syncthreads();
     mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc, sds, sk);
   }
-  store_rows<HD>(dq + base, q0, acc);
+  store_rows<HD>(dq + base, q0, t, acc);
 }
 
-// f32: CUDA cores. grid (T / 64, BH). Owned rows: 64 key rows; streamed:
-// 32 query rows. Products are computed transposed (rows = keys), so P^T
-// and dS^T come straight out of the register tiles.
+// Output columns a dK/dV CTA accumulates: all of them, or at head dim
+// 256 one half (grid z), whose two accumulators of 4 x 16 a thread fit the
+// registers where 4 x 32 would not; each half recomputes S and dP.
+template <int HD>
+__host__ __device__ constexpr int dkv_cols() {
+  return HD > 128 ? HD / 2 : HD;
+}
+
+// f32: CUDA cores. grid (ceil(T / 64), BH, HD / dkv_cols). Owned rows: 64
+// key rows; streamed: 32 query rows. Products are computed transposed
+// (rows = keys), so P^T and dS^T come straight out of the register tiles.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_tri_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -167,7 +185,8 @@ flash_tri_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
                          const float* __restrict__ lse, const float* __restrict__ dvec,
                          float* __restrict__ dk, float* __restrict__ dv, int t, float scale) {
   constexpr int LD = HD + 1;
-  constexpr int kOut = HD / kColGroups;
+  constexpr int kOutCols = dkv_cols<HD>();
+  constexpr int kOut = kOutCols / kColGroups;
   extern __shared__ float smem[];
   float* sk = smem;                  // [kOwn][LD]
   float* sv = sk + kOwn * LD;        // [kOwn][LD]
@@ -177,26 +196,27 @@ flash_tri_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kOwn;  // k tile 0 has the most q tiles: first
+  const int col0 = blockIdx.z * kOutCols;
   const size_t base = (size_t)bh * t * HD;
   const int tx = lane_tx(), ty = lane_ty();
 
-  stage<HD, kOwn>(sk, k + base + (size_t)k0 * HD);
-  stage<HD, kOwn>(sv, v + base + (size_t)k0 * HD);
+  stage<HD, kOwn>(sk, k + base + (size_t)k0 * HD, t - k0);
+  stage<HD, kOwn>(sv, v + base + (size_t)k0 * HD, t - k0);
   float acc_dk[kRows][kOut], acc_dv[kRows][kOut];
   zero(acc_dk);
   zero(acc_dv);
 
   for (int q0 = k0; q0 < t; q0 += kStream) {  // q tiles at or above the diagonal
-    float lse_c[kCols], d_c[kCols];
+    float lse_c[kCols], d_c[kCols];  // queries past T: P = 0 below
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      const size_t row = (size_t)bh * t + q0 + tx + kColGroups * c;
-      lse_c[c] = lse[row];
-      d_c[c] = dvec[row];
+      const int qpos = q0 + tx + kColGroups * c;
+      lse_c[c] = qpos < t ? lse[(size_t)bh * t + qpos] : 0.f;
+      d_c[c] = qpos < t ? dvec[(size_t)bh * t + qpos] : 0.f;
     }
     __syncthreads();  // the previous tile is consumed
-    stage<HD, kStream>(sq, q + base + (size_t)q0 * HD);
-    stage<HD, kStream>(sdo, dout + base + (size_t)q0 * HD);
+    stage<HD, kStream>(sq, q + base + (size_t)q0 * HD, t - q0);
+    stage<HD, kStream>(sdo, dout + base + (size_t)q0 * HD, t - q0);
     __syncthreads();
 
     float s[kRows][kCols], dp[kRows][kCols];
@@ -211,14 +231,14 @@ flash_tri_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int qcol = tx + kColGroups * c;
-        const bool masked = diag && q0 + qcol < kpos;
+        const bool masked = (diag && q0 + qcol < kpos) || q0 + qcol >= t;
         const float p = masked ? 0.f : expf(s[r][c] * scale - lse_c[c]);
         s[r][c] = p * (dp[r][c] - d_c[c]) * scale;  // dS^T, kept for the dK product
         spt[(ty + kRowGroups * r) * kLdP + qcol] = p;
       }
     }
     __syncthreads();
-    mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc_dv, spt, sdo);  // dV += P^T dO
+    mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc_dv, spt, sdo + col0);  // dV += P^T dO
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
@@ -226,10 +246,10 @@ flash_tri_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
       for (int c = 0; c < kCols; ++c)
         spt[(ty + kRowGroups * r) * kLdP + tx + kColGroups * c] = s[r][c];
     __syncthreads();
-    mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc_dk, spt, sq);  // dK += dS^T Q
+    mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc_dk, spt, sq + col0);  // dK += dS^T Q
   }
-  store_rows<HD>(dk + base, k0, acc_dk);
-  store_rows<HD>(dv + base, k0, acc_dv);
+  store_rows<HD, kOutCols>(dk + base + col0, k0, t, acc_dk);
+  store_rows<HD, kOutCols>(dv + base + col0, k0, t, acc_dv);
 }
 
 template <int HD>
@@ -245,7 +265,7 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const voi
   cudaError_t err = cudaFuncSetAttribute(flash_tri_bwd_dq_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_tri_bwd_dq_kernel<HD><<<dim3(t / kOwn, bh), kThreads, smem, stream>>>(
+  flash_tri_bwd_dq_kernel<HD><<<dim3((t + kOwn - 1) / kOwn, bh), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, dvec, static_cast<float*>(dq), t, scale);
   return cudaGetLastError();
@@ -259,7 +279,8 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   cudaError_t err = cudaFuncSetAttribute(flash_tri_bwd_dkv_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_tri_bwd_dkv_kernel<HD><<<dim3(t / kOwn, bh), kThreads, smem, stream>>>(
+  const dim3 grid((t + kOwn - 1) / kOwn, bh, HD / dkv_cols<HD>());
+  flash_tri_bwd_dkv_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, dvec, static_cast<float*>(dk), static_cast<float*>(dv),
       t, scale);
@@ -272,11 +293,8 @@ namespace hop {
 
 using namespace tpumon::flash::wg;
 
-constexpr int kOwn = 128;       // rows a CTA owns, 64 per arithmetic warpgroup
 constexpr int kDqK = 64;        // dQ: key rows per streamed stage
-constexpr int kDqStages = 3;    // dQ: K/V stages
 constexpr int kDkvQ = 64;       // dK/dV: query rows per streamed stage
-constexpr int kDkvStages = 3;   // dK/dV: Q/dO/lse/D stages
 constexpr int kThreads = 384;   // 3 warpgroups
 // Whether the arithmetic warpgroups take turns issuing (Turns): dQ 5-14%
 // faster with, dK/dV 46-62% slower (PERF.md).
@@ -287,23 +305,46 @@ constexpr bool kDqPingPong = true, kDkvPingPong = false;
 // __launch_bounds__(384, 1).
 constexpr int kLoadRegs = 24, kMathRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(64 % kDkvQ == 0, "T % 64 == 0: a streamed q tile never reaches past T");
+// lse of a query row past T in dK/dV's stage: P = 2^(S scale log2(e) -
+// 1e30 log2(e)) = 0, so the row adds nothing.
+constexpr float kLsePastT = 1e30f;
 
-// Shared memory, in order. dQ: Q and dO (kOwn rows each), kDqStages K
+// The tiling at head dim HD. Up to 128 the CTA owns 128 rows, 64 a
+// warpgroup, and each warpgroup accumulates every output column. At 256
+// an m64n256 accumulator takes 128 registers a thread, so dK and dV
+// together would not fit one warpgroup: the CTA owns 64 rows, both
+// warpgroups take the same rows, and warpgroup w accumulates the output's
+// columns 128 w .. 128 w + 127 (each computes the tile's S and dP over all
+// 256 columns itself). Two streamed stages fit 227 KB there, three below.
+template <int HD>
+struct Cfg {
+  static constexpr bool kSplit = HD > 128;
+  static constexpr int kOwn = kSplit ? 64 : 128;      // rows a CTA owns
+  static constexpr int kCols = kSplit ? HD / 2 : HD;  // output columns a warpgroup accumulates
+  static constexpr int kDqStages = kSplit ? 2 : 3;    // dQ: K/V stages
+  static constexpr int kDkvStages = kSplit ? 2 : 3;   // dK/dV: Q/dO/lse/D stages
+  // First owned row of warpgroup w, and its first output column.
+  __device__ static int row0(int w) { return kSplit ? 0 : 64 * w; }
+  __device__ static int col0(int w) { return kSplit ? kCols * w : 0; }
+};
+
+// Shared memory, in order. dQ: Q and dO (kOwn rows each), kStages K
 // tiles, as many V tiles, then the mbarriers: Q/dO's, and a full and an
-// empty one per stage. dK/dV: K and V (kOwn rows), kDkvStages Q tiles,
-// as many dO tiles, lse rows and D rows, then the mbarriers: K/V's, a full
-// and an empty one per stage. + 1024: the tiles start at the first
-// 1024-byte boundary (every tile is a multiple of 1024 bytes).
+// empty one per stage. dK/dV: K and V (kOwn rows), kStages Q tiles, as
+// many dO tiles, lse rows and D rows, then the mbarriers: K/V's, a full and
+// an empty one per stage. + 1024: the tiles start at the first 1024-byte
+// boundary (every tile is a multiple of 1024 bytes).
 template <int HD>
 constexpr int dq_smem() {
-  return 2 * Tile<HD, kOwn>::kBytes + 2 * kDqStages * Tile<HD, kDqK>::kBytes +
-         (1 + 2 * kDqStages) * 8 + 1024;
+  using C = Cfg<HD>;
+  return 2 * Tile<HD, C::kOwn>::kBytes + 2 * C::kDqStages * Tile<HD, kDqK>::kBytes +
+         (1 + 2 * C::kDqStages) * 8 + 1024;
 }
 template <int HD>
 constexpr int dkv_smem() {
-  return 2 * Tile<HD, kOwn>::kBytes + 2 * kDkvStages * Tile<HD, kDkvQ>::kBytes +
-         2 * kDkvStages * kDkvQ * 4 + (1 + 2 * kDkvStages) * 8 + 1024;
+  using C = Cfg<HD>;
+  return 2 * Tile<HD, C::kOwn>::kBytes + 2 * C::kDkvStages * Tile<HD, kDkvQ>::kBytes +
+         2 * C::kDkvStages * kDkvQ * 4 + (1 + 2 * C::kDkvStages) * 8 + 1024;
 }
 
 // P = exp(S scale - lse) = 2^(S scale log2(e) - lse log2(e)), as the
@@ -388,29 +429,29 @@ struct Turns {
 };
 
 // Rows `row` and + 8 of the CTA's owned tile (starting at row0 of bh's
-// slice) from an m64n{HD} accumulator, rounded to bf16; rows at or past
-// T are not stored.
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[HD / 2],
-                                           int bh, int t, int row0, int row, int tq) {
+// slice) from an m64n{N} accumulator of the output's columns col0..,
+// rounded to bf16; rows at or past T are not stored.
+template <int HD, int N>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[N / 2],
+                                           int bh, int t, int row0, int row, int tq, int col0) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + row + 8 * i;
     if (r >= t) continue;
-    bf16* p = dst + (static_cast<size_t>(bh) * t + r) * HD + 2 * tq;
+    bf16* p = dst + (static_cast<size_t>(bh) * t + r) * HD + col0 + 2 * tq;
 #pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj)
+    for (int jj = 0; jj < N / 8; ++jj)
       *reinterpret_cast<uint32_t*>(p + 8 * jj) =
           pack_bf16(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
   }
 }
 
-// dQ. grid (ceil(T / 128), BH), 384 threads; maps [BH, T, HD] bf16: Q and
+// dQ. grid (ceil(T / kOwn), BH), 384 threads; maps [BH, T, HD] bf16: Q and
 // dO in kOwn-row boxes, K and V in kDqK-row boxes. The CTA owns q rows
 // q0.. (longest rows first) and streams the k tiles up to its diagonal:
-// warpgroup w, rows q0 + 64 w.., needs those up to its own last row and
+// warpgroup w, rows q0 + row0(w).., needs those up to its own last row and
 // masks only the last of them. Stage s of the ring is used by tiles s,
-// s + kDqStages, ...: tile j waits on parity (j / kDqStages) & 1.
+// s + kStages, ...: tile j waits on parity (j / kStages) & 1.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tri_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
@@ -419,28 +460,30 @@ flash_tri_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
                               const __grid_constant__ CUtensorMap tma_v,
                               const float* __restrict__ lse, const float* __restrict__ dvec,
                               bf16* __restrict__ dq, int t, float scale) {
+  using C = Cfg<HD>;
+  constexpr int kOwn = C::kOwn, kStages = C::kDqStages;
   using LO = Tile<HD, kOwn>;
   using LS = Tile<HD, kDqK>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = align1024(smem_raw);
   uint8_t* sdo = sq + LO::kBytes;
   uint8_t* sk = sdo + LO::kBytes;
-  uint8_t* sv = sk + kDqStages * LS::kBytes;
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + kDqStages * LS::kBytes);
+  uint8_t* sv = sk + kStages * LS::kBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + kStages * LS::kBytes);
   uint64_t* full = full_q + 1;
-  uint64_t* empty = full + kDqStages;
+  uint64_t* empty = full + kStages;
 
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kOwn;  // the longest rows first
   const int tiles = (t + kDqK - 1) / kDqK;
   // k tiles warpgroup w needs: those up to the diagonal of its last row
-  auto needed = [&](int w) { return min((q0 + 64 * (w + 1) + kDqK - 1) / kDqK, tiles); };
+  auto needed = [&](int w) { return min((q0 + C::row0(w) + 64 + kDqK - 1) / kDqK, tiles); };
   const int n_k = needed(1);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each arithmetic warp
     }
@@ -455,8 +498,8 @@ flash_tri_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       load_tile<HD, kOwn>(sq, &tma_q, full_q, q0, bh);
       load_tile<HD, kOwn>(sdo, &tma_do, full_q, q0, bh);
       for (int j = 0; j < n_k; ++j) {
-        const int s = j % kDqStages;
-        mbar_wait(&empty[s], ((j / kDqStages) & 1) ^ 1);
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * LS::kBytes);
         load_tile<HD, kDqK>(sk + s * LS::kBytes, &tma_k, &full[s], j * kDqK, bh);
         load_tile<HD, kDqK>(sv + s * LS::kBytes, &tma_v, &full[s], j * kDqK, bh);
@@ -464,8 +507,9 @@ flash_tri_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMathRegs));
-    const int w = (warp >> 2) - 1;  // 64-row half of the q tile
-    const int row = w * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's first row
+    const int w = (warp >> 2) - 1;  // 64-row half of the q tile, or column half
+    const int row = C::row0(w) + (warp & 3) * 16 + (lane >> 2);  // this thread's first row
+    const int col0 = C::col0(w);
     const int tq = lane & 3;
     const int n_w = needed(w);
     float lse_r[2], dd[2];  // per row; rows past T (padding of the tile) read 0
@@ -477,30 +521,31 @@ flash_tri_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       dd[i] = r < t ? dvec[at] : 0.f;
     }
     float s[kDqK / 2], dp[kDqK / 2];  // S and dP: m64n{kDqK} accumulators
-    float acc[HD / 2];                // dQ: m64n{HD} accumulator
+    float acc[C::kCols / 2];          // dQ: m64n{kCols} accumulator
     uint32_t ds[kDqK / 16][4];        // dS: kDqK / 16 k16 A fragments
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < C::kCols / 2; ++i) acc[i] = 0.f;
 
     auto issue_sdp = [&](int j) {
-      const int st = j % kDqStages;
-      mbar_wait(&full[st], (j / kDqStages) & 1);
+      const int st = j % kStages;
+      mbar_wait(&full[st], (j / kStages) & 1);
       const uint8_t* kt = sk + st * LS::kBytes;
       const uint8_t* vt = sv + st * LS::kBytes;
       wgmma_fence();
-      wgmma_scores<kDqK, HD, kOwn, kDqK>(s, sq, w * 64, kt);
-      wgmma_scores<kDqK, HD, kOwn, kDqK>(dp, sdo, w * 64, vt);
+      wgmma_scores<kDqK, HD, kOwn, kDqK>(s, sq, C::row0(w), kt);
+      wgmma_scores<kDqK, HD, kOwn, kDqK>(dp, sdo, C::row0(w), vt);
       wgmma_commit();
     };
     auto issue_dq = [&](int j) {
-      const uint8_t* kt = sk + (j % kDqStages) * LS::kBytes;
+      const uint8_t* kt = sk + (j % kStages) * LS::kBytes;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kDqK / 16; ++kk) wgmma_rs<HD>(acc, ds[kk], desc_mn<HD, kDqK>(kt, kk));
+      for (int kk = 0; kk < kDqK / 16; ++kk)
+        wgmma_rs<C::kCols>(acc, ds[kk], desc_mn<HD, kDqK>(kt, kk, col0));
       wgmma_commit();
     };
     auto release = [&](int j) {
-      if (lane == 0) mbar_arrive(&empty[j % kDqStages]);
+      if (lane == 0) mbar_arrive(&empty[j % kStages]);
     };
     auto grads = [&](int j) {  // the warpgroup's last k tile holds its diagonal
       const int rel = q0 + row - j * kDqK;
@@ -544,19 +589,22 @@ flash_tri_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
     for (int j = n_w; j < n_k; ++j) {  // tiles only the other warpgroup needs
       turn.mine();
       turn.theirs();
-      mbar_wait(&full[j % kDqStages], (j / kDqStages) & 1);
+      mbar_wait(&full[j % kStages], (j / kStages) & 1);
       release(j);
     }
-    store_rows<HD>(dq, acc, bh, t, q0, row, tq);
+    store_rows<HD, C::kCols>(dq, acc, bh, t, q0, row, tq, col0);
   }
 }
 
-// dK/dV. grid (ceil(T / 128), BH), 384 threads; maps [BH, T, HD] bf16: K
+// dK/dV. grid (ceil(T / kOwn), BH), 384 threads; maps [BH, T, HD] bf16: K
 // and V in kOwn-row boxes, Q and dO in kDkvQ-row boxes; lse and dvec
 // [BH, T] f32. The CTA owns key rows k0.. (the first k tile, which has the
 // most q tiles, first) and streams the q tiles from its diagonal to T:
-// warpgroup w, keys k0 + 64 w.., skips those wholly before its first key
-// (releasing their stages) and masks those that reach before its last.
+// warpgroup w, keys k0 + row0(w).., skips those wholly before its first
+// key (releasing their stages) and masks those that reach before its last.
+// A stage's 64 lse and D values come by a bulk copy; a tile that reaches
+// past T, or a T whose rows do not start 16-byte aligned, has them written
+// by the loading thread instead (lse kLsePastT and D 0 past T).
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tri_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
@@ -566,27 +614,29 @@ flash_tri_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
                                const float* __restrict__ lse, const float* __restrict__ dvec,
                                bf16* __restrict__ dk, bf16* __restrict__ dv, int t,
                                float scale) {
+  using C = Cfg<HD>;
+  constexpr int kOwn = C::kOwn, kStages = C::kDkvStages;
   using LO = Tile<HD, kOwn>;
   using LS = Tile<HD, kDkvQ>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sk = align1024(smem_raw);
   uint8_t* sv = sk + LO::kBytes;
   uint8_t* sq = sv + LO::kBytes;
-  uint8_t* sdo = sq + kDkvStages * LS::kBytes;
-  float* slse = reinterpret_cast<float*>(sdo + kDkvStages * LS::kBytes);
-  float* sd = slse + kDkvStages * kDkvQ;
-  uint64_t* full_kv = reinterpret_cast<uint64_t*>(sd + kDkvStages * kDkvQ);
+  uint8_t* sdo = sq + kStages * LS::kBytes;
+  float* slse = reinterpret_cast<float*>(sdo + kStages * LS::kBytes);
+  float* sd = slse + kStages * kDkvQ;
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(sd + kStages * kDkvQ);
   uint64_t* full = full_kv + 1;
-  uint64_t* empty = full + kDkvStages;
+  uint64_t* empty = full + kStages;
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kOwn;  // the first k tile, the longest, first
-  const int n_q = (t - k0) / kDkvQ;  // q tiles from the diagonal to T
+  const int n_q = (t - k0 + kDkvQ - 1) / kDkvQ;  // q tiles from the diagonal to T
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
-    for (int s = 0; s < kDkvStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // lane 0 of each arithmetic warp
     }
@@ -601,60 +651,69 @@ flash_tri_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       load_tile<HD, kOwn>(sk, &tma_k, full_kv, k0, bh);
       load_tile<HD, kOwn>(sv, &tma_v, full_kv, k0, bh);
       for (int j = 0; j < n_q; ++j) {
-        const int s = j % kDkvStages;
+        const int s = j % kStages;
         const int q0 = k0 + j * kDkvQ;
         const size_t at = static_cast<size_t>(bh) * t + q0;
-        mbar_wait(&empty[s], ((j / kDkvStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * LS::kBytes + 2 * kDkvQ * 4);
+        const bool bulk = q0 + kDkvQ <= t && t % 4 == 0;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        if (!bulk)  // before the arrival below, which releases these writes
+          for (int i = 0; i < kDkvQ; ++i) {
+            slse[s * kDkvQ + i] = q0 + i < t ? lse[at + i] : kLsePastT;
+            sd[s * kDkvQ + i] = q0 + i < t ? dvec[at + i] : 0.f;
+          }
+        mbar_expect_tx(&full[s], 2 * LS::kBytes + (bulk ? 2 * kDkvQ * 4 : 0));
         load_tile<HD, kDkvQ>(sq + s * LS::kBytes, &tma_q, &full[s], q0, bh);
         load_tile<HD, kDkvQ>(sdo + s * LS::kBytes, &tma_do, &full[s], q0, bh);
-        bulk_load(slse + s * kDkvQ, lse + at, kDkvQ * 4, &full[s]);
-        bulk_load(sd + s * kDkvQ, dvec + at, kDkvQ * 4, &full[s]);
+        if (bulk) {
+          bulk_load(slse + s * kDkvQ, lse + at, kDkvQ * 4, &full[s]);
+          bulk_load(sd + s * kDkvQ, dvec + at, kDkvQ * 4, &full[s]);
+        }
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMathRegs));
-    const int w = (warp >> 2) - 1;  // 64-row half of the k tile
-    const int row = w * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's first key row
+    const int w = (warp >> 2) - 1;  // 64-row half of the k tile, or column half
+    const int row = C::row0(w) + (warp & 3) * 16 + (lane >> 2);  // this thread's first key row
+    const int col0 = C::col0(w);
     const int tq = lane & 3;
     // q tiles wholly before the warpgroup's first key: nothing to add
-    const int first = min(64 * w / kDkvQ, n_q);
+    const int first = min(C::row0(w) / kDkvQ, n_q);
     float s[kDkvQ / 2], dp[kDkvQ / 2];  // S^T and dP^T: m64n{kDkvQ} accumulators
-    float acc_dk[HD / 2], acc_dv[HD / 2];  // m64n{HD} accumulators
+    float acc_dk[C::kCols / 2], acc_dv[C::kCols / 2];  // m64n{kCols} accumulators
     uint32_t pf[kDkvQ / 16][4], dsf[kDkvQ / 16][4];  // P^T, dS^T: k16 A fragments
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+    for (int i = 0; i < C::kCols / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
 
     auto release = [&](int j) {
-      if (lane == 0) mbar_arrive(&empty[j % kDkvStages]);
+      if (lane == 0) mbar_arrive(&empty[j % kStages]);
     };
     auto issue_sdp = [&](int j) {
-      const int st = j % kDkvStages;
-      mbar_wait(&full[st], (j / kDkvStages) & 1);
+      const int st = j % kStages;
+      mbar_wait(&full[st], (j / kStages) & 1);
       const uint8_t* qt = sq + st * LS::kBytes;
       const uint8_t* dot = sdo + st * LS::kBytes;
       wgmma_fence();
-      wgmma_scores<kDkvQ, HD, kOwn, kDkvQ>(s, sk, w * 64, qt);
-      wgmma_scores<kDkvQ, HD, kOwn, kDkvQ>(dp, sv, w * 64, dot);
+      wgmma_scores<kDkvQ, HD, kOwn, kDkvQ>(s, sk, C::row0(w), qt);
+      wgmma_scores<kDkvQ, HD, kOwn, kDkvQ>(dp, sv, C::row0(w), dot);
       wgmma_commit();
     };
     auto issue_dkv = [&](int j) {
-      const int st = j % kDkvStages;
+      const int st = j % kStages;
       const uint8_t* qt = sq + st * LS::kBytes;
       const uint8_t* dot = sdo + st * LS::kBytes;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDkvQ / 16; ++kk)
-        wgmma_rs<HD>(acc_dv, pf[kk], desc_mn<HD, kDkvQ>(dot, kk));
+        wgmma_rs<C::kCols>(acc_dv, pf[kk], desc_mn<HD, kDkvQ>(dot, kk, col0));
 #pragma unroll
       for (int kk = 0; kk < kDkvQ / 16; ++kk)
-        wgmma_rs<HD>(acc_dk, dsf[kk], desc_mn<HD, kDkvQ>(qt, kk));
+        wgmma_rs<C::kCols>(acc_dk, dsf[kk], desc_mn<HD, kDkvQ>(qt, kk, col0));
       wgmma_commit();
     };
     auto grads = [&](int j) {  // tiles that start before the warpgroup's last key are masked
-      const int st = j % kDkvStages;
+      const int st = j % kStages;
       const int rel = row - j * kDkvQ;
-      if (j * kDkvQ < 64 * w + 64)
+      if (j * kDkvQ < C::row0(w) + 64)
         dscores_t<true, kDkvQ>(s, dp, slse + st * kDkvQ, sd + st * kDkvQ, scale, rel, tq);
       else
         dscores_t<false, kDkvQ>(s, dp, slse + st * kDkvQ, sd + st * kDkvQ, scale, rel, tq);
@@ -668,7 +727,7 @@ flash_tri_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
     for (int j = 0; j < first; ++j) {
       turn.mine();
       turn.theirs();
-      mbar_wait(&full[j % kDkvStages], (j / kDkvStages) & 1);
+      mbar_wait(&full[j % kStages], (j / kStages) & 1);
       release(j);
     }
     mbar_wait(full_kv, 0);
@@ -698,8 +757,8 @@ flash_tri_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       fence_operands(acc_dv);
       release(n_q - 1);
     }
-    store_rows<HD>(dk, acc_dk, bh, t, k0, row, tq);
-    store_rows<HD>(dv, acc_dv, bh, t, k0, row, tq);
+    store_rows<HD, C::kCols>(dk, acc_dk, bh, t, k0, row, tq, col0);
+    store_rows<HD, C::kCols>(dv, acc_dv, bh, t, k0, row, tq, col0);
   }
 }
 
@@ -711,6 +770,7 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const v
                             float scale, cudaStream_t stream) {
   using namespace hop;
   constexpr int smem = dq_smem<HD>();
+  constexpr int kOwn = Cfg<HD>::kOwn;
   if (encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
   CUtensorMap maps[4];
   if (!tile_map<HD, kOwn>(&maps[0], q, bh, t) || !tile_map<HD, kOwn>(&maps[1], dout, bh, t) ||
@@ -731,6 +791,7 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
                              int t, float scale, cudaStream_t stream) {
   using namespace hop;
   constexpr int smem = dkv_smem<HD>();
+  constexpr int kOwn = Cfg<HD>::kOwn;
   if (encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
   CUtensorMap maps[4];
   if (!tile_map<HD, kDkvQ>(&maps[0], q, bh, t) || !tile_map<HD, kDkvQ>(&maps[1], dout, bh, t) ||
@@ -746,17 +807,18 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
-// The bf16 kernels' configuration at head_dim (32, 64 or 128), into
-// out[8]: dynamic shared-memory bytes (dQ, dK/dV), streamed stages (dQ,
-// dK/dV), streamed tile rows (dQ's k tiles, dK/dV's q tiles), and the
-// registers per thread after setmaxnreg (loads, arithmetic). Returns
-// cudaErrorInvalidValue for another head dim.
+// The bf16 kernels' configuration at head_dim (32, 64, 128 or 256), into
+// out[9]: dynamic shared-memory bytes (dQ, dK/dV), streamed stages (dQ,
+// dK/dV), streamed tile rows (dQ's k tiles, dK/dV's q tiles), the
+// registers per thread after setmaxnreg (loads, arithmetic) and the rows a
+// CTA owns. Returns cudaErrorInvalidValue for another head dim.
 template <int HD>
 cudaError_t bwd_config(int* out) {
   using namespace hop;
-  const int v[8] = {dq_smem<HD>(), dkv_smem<HD>(), kDqStages, kDkvStages,
-                    kDqK,          kDkvQ,          kLoadRegs, kMathRegs};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  using C = Cfg<HD>;
+  const int v[9] = {dq_smem<HD>(), dkv_smem<HD>(), C::kDqStages, C::kDkvStages, kDqK,
+                    kDkvQ,         kLoadRegs,      kMathRegs,     C::kOwn};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
   return cudaSuccess;
 }
 
@@ -773,12 +835,16 @@ cudaError_t bwd_config(int* out) {
       return (int)LAUNCH##_F32(64);                                 \
     case 128:                                                       \
       return (int)LAUNCH##_F32(128);                                \
+    case 256:                                                       \
+      return (int)LAUNCH##_F32(256);                                \
     case 1032:                                                      \
-      return (int)LAUNCH##_WGMMA(32);                                  \
+      return (int)LAUNCH##_WGMMA(32);                               \
     case 1064:                                                      \
-      return (int)LAUNCH##_WGMMA(64);                                  \
+      return (int)LAUNCH##_WGMMA(64);                               \
     case 1128:                                                      \
-      return (int)LAUNCH##_WGMMA(128);                                 \
+      return (int)LAUNCH##_WGMMA(128);                              \
+    case 1256:                                                      \
+      return (int)LAUNCH##_WGMMA(256);                              \
     default:                                                        \
       return (int)cudaErrorInvalidValue;                            \
   }
@@ -787,13 +853,13 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/dout and the outputs
 // [bh, t, head_dim]; lse and dvec [bh, t] float32; all contiguous,
-// 16-byte aligned, on the current device; t a positive multiple of 64.
-// Each launches one kernel on `stream` and returns cudaGetLastError() (0
-// on success); neither allocates.
+// 16-byte aligned, on the current device; t >= 1. Each launches one kernel
+// on `stream` and returns cudaGetLastError() (0 on success); neither
+// allocates.
 int tpumon_flash_tri_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* dvec, void* dq, int bh, int t,
                             int head_dim, int dtype, float scale, void* stream) {
-  if (bh < 1 || t < kOwn || t % kOwn != 0) return (int)cudaErrorInvalidValue;
+  if (bh < 1 || t < 1) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dvec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -807,7 +873,7 @@ int tpumon_flash_tri_bwd_dq(const void* q, const void* k, const void* v, const v
 int tpumon_flash_tri_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* dvec, void* dk, void* dv, int bh, int t,
                              int head_dim, int dtype, float scale, void* stream) {
-  if (bh < 1 || t < kOwn || t % kOwn != 0) return (int)cudaErrorInvalidValue;
+  if (bh < 1 || t < 1) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dvec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -820,8 +886,9 @@ int tpumon_flash_tri_bwd_dkv(const void* q, const void* k, const void* v, const 
 #undef TPUMON_DKV_WGMMA
 }
 
-// The bf16 kernels' shared-memory bytes, stages, streamed tile rows and
-// registers after setmaxnreg at head_dim, into out[8] (bwd_config).
+// The bf16 kernels' shared-memory bytes, stages, streamed tile rows,
+// registers after setmaxnreg and owned rows at head_dim, into out[9]
+// (bwd_config).
 int tpumon_flash_bwd_config(int head_dim, int* out) {
   switch (head_dim) {
     case 32:
@@ -830,6 +897,8 @@ int tpumon_flash_bwd_config(int head_dim, int* out) {
       return (int)bwd_config<64>(out);
     case 128:
       return (int)bwd_config<128>(out);
+    case 256:
+      return (int)bwd_config<256>(out);
     default:
       return (int)cudaErrorInvalidValue;
   }

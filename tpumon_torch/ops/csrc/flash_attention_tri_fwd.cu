@@ -33,8 +33,8 @@
 // and no tile above the diagonal is touched. The f32 kernel (CUDA cores)
 // is the same file's, as is the rectangular forward (flash_attention.cu).
 //
-// Supported: float32 and bfloat16, head dim 32, 64 or 128, T a multiple
-// of 64. The Python wrapper (tpumon_torch/ops/flash_attention.py) checks
+// Supported: float32 and bfloat16, head dim 32, 64, 128 or 256, any T >= 1.
+// The Python wrapper (tpumon_torch/ops/flash_attention.py) checks
 // shapes and types; the launcher re-checks what it indexes by.
 
 #include "flash_fwd.cuh"
@@ -43,7 +43,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/out [bh, t, head_dim] and lse
 // [bh, t] float32, all contiguous, 16-byte aligned, on the current device;
-// t a positive multiple of 64. Launches on `stream` and returns
+// t >= 1. Launches on `stream` and returns
 // cudaGetLastError() (0 on success); allocates nothing.
 int tpumon_flash_tri_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                          int bh, int t, int head_dim, int dtype, float scale, void* stream) {
@@ -52,8 +52,9 @@ int tpumon_flash_tri_fwd(const void* q, const void* k, const void* v, void* out,
                                               static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 kernel's shared-memory bytes, stages and registers after
-// setmaxnreg at head_dim, into out[4] (flash_fwd.cuh's fwd_config).
+// The bf16 kernel's shared-memory bytes, stages, registers after
+// setmaxnreg and k rows a stage at head_dim, into out[5] (flash_fwd.cuh's
+// fwd_config).
 int tpumon_flash_fwd_config(int head_dim, int* out) {
   return (int)tpumon::flash::fwd_config(head_dim, out);
 }

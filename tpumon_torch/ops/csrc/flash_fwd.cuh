@@ -6,10 +6,15 @@
 // - f32: flash_fwd_kernel, the products on CUDA cores in f32 (tensor
 //   cores would round f32 inputs to TF32): one CTA per (bh, 64-row q
 //   tile), 32-row k tiles with synchronous loads, bound by the f32 FMA
-//   rate (67 TFLOP/s) and the shared-memory reads feeding it.
+//   rate (67 TFLOP/s) and the shared-memory reads feeding it. Rows past
+//   T are staged as zeros and never stored; without the mask, keys past T
+//   are masked.
 //
 // The bf16 design. A CTA owns one (bh, 128-row q tile) and loops itself
-// over the 128-row k tiles it needs: all of them without the causal mask,
+// over the k tiles it needs (kBN rows: 128, or 64 at head dim 256, whose O
+// accumulator takes 128 registers a thread and leaves room for a 64-wide
+// S tile only; a 128-row Q tile and two stages each of 64-row K and V
+// tiles fit 227 KB there): all of them without the causal mask,
 // those at or below its diagonal with it, so a causal CTA touches no tile
 // above the diagonal and each row is complete when the loop ends; no
 // state crosses CTAs. The grid runs a bh's q tiles next to each other,
@@ -22,9 +27,9 @@
 //   V_{j-1}), running ahead by up to the ring's depth. setmaxnreg gives
 //   its registers to the two arithmetic warpgroups.
 // - Warpgroups 1 and 2 own 64 q rows each (wgmma's m64). For k tile j
-//   they issue S_j = Q K_j^T (HD / 16 wgmma.m64n128k16, Q and K both
-//   K-major in shared memory), then O += P_{j-1} V_{j-1} (8 register-A
-//   wgmma.m64n{HD}k16: P never touches shared memory; V is read MN-major
+//   they issue S_j = Q K_j^T (HD / 16 wgmma.m64n{kBN}k16, Q and K both
+//   K-major in shared memory), then O += P_{j-1} V_{j-1} (kBN / 16
+//   register-A wgmma.m64n{HD}k16: P never touches shared memory; V is read MN-major
 //   from its row-major tile through the descriptor and the B-transpose
 //   immediate, so nothing transposes it). They wait for S_j with P V in
 //   flight and run S_j's online softmax while the tensor cores finish
@@ -32,16 +37,16 @@
 //   The two warpgroups take turns issuing (ping-pong over two named
 //   barriers), so one's softmax also runs under the other's products.
 // - The softmax works on the f32 accumulator in wgmma's fragment layout:
-//   a thread holds two rows (lane / 4 and + 8 of its warp's 16), 32
+//   a thread holds two rows (lane / 4 and + 8 of its warp's 16), kBN / 4
 //   scores of each, and a row's max and sum reduce over its quad of
 //   lanes. The scores of 16 columns, rounded to bf16 pairwise, are the
 //   A fragment of those columns for P V, in place.
-// - Tiles of 128 rows sit in shared memory as TMA writes them
-//   (flash_wgmma.cuh, shared with the backward). The tensor maps are 3-d
-//   [BH, T, D], so a tile that reaches past T (T = 64 x odd) loads zeros
-//   there, not the next bh's rows; out and lse are stored for rows below T only,
-//   and without the mask the keys at or past T are masked (with it, no
-//   real row sees them).
+// - Tiles sit in shared memory as TMA writes them (flash_wgmma.cuh,
+//   shared with the backward). The tensor maps are 3-d [BH, T, D], so a
+//   tile that reaches past T (any T) loads zeros there, not the next bh's
+//   rows; out and lse are stored for rows below T only, and without the
+//   mask the keys at or past T are masked (with it, no real row sees
+//   them).
 //
 // Numerics follow the reference: scores and softmax in f32; masked
 // scores are -1e30; the unnormalised probabilities are rounded to V's
@@ -49,13 +54,16 @@
 // whose sum is 0 returns zeros; lse = m + log(l) in f32. The bf16 kernel
 // takes each exponential in base 2, ex2.approx of s x scale x log2(e) - m
 // x scale x log2(e) (one FFMA; relative error about 2^-22, results below
-// 2^-126 flushed to 0), and masks only the last k tile, the one that can
-// hold masked keys. The first k tile holds key 0, which every row sees,
+// 2^-126 flushed to 0), and masks only the k tiles that can hold masked
+// keys: the last (the one that reaches past T without the mask), or with
+// it those that reach past a warpgroup's first row (at kBN 64 warpgroup
+// 0's last tile lies wholly above its diagonal and adds exact zeros). The
+// first k tile holds key 0, which every row sees,
 // so each row's running max is a real score from the first step on and
 // rows past the caller's real length (padding) stay finite.
 //
-// Supported: float32 and bfloat16, head dim 32, 64 or 128, T a multiple
-// of 64. lse may be null (no logsumexp written).
+// Supported: float32 and bfloat16, head dim 32, 64, 128 or 256, any T >= 1.
+// lse may be null (no logsumexp written).
 #pragma once
 
 #include "flash_tri_common.cuh"
@@ -84,7 +92,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t base = (size_t)bh * t * HD;
   const int tx = lane_tx(), ty = lane_ty();
 
-  stage<HD, kOwn>(sq, q + base + (size_t)q0 * HD);
+  stage<HD, kOwn>(sq, q + base + (size_t)q0 * HD, t - q0);
 
   float m[kRows], l[kRows], o[kRows][kOut];
 #pragma unroll
@@ -94,26 +102,29 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   zero(o);
 
-  // k tiles at or below the diagonal, or all of them
-  const int n_k = CAUSAL ? (q0 + kOwn) / kStream : t / kStream;
+  // k tiles at or below the diagonal, or all of them, none wholly past T
+  const int tiles = (t + kStream - 1) / kStream;
+  const int n_k = CAUSAL ? min((q0 + kOwn) / kStream, tiles) : tiles;
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kStream;
     __syncthreads();  // the previous tile is consumed
-    stage<HD, kStream>(sk, k + base + (size_t)k0 * HD);
-    stage<HD, kStream>(sv, v + base + (size_t)k0 * HD);
+    stage<HD, kStream>(sk, k + base + (size_t)k0 * HD, t - k0);
+    stage<HD, kStream>(sv, v + base + (size_t)k0 * HD, t - k0);
     __syncthreads();
 
     float s[kRows][kCols];
     zero(s);
     mma<kRows, kCols, HD, LD, 1, LD, 1>(s, sq, sk);
     const bool diag = CAUSAL && k0 + kStream > q0;  // only these tiles hold keys past a row
+    const bool tail = !CAUSAL && k0 + kStream > t;  // keys past T (with the mask: past the row)
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int qpos = q0 + ty + kRowGroups * r;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const float x = s[r][c] * scale;
-        s[r][c] = (diag && k0 + tx + kColGroups * c > qpos) ? kNegInf : x;
+        const int kpos = k0 + tx + kColGroups * c;
+        s[r][c] = (diag && kpos > qpos) || (tail && kpos >= t) ? kNegInf : x;
       }
       const float alpha = online_softmax_update_row<kColGroups, kCols>(s[r], m[r], l[r]);
 #pragma unroll
@@ -132,10 +143,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / l_safe;
 #pragma unroll
     for (int c = 0; c < kOut; ++c) o[r][c] *= inv;
-    if (lse != nullptr && tx == 0)
+    if (lse != nullptr && tx == 0 && q0 + ty + kRowGroups * r < t)
       lse[(size_t)bh * t + q0 + ty + kRowGroups * r] = m[r] + logf(l_safe);
   }
-  store_rows<HD>(out + base, q0, o);
+  store_rows<HD>(out + base, q0, t, o);
 }
 
 template <int HD, bool CAUSAL>
@@ -146,7 +157,7 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* ou
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<HD, CAUSAL><<<dim3(t / kOwn, bh), kThreads, smem, stream>>>(
+  flash_fwd_kernel<HD, CAUSAL><<<dim3((t + kOwn - 1) / kOwn, bh), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), lse, t, scale);
   return cudaGetLastError();
@@ -157,7 +168,6 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* ou
 namespace wg {
 
 constexpr int kBM = 128;        // q rows per CTA, 64 per arithmetic warpgroup
-constexpr int kBN = 128;        // k rows per stage
 constexpr int kStages = 2;      // K stages, and as many V stages
 constexpr int kThreads = 384;   // 3 warpgroups
 // Registers per thread after setmaxnreg: warpgroup 0 (loads), warpgroups
@@ -166,46 +176,51 @@ constexpr int kThreads = 384;   // 3 warpgroups
 constexpr int kLoadRegs = 40, kMathRegs = 232;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// k rows per stage: 128, or 64 at head dim 256 (its O accumulator holds
+// 128 registers a thread, S 32 more at 64 columns).
 template <int HD>
-using L128 = Tile<HD, kBN>;  // Q, K and V tiles
-
-// Q, kStages K tiles, kStages V tiles, then the mbarriers: Q's, and a
-// full and an empty one per K and per V stage. + 1024: the tiles start at
-// the first 1024-byte boundary.
-template <int HD>
-constexpr int fwd_smem() {
-  return (1 + 2 * kStages) * L128<HD>::kBytes + (1 + 4 * kStages) * 8 + 1024;
+__host__ __device__ constexpr int k_rows() {
+  return HD > 128 ? 64 : 128;
 }
 
-// The online-softmax step on this thread's S fragment: s[4 j + 2 i + e]
-// is the raw score Q K^T of row `row + 8 i` (of the CTA's 128), column
-// 8 j + 2 tq + e of the k tile. MASK (the last tile only): -1e30 at
-// columns past the row (causal: the diagonal tile), or at or past `keys`
-// (else: the real keys of a last tile that reaches past T). Updates m
-// (in raw units) and l, leaves exp(scale (s - m)) = exp2(s scale log2(e)
-// - m scale log2(e)) in s, one FFMA and one EX2 a score, and alpha =
-// exp(scale (m_old - m_new)) per row. The max and sum run as 4 chains.
-// Quad-collective.
-template <bool CAUSAL, bool MASK>
-__device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], float scale_log2, int row,
+// Q (kBM rows), kStages K tiles, kStages V tiles (k_rows rows), then the
+// mbarriers: Q's, and a full and an empty one per K and per V stage.
+// + 1024: the tiles start at the first 1024-byte boundary.
+template <int HD>
+constexpr int fwd_smem() {
+  return Tile<HD, kBM>::kBytes + 2 * kStages * Tile<HD, k_rows<HD>()>::kBytes +
+         (1 + 4 * kStages) * 8 + 1024;
+}
+
+// The online-softmax step on this thread's S fragment of an N-column k
+// tile: s[4 j + 2 i + e] is the raw score Q K^T of row `row + 8 i` (of the
+// CTA's 128), column 8 j + 2 tq + e of the tile. MASK: -1e30 at columns
+// past the row (causal: `rel` is the row's position less the tile's first
+// key's), or at or past `keys` (else: the real keys of a last tile that
+// reaches past T). Updates m (in raw units) and l, leaves exp(scale (s -
+// m)) = exp2(s scale log2(e) - m scale log2(e)) in s, one FFMA and one EX2
+// a score, and alpha = exp(scale (m_old - m_new)) per row. The max and sum
+// run as 4 chains. Quad-collective.
+template <bool CAUSAL, bool MASK, int N>
+__device__ __forceinline__ void softmax_step(float (&s)[N / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float scale_log2, int rel,
                                              int tq, int keys) {
   if constexpr (MASK) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + 2 * tq + e;
-          if (CAUSAL ? c > row + 8 * i : c >= keys) s[4 * j + 2 * i + e] = kNegInf;
+          if (CAUSAL ? c > rel + 8 * i : c >= keys) s[4 * j + 2 * i + e] = kNegInf;
         }
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& c = mx[(2 * j + e) & 3];
@@ -216,7 +231,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
     const float mb = m_new * scale_log2;
     float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * i + e];
@@ -229,21 +244,23 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2], floa
   }
 }
 
-// grid (ceil(T / 128), BH), 384 threads; tma_q/k/v map [BH, T, HD] bf16
-// in 128-row boxes. Stage s of a ring is used by tiles s, s + kStages,
-// ...: tile j waits on parity (j / kStages) & 1.
+// grid (ceil(T / 128), BH), 384 threads; tma_q maps [BH, T, HD] bf16 in
+// 128-row boxes, tma_k and tma_v in k_rows-row boxes. Stage s of a ring is
+// used by tiles s, s + kStages, ...: tile j waits on parity (j / kStages) & 1.
 template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
                        const __grid_constant__ CUtensorMap tma_k,
                        const __grid_constant__ CUtensorMap tma_v, bf16* __restrict__ out,
                        float* __restrict__ lse, int t, float scale_log2) {
-  using L = L128<HD>;
+  constexpr int kBN = k_rows<HD>();
+  using LQ = Tile<HD, kBM>;
+  using LK = Tile<HD, kBN>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = align1024(smem_raw);
-  uint8_t* sk = sq + L::kBytes;
-  uint8_t* sv = sk + kStages * L::kBytes;
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + kStages * L::kBytes);
+  uint8_t* sk = sq + LQ::kBytes;
+  uint8_t* sv = sk + kStages * LK::kBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + kStages * LK::kBytes);
   uint64_t* full_k = full_q + 1;
   uint64_t* empty_k = full_k + kStages;
   uint64_t* full_v = empty_k + kStages;
@@ -251,9 +268,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
 
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // longest rows first
-  // k tiles at or below the diagonal (tiles are square and aligned, so
-  // the last is the diagonal one), or all of them
-  const int n_k = CAUSAL ? q0 / kBN + 1 : (t + kBN - 1) / kBN;
+  // k tiles up to the diagonal of the CTA's last row (at kBN 128 the last
+  // is the diagonal one), or all of them; none wholly past T
+  const int tiles = (t + kBN - 1) / kBN;
+  const int n_k = !CAUSAL        ? tiles
+                  : kBN == kBM ? q0 / kBN + 1
+                               : min((q0 + kBM) / kBN, tiles);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -271,20 +291,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
   if (warp < 4) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoadRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(full_q, L::kBytes);
-      load_tile<HD, kBN>(sq, &tma_q, full_q, q0, bh);
+      mbar_expect_tx(full_q, LQ::kBytes);
+      load_tile<HD, kBM>(sq, &tma_q, full_q, q0, bh);
       for (int j = 0; j <= n_k; ++j) {
         if (j < n_k) {  // K_j
           const int s = j % kStages;
           mbar_wait(&empty_k[s], ((j / kStages) & 1) ^ 1);
-          mbar_expect_tx(&full_k[s], L::kBytes);
-          load_tile<HD, kBN>(sk + s * L::kBytes, &tma_k, &full_k[s], j * kBN, bh);
+          mbar_expect_tx(&full_k[s], LK::kBytes);
+          load_tile<HD, kBN>(sk + s * LK::kBytes, &tma_k, &full_k[s], j * kBN, bh);
         }
         if (j > 0) {  // V_{j-1}
           const int i = j - 1, s = i % kStages;
           mbar_wait(&empty_v[s], ((i / kStages) & 1) ^ 1);
-          mbar_expect_tx(&full_v[s], L::kBytes);
-          load_tile<HD, kBN>(sv + s * L::kBytes, &tma_v, &full_v[s], i * kBN, bh);
+          mbar_expect_tx(&full_v[s], LK::kBytes);
+          load_tile<HD, kBN>(sv + s * LK::kBytes, &tma_v, &full_v[s], i * kBN, bh);
         }
       }
     }
@@ -293,31 +313,32 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
     const int wg = (warp >> 2) - 1;  // 64-row half of the q tile
     const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's first row
     const int tq = lane & 3;
-    float s[64];        // S: m64n128 accumulator
-    float o[HD / 2];    // O: m64n{HD} accumulator
-    uint32_t p[8][4];   // P: 8 k16 A fragments
+    float s[kBN / 2];        // S: m64n{kBN} accumulator
+    float o[HD / 2];         // O: m64n{HD} accumulator
+    uint32_t p[kBN / 16][4];  // P: kBN / 16 k16 A fragments
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-    // Only the last tile masks: the diagonal one (causal), or the one
-    // that reaches past T.
-    const int last_keys = t - (n_k - 1) * kBN;
 
     auto issue_s = [&](int j) {
       const int st = j % kStages;
       mbar_wait(&full_k[st], (j / kStages) & 1);
-      const uint8_t* kt = sk + st * L::kBytes;
+      const uint8_t* kt = sk + st * LK::kBytes;
       wgmma_fence();
+      if constexpr (kBN == 128) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_m64n128k16_ss(s, desc_kmajor<HD, kBN>(sq, wg * 64, kk),
-                            desc_kmajor<HD, kBN>(kt, 0, kk), kk != 0);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_m64n128k16_ss(s, desc_kmajor<HD, kBM>(sq, wg * 64, kk),
+                              desc_kmajor<HD, kBN>(kt, 0, kk), kk != 0);
+      } else {
+        wgmma_scores<kBN, HD, kBM, kBN>(s, sq, wg * 64, kt);
+      }
       wgmma_commit();
     };
     auto issue_pv = [&](int j) {
       const int st = j % kStages;
       mbar_wait(&full_v[st], (j / kStages) & 1);
-      const uint8_t* vt = sv + st * L::kBytes;
+      const uint8_t* vt = sv + st * LK::kBytes;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
@@ -335,11 +356,24 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
     auto my_turn = [&] { named_sync(1 + wg, 256); };
     auto their_turn = [&] { named_arrive(2 - wg, 256); };
     if (wg == 1) their_turn();
-    auto softmax = [&](bool last) {
-      if (last)
-        softmax_step<CAUSAL, true>(s, m, l, alpha, scale_log2, row, tq, last_keys);
-      else
-        softmax_step<CAUSAL, false>(s, m, l, alpha, scale_log2, row, tq, kBN);
+    // Tile j holds masked keys for this warpgroup if it reaches past the
+    // warpgroup's first row (causal) or past T: at kBN 128 only the last
+    // (the diagonal one, or the one that reaches past T).
+    const int last_keys = t - (n_k - 1) * kBN;
+    auto softmax = [&](int j) {
+      if constexpr (kBN == kBM) {
+        if (j == n_k - 1)
+          softmax_step<CAUSAL, true, kBN>(s, m, l, alpha, scale_log2, row, tq, last_keys);
+        else
+          softmax_step<CAUSAL, false, kBN>(s, m, l, alpha, scale_log2, row, tq, kBN);
+      } else {
+        const bool mask = CAUSAL ? (j + 1) * kBN > q0 + wg * 64 : (j + 1) * kBN > t;
+        if (mask)
+          softmax_step<CAUSAL, true, kBN>(s, m, l, alpha, scale_log2, q0 + row - j * kBN, tq,
+                                          t - j * kBN);
+        else
+          softmax_step<CAUSAL, false, kBN>(s, m, l, alpha, scale_log2, row, tq, kBN);
+      }
     };
 
     mbar_wait(full_q, 0);
@@ -349,7 +383,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
     wgmma_wait<0>();
     fence_operands(s);
     release(&empty_k[0]);
-    softmax(n_k == 1);
+    softmax(0);
     pack_frags<kBN>(p, s);  // O is 0: nothing to rescale
     for (int j = 1; j < n_k; ++j) {
       my_turn();
@@ -359,7 +393,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
       wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may be in flight
       fence_operands(s);
       release(&empty_k[j % kStages]);
-      softmax(j == n_k - 1);
+      softmax(j);
       wgmma_wait<0>();
       fence_operands(o);
       release(&empty_v[(j - 1) % kStages]);
@@ -404,9 +438,10 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   constexpr int smem = wg::fwd_smem<HD>();
   if (hopper::encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
   CUtensorMap maps[3];
-  const void* src[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i)
-    if (!wg::tile_map<HD, wg::kBN>(&maps[i], src[i], bh, t)) return cudaErrorInvalidValue;
+  if (!wg::tile_map<HD, wg::kBM>(&maps[0], q, bh, t) ||
+      !wg::tile_map<HD, wg::k_rows<HD>()>(&maps[1], k, bh, t) ||
+      !wg::tile_map<HD, wg::k_rows<HD>()>(&maps[2], v, bh, t))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(wg::flash_fwd_wgmma_kernel<HD, CAUSAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -417,31 +452,33 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
-// The bf16 kernel's configuration at head_dim (32, 64 or 128): out[0]
-// dynamic shared-memory bytes, out[1] K and V stages, out[2] and out[3]
-// the registers per thread after setmaxnreg (loads, arithmetic). Returns
-// cudaErrorInvalidValue for another head dim.
+// The bf16 kernel's configuration at head_dim (32, 64, 128 or 256):
+// out[0] dynamic shared-memory bytes, out[1] K and V stages, out[2] and
+// out[3] the registers per thread after setmaxnreg (loads, arithmetic),
+// out[4] the k rows of a stage. Returns cudaErrorInvalidValue for another
+// head dim.
 inline cudaError_t fwd_config(int head_dim, int* out) {
   const int smem = head_dim == 32    ? wg::fwd_smem<32>()
                    : head_dim == 64  ? wg::fwd_smem<64>()
                    : head_dim == 128 ? wg::fwd_smem<128>()
+                   : head_dim == 256 ? wg::fwd_smem<256>()
                                      : 0;
   if (smem == 0) return cudaErrorInvalidValue;
   out[0] = smem;
   out[1] = wg::kStages;
   out[2] = wg::kLoadRegs;
   out[3] = wg::kMathRegs;
+  out[4] = head_dim > 128 ? wg::k_rows<256>() : wg::k_rows<128>();
   return cudaSuccess;
 }
 
 // dtype: 0 = float32 on CUDA cores (tensor cores would round f32 inputs
-// to TF32), 1 = bfloat16 on tensor cores (wgmma); head_dim 32, 64 or
-// 128; t a positive multiple of 64. Returns cudaGetLastError() of the
-// launch.
+// to TF32), 1 = bfloat16 on tensor cores (wgmma); head_dim 32, 64, 128 or
+// 256; t >= 1. Returns cudaGetLastError() of the launch.
 template <bool CAUSAL>
 cudaError_t launch_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
                        void* out, float* lse, int bh, int t, float scale, cudaStream_t stream) {
-  if (bh < 1 || t < kOwn || t % kOwn != 0) return cudaErrorInvalidValue;
+  if (bh < 1 || t < 1) return cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   switch (head_dim) {
     case 32:
@@ -453,6 +490,9 @@ cudaError_t launch_fwd(int dtype, int head_dim, const void* q, const void* k, co
     case 128:
       return dtype == 0 ? launch_fwd_f32<128, CAUSAL>(q, k, v, out, lse, bh, t, scale, stream)
                         : launch_fwd_wgmma<128, CAUSAL>(q, k, v, out, lse, bh, t, scale, stream);
+    case 256:
+      return dtype == 0 ? launch_fwd_f32<256, CAUSAL>(q, k, v, out, lse, bh, t, scale, stream)
+                        : launch_fwd_wgmma<256, CAUSAL>(q, k, v, out, lse, bh, t, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

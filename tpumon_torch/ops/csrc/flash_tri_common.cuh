@@ -35,14 +35,16 @@ __device__ __forceinline__ int lane_tx() { return threadIdx.x & 7; }
 __device__ __forceinline__ int lane_ty() { return (threadIdx.x >> 5) * 4 + ((threadIdx.x & 31) >> 3); }
 
 // Copy ROWS contiguous rows of HD floats from device memory into shared
-// memory with row stride HD + 1, with 16-byte loads.
+// memory with row stride HD + 1, with 16-byte loads; rows at or past
+// `valid` (the end of T) are zeros and are not read.
 template <int HD, int ROWS>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src) {
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int valid) {
   constexpr int kVecPerRow = HD / 4;
   for (int i = threadIdx.x; i < ROWS * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(src + (size_t)r * HD + c);
+    const float4 x = r < valid ? *reinterpret_cast<const float4*>(src + (size_t)r * HD + c)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
     float* d = dst + r * (HD + 1) + c;
     d[0] = x.x;
     d[1] = x.y;
@@ -80,17 +82,19 @@ __device__ __forceinline__ void zero(float (&acc)[RM][CN]) {
     for (int c = 0; c < CN; ++c) acc[r][c] = 0.f;
 }
 
-// Write this thread's [kRows, HD / 8] tile of an owned-row output to a
-// row-major [*, HD] f32 tensor starting at row `row0`.
-template <int HD>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, int row0,
-                                           const float (&acc)[kRows][HD / kColGroups]) {
+// Write this thread's [kRows, OUT / 8] tile of an owned-row output to
+// OUT columns of a row-major [*, HD] f32 tensor (dst points at the first),
+// starting at row `row0`; rows at or past t are not stored.
+template <int HD, int OUT = HD>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, int row0, int t,
+                                           const float (&acc)[kRows][OUT / kColGroups]) {
   const int ty = lane_ty(), tx = lane_tx();
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
+    if (row0 + ty + kRowGroups * r >= t) continue;
     float* row = dst + (size_t)(row0 + ty + kRowGroups * r) * HD;
 #pragma unroll
-    for (int c = 0; c < HD / kColGroups; ++c) row[tx + kColGroups * c] = acc[r][c];
+    for (int c = 0; c < OUT / kColGroups; ++c) row[tx + kColGroups * c] = acc[r][c];
   }
 }
 

@@ -3,9 +3,10 @@
 //
 // A tile is ROWS consecutive rows of one bh's [T, HD] slice, in shared
 // memory as TMA writes it: 64-column boxes of 128-byte swizzled rows
-// (head dim 64: one box, 128: two), or one box of 64-byte swizzled rows
-// (head dim 32). The tensor maps are 3-d [BH, T, HD], so a tile that
-// reaches past T loads zeros there, not the next bh's rows. wgmma reads a
+// (head dim 64: one box, 128: two, 256: four), or one box of 64-byte
+// swizzled rows (head dim 32). The tensor maps are 3-d [BH, T, HD], so a
+// tile that reaches past T (any T: the last tile of a ragged one) loads
+// zeros there, not the next bh's rows. wgmma reads a
 // tile two ways through its descriptor: K-major (the head dim is the
 // product's depth: S = Q K^T, either side) and MN-major (the rows are the
 // depth: V in P V, K in dS K, Q and dO in dS^T Q and P^T dO), so no tile
@@ -26,7 +27,7 @@ using namespace hopper;
 // Shared-memory layout of a ROWS-row tile at head dim HD.
 template <int HD, int ROWS>
 struct Tile {
-  static_assert(HD == 32 || HD == 64 || HD == 128, "head dim 32, 64 or 128");
+  static_assert(HD == 32 || HD == 64 || HD == 128 || HD == 256, "head dim 32, 64, 128 or 256");
   static_assert(ROWS % 16 == 0 && ROWS <= 256, "TMA boxes of at most 256 rows");
   static constexpr int kRowBytes = HD >= 64 ? 128 : 64;  // swizzled row of a box
   static constexpr int kBoxCols = kRowBytes / 2;         // bf16 columns per TMA box
@@ -52,12 +53,13 @@ __device__ __forceinline__ uint64_t desc_kmajor(const uint8_t* tile, int row0, i
 }
 
 // The tile as an MN-major B operand: rows 16 kk.. of the tile (the
-// product's depth), all HD columns: 64-column boxes kBoxBytes apart
-// (leading), 8-row groups (stride).
+// product's depth), the columns from col0 (a multiple of the box width) on:
+// 64-column boxes kBoxBytes apart (leading), 8-row groups (stride).
 template <int HD, int ROWS>
-__device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int kk) {
+__device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int kk, int col0 = 0) {
   using L = Tile<HD, ROWS>;
-  return smem_desc(tile + kk * 16 * L::kRowBytes, L::kBoxBytes, L::kGroupBytes, L::kLayout);
+  return smem_desc(tile + (col0 / L::kBoxCols) * L::kBoxBytes + kk * 16 * L::kRowBytes,
+                   L::kBoxBytes, L::kGroupBytes, L::kLayout);
 }
 
 // One tile starting at `row` of bh's [T, HD] slice; its bytes complete on
@@ -110,7 +112,8 @@ __device__ __forceinline__ void wgmma_scores(float (&d)[N / 2], const uint8_t* a
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (N == 128) wgmma_m64n128k16_rs(d, a, db, 1);
+  if constexpr (N == 256) wgmma_m64n256k16_rs(d, a, db, 1);
+  else if constexpr (N == 128) wgmma_m64n128k16_rs(d, a, db, 1);
   else if constexpr (N == 64) wgmma_m64n64k16_rs(d, a, db, 1);
   else wgmma_m64n32k16_rs(d, a, db, 1);
 }

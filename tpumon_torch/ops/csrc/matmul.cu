@@ -46,16 +46,23 @@
 // the arithmetic warps uses their idle issue slots; three warps of
 // warpgroup 0 widening alone were slower (PERF.md, PR 4).
 // Ragged edges: TMA zero-fills loads past M, N or K (a zero-filled K tail
-// adds exact zeros) and the epilogue clips columns past N.
+// adds exact zeros) and the epilogue clips columns past N. C has whole
+// 128-row tiles: the wrapper allocates M rounded up to 128 and returns the
+// first M rows (a guard on each row's store slowed the int8 kernel's main
+// loop by about 5% at 4096^3, PERF.md). TMA needs row strides that are
+// multiples of 16 bytes: K and N multiples of 8 for bf16, N of 16 for int8
+// Q (the Python wrapper zero-pads a shape that is not, and slices C back).
 //
 // f32 A runs on CUDA cores in f32 (tensor cores would round f32 inputs to
 // TF32): 256 threads, each an 8 x 8 register tile of a 128 x 128 output
-// tile, 8-deep K steps with synchronous loads.
+// tile, 8-deep K steps with synchronous loads; loads past M, N or K read
+// zeros and stores past them are dropped, at any shape.
 //
 // Supported: A float32 or bfloat16; B of A's type, or int8 with a float32
-// scale; M and N multiples of 128, K a multiple of 32. The Python wrappers
-// (tpumon_torch/ops/matmul.py, quant_matmul.py) check shapes and types;
-// the launchers re-check what they index by.
+// scale; any M, N, K >= 1 (bf16: K % 8 == 0, and N % 8 == 0, or N % 16 == 0
+// with int8 Q). The Python wrappers (tpumon_torch/ops/matmul.py,
+// quant_matmul.py) check shapes and types; the launchers re-check what
+// they index by.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,8 +75,7 @@ namespace {
 using namespace tpumon::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 128;  // M and N multiples the launchers accept
-constexpr int kDepth = 32;  // K multiple the launchers accept
+constexpr int kTile = 128;  // the f32 kernel's output tile
 
 // --- bf16 A on tensor cores: wgmma over a TMA-fed ring --------------------
 
@@ -165,7 +171,7 @@ __device__ __forceinline__ void tile_coords(int t, int mtiles, int ntiles, int& 
   nt = r / rows;
 }
 
-// Persistent: gridDim.x CTAs stride over the (M/128) x ceil(N/256) tiles.
+// Persistent: gridDim.x CTAs stride over the ceil(M/128) x ceil(N/256) tiles.
 // Warpgroup 0: one thread issues the loads; warpgroups 1-2: the products
 // (and, INT8, the widening) and the epilogue. tma_b maps B (bf16 [K, N],
 // 64 x 64 boxes) or Q (int8 [K, N], 128 x 64 boxes), both swizzled. The
@@ -193,7 +199,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
   __syncthreads();
 
-  const int mtiles = m / kBM, ntiles = (n + kBN - 1) / kBN;
+  const int mtiles = (m + kBM - 1) / kBM, ntiles = (n + kBN - 1) / kBN;
   const int tiles = mtiles * ntiles, nk = (k + kBK - 1) / kBK;
   auto stage_a = [&](int s) { return reinterpret_cast<bf16*>(ring + s * R::kStageBytes); };
   // The second operand of TMA stage s: bf16 B, or int8 Q.
@@ -267,7 +273,9 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       if (lane == 0) mbar_arrive(&empty[prev]);
 
       // Accumulator d[4j + 2i + e] is row 16 (warp % 4) + lane / 4 + 8 i,
-      // column 8 j + 2 (lane % 4) + e of this warpgroup's 64 x 256.
+      // column 8 j + 2 (lane % 4) + e of this warpgroup's 64 x 256. N is
+      // even (a multiple of 8), so a pair is in or out of C as a whole; C
+      // has whole 128-row tiles (the rows past M are the caller's slack).
       const int row = mt * kBM + wg * 64 + (warp & 3) * 16 + (lane >> 2);
       bf16* out = c + static_cast<size_t>(row) * n;
 #pragma unroll
@@ -304,13 +312,27 @@ __device__ __forceinline__ float4 load4(const int8_t* p) {
   return make_float4(x.x, x.y, x.z, x.w);
 }
 
-// grid (N / 128, M / 128), 256 threads. Thread (ty, tx) = (tid / 16,
-// tid % 16) owns rows ty + 16 i and columns tx + 16 j, i, j < 8. A is
-// staged transposed ([k][m]) so both operands are read along a row.
+// Columns col .. col + 3 of row `row` of a row-major [rows, cols] matrix,
+// zeros outside it: one 16-byte (int8: 4-byte) load where all four lie
+// inside and cols keeps rows aligned (cols % 4 == 0), else one at a time.
+template <typename T>
+__device__ __forceinline__ float4 load4_edge(const T* p, int row, int rows, int col, int cols) {
+  if (row >= rows) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const T* r = p + (size_t)row * cols;
+  if (col + 3 < cols && cols % 4 == 0) return load4(r + col);
+  float x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = col + e < cols ? static_cast<float>(r[col + e]) : 0.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// grid (ceil(N / 128), ceil(M / 128)), 256 threads. Thread (ty, tx) =
+// (tid / 16, tid % 16) owns rows ty + 16 i and columns tx + 16 j, i, j < 8.
+// A is staged transposed ([k][m]) so both operands are read along a row.
 template <typename BT, bool SCALE>
 __global__ void __launch_bounds__(kF32Threads)
 gemm_f32_kernel(const float* __restrict__ a, const BT* __restrict__ b,
-                const float* __restrict__ scale, float* __restrict__ c, int n, int k) {
+                const float* __restrict__ scale, float* __restrict__ c, int m, int n, int k) {
   __shared__ __align__(16) float sa[kF32K * kLdF];
   __shared__ __align__(16) float sb[kF32K * kLdF];
 
@@ -326,8 +348,8 @@ gemm_f32_kernel(const float* __restrict__ a, const BT* __restrict__ b,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < k; k0 += kF32K) {
-    const float4 av = load4(a + (size_t)(m0 + ar) * k + k0 + ac);
-    const float4 bv = load4(b + (size_t)(k0 + br) * n + n0 + bc);
+    const float4 av = load4_edge(a, m0 + ar, m, k0 + ac, k);
+    const float4 bv = load4_edge(b, k0 + br, k, n0 + bc, n);
     __syncthreads();  // the previous step's tiles are consumed
     sa[(ac + 0) * kLdF + ar] = av.x;
     sa[(ac + 1) * kLdF + ar] = av.y;
@@ -352,24 +374,28 @@ gemm_f32_kernel(const float* __restrict__ a, const BT* __restrict__ b,
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = n0 + tx + 16 * j;
+    if (col >= n) continue;
     const float s = SCALE ? scale[col] : 1.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) c[(size_t)(m0 + ty + 16 * i) * n + col] = acc[i][j] * s;
+    for (int i = 0; i < 8; ++i)
+      if (m0 + ty + 16 * i < m) c[(size_t)(m0 + ty + 16 * i) * n + col] = acc[i][j] * s;
   }
 }
 
-bool shapes_ok(int m, int n, int k) {
-  return m > 0 && n > 0 && k > 0 && m % kTile == 0 && n % kTile == 0 && k % kDepth == 0;
-}
+bool shapes_ok(int m, int n, int k) { return m > 0 && n > 0 && k > 0; }
 
-dim3 grid_of(int m, int n) { return dim3(n / kTile, m / kTile); }
+// bf16 A: TMA's 16-byte row strides (A [m, k] and B [k, n] bf16, or Q
+// [k, n] int8).
+bool tma_ok(int n, int k, bool int8) { return k % 8 == 0 && n % (int8 ? 16 : 8) == 0; }
+
+dim3 grid_of(int m, int n) { return dim3((n + kTile - 1) / kTile, (m + kTile - 1) / kTile); }
 
 template <typename BT, bool SCALE>
 cudaError_t launch_f32(const void* a, const void* b, const float* scale, void* c, int m, int n,
                        int k, cudaStream_t stream) {
   gemm_f32_kernel<BT, SCALE><<<grid_of(m, n), kF32Threads, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const BT*>(b), scale, static_cast<float*>(c), n,
-      k);
+      static_cast<const float*>(a), static_cast<const BT*>(b), scale, static_cast<float*>(c), m,
+      n, k);
   return cudaGetLastError();
 }
 
@@ -393,7 +419,7 @@ cudaError_t launch_wgmma(const void* a, const void* b, const float* scale, void*
     err = cudaFuncSetAttribute(gemm_wgmma_kernel<INT8>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<INT8>::kSmem);
   if (err != cudaSuccess) return err;
-  const int tiles = (m / kBM) * ((n + kBN - 1) / kBN);
+  const int tiles = ((m + kBM - 1) / kBM) * ((n + kBN - 1) / kBN);
   gemm_wgmma_kernel<INT8><<<tiles < sms ? tiles : sms, kThreads, Ring<INT8>::kSmem, stream>>>(
       ta, tb, scale, static_cast<bf16*>(c), m, n, k);
   return cudaGetLastError();
@@ -404,22 +430,27 @@ cudaError_t launch_wgmma(const void* a, const void* b, const float* scale, void*
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, the type of a, b and c. a [m, k], b
-// [k, n], c [m, n], all row-major, contiguous, 16-byte aligned, on the
-// current device; m and n multiples of 128, k of 32. Launches on `stream`
-// and returns cudaGetLastError() (0 on success); allocates nothing.
+// [k, n], c [m, n] (bf16: [m rounded up to 128, n], whose rows past m the
+// kernel overwrites), all row-major, contiguous, 16-byte aligned, on the
+// current device; m, n, k >= 1 (bf16: k and n multiples of 8). Launches on
+// `stream` and returns cudaGetLastError() (0 on success); allocates
+// nothing.
 int tpumon_matmul(const void* a, const void* b, void* c, int m, int n, int k, int dtype,
                   void* stream) {
-  if (!shapes_ok(m, n, k) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(m, n, k) || (dtype != 0 && dtype != 1) || (dtype == 1 && !tma_ok(n, k, false)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? (int)launch_f32<float, false>(a, b, nullptr, c, m, n, k, s)
                     : (int)launch_wgmma<false>(a, b, nullptr, c, m, n, k, s);
 }
 
 // The same with b an int8 q [k, n] and a float32 scale [n], applied once
-// to each column's f32 accumulator before c is written in a's type.
+// to each column's f32 accumulator before c is written in a's type (bf16:
+// k a multiple of 8, n of 16).
 int tpumon_quantized_matmul(const void* a, const void* q, const void* scale, void* c, int m,
                             int n, int k, int dtype, void* stream) {
-  if (!shapes_ok(m, n, k) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(m, n, k) || (dtype != 0 && dtype != 1) || (dtype == 1 && !tma_ok(n, k, true)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   return dtype == 0 ? (int)launch_f32<int8_t, true>(a, q, sc, c, m, n, k, s)

@@ -28,8 +28,18 @@
 //   page_size, head_dim] tensor maps (any page size: a tile that reaches
 //   past its page loads zeros there, not the next page's rows) with
 //   swizzled rows (128-byte; 64 at bf16 head dim 32 and f32 16; 32 at bf16
-//   16), so the consumers' ldmatrix reads are free of bank conflicts. Each stage has a full and
-//   an empty mbarrier; nothing synchronises the CTA per tile.
+//   16), so the consumers' ldmatrix reads are free of bank conflicts. Each
+//   stage has a full and an empty mbarrier; nothing synchronises the CTA
+//   per tile.
+// - Head dims between instances (8, 24, 72, 96, 192, ...) run in the next
+//   instance's tile (16, 32, 64, 128, 256). The tensor maps keep the pool's
+//   true head dim as their inner extent, so TMA fills the tile's columns
+//   past it with zeros and the pool is never copied; q is read and the
+//   output written at the true head dim, and the scale is 1/sqrt(true head
+//   dim). A row TMA cannot describe (a row stride that is not a multiple
+//   of 16 bytes: bf16 head dim % 8, f32 % 4) is copied into the same
+//   swizzled tile by the load warp's 32 lanes instead, zero past the head
+//   dim and the page, each lane arriving on the stage's full barrier.
 // - Four consumer warps split each tile's rows and each keeps its own
 //   online softmax state over the keys it has seen, in f32. bf16: the
 //   products run on tensor cores (mma.sync.m16n8k16) with the keys as M
@@ -40,10 +50,14 @@
 //   f32: CUDA cores (tensor cores would round f32 to TF32), a lane per
 //   head_dim / 32 columns (at head dim 16, lanes 16-31 hold zeros),
 //   scores reduced over the warp.
-// - A GQA group above 8 query heads is cut into tiles of 8: the grid's
-//   y axis runs over (kv head, group tile), and each tile's CTAs read the
-//   kv head's pages for their 8 query heads (a group of 16 reads the pool
-//   twice, in one launch).
+// - Shared memory at head dim 256: 3 stages of 64 (bf16) or 32 (f32) rows
+//   of K and V, 32 KB each, 192 KB in all. The f32 consumer's registers
+//   hold q and the accumulator for 4 query heads at 8 columns a lane
+//   there (a group tile of 4), against 8 heads at 4 columns below.
+// - A GQA group above the group tile (8 query heads; f32 at head dim
+//   256: 4) is cut into tiles: the grid's y axis runs over (kv head, group
+//   tile), and each tile's CTAs read the kv head's pages for their query
+//   heads (a group of 16 reads the pool twice, in one launch).
 // - The end of a split: the four warps' states merge in shared memory in
 //   warp order. A sequence with one live split writes its output; else
 //   each split writes its partial (m, l, acc) in f32 to a workspace, and
@@ -61,11 +75,11 @@
 // zeroed before P V, so rows past the length that hold anything (NaN
 // included) do not reach the output.
 //
-// Supported: float32 and bfloat16, head_dim 16, 32, 64 or 128 (bf16's
-// mma.sync takes 16 columns a k-step, so a head dim that is not a multiple
-// of 16 has no instance; 256 would not fit the f32 consumer's registers),
-// any GQA group, any page size. The Python wrapper (tpumon_torch/ops/paged_attention.py)
-// checks shapes and types; the launcher below re-checks what it indexes by.
+// Supported: float32 and bfloat16, any head_dim from 1 to 256 (instances
+// 16, 32, 64, 128 and 256: bf16's mma.sync takes 16 columns a k-step),
+// any GQA group, any page size. The Python wrapper (tpumon_torch/ops/
+// paged_attention.py) checks shapes and types; the launcher below
+// re-checks what it indexes by.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,7 +97,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kConsumerWarps = 4;
 constexpr int kThreads = 32 * (kConsumerWarps + 1);  // + the load warp
-constexpr int kMaxGroup = 8;                         // query heads per group tile
+constexpr int kMaxGroup = 8;                         // query heads per group tile, at most
 constexpr int kMaxStages = 8;
 constexpr int kDefaultStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -92,12 +106,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 // kBoxCols columns whose kRowBytes-byte rows are swizzled (the 16-byte
 // chunk c of row r sits at chunk c ^ (r % 8) for 128-byte rows, c ^ (r / 2
 // % 4) for 64-byte rows, c ^ (r / 4 % 2) for 32-byte rows), kRows rows
-// apart. Consumer warp w reads rows
-// w * kKeysPerWarp .. of it.
+// apart. Consumer warp w reads rows w * kKeysPerWarp .. of it. kGroup:
+// the query heads a CTA serves of its kv head's group.
 template <typename T, int HD>
 struct Tile {
-  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "head dim 16, 32, 64 or 128");
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128 || HD == 256,
+                "head dim 16, 32, 64, 128 or 256");
   static constexpr int kElem = sizeof(T);
+  static constexpr int kGroup = kElem == 4 && HD == 256 ? 4 : kMaxGroup;
   static constexpr int kRows = kElem == 2 ? 64 : 32;
   static constexpr int kKeysPerWarp = kRows / kConsumerWarps;  // bf16: one m16 tile
   static constexpr int kRowBytes = HD * kElem >= 128 ? 128 : HD * kElem >= 64 ? 64 : 32;
@@ -172,8 +188,12 @@ struct Params {
   const int* lengths;
   float* partials;  // [B, nkv, group tiles, splits] x tile stride x HD acc, then the (m, l) pairs
   int* counters;    // [B, nkv, group tiles] arrivals, 0 between launches
+  const void* k_pages;  // the pools, read by the load warp where TMA is not used
+  const void* v_pages;
   int num_heads, num_kv_heads, num_pages, page_size, max_pages;
+  int head_dim;  // the pool's, at most the instance's HD
   int pages_per_split, tile_rows, stages;
+  int manual;  // 1: the load warp copies the tiles (rows TMA cannot describe)
   float scale_log2;
 };
 
@@ -215,15 +235,21 @@ __device__ __forceinline__ void consume_bf16(const Params& p, const uint8_t* rin
   const int quad = lane >> 2, t4 = lane & 3;
 
   // Q^T as the B fragment of S^T = K Q^T: query head0 + lane / 4 (0 past
-  // the group tile's gsz heads), head-dim pairs 16 ks + 2 t4 and + 8.
+  // the group tile's gsz heads and past the head dim), head-dim pairs
+  // 16 ks + 2 t4 and + 8.
   uint32_t qf[HD / 16][2];
-  const bf16* qrow = static_cast<const bf16*>(p.q) + ((size_t)b * p.num_heads + head0 + quad) * HD;
+  const int hd = p.head_dim;
+  const uint16_t* qrow = static_cast<const uint16_t*>(p.q) +
+                         ((size_t)b * p.num_heads + head0 + quad) * hd;
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      qf[ks][i] =
-          quad < gsz ? *reinterpret_cast<const uint32_t*>(qrow + 16 * ks + 8 * i + 2 * t4) : 0u;
+    for (int i = 0; i < 2; ++i) {
+      const int c = 16 * ks + 8 * i + 2 * t4;
+      const uint32_t lo = quad < gsz && c < hd ? qrow[c] : 0u;
+      const uint32_t hi = quad < gsz && c + 1 < hd ? qrow[c + 1] : 0u;
+      qf[ks][i] = lo | hi << 16;
+    }
 
   float o[HD / 16][4];
 #pragma unroll
@@ -328,35 +354,39 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
                                             float* ep_acc, float (*ep_m)[kMaxGroup],
                                             float (*ep_l)[kMaxGroup]) {
   using L = Tile<float, HD>;
+  constexpr int kG = L::kGroup;
   constexpr int kCols = HD >= 32 ? HD / 32 : 1;
   constexpr int kKeys = L::kKeysPerWarp;
   constexpr int kSub = kCols == 1 ? 8 : 4;  // keys a block: no instance spills
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col = kCols * lane;
   const bool owns = col < HD;  // false only past head dim 16's columns
+  const int hd = p.head_dim;
 
   auto load = [&](const uint8_t* tile, int row, float (&x)[kCols]) {
-    const uint8_t* src = tile + L::offset(row, owns ? col : 0);
-    if constexpr (kCols == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(src);
-      x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+    if constexpr (kCols >= 4) {  // 16-byte chunks, each swizzled on its own
+#pragma unroll
+      for (int u = 0; u < kCols / 4; ++u) {
+        const float4 v = *reinterpret_cast<const float4*>(tile + L::offset(row, col + 4 * u));
+        x[4 * u] = v.x, x[4 * u + 1] = v.y, x[4 * u + 2] = v.z, x[4 * u + 3] = v.w;
+      }
     } else if constexpr (kCols == 2) {
-      const float2 v = *reinterpret_cast<const float2*>(src);
+      const float2 v = *reinterpret_cast<const float2*>(tile + L::offset(row, col));
       x[0] = v.x, x[1] = v.y;
     } else {
-      x[0] = owns ? *reinterpret_cast<const float*>(src) : 0.f;
+      x[0] = owns ? *reinterpret_cast<const float*>(tile + L::offset(row, owns ? col : 0)) : 0.f;
     }
   };
 
-  float q[kMaxGroup][kCols], o[kMaxGroup][kCols], m[kMaxGroup], l[kMaxGroup];
-  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.num_heads + head0) * HD;
+  float q[kG][kCols], o[kG][kCols], m[kG], l[kG];
+  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.num_heads + head0) * hd;
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
+  for (int g = 0; g < kG; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      q[g][j] = g < gsz && owns ? qb[g * HD + col + j] : 0.f;
+      q[g][j] = g < gsz && col + j < hd ? qb[g * hd + col + j] : 0.f;
       o[g][j] = 0.f;
     }
   }
@@ -372,14 +402,14 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
       // a score): their scores, the online update, then P V.
 #pragma unroll 1
       for (int k0 = 0; k0 < n; k0 += kSub) {
-        float s[kSub][kMaxGroup];
+        float s[kSub][kG];
 #pragma unroll
         for (int kk = 0; kk < kSub; ++kk) {
           const bool live = k0 + kk < n;
           float x[kCols];
           if (live) load(kt, key0 + k0 + kk, x);
 #pragma unroll
-          for (int g = 0; g < kMaxGroup; ++g) {
+          for (int g = 0; g < kG; ++g) {
             s[kk][g] = kNegInf;
             if (live && g < gsz) {
               float d = 0.f;
@@ -390,7 +420,7 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
           }
         }
 #pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
+        for (int g = 0; g < kG; ++g) {
           if (g >= gsz) continue;
           float mx = s[0][g];
 #pragma unroll
@@ -414,7 +444,7 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
             float x[kCols];
             load(vt, key0 + k0 + kk, x);
 #pragma unroll
-            for (int g = 0; g < kMaxGroup; ++g)
+            for (int g = 0; g < kG; ++g)
               if (g < gsz)
 #pragma unroll
                 for (int j = 0; j < kCols; ++j) o[g][j] = fmaf(s[kk][g], x[j], o[g][j]);
@@ -428,7 +458,7 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
 
   if (lane == 0)
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
+    for (int g = 0; g < kG; ++g) {
       ep_m[w][g] = m[g];
       ep_l[w][g] = l[g];
     }
@@ -436,15 +466,37 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
   float* acc = ep_acc + w * kMaxGroup * HD;
   if (owns)
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
+    for (int g = 0; g < kG; ++g)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) acc[g * HD + col + j] = o[g][j];
 }
 
+// The manual route: the load warp's lanes copy the tile of rows r0.. of
+// one page (`src` points at the page's first row) into a stage in Tile's
+// swizzled layout, 16 bytes at a time, zeros past the head dim and past
+// the page.
+template <typename T, int HD>
+__device__ __forceinline__ void copy_tile(uint8_t* dst, const T* src, const Params& p, int r0,
+                                          int lane) {
+  using L = Tile<T, HD>;
+  constexpr int kPer = 16 / L::kElem;  // elements in a 16-byte chunk
+  constexpr int kChunks = HD / kPer;   // chunks in a row
+  const int hd = p.head_dim;
+  for (int i = lane; i < p.tile_rows * kChunks; i += 32) {
+    const int r = i / kChunks, c0 = (i % kChunks) * kPer;
+    alignas(16) T chunk[kPer];
+    const bool live = r0 + r < p.page_size;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e)
+      chunk[e] = live && c0 + e < hd ? src[(size_t)(r0 + r) * hd + c0 + e] : from_float<T>(0.f);
+    *reinterpret_cast<uint4*>(dst + L::offset(r, c0)) = *reinterpret_cast<const uint4*>(chunk);
+  }
+}
+
 // grid (splits, n_kv_heads x group tiles, batch), kThreads threads, 1024 +
 // stages * 2 * Tile::kBytes bytes of dynamic shared memory. tma_k / tma_v map the pools
-// as [kv head x page, page_size, HD] in boxes of Tile's columns and
-// tile_rows rows.
+// as [kv head x page, page_size, head_dim] in boxes of Tile's columns and
+// tile_rows rows (unused when p.manual).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
@@ -460,22 +512,23 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
   const int split = blockIdx.x, b = blockIdx.z;
   const int splits = gridDim.x;
   const int group = p.num_heads / p.num_kv_heads;
+  const int hd = p.head_dim;
   // Group tile gt of kv head h: query heads head0 .. head0 + gsz - 1;
-  // stride = min(group, 8), the tile's room in the workspace.
-  const int gtiles = (group + kMaxGroup - 1) / kMaxGroup;
+  // stride = min(group, kGroup), the tile's room in the workspace.
+  const int gtiles = (group + L::kGroup - 1) / L::kGroup;
   const int h = blockIdx.y / gtiles, gt = blockIdx.y % gtiles;
-  const int head0 = h * group + gt * kMaxGroup;
-  const int gsz = min(kMaxGroup, group - gt * kMaxGroup);
-  const int stride = min(kMaxGroup, group);
+  const int head0 = h * group + gt * L::kGroup;
+  const int gsz = min(L::kGroup, group - gt * L::kGroup);
+  const int stride = min(L::kGroup, group);
   // The reference masks key positions >= length over max_pages*page_size
   // rows, so a length outside [0, that] behaves as its clamp.
   const int len = min(max(p.lengths[b], 0), p.max_pages * p.page_size);
   const int n_pages = (len + p.page_size - 1) / p.page_size;
   const int n_live = (n_pages + p.pages_per_split - 1) / p.pages_per_split;
-  T* out = static_cast<T*>(p.out) + ((size_t)b * p.num_heads + head0) * HD;
+  T* out = static_cast<T*>(p.out) + ((size_t)b * p.num_heads + head0) * hd;
   if (split >= n_live) {
     if (split == 0)  // length 0
-      for (int i = threadIdx.x; i < gsz * HD; i += kThreads) out[i] = from_float<T>(0.f);
+      for (int i = threadIdx.x; i < gsz * hd; i += kThreads) out[i] = from_float<T>(0.f);
     return;
   }
   const int page0 = split * p.pages_per_split;
@@ -483,8 +536,8 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);  // lane 0 of each consumer warp
+      mbar_init(&full[s], p.manual ? 32 : 1);  // every lane of the load warp, or its TMA
+      mbar_init(&empty[s], kConsumerWarps);    // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -494,7 +547,8 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
   if (warp == kConsumerWarps) {
     // The load warp: its lanes fetch 32 table entries at a time (clamped
     // into the pool, as the reference's gather clamps them), lane 0 issues
-    // each tile's K and V boxes once its stage is free.
+    // each tile's K and V boxes once its stage is free; on the manual
+    // route every lane copies its share and arrives.
     const int* tab = p.table + (size_t)b * p.max_pages;
     const uint32_t tx = 2u * L::kBoxes * p.tile_rows * L::kRowBytes;
     int page_l = 0;
@@ -505,9 +559,14 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
       }
       const int page = __shfl_sync(0xffffffffu, page_l, (pg - page0) % 32);
       mbar_wait(&empty[slot], parity ^ 1);
-      if (lane == 0) {
-        uint8_t* kt = ring + slot * 2 * L::kBytes;
-        const int outer = h * p.num_pages + page;
+      uint8_t* kt = ring + slot * 2 * L::kBytes;
+      const int outer = h * p.num_pages + page;
+      if (p.manual) {
+        const size_t at = (size_t)outer * p.page_size * hd;
+        copy_tile<T, HD>(kt, static_cast<const T*>(p.k_pages) + at, p, r0, lane);
+        copy_tile<T, HD>(kt + L::kBytes, static_cast<const T*>(p.v_pages) + at, p, r0, lane);
+        mbar_arrive(&full[slot]);  // releases this lane's writes
+      } else if (lane == 0) {
         mbar_expect_tx(&full[slot], tx);
 #pragma unroll
         for (int bx = 0; bx < L::kBoxes; ++bx) {
@@ -532,9 +591,12 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
   const int part = bh * splits + split;
   float* part_acc = p.partials;
   float2* part_ml = reinterpret_cast<float2*>(p.partials + (size_t)gridDim.z * gridDim.y *
-                                                               splits * stride * HD);
+                                                               splits * stride * hd);
+  // Over the instance's HD columns a head (a power of two: the indices are
+  // shifts), skipping those past the pool's head dim; o indexes the output.
   for (int i = threadIdx.x; i < gsz * HD; i += kThreads) {
-    const int g = i / HD, d = i % HD;
+    const int g = i / HD, d = i % HD, o = g * hd + d;
+    if (d >= hd) continue;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kConsumerWarps; ++w) mx = fmaxf(mx, ep_m[w][g]);
@@ -546,9 +608,9 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
       acc += ep_acc[(w * kMaxGroup + g) * HD + d] * e;
     }
     if (n_live == 1) {
-      out[i] = from_float<T>(acc / sum);
+      out[o] = from_float<T>(acc / sum);
     } else {
-      part_acc[(size_t)part * stride * HD + i] = acc;
+      part_acc[(size_t)part * stride * hd + o] = acc;
       if (d == 0) part_ml[(size_t)part * stride + g] = make_float2(mx, sum);
     }
   }
@@ -564,7 +626,8 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
   __threadfence();
   const int first = bh * splits;
   for (int i = threadIdx.x; i < gsz * HD; i += kThreads) {
-    const int g = i / HD;
+    const int g = i / HD, d = i % HD, o = g * hd + d;
+    if (d >= hd) continue;
     float mx = kNegInf;
     for (int s = 0; s < n_live; ++s)
       mx = fmaxf(mx, __ldcg(&part_ml[(size_t)(first + s) * stride + g]).x);
@@ -573,9 +636,9 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
       const float2 ml = __ldcg(&part_ml[(size_t)(first + s) * stride + g]);
       const float e = ex2(ml.x - mx);
       sum += ml.y * e;
-      acc += __ldcg(&part_acc[(size_t)(first + s) * stride * HD + i]) * e;
+      acc += __ldcg(&part_acc[(size_t)(first + s) * stride * hd + o]) * e;
     }
-    out[i] = from_float<T>(acc / sum);
+    out[o] = from_float<T>(acc / sum);
   }
   if (threadIdx.x == 0) p.counters[bh] = 0;  // ready for the next launch
 }
@@ -585,42 +648,54 @@ int smem_bytes(int stages) {
   return 1024 + stages * 2 * Tile<T, HD>::kBytes;
 }
 
+// The instance a head dim runs at: the least of 16, 32, 64, 128, 256 not
+// below it; 0 above 256.
+int instance(int head_dim) {
+  for (int hd = 16; hd <= 256; hd *= 2)
+    if (head_dim <= hd) return hd;
+  return 0;
+}
+
 template <typename T, int HD>
-cudaError_t launch(const void* k_pages, const void* v_pages, Params p, int batch,
-                   cudaStream_t stream) {
+cudaError_t launch(Params p, int batch, cudaStream_t stream) {
   using L = Tile<T, HD>;
-  if (encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
   p.tile_rows = p.page_size < L::kRows ? p.page_size : L::kRows;
-  CUtensorMap maps[2];
-  const void* src[2] = {k_pages, v_pages};
-  for (int i = 0; i < 2; ++i)
-    if (!tensor_map_3d(&maps[i], src[i], L::kType, L::kElem, HD, p.page_size,
-                       p.num_kv_heads * p.num_pages, L::kBoxCols, p.tile_rows, L::kSwizzle))
-      return cudaErrorInvalidValue;
+  // TMA needs a row stride that is a multiple of 16 bytes.
+  p.manual = (p.head_dim * L::kElem) % 16 != 0;
+  CUtensorMap maps[2] = {};
+  if (!p.manual) {
+    if (encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
+    const void* src[2] = {p.k_pages, p.v_pages};
+    for (int i = 0; i < 2; ++i)
+      if (!tensor_map_3d(&maps[i], src[i], L::kType, L::kElem, p.head_dim, p.page_size,
+                         p.num_kv_heads * p.num_pages, L::kBoxCols, p.tile_rows, L::kSwizzle))
+        return cudaErrorInvalidValue;
+  }
   const int smem = smem_bytes<T, HD>(p.stages);
   cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  p.scale_log2 = kLog2e / sqrtf((float)HD);
+  p.scale_log2 = kLog2e / sqrtf((float)p.head_dim);
   const int group = p.num_heads / p.num_kv_heads;
   const dim3 grid((p.max_pages + p.pages_per_split - 1) / p.pages_per_split,
-                  p.num_kv_heads * ((group + kMaxGroup - 1) / kMaxGroup), batch);
+                  p.num_kv_heads * ((group + L::kGroup - 1) / L::kGroup), batch);
   paged_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(maps[0], maps[1], p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_hd(int head_dim, const void* k_pages, const void* v_pages, const Params& p,
-                      int batch, cudaStream_t stream) {
-  switch (head_dim) {
+cudaError_t launch_hd(const Params& p, int batch, cudaStream_t stream) {
+  switch (instance(p.head_dim)) {
     case 16:
-      return launch<T, 16>(k_pages, v_pages, p, batch, stream);
+      return launch<T, 16>(p, batch, stream);
     case 32:
-      return launch<T, 32>(k_pages, v_pages, p, batch, stream);
+      return launch<T, 32>(p, batch, stream);
     case 64:
-      return launch<T, 64>(k_pages, v_pages, p, batch, stream);
+      return launch<T, 64>(p, batch, stream);
     case 128:
-      return launch<T, 128>(k_pages, v_pages, p, batch, stream);
+      return launch<T, 128>(p, batch, stream);
+    case 256:
+      return launch<T, 256>(p, batch, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -632,7 +707,8 @@ int launch_checked(const void* q, const void* k_pages, const void* v_pages, cons
                    int pages_per_split, int stages, void* partials, void* counters,
                    void* stream) {
   if (batch < 1 || num_kv_heads < 1 || num_heads % num_kv_heads != 0 || num_pages < 1 ||
-      page_size < 1 || max_pages < 1 || pages_per_split < 1 || stages < 2 || stages > kMaxStages)
+      page_size < 1 || max_pages < 1 || pages_per_split < 1 || stages < 2 ||
+      stages > kMaxStages || head_dim < 1)
     return (int)cudaErrorInvalidValue;
   if (pages_per_split < max_pages && (partials == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -642,23 +718,45 @@ int launch_checked(const void* q, const void* k_pages, const void* v_pages, cons
            static_cast<const int*>(lengths),
            static_cast<float*>(partials),
            static_cast<int*>(counters),
+           k_pages,
+           v_pages,
            num_heads,
            num_kv_heads,
            num_pages,
            page_size,
            max_pages,
+           head_dim,
            pages_per_split,
            0,
            stages,
+           0,
            0.f};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)launch_hd<float>(head_dim, k_pages, v_pages, p, batch, s);
+      return (int)launch_hd<float>(p, batch, s);
     case 1:
-      return (int)launch_hd<bf16>(head_dim, k_pages, v_pages, p, batch, s);
+      return (int)launch_hd<bf16>(p, batch, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int config_smem(int head_dim, int stages) {
+  switch (instance(head_dim)) {
+    case 16:
+      return smem_bytes<T, 16>(stages);
+    case 32:
+      return smem_bytes<T, 32>(stages);
+    case 64:
+      return smem_bytes<T, 64>(stages);
+    case 128:
+      return smem_bytes<T, 128>(stages);
+    case 256:
+      return smem_bytes<T, 256>(stages);
+    default:
+      return 0;
   }
 }
 
@@ -667,11 +765,12 @@ int launch_checked(const void* q, const void* k_pages, const void* v_pages, cons
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q/out [batch, num_heads, head_dim];
-// k_pages/v_pages [num_kv_heads, num_pages, page_size, head_dim]; table
-// [batch, max_pages] int32; lengths [batch] int32; all contiguous, 16-byte
-// aligned, on the current device. One split per (sequence, kv head, group
-// tile of 8 query heads), the default ring: needs no workspace. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); allocates nothing.
+// k_pages/v_pages [num_kv_heads, num_pages, page_size, head_dim], head_dim
+// 1 to 256; table [batch, max_pages] int32; lengths [batch] int32; all
+// contiguous, 16-byte aligned, on the current device. One split per
+// (sequence, kv head, group tile), the default ring: needs no workspace.
+// Launches on `stream` and returns cudaGetLastError() (0 on success);
+// allocates nothing.
 int tpumon_paged_attention(const void* q, const void* k_pages, const void* v_pages,
                            const void* table, const void* lengths, void* out, int batch,
                            int num_heads, int num_kv_heads, int num_pages, int page_size,
@@ -683,11 +782,12 @@ int tpumon_paged_attention(const void* q, const void* k_pages, const void* v_pag
 
 // The same with the page axis split into ceil(max_pages / pages_per_split)
 // CTAs per (sequence, kv head, group tile) and a ring of `stages` stages
-// (0: the default). With group = num_heads / num_kv_heads, tiles =
-// ceil(group / 8) and stride = min(group, 8): partials, f32, batch *
-// num_kv_heads * tiles * splits * stride * (head_dim + 2) values, any
-// contents; counters, int32, batch * num_kv_heads * tiles values, all 0
-// (the kernel leaves them 0 again).
+// (0: the default). With group = num_heads / num_kv_heads, G the group
+// tile (tpumon_paged_attention_config's out[3]), tiles = ceil(group / G)
+// and stride = min(group, G): partials, f32, batch * num_kv_heads * tiles
+// * splits * stride * (head_dim + 2) values, any contents; counters,
+// int32, batch * num_kv_heads * tiles values, all 0 (the kernel leaves
+// them 0 again).
 int tpumon_paged_attention_split(const void* q, const void* k_pages, const void* v_pages,
                                  const void* table, const void* lengths, void* out, int batch,
                                  int num_heads, int num_kv_heads, int num_pages, int page_size,
@@ -698,30 +798,30 @@ int tpumon_paged_attention_split(const void* q, const void* k_pages, const void*
                         stages == 0 ? kDefaultStages : stages, partials, counters, stream);
 }
 
-// The kernel's configuration: out[0] its dynamic shared-memory bytes at
-// `stages` stages (0: the default), out[1] the default stages, out[2] the
-// rows of a stage at `page_size`. Returns cudaErrorInvalidValue for a
-// head dim or dtype it does not take.
+// The kernel's configuration at a head dim of 1 to 256: out[0] its dynamic
+// shared-memory bytes at `stages` stages (0: the default), out[1] the
+// default stages, out[2] the rows of a stage at `page_size`, out[3] the
+// group tile (query heads a CTA serves), out[4] the instance's head dim.
+// Returns cudaErrorInvalidValue for a head dim or dtype it does not take.
 int tpumon_paged_attention_config(int head_dim, int dtype, int stages, int page_size, int* out) {
   const int st = stages == 0 ? kDefaultStages : stages;
-  int smem = 0, rows = 0;
-  if (dtype == 1) {
+  const int inst = instance(head_dim);
+  int smem = 0, rows = 0, group = 0;
+  if (head_dim >= 1 && dtype == 1) {
     rows = Tile<bf16, 32>::kRows;
-    smem = head_dim == 16 ? smem_bytes<bf16, 16>(st)
-           : head_dim == 32 ? smem_bytes<bf16, 32>(st)
-           : head_dim == 64 ? smem_bytes<bf16, 64>(st)
-           : head_dim == 128 ? smem_bytes<bf16, 128>(st) : 0;
-  } else if (dtype == 0) {
+    smem = config_smem<bf16>(head_dim, st);
+    group = kMaxGroup;
+  } else if (head_dim >= 1 && dtype == 0) {
     rows = Tile<float, 32>::kRows;
-    smem = head_dim == 16 ? smem_bytes<float, 16>(st)
-           : head_dim == 32 ? smem_bytes<float, 32>(st)
-           : head_dim == 64 ? smem_bytes<float, 64>(st)
-           : head_dim == 128 ? smem_bytes<float, 128>(st) : 0;
+    smem = config_smem<float>(head_dim, st);
+    group = inst == 256 ? Tile<float, 256>::kGroup : kMaxGroup;
   }
   if (smem == 0) return (int)cudaErrorInvalidValue;
   out[0] = smem;
   out[1] = kDefaultStages;
   out[2] = page_size < rows ? page_size : rows;
+  out[3] = group;
+  out[4] = inst;
   return 0;
 }
 

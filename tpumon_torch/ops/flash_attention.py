@@ -26,16 +26,16 @@ raises. The plain versions mirror the reference kernels' numerics: f32
 scores and softmax, masked scores at -1e30, and the rounding of P and dS
 to the input dtype right before their products.
 
-The kernels have instances at head dims 32, 64 and 128
-(``KERNEL_HEAD_DIMS``). A smaller head dim (8, 16, 48, ...) runs through
-the next instance: ``pad_head_dim`` zero-pads q, k, v (and dO) along D,
-passes the true scale ``1/sqrt(D)`` and slices the outputs back. Zero
-columns change neither QK^T nor the softmax, and they come back as zero
-gradient columns, so this is the same kernel at a wider shape (it costs
-the padded copies' bytes). A head dim above 128 has no instance and
-raises ``ValueError``, as does a T that is not a multiple of
-``KERNEL_TILE`` (64): the training schedule pads T to its block grid
-(multiples of 128) before it calls the kernels.
+The kernels have instances at head dims 32, 64, 128 and 256
+(``KERNEL_HEAD_DIMS``). A head dim between them (8, 16, 48, 96, 192, ...)
+runs through the next instance: ``pad_head_dim`` zero-pads q, k, v (and
+dO) along D, passes the true scale ``1/sqrt(D)`` and slices the outputs
+back. Zero columns change neither QK^T nor the softmax, and they come back
+as zero gradient columns, so this is the same kernel at a wider shape (it
+costs the padded copies' bytes). A head dim above 256 has no instance and
+raises ``ValueError`` before any launch. T takes the reference's contract
+alone, a multiple of the caller's blocks, at any size: the kernels load
+zeros past T, mask keys at or past it, and store no row at or past it.
 """
 
 from __future__ import annotations
@@ -49,8 +49,7 @@ from tpumon_torch.ops import _build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (32, 64, 128)  # instances; a smaller D pads to the next
-KERNEL_TILE = 64  # the kernels need T % 64 == 0 (bf16 forward: 128-row tiles)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # instances; a D between pads to the next
 # The plain versions materialise [chunk, T, T] f32 tensors; chunking the
 # folded batch keeps each near 1 GiB at long T.
 _PLAIN_CHUNK_ELEMS = 1 << 28
@@ -79,14 +78,14 @@ def _check(q, k, v, block: int, *more, block_k: int | None = None) -> None:
 
 def kernel_head_dim(d: int) -> int:
     """The instance a head dim ``d`` runs at on the card: the least of
-    ``KERNEL_HEAD_DIMS`` not below it. Raises ValueError above 128."""
+    ``KERNEL_HEAD_DIMS`` not below it. Raises ValueError above 256."""
     for hd in KERNEL_HEAD_DIMS:
         if d <= hd:
             return hd
     raise ValueError(
         f"the CUDA kernels take head_dim up to {KERNEL_HEAD_DIMS[-1]} "
-        f"(instances {KERNEL_HEAD_DIMS}; a smaller one is zero-padded to the "
-        f"next); got head_dim={d}")
+        f"(instances {KERNEL_HEAD_DIMS}; one between them is zero-padded "
+        f"to the next); got head_dim={d}")
 
 
 def _on_cuda(*tensors) -> bool:
@@ -97,11 +96,7 @@ def _on_cuda(*tensors) -> bool:
         return False
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-    _, t, d = q.shape
-    if t % KERNEL_TILE:
-        raise ValueError(
-            f"the CUDA kernels take T a multiple of {KERNEL_TILE}; got T={t}")
-    kernel_head_dim(d)
+    kernel_head_dim(q.shape[-1])
     return True
 
 
@@ -195,8 +190,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention forward, causal or not: [BH, T, D] -> [BH, T, D]
     in q's dtype, T a multiple of block_q and of block_k (the reference's
     block grid). On a CUDA tensor the kernel tiles T itself (bf16: 128-row
-    tiles, f32: 64), so the blocks only set the contract, as in the
-    reference.
+    q tiles, f32: 64; a last tile may reach past T), so the blocks only set
+    the contract, as in the reference.
     """
     _check(q, k, v, block_q, block_k=block_k)
     if not _on_cuda(q, k, v):
@@ -229,8 +224,9 @@ def flash_attention_tri_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q/k/v: [BH, T, D] with T % block == 0 (callers pad T; the reference
     kernel's block grid). out: [BH, T, D] in q's dtype; lse: [BH, T] f32.
-    On a CUDA tensor the kernel tiles T itself (bf16: 128-row tiles, f32:
-    64), so ``block`` only sets the padding contract, as in the reference.
+    On a CUDA tensor the kernel tiles T itself (bf16: 128-row q tiles, f32:
+    64; a last tile may reach past T), so ``block`` only sets the padding
+    contract, as in the reference.
     """
     _check(q, k, v, block)
     if not _on_cuda(q, k, v):
@@ -252,27 +248,29 @@ flash_attention_tri_fwd.launches = 0
 
 def fwd_kernel_config(head_dim: int) -> dict:
     """The bf16 forward kernel's dynamic shared-memory bytes, K/V ring
-    stages and registers per thread after setmaxnreg (loading warpgroup,
-    arithmetic warpgroups) at ``head_dim``, from the built library."""
+    stages, registers per thread after setmaxnreg (loading warpgroup,
+    arithmetic warpgroups) and k rows a stage at ``head_dim``, from the
+    built library."""
     lib = _build.load("flash_attention_tri_fwd")
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     _build.check(lib, lib.tpumon_flash_fwd_config(head_dim, out),
                  "tpumon_flash_fwd_config")
-    return dict(zip(("smem_bytes", "stages", "load_regs", "math_regs"), out))
+    return dict(zip(("smem_bytes", "stages", "load_regs", "math_regs",
+                     "k_rows"), out))
 
 
 def bwd_kernel_config(head_dim: int) -> dict:
     """The bf16 backward kernels' dynamic shared-memory bytes, streamed
-    stages and streamed tile rows (dQ: k tiles, dK/dV: q tiles), and the
-    registers per thread after setmaxnreg at ``head_dim``, from the built
-    library."""
+    stages and streamed tile rows (dQ: k tiles, dK/dV: q tiles), the
+    registers per thread after setmaxnreg and the rows a CTA owns at
+    ``head_dim``, from the built library."""
     lib = _build.load("flash_attention_tri_bwd")
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 9)()
     _build.check(lib, lib.tpumon_flash_bwd_config(head_dim, out),
                  "tpumon_flash_bwd_config")
     return dict(zip(("dq_smem_bytes", "dkv_smem_bytes", "dq_stages",
                      "dkv_stages", "dq_k_tile", "dkv_q_tile", "load_regs",
-                     "math_regs"), out))
+                     "math_regs", "owned_rows"), out))
 
 
 def flash_attention_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -112,8 +112,9 @@ BWD_VARIANTS = {
     # dK/dV's arithmetic warpgroups take turns issuing their products.
     "dkv_pingpong": (("kDkvPingPong = false;", "kDkvPingPong = true;"),),
     # Two streamed stages in both kernels, not three.
-    "stages_2": (("constexpr int kDqStages = 3;", "constexpr int kDqStages = 2;"),
-                 ("constexpr int kDkvStages = 3;",
+    "stages_2": (("constexpr int kDqStages = kSplit ? 2 : 3;",
+                  "constexpr int kDqStages = 2;"),
+                 ("constexpr int kDkvStages = kSplit ? 2 : 3;",
                   "constexpr int kDkvStages = 2;")),
     # dQ without overlap inside a warpgroup: wait for the score products
     # and the previous tile's gradient product together.
@@ -160,7 +161,7 @@ BWD_VARIANTS = {
       pack();"""),),
     # dQ streams 128-row k tiles (S and dP by m64n128k16; 2 stages fit).
     "dq_k_tile_128": (("constexpr int kDqK = 64;", "constexpr int kDqK = 128;"),
-                      ("constexpr int kDqStages = 3;",
+                      ("constexpr int kDqStages = kSplit ? 2 : 3;",
                        "constexpr int kDqStages = 2;")),
     # dK/dV streams 32-row q tiles (S^T and dP^T by m64n32k16).
     "dkv_q_tile_32": (("constexpr int kDkvQ = 64;", "constexpr int kDkvQ = 32;"),),

@@ -8,9 +8,14 @@ and K must divide ``block_m``, ``block_n`` and ``block_k``, anything else
 raises ``ValueError``. The blocks only set what is admitted: the kernel
 (``csrc/matmul.cu``) tiles the product its own way (bf16: a persistent
 grid of 128 x 256 output tiles, ``wgmma`` over a TMA-fed ring of 64-deep
-K stages, ragged N and K edges zero-filled by TMA; f32: 128 x 128 tiles
-on CUDA cores), so on a CUDA tensor M and N must also be multiples of 128
-and K of 32.
+K stages, the ragged M, N and K edges zero-filled by TMA; C allocated in
+whole 128-row tiles and its first M rows returned, columns past N clipped
+at store; f32: 128 x 128 tiles on CUDA cores, edges masked), so any shape
+the blocks admit runs. TMA needs row strides that are multiples of 16
+bytes: where a bf16 K or N is not a multiple of 8 (int8 Q: N of 16),
+``padded_operands`` zero-pads the operands to the next such shape, the
+same kernel runs there and C is sliced back (counted in
+``matmul.padded``).
 
 On a CUDA tensor the wrapper launches the kernel and counts the launch in
 ``matmul.launches``; on a CPU tensor it runs ``matmul_reference``, the
@@ -28,8 +33,8 @@ import torch
 from tpumon_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_TILE = 128  # M and N multiples of it
-KERNEL_DEPTH = 32  # K a multiple of it
+TMA_ALIGN = 8  # bf16 K and N multiples of it (16 bytes); int8 Q's N: 16
+TILE_M = 128  # the bf16 kernel stores whole tiles of this many rows
 
 
 def check_blocks(m: int, k: int, n: int, block_m: int, block_n: int,
@@ -64,11 +69,6 @@ def on_cuda(*tensors) -> bool:
         return False
     if a.device.type != "cuda":
         raise ValueError(f"matmul runs on cpu or cuda, not {a.device}")
-    (m, k), n = a.shape, b.shape[1]
-    if m % KERNEL_TILE or n % KERNEL_TILE or k % KERNEL_DEPTH:
-        raise ValueError(
-            f"the CUDA kernel takes M and N multiples of {KERNEL_TILE} and K "
-            f"a multiple of {KERNEL_DEPTH}; got {(m, k, n)}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("the CUDA kernel takes contiguous tensors only")
     if any(x.data_ptr() % 16 for x in tensors):
@@ -94,6 +94,34 @@ def launch(symbol: str, tensors) -> None:
     _build.check(lib, err, f"{symbol} launch")
 
 
+def padded_operands(a: torch.Tensor, b: torch.Tensor, scale=None):
+    """(a, b, scale) as the bf16 kernel takes them: K zero-padded to a
+    multiple of TMA_ALIGN (a's columns, b's rows) and N to a multiple of
+    TMA_ALIGN, or 16 for int8 b (b's columns, scale's entries), with
+    nothing copied where the shape already is one. Zero rows and columns
+    add exact zeros, so C's first N columns are the product's."""
+    (_, k), n = a.shape, b.shape[1]
+    align_n = 16 if b.dtype == torch.int8 else TMA_ALIGN
+    pk, pn = -k % TMA_ALIGN, -n % align_n
+    if a.dtype != torch.bfloat16 or not (pk or pn):
+        return a, b, scale
+    matmul.padded += 1
+    a = torch.nn.functional.pad(a, (0, pk))
+    b = torch.nn.functional.pad(b, (0, pn, 0, pk))
+    if scale is not None:
+        scale = torch.nn.functional.pad(scale, (0, pn))
+    return a, b, scale
+
+
+def output(a: torch.Tensor, n: int) -> torch.Tensor:
+    """C for the kernels: [M, N] in a's dtype, with M rounded up to
+    TILE_M rows for the bf16 kernel, which stores whole tiles; the caller
+    takes the first M rows (a contiguous view)."""
+    m = a.shape[0]
+    rows = -(-m // TILE_M) * TILE_M if a.dtype == torch.bfloat16 else m
+    return torch.empty(rows, n, dtype=a.dtype, device=a.device)
+
+
 def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version: the product in f32, returned in a's dtype."""
     return (a.float() @ b.float()).to(a.dtype)
@@ -108,10 +136,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor, block_m: int = 1024,
     check_blocks(m, k, n, block_m, block_n, block_k)
     if not on_cuda(a, b):
         return matmul_reference(a, b)
-    c = torch.empty(m, n, dtype=a.dtype, device=a.device)
+    a, b, _ = padded_operands(a, b)
+    c = output(a, b.shape[1])
     launch("tpumon_matmul", (a, b, c))
     matmul.launches += 1
-    return c
+    return c[:m] if c.shape[1] == n else c[:m, :n].contiguous()
 
 
 matmul.launches = 0
+matmul.padded = 0  # calls (either kernel) that went through padded_operands

@@ -10,7 +10,9 @@ each sequence's pages in place, split across CTAs of
 the same launch — the gathered ``[B, S]`` context never exists in device
 memory; on a CPU tensor it runs ``paged_attention_reference``, the plain
 PyTorch version that mirrors the reference's dense-gather oracle step
-for step (and is the engine's ``paged_attn="gather"`` read path).
+for step (and is the engine's ``paged_attn="gather"`` read path). On the
+card the kernel takes any head_dim from 1 to 256 and any GQA group; a
+head_dim above 256 raises ``ValueError`` before any launch.
 """
 
 from __future__ import annotations
@@ -23,11 +25,14 @@ from tpumon_torch.ops import _build
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The head dims the kernel has instances for: bf16's mma.sync takes 16
-# columns a k-step, so a head dim that is not a multiple of 16 has none, and
-# 256 would not fit the f32 consumer's registers. Any GQA group runs: the
-# kernel takes query heads in tiles of GROUP_TILE per kv head.
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# The kernel's instances (bf16's mma.sync takes 16 columns a k-step). Any
+# head dim up to 256 runs in the least instance not below it: the TMA maps
+# keep the pool's true head dim, so the tile's columns past it load as
+# zeros and the pool is never copied; a row stride TMA cannot describe
+# (bf16 head dim % 8, f32 % 4) is copied into the tile by the load warp.
+# Any GQA group runs: the kernel takes query heads in tiles of GROUP_TILE
+# per kv head (group_tile: 4 for f32 at the 256 instance, its registers).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 GROUP_TILE = 8
 # The split rule (pages_per_split): about SPLIT_TARGET_CTAS CTAs a call
 # (two resident on each of an H100's 132 SMs), none shorter than
@@ -72,6 +77,24 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     return torch.einsum("bhk,bkhd->bhd", probs, v)
 
 
+def kernel_head_dim(hd: int) -> int:
+    """The instance a head dim runs at: the least of KERNEL_HEAD_DIMS not
+    below it. Raises ValueError above 256."""
+    for inst in KERNEL_HEAD_DIMS:
+        if hd <= inst:
+            return inst
+    raise ValueError(
+        f"the CUDA kernel takes head_dim up to {KERNEL_HEAD_DIMS[-1]} "
+        f"(instances {KERNEL_HEAD_DIMS}; a head dim between them runs in the "
+        f"next); got head_dim={hd}")
+
+
+def group_tile(dtype: torch.dtype, hd: int) -> int:
+    """Query heads a CTA serves per kv head at this dtype and head dim."""
+    return 4 if dtype == torch.float32 and kernel_head_dim(hd) == 256 else (
+        GROUP_TILE)
+
+
 def pages_per_split(batch: int, n_kv_heads: int, max_pages: int,
                     page_size: int) -> int:
     """Table entries per CTA of the kernel, from static shapes alone (no
@@ -102,16 +125,17 @@ def _kernel():
 def kernel_config(head_dim: int, dtype: torch.dtype, page_size: int,
                   stages: int = 0) -> dict:
     """The kernel's dynamic shared memory at ``stages`` ring stages (0: its
-    default), its default stages and the rows of a stage at
-    ``page_size``. Builds the library (needs nvcc)."""
+    default), its default stages, the rows of a stage at ``page_size``,
+    its group tile and the instance ``head_dim`` runs at. Builds the
+    library (needs nvcc)."""
     lib = _build.load("paged_attention")
     fn = lib.tpumon_paged_attention_config
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 5)()
     _build.check(lib, fn(head_dim, _DTYPES[dtype], stages, page_size,
                          ctypes.addressof(out)), "paged_attention config")
     return {"smem_bytes": out[0], "default_stages": out[1],
-            "stage_rows": out[2]}
+            "stage_rows": out[2], "group_tile": out[3], "instance": out[4]}
 
 
 # Arrival counters of the split kernel, one int32 per (sequence, kv head),
@@ -196,11 +220,7 @@ def _launch(q, k_pages, v_pages, page_table, lengths, pages: int = 0,
     b, nh, hd = q.shape
     nkv, num_pages, page_size, _ = k_pages.shape
     max_pages = page_table.shape[1]
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"the CUDA kernel takes head_dim in {KERNEL_HEAD_DIMS} (a head "
-            f"dim that is not a multiple of 16, or above 128, has no "
-            f"instance); got head_dim={hd}")
+    kernel_head_dim(hd)  # raises above 256, before any launch
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("the CUDA kernel needs 16-byte aligned q/k/v")
     out = torch.empty_like(q)
@@ -218,9 +238,9 @@ def _launch(q, k_pages, v_pages, page_table, lengths, pages: int = 0,
             err = one(*args, stream.cuda_stream)
         else:
             splits = -(-max_pages // pages)
-            group = nh // nkv
-            tiles = -(-group // GROUP_TILE)
-            rows = b * nkv * tiles * splits * min(group, GROUP_TILE)
+            group, gt = nh // nkv, group_tile(q.dtype, hd)
+            tiles = -(-group // gt)
+            rows = b * nkv * tiles * splits * min(group, gt)
             partials = torch.empty(rows * (hd + 2), dtype=torch.float32,
                                    device=q.device)
             counters = _arrival_counters(q.device, stream, b * nkv * tiles)

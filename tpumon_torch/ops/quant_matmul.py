@@ -25,7 +25,14 @@ from __future__ import annotations
 
 import torch
 
-from tpumon_torch.ops.matmul import check_blocks, check_operands, launch, on_cuda
+from tpumon_torch.ops.matmul import (
+    check_blocks,
+    check_operands,
+    launch,
+    on_cuda,
+    output,
+    padded_operands,
+)
 
 
 def _check(a, q, scale) -> None:
@@ -56,10 +63,11 @@ def quantized_matmul_kernel(a: torch.Tensor, q: torch.Tensor,
     scale = scale.to(torch.float32).contiguous()  # the kernel's scale type
     if not on_cuda(a, q, scale):
         return quantized_matmul_reference(a, q, scale)
-    c = torch.empty(m, n, dtype=a.dtype, device=a.device)
+    a, q, scale = padded_operands(a, q, scale)
+    c = output(a, q.shape[1])
     launch("tpumon_quantized_matmul", (a, q, scale, c))
     quantized_matmul_kernel.launches += 1
-    return c
+    return c[:m] if c.shape[1] == n else c[:m, :n].contiguous()
 
 
 quantized_matmul_kernel.launches = 0
