@@ -631,7 +631,7 @@ def print_paged_config() -> None:
 
     configs = {f"{str(dt)[6:]}_hd{hd}": kernel_config(hd, dt, 128)
                for dt in (torch.bfloat16, torch.float32)
-               for hd in (16, 32, 64, 128, 256)}
+               for hd in (16, 32, 64, 128, 256, 512, 1024)}
     print(f"paged_ptxas config={configs} "
           + " | ".join(_build.ptxas_report("paged_attention")), flush=True)
 
@@ -1796,6 +1796,9 @@ def check_served_checkpoint(trained: dict) -> None:
 # attention.SDPBackend names), so that each time names the kernels it
 # ran; the faster is the library time.
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION")
+# Timed where neither of SDPA_BACKENDS takes the inputs (PyTorch's flash
+# and cuDNN backends refuse a head dim above 256).
+SDPA_WIDE_BACKENDS = ("EFFICIENT_ATTENTION", "MATH")
 
 
 def library_flash(q, k, v, dout, backend: str, causal: bool = True,
@@ -1841,11 +1844,14 @@ def time_sdpa(q, k, v, dout, label: str, causal: bool = True,
     backend each ran and, for the backward, the device time of its
     kernels per call from a profiler trace (the events read the call as a
     caller sees it, host included; PERF.md §7); a backend that refuses
-    these inputs is printed as such and left out."""
+    these inputs is printed as such and left out. Where both refuse them,
+    SDPA_WIDE_BACKENDS are timed instead."""
     import torch
 
     times = {"fwd": {}, "bwd": {}}
-    for backend in SDPA_BACKENDS:
+    for backend in (*SDPA_BACKENDS, *SDPA_WIDE_BACKENDS):
+        if backend in SDPA_WIDE_BACKENDS and times["fwd"]:
+            break
         try:
             fwd, bwd = library_flash(q, k, v, dout, backend, causal, batch)
             fwd_ms = cuda_ms(fwd, reps=reps, warmup=10)
@@ -1929,7 +1935,7 @@ def print_flash_config() -> None:
                 keep = "wgmma" in ln
             if keep:
                 lines.append(ln)
-        configs = {hd: config(hd) for hd in (32, 64, 128, 256)}
+        configs = {hd: config(hd) for hd in (32, 64, 128, 256, 512, 1024)}
         print(f"{tag} config={configs} " + " | ".join(lines), flush=True)
 
 
@@ -6283,9 +6289,9 @@ def phase25(peaks: dict, device: str = "cuda", cfg=None,
 # 256 and at T no multiple of their tiles, the GEMMs at edge shapes. Each
 # against its plain version under phase 3's, 7's and 11's limits
 # (PAGED_TOL, FLASH_TOL, GEMM_TOL), every planted fault that applies over
-# them, and a head dim above 256 refused before any launch. Then a model
-# at head dim 256 served and trained through the normal entry points, and
-# the kernels timed at its shapes.
+# them (a head dim above 256: phase 27). Then a model at head dim 256
+# served and trained through the normal entry points, and the kernels
+# timed at its shapes.
 PAGED_HEAD_DIMS = (8, 24, 72, 96, 192, 256)
 # Head dims whose rows TMA cannot describe (a row stride that is not a
 # multiple of 16 bytes: bf16 head dim % 8, f32 % 4): the kernel's load
@@ -6347,43 +6353,18 @@ def p26_paged_cases() -> list:
         ("hd256_engine_decode", dict(HD256_DECODE, lengths=prod_lengths()))]
 
 
-def p26_refusals() -> None:
-    """A head dim above 256 raises ValueError, naming 256, before any
-    launch of the paged or the flash kernels."""
-    import torch
-
-    from tpumon_torch.ops import flash_attention as fa
-    from tpumon_torch.ops import paged_attention as pa
-
-    args = paged_inputs(torch.Generator(device="cuda").manual_seed(26), 2,
-                        4, 2, 264, 8, 2, (5, 9), torch.bfloat16)
-    q = torch.zeros(2, 128, 264, device="cuda", dtype=torch.bfloat16)
-    before = (pa.paged_attention.launches, flash_counts())
-    raised = []
-    for fn in (lambda: pa.paged_attention(*args),
-               lambda: fa.flash_attention_tri_fwd(q, q, q)):
-        try:
-            fn()
-        except ValueError as e:
-            raised.append("head_dim up to 256" in str(e))
-    same = before == (pa.paged_attention.launches, flash_counts())
-    print(f"p26_refusals head_dim=264 raised_naming_256={raised} "
-          f"no_launch={same}", flush=True)
-    if raised != [True, True] or not same:
-        fail("a head dim above 256 was not refused before any launch")
-
-
-def p26_check_paged(gen) -> None:
-    """The paged kernel against its plain version at every phase 26 shape,
-    bf16 and f32: rows_rel_err under PAGED_TOL, length-0 rows zero, every
-    planted fault that applies over the limit, one launch a call."""
+def p26_check_paged(gen, cases=None, tag: str = "p26") -> None:
+    """The paged kernel against its plain version at every phase 26 shape
+    (or ``cases``, printed as ``tag``), bf16 and f32: rows_rel_err under
+    PAGED_TOL, length-0 rows zero, every planted fault that applies (the
+    sliced design's among them) over the limit, one launch a call."""
     import torch
 
     from tpumon_torch.ops import paged_attention as pa
 
     before = pa.paged_attention.launches
     calls, least = 0, {}
-    for name, shape in p26_paged_cases():
+    for name, shape in cases or p26_paged_cases():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype)[6:]
             tol = PAGED_TOL[dname]
@@ -6397,14 +6378,15 @@ def p26_check_paged(gen) -> None:
             zero = args[4] <= 0
             zeros = bool((got[zero].float() == 0).all().item())
             finite = bool(torch.isfinite(got.float()).all().item())
-            faults = paged_fault_readings(args, want)
+            faults = {**paged_fault_readings(args, want),
+                      **paged_slice_readings(args, want)}
             missed = [f for f, r in faults.items() if not r > tol]
             low = min(faults.items(), key=lambda kv: kv[1], default=None)
             if low is not None:
                 least[dname] = min(least.get(dname, low), low,
                                    key=lambda kv: kv[1])
             ok = finite and zeros and rel <= tol
-            print(f"p26_paged {name} {dname} rows_rel_err={rel!r} tol={tol} "
+            print(f"{tag}_paged {name} {dname} rows_rel_err={rel!r} tol={tol} "
                   f"max_abs_err={err!r} zero_rows={zeros} least_fault={low} "
                   f"missed={missed} {'ok' if ok else 'MISS'}", flush=True)
             if not ok:
@@ -6415,28 +6397,31 @@ def p26_check_paged(gen) -> None:
                      f"{dname})")
             del args, got, want
     launches = pa.paged_attention.launches - before
-    print(f"p26_paged checks={calls} launches={launches} least_fault="
+    print(f"{tag}_paged checks={calls} launches={launches} least_fault="
           f"{least}", flush=True)
     if launches != calls:
         fail(f"paged checks launched {launches} times for {calls} calls")
     pa.paged_attention.launches = before
 
 
-def p26_check_flash(gen) -> dict:
+def p26_check_flash(gen, cases=None, tag: str = "p26") -> dict:
     """The triangle forward, dQ, dK/dV and the rectangular forward (causal
     and not) against their plain versions at FLASH_SHAPE_CASES and the
-    hd-256 training shape, bf16 and f32, each call one launch, under
-    FLASH_TOL, with every planted fault that applies over it. Returns the
-    rectangular forward's launches (it lies on no path: its checks are
-    what the summary counts for it, as phase 15's)."""
+    hd-256 training shape (or ``cases`` (name, bh, t, hd, block), printed
+    as ``tag``), bf16 and f32, each call one launch, under FLASH_TOL, with
+    every planted fault that applies (the sliced design's among them) over
+    it. Returns the rectangular forward's launches (it lies on no path:
+    its checks are what the summary counts for it, as phase 15's)."""
     import torch
 
     from tpumon_torch.ops import flash_attention as fa
 
-    cases = [(f"hd{hd}_t{t}_block{blk}", 6, t, hd, blk)
-             for hd, t, blk in FLASH_SHAPE_CASES]
-    cases.append(("hd256_train", HD256_TRAIN["batch"] * HD256_MODEL["n_heads"],
-                  HD256_TRAIN["seq"], 256, HD256_TRAIN["block"]))
+    if cases is None:
+        cases = [(f"hd{hd}_t{t}_block{blk}", 6, t, hd, blk)
+                 for hd, t, blk in FLASH_SHAPE_CASES]
+        cases.append(("hd256_train",
+                      HD256_TRAIN["batch"] * HD256_MODEL["n_heads"],
+                      HD256_TRAIN["seq"], 256, HD256_TRAIN["block"]))
     before, rect_before = flash_counts(), fa.flash_attention.launches
     set_flash_counts(dict.fromkeys(FLASH_KERNELS, 0))
     fa.flash_attention.launches = 0
@@ -6471,25 +6456,30 @@ def p26_check_flash(gen) -> dict:
             missed = [f"{kern}:{f}" for kern, fs in faults.items()
                       for f, r in fs.items() if fault_required(kern, f)
                       and not r > flash_limit(kern, dname)]
-            rect_rel = {}
+            rect_rel, want["rect"] = {}, None
             for causal, out in rect.items():
                 want_r = fa.flash_attention_reference(q, k, v, causal)
+                want["rect"] = want["rect"] if causal else want_r
                 rect_rel[causal] = tile_rel_err(out, want_r)
                 for f in FLASH_RECT_FAULTS:
                     if fault_applies(f, t, causal) and not tile_rel_err(
                             faulty_plain(q, k, v, f, causal), want_r) > (
                             tol["out"]):
                         missed.append(f"flash_attention:{f}:causal={causal}")
+            slices = flash_slice_readings(q, k, v, g, want_lse, dvec, want)
+            missed += [f"{kern}:{f}" for kern, fs in slices.items()
+                       for f, (r, lim) in fs.items() if not r > lim]
             ok = finite and abs_err["lse"] <= tol["lse"] and all(
                 rel[o] <= flash_limit(kern, dname)
                 for kern, outs in FLASH_OUTPUTS.items() for o in outs) and (
                 max(rect_rel.values()) <= tol["out"])
-            print(f"p26_flash {name} BH{bh}/T{t}/hd{hd}/block{blk} {dname} "
+            print(f"{tag}_flash {name} BH{bh}/T{t}/hd{hd}/block{blk} {dname} "
                   f"tile_rel_err={rel} rect_tile_rel_err={rect_rel} "
                   f"lse_max_abs_err={abs_err['lse']!r} tol={tol} "
                   f"finite={finite} {'ok' if ok else 'MISS'}", flush=True)
-            print(f"p26_flash_planted_faults {name} {dname} tile_rel_err="
-                  f"{faults} missed={missed}", flush=True)
+            print(f"{tag}_flash_planted_faults {name} {dname} tile_rel_err="
+                  f"{faults} slice_faults={slices} missed={missed}",
+                  flush=True)
             if not ok:
                 fail(f"flash kernels disagree with their plain versions "
                      f"({name}, {dname})")
@@ -6500,7 +6490,7 @@ def p26_check_flash(gen) -> dict:
             torch.cuda.empty_cache()
     counts, rect_launches = flash_counts(), fa.flash_attention.launches
     calls = 2 * len(cases)
-    print(f"p26_flash checks={calls} launches={counts} rect_launches="
+    print(f"{tag}_flash checks={calls} launches={counts} rect_launches="
           f"{rect_launches}", flush=True)
     if any(n != calls for n in counts.values()) or rect_launches != 2 * calls:
         fail(f"flash checks launched {counts} / {rect_launches} times for "
@@ -6563,8 +6553,10 @@ def p26_check_gemm(gen) -> None:
     set_gemm_counts(before)
 
 
-def p26_serve(dtype: str) -> dict:
-    """The hd-256 model served in ``dtype``: phase 4's 16 prompts (64-3000
+def p26_serve(dtype: str, model_fn=hd256_model, label: str = "hd256",
+              tag: str = "p26") -> dict:
+    """The hd-256 model (or ``model_fn``'s, named ``label`` in lines
+    tagged ``tag``) served in ``dtype``: phase 4's 16 prompts (64-3000
     tokens), greedy, 32 new tokens each, through the paged engine (16
     slots, page 128) with the kernel read path, then the gather path (the
     plain read path) on the same seed. Each run's paged launches are
@@ -6581,7 +6573,7 @@ def p26_serve(dtype: str) -> dict:
     _, prompts, _ = engine_traffic()
     max_new, runs, keep = 32, {}, None
     for attn in ("kernel", "gather"):
-        cfg = ServeConfig(model=hd256_model(dtype), slots=16,
+        cfg = ServeConfig(model=model_fn(dtype), slots=16,
                           prefill_len=128, kv_layout="paged",
                           paged_attn=attn)
         eng = ServingEngine(cfg=cfg, seed=0, device="cuda")
@@ -6609,7 +6601,7 @@ def p26_serve(dtype: str) -> dict:
                       "decode_steps": steps, "launches": launches,
                       "decode_step_ms_p50": quantiles(step_ms)[0]
                       if step_ms else None, "ttft_p50_ms": ttft[0]}
-        print(f"p26_serve hd256 {dtype} paged_attn={attn} "
+        print(f"{tag}_serve {label} {dtype} paged_attn={attn} "
               f"decode_steps={steps} "
               f"launches={launches} want={want} tokens={eng.tokens_total} "
               f"wall_s={wall!r} tokens_per_s={runs[attn]['tokens_per_s']!r} "
@@ -6621,9 +6613,9 @@ def p26_serve(dtype: str) -> dict:
         bad = [r.rid for r in reqs
                if r.status != "completed" or len(r.output) != max_new + 1]
         if bad:
-            fail(f"hd256 {dtype} {attn}: requests {bad} did not complete")
+            fail(f"{label} {dtype} {attn}: requests {bad} did not complete")
         if launches != want or steps == 0:
-            fail(f"hd256 {dtype} {attn}: paged launches {launches} != "
+            fail(f"{label} {dtype} {attn}: paged launches {launches} != "
                  f"{want}")
         if attn == "kernel":
             keep = eng
@@ -6635,18 +6627,20 @@ def p26_serve(dtype: str) -> dict:
         where = greedy_divergence(keep, prompt, runs["kernel"]["streams"][i],
                                   runs["gather"]["streams"][i])
         ties += where is not None
-        print(f"p26_serve_greedy {dtype} request={i} kernel_vs_gather "
+        print(f"{tag}_serve_greedy {label} {dtype} request={i} "
+              f"kernel_vs_gather "
               f"{'identical' if where is None else 'near-tie at ' + where}",
               flush=True)
-    print(f"p26_serve_greedy {dtype} identical={len(prompts) - ties} "
+    print(f"{tag}_serve_greedy {label} {dtype} identical={len(prompts) - ties} "
           f"near_ties={ties} of {len(prompts)}", flush=True)
     del keep
     torch.cuda.empty_cache()
     return runs["kernel"]
 
 
-def p26_train(peak: float) -> dict:
-    """The hd-256 model trained: run_train at B 1, T 2048, flash (block
+def p26_train(peak: float, model_fn=hd256_model, label: str = "hd256",
+              tag: str = "p26") -> dict:
+    """The hd-256 model (or ``model_fn``'s) trained: run_train at B 1, T 2048, flash (block
     512), each flash kernel's launches counted from 0 (n_layers a step);
     then HD256_TIMED_STEPS steady steps timed; then one step's loss and
     gradients, flash against naive on the same params and tokens, within
@@ -6662,7 +6656,7 @@ def p26_train(peak: float) -> dict:
         run_train,
     )
 
-    model = hd256_model(attention="flash", attn_block_k=HD256_TRAIN["block"])
+    model = model_fn(attention="flash", attn_block_k=HD256_TRAIN["block"])
     cfg = TrainConfig(model=model, steps=HD256_TRAIN["steps"],
                       batch=HD256_TRAIN["batch"], seq=HD256_TRAIN["seq"])
     before = flash_counts()
@@ -6686,7 +6680,7 @@ def p26_train(peak: float) -> dict:
     mem = torch.cuda.max_memory_allocated() / 1e9
     tps = cfg.batch * cfg.seq / step_s
     mfu = 100.0 * tps * flops_per_token(model, cfg.seq) / peak
-    print(f"p26_train hd256 steps={cfg.steps} loss={out['loss']!r} "
+    print(f"{tag}_train {label} steps={cfg.steps} loss={out['loss']!r} "
           f"launches={launches} want={want_n} run_tokens_per_s="
           f"{out['tokens_per_sec']!r} (first step included) "
           f"step_ms={step_s * 1e3!r} ({HD256_TIMED_STEPS} steady steps) "
@@ -6694,9 +6688,9 @@ def p26_train(peak: float) -> dict:
           flush=True)
     if not (out["loss"] is not None and torch.isfinite(
             torch.tensor(out["loss"])) and torch.isfinite(loss)):
-        fail("the hd-256 trainer's loss is not finite")
+        fail(f"the {label} trainer's loss is not finite")
     if any(n != want_n for n in launches.values()):
-        fail(f"hd-256 flash launches {launches} != n_layers x steps "
+        fail(f"{label} flash launches {launches} != n_layers x steps "
              f"({want_n})")
     counted = flash_counts()
     loss, grads = {}, {}
@@ -6709,12 +6703,12 @@ def p26_train(peak: float) -> dict:
     finite = all(bool(torch.isfinite(x).all().item()) for x in grads["flash"])
     tl, tg = STEP_TOL["bfloat16"]
     ok = finite and dl <= tl and dg <= tg
-    print(f"p26_train_flash_vs_naive hd256 loss_flash={float(loss['flash'])!r} "
+    print(f"{tag}_train_flash_vs_naive {label} loss_flash={float(loss['flash'])!r} "
           f"loss_naive={float(loss['naive'])!r} loss_abs_err={dl!r} "
           f"grad_max_rel_l2={dg!r} tol=({tl}, {tg}) finite={finite} "
           f"{'ok' if ok else 'MISS'}", flush=True)
     if not ok:
-        fail("the hd-256 train step, flash vs naive")
+        fail(f"the {label} train step, flash vs naive")
     del params, grads, out
     torch.cuda.empty_cache()
     total = {n: before[n] + counted[n] for n in FLASH_KERNELS}
@@ -6723,13 +6717,47 @@ def p26_train(peak: float) -> dict:
             "tokens_per_s": tps, "mfu_pct": mfu}
 
 
-def p26_time_paged(gen, bw: float, peaks: dict) -> None:
-    """The paged kernel at the hd-256 engine's decode shape (every table
-    full, 8192 rows, and at phase 3's mixed lengths) and at Phi-3-mini's:
-    kernel, plain and gather + SDPA times beside the bound of the bytes
-    these lengths need."""
+def time_paged_shape(gen, tag: str, label: str, shape: dict, lengths,
+                     bw: float, peaks: dict, dtype=None) -> dict:
+    """The paged kernel at one decode shape (paged_inputs' keywords),
+    bf16 unless ``dtype``: kernel, plain and gather + SDPA times beside
+    the bound of the bytes these lengths need, printed and returned."""
     import torch
 
+    from tpumon_torch.ops import paged_attention as pa
+
+    dtype = dtype or torch.bfloat16
+    args = paged_inputs(gen, **shape, lengths=lengths, dtype=dtype)
+    q, k_pages, _, table, lens = args
+    b, nh, hd = q.shape
+    nkv, _, ps, _ = k_pages.shape
+    elem = q.element_size()
+    rows = int(lens.clamp(0, table.shape[1] * ps).sum().item())
+    nbytes = 2 * rows * nkv * hd * elem + 2 * b * nh * hd * elem + (
+        table.numel() + b) * 4
+    ops = 4 * rows * nh * hd
+    bound_ms, bound_by = max((nbytes / bw * 1e3, "bytes"),
+                             (ops / peaks[str(dtype)[6:]] * 1e3,
+                              "operations"))
+    ms = cuda_ms(lambda: pa.paged_attention(*args), reps=50)
+    plain_ms = cuda_ms(lambda: pa.paged_attention_reference(*args), reps=5)
+    lib_ms = cuda_ms(lambda: library_attention(*args), reps=5)
+    print(f"{tag}_time_paged_attention {label} B{b}/h{nh}/kv{nkv}/hd{hd}/"
+          f"page{ps} {str(dtype)[6:]} kernel_ms={ms!r} plain_ms={plain_ms!r} "
+          f"library_gather_sdpa_ms={lib_ms!r} bound_ms={bound_ms!r} "
+          f"({bound_by}: {nbytes} B, {ops} op) kernel_over_bound="
+          f"{ms / bound_ms!r} config={pa.kernel_config(hd, q.dtype, ps)}",
+          flush=True)
+    del args, q, k_pages, table, lens
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def p26_time_paged(gen, bw: float, peaks: dict) -> None:
+    """The paged kernel at the hd-256 engine's decode shape (every table
+    full, 8192 rows, and at phase 3's mixed lengths) and at Phi-3-mini's
+    (time_paged_shape)."""
     from tpumon_torch.ops import paged_attention as pa
 
     before = pa.paged_attention.launches
@@ -6737,42 +6765,20 @@ def p26_time_paged(gen, bw: float, peaks: dict) -> None:
             ("hd256_full", HD256_DECODE, [64 * 128] * 16),
             ("hd256_prod_lengths", HD256_DECODE, prod_lengths()),
             ("phi3_mini_prod_lengths", PHI3_DECODE, prod_lengths())):
-        args = paged_inputs(gen, **shape, lengths=lengths,
-                            dtype=torch.bfloat16)
-        q, k_pages, _, table, lens = args
-        b, nh, hd = q.shape
-        nkv, _, ps, _ = k_pages.shape
-        rows = int(lens.clamp(0, table.shape[1] * ps).sum().item())
-        nbytes = 2 * rows * nkv * hd * 2 + 2 * b * nh * hd * 2 + (
-            table.numel() + b) * 4
-        ops = 4 * rows * nh * hd
-        bound_ms, bound_by = max((nbytes / bw * 1e3, "bytes"),
-                                 (ops / peaks["bfloat16"] * 1e3, "operations"))
-        ms = cuda_ms(lambda: pa.paged_attention(*args), reps=50)
-        plain_ms = cuda_ms(lambda: pa.paged_attention_reference(*args),
-                           reps=5)
-        lib_ms = cuda_ms(lambda: library_attention(*args), reps=5)
-        print(f"p26_time_paged_attention {label} B{b}/h{nh}/kv{nkv}/hd{hd}/"
-              f"page{ps} bf16 kernel_ms={ms!r} plain_ms={plain_ms!r} "
-              f"library_gather_sdpa_ms={lib_ms!r} bound_ms={bound_ms!r} "
-              f"({bound_by}: {nbytes} B, {ops} op) kernel_over_bound="
-              f"{ms / bound_ms!r} config={pa.kernel_config(hd, q.dtype, ps)}",
-              flush=True)
-        del args, q, k_pages, table, lens
-        torch.cuda.empty_cache()
+        time_paged_shape(gen, "p26", label, shape, lengths, bw, peaks)
     pa.paged_attention.launches = before
 
 
-def p26_time_flash(gen, bw: float, peaks: dict) -> None:
-    """The triangle forward, dQ, dK/dV and the rectangular forward at the
-    hd-256 training shape (BH 8, T 2048), bf16: kernel, plain and SDPA
-    (pinned backends) times beside their bounds."""
+def time_flash_shape(gen, tag: str, bh: int, t: int, hd: int, bw: float,
+                     peaks: dict, f32: bool = False) -> dict:
+    """The triangle forward, dQ, dK/dV and the rectangular forward at
+    [BH, T, hd], bf16: kernel, plain and SDPA (pinned backends) times
+    beside their bounds; with ``f32`` the three triangle kernels' f32
+    times too. Returns {kernel: times}."""
     import torch
 
     from tpumon_torch.ops import flash_attention as fa
 
-    bh = HD256_TRAIN["batch"] * HD256_MODEL["n_heads"]
-    t, hd = HD256_TRAIN["seq"], 256
     before, rect_before = flash_counts(), fa.flash_attention.launches
     q, k, v, g, _, lse, dvec = flash_inputs(gen, bh, t, hd, torch.bfloat16)
     bounds = flash_bounds(bh, t, hd, 2, bw, peaks["bfloat16"])
@@ -6791,12 +6797,15 @@ def p26_time_flash(gen, bw: float, peaks: dict) -> None:
             lambda: fa.flash_attention_tri_bwd_dkv_reference(
                 q, k, v, g, lse, dvec)),
     }
+    times = {}
     for name, (kernel, plain) in calls.items():
         ms = cuda_ms(kernel, reps=10)
         plain_ms = cuda_ms(plain, reps=3)
         bound_ms, bound_by = bounds[name]
         lib, backend = fastest(sdpa["fwd" if name.endswith("fwd") else "bwd"])
-        print(f"p26_time_{name} BH{bh}/T{t}/hd{hd} bf16 kernel_ms={ms!r} "
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": lib}
+        print(f"{tag}_time_{name} BH{bh}/T{t}/hd{hd} bf16 kernel_ms={ms!r} "
               f"plain_ms={plain_ms!r} library_sdpa_ms={lib!r} (backend "
               f"{backend}) bound_ms={bound_ms!r} ({bound_by}) "
               f"kernel_over_bound={ms / bound_ms!r} "
@@ -6814,17 +6823,41 @@ def p26_time_flash(gen, bw: float, peaks: dict) -> None:
         lib, backend = fastest(time_sdpa(
             q, k, v, None, f"rect BH{bh}/T{t}/hd{hd}", causal=causal,
             batch=1, reps=10)["fwd"])
-        print(f"p26_time_flash_attention BH{bh}/T{t}/hd{hd} bf16 "
+        print(f"{tag}_time_flash_attention BH{bh}/T{t}/hd{hd} bf16 "
               f"causal={causal} kernel_ms={ms!r} plain_ms={plain_ms!r} "
               f"library_sdpa_ms={lib!r} (backend {backend}) "
               f"bound_ms={bound_ms!r} ({bound_by}) "
               f"kernel_over_bound={ms / bound_ms!r}", flush=True)
-    print(f"p26_flash_config fwd={fa.fwd_kernel_config(256)} "
-          f"bwd={fa.bwd_kernel_config(256)}", flush=True)
+    if f32:
+        q, k, v, g = (x.float() for x in (q, k, v, g))
+        for name, call in (
+                ("flash_attention_tri_fwd",
+                 lambda: fa.flash_attention_tri_fwd(q, k, v)),
+                ("flash_attention_tri_bwd_dq",
+                 lambda: fa.flash_attention_tri_bwd_dq(q, k, v, g, lse,
+                                                       dvec)),
+                ("flash_attention_tri_bwd_dkv",
+                 lambda: fa.flash_attention_tri_bwd_dkv(q, k, v, g, lse,
+                                                        dvec))):
+            ms = cuda_ms(call, reps=3)
+            bound = flash_ops(bh, t, hd)[name] / peaks["float32"] * 1e3
+            print(f"{tag}_time_{name} BH{bh}/T{t}/hd{hd} f32 (CUDA cores) "
+                  f"kernel_ms={ms!r} ops_bound_ms={bound!r}", flush=True)
+    kh = fa.kernel_head_dim(hd)
+    print(f"{tag}_flash_config hd{hd} fwd={fa.fwd_kernel_config(kh)} "
+          f"bwd={fa.bwd_kernel_config(kh)}", flush=True)
     set_flash_counts(before)
     fa.flash_attention.launches = rect_before
     del q, k, v, g, lse, dvec
     torch.cuda.empty_cache()
+    return times
+
+
+def p26_time_flash(gen, bw: float, peaks: dict) -> None:
+    """The flash kernels at the hd-256 training shape (BH 8, T 2048),
+    bf16 (time_flash_shape)."""
+    time_flash_shape(gen, "p26", HD256_TRAIN["batch"] * HD256_MODEL["n_heads"],
+                     HD256_TRAIN["seq"], 256, bw, peaks)
 
 
 def p26_time_gemm(gen, bw: float, peaks: dict) -> None:
@@ -6876,7 +6909,6 @@ def phase26(gen, bw: float, peaks: dict) -> dict:
     t0 = time.perf_counter()
     print("phase26 cuts: the hd-256 model at 2 layers (bench.py:223-227's "
           "depth cut; google/gemma-2b has 18); widths uncut", flush=True)
-    p26_refusals()
     p26_check_paged(gen)
     rect = p26_check_flash(gen)
     p26_check_gemm(gen)
@@ -6893,6 +6925,312 @@ def phase26(gen, bw: float, peaks: dict) -> dict:
           flush=True)
     return {"paged": paged, "flash": trained["launches"],
             "rect": rect}
+
+
+
+# Phase 27: every head dim above 256 (the column-sliced route). Each
+# attention kernel against its plain version at head dims 300, 320, 384,
+# 512, 640 and 1024 under the limits in force (PAGED_TOL, FLASH_TOL), with
+# every planted fault that applies over them, those of the sliced design
+# (SLICE_FAULTS, modelled by paged_sliced_plain and flash_sliced_plain)
+# among them; a head dim of 264, refused until now, runs and is checked.
+# Then a model at head dim 512 served and trained through the normal entry
+# points, and the kernels timed at its shapes.
+P27_HEAD_DIMS = (300, 320, 384, 512, 640, 1024)
+# The faults of the sliced design: a slice's scores over its own columns
+# only, a slice's columns written at the next slice's offset, and the lse
+# written from the last slice having summed only its own columns' scores
+# (the forward that returns lse). Each vanishes with one slice.
+SLICE_FAULTS = ("slice_local_scores", "slice_offset", "lse_from_last_slice")
+SLICE_CHUNK = 256  # columns of a streamed chunk of the scores' operands
+P27_PAGE_SIZE = 16
+# A table the split rule cuts several ways at a group of 12 (tiles of 8
+# and 4; f32: 4, 4 and 4), with a length-0 sequence.
+P27_SPLIT = dict(b=3, nh=24, nkv=2, ps=8, max_pages=96, lengths=(700, 0, 333))
+# Flash (head_dim, T, block): every phase 27 head dim at T 128, and T no
+# multiple of the sliced route's 64-row tiles.
+P27_FLASH_CASES = ([(hd, 128, 64) for hd in P27_HEAD_DIMS + (264,)]
+                   + [(512, 200, 8), (1024, 40, 8)])
+# The model: HD256_MODEL (google/gemma-2b's published widths) with 4 query
+# heads instead of 8, so head_dim = 2048 / 4 = 512: no public model of the
+# repo's Llama-style family has a head dim above 256. The repo's 2-layer
+# depth cut (bench.py:223-227), bf16 over f32 masters.
+HD512_MODEL = dict(HD256_MODEL, n_heads=4)
+HD512_TRAIN = HD256_TRAIN
+HD512_DECODE = dict(b=16, nh=4, nkv=1, hd=512, ps=128, max_pages=64)
+# The pad route timed beside SDPA: hd 192 (to the 256 instance) and hd 384
+# (to 512, the sliced route), at the hd-512 training shape's BH and T.
+P27_PAD_HEAD_DIMS = (192, 384)
+
+
+def hd512_model(dtype: str = "bfloat16", **over):
+    from tpumon_torch.loadgen.model import ModelConfig
+
+    return ModelConfig(**dict(HD512_MODEL, compute_dtype=dtype, **over))
+
+
+def _slice_scores(q, k, width: int, local: bool) -> list:
+    """Each slice's scores, in f32, over padded [..., T, D'] q and k: the
+    products of all 256-column chunks added in chunk order (every slice
+    the same), or with ``local`` each slice's own ``width`` columns only."""
+    import torch
+
+    n = q.shape[-1] // width
+    if local:
+        return [torch.matmul(q[..., i * width:(i + 1) * width],
+                             k[..., i * width:(i + 1) * width].transpose(
+                                 -1, -2)) for i in range(n)]
+    s = None
+    for c in range(0, q.shape[-1], SLICE_CHUNK):
+        part = torch.matmul(q[..., c:c + SLICE_CHUNK],
+                            k[..., c:c + SLICE_CHUNK].transpose(-1, -2))
+        s = part if s is None else s + part
+    return [s] * n
+
+
+def _place_slices(parts: list, fault: str | None):
+    """The slices' columns side by side; slice_offset writes slice i at
+    slice i + 1's offset (the last at the first's)."""
+    import torch
+
+    if fault == "slice_offset":
+        parts = parts[-1:] + parts[:-1]
+    return torch.cat(parts, -1)
+
+
+def flash_sliced_plain(q, k, v, fault: str | None = None,
+                       causal: bool = True):
+    """The sliced route's forward schedule in plain torch: (out, lse) of
+    [BH, T, D] q, k, v, with the plain version's numerics (f32 scores,
+    P rounded to v's type before P V, the unrounded row sum). D pads to
+    the kernels' head dim (kernel_head_dim); the columns of out are cut
+    into the route's slices (column_slices), each computing the scores
+    over every 256-column chunk in order; lse comes from slice 0. One
+    fault of SLICE_FAULTS, or None."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpumon_torch.ops.flash_attention import column_slices, kernel_head_dim
+
+    bh, t, d = q.shape
+    dp = kernel_head_dim(d)
+    width = dp // column_slices(d, q.dtype, True)
+    scale = d**-0.5
+    qp, kp, vp = (F.pad(x.float(), (0, dp - d)) for x in (q, k, v))
+    mask = (torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+            if causal else torch.ones(t, t, dtype=torch.bool,
+                                      device=q.device))
+
+    def softmax(s):
+        s = torch.where(mask, s * scale, -1e30)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        el = p.sum(-1, keepdim=True)
+        return p, el, (m + torch.log(el))[..., 0]
+
+    scores = _slice_scores(qp, kp, width, fault == "slice_local_scores")
+    parts = []
+    for i, s in enumerate(scores):
+        p, el, lse_i = softmax(s)
+        parts.append(torch.matmul(p.to(v.dtype).float(),
+                                  vp[..., i * width:(i + 1) * width]) / el)
+        if i == 0:
+            lse = lse_i
+    if fault == "lse_from_last_slice":
+        lse = softmax(_slice_scores(qp, kp, width, True)[-1])[2]
+    out = _place_slices(parts, fault)[..., :d].to(q.dtype)
+    return out.contiguous(), lse
+
+
+def flash_sliced_grads(q, k, v, g, lse, dvec, fault: str | None,
+                       kernel: str) -> dict:
+    """The sliced route's backward schedule of ``kernel`` (dq, or dk and
+    dv) in plain torch, with the plain versions' numerics and the true lse
+    and D: D pads to kernel_head_dim, each output's columns are cut into
+    the backward's slices (column_slices), each recomputing S and dP over
+    every chunk; P and dS rounded to the input type before their
+    products. One fault of SLICE_FAULTS, or None (lse_from_last_slice is
+    no fault of a kernel that reads lse)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpumon_torch.ops.flash_attention import column_slices, kernel_head_dim
+
+    bh, t, d = q.shape
+    dp_ = kernel_head_dim(d)
+    width = dp_ // column_slices(d, q.dtype, False)
+    scale = d**-0.5
+    qp, kp, vp, gp = (F.pad(x.float(), (0, dp_ - d)) for x in (q, k, v, g))
+    mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    local = fault == "slice_local_scores"
+    outs = {"dq": [], "dk": [], "dv": []}
+    for i, (s, dp) in enumerate(zip(_slice_scores(qp, kp, width, local),
+                                    _slice_scores(gp, vp, width, local))):
+        cols = slice(i * width, (i + 1) * width)
+        p = torch.where(mask, torch.exp(s * scale - lse[..., None]), 0.0)
+        ds = p * (dp - dvec[..., None]) * scale
+        p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+        if kernel.endswith("dq"):
+            outs["dq"].append(torch.matmul(ds, kp[..., cols]))
+        else:
+            outs["dk"].append(torch.matmul(ds.transpose(1, 2), qp[..., cols]))
+            outs["dv"].append(torch.matmul(p.transpose(1, 2), gp[..., cols]))
+    return {name: _place_slices(parts, fault)[..., :d].to(q.dtype).contiguous()
+            for name, parts in outs.items() if parts}
+
+
+def paged_sliced_plain(q, k_pages, v_pages, table, lengths,
+                       fault: str | None = None):
+    """The paged kernel's sliced route in plain torch, f32 scores and
+    softmax (paged_attention_reference's gather and mask; P rounded to
+    q's type before P V): the head dim pads to whole 256-column slices
+    (head_dim_slices), each slice's output columns computed from scores
+    over every 256-column chunk in order. One fault of SLICE_FAULTS but
+    lse_from_last_slice (the decode returns no lse), or None."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpumon_torch.ops.paged_attention import SLICE_COLS, head_dim_slices
+
+    b, nh, hd = q.shape
+    nkv, _, ps, _ = k_pages.shape
+    n = head_dim_slices(hd)
+    width = hd if n == 1 else SLICE_COLS
+    dp = n * width
+    s_max = table.shape[1] * ps
+    idx = table.long()
+    k, v = (F.pad(x[:, idx].reshape(nkv, b, s_max, hd).permute(1, 0, 2, 3)
+                  .float(), (0, dp - hd)) for x in (k_pages, v_pages))
+    qg = F.pad(q.float(), (0, dp - hd)).reshape(b, nkv, nh // nkv, dp)
+    live = (torch.arange(s_max, device=q.device)[None]
+            < lengths[:, None].long())[:, None, None]
+    parts = []
+    for i, s in enumerate(_slice_scores(qg, k, width,
+                                        fault == "slice_local_scores")):
+        s = torch.where(live, s / hd**0.5, -1e30)
+        probs = torch.softmax(s, -1).to(q.dtype).float()
+        probs = torch.where(live, probs, 0.0)
+        parts.append(torch.matmul(probs, v[..., i * width:(i + 1) * width]))
+    out = _place_slices(parts, fault)[..., :hd].reshape(b, nh, hd)
+    return out.to(q.dtype)
+
+
+def slice_fault_applies(fault: str, kernel: str, d: int, dtype) -> bool:
+    """Whether a fault of the sliced design changes ``kernel``'s outputs
+    at head dim d: it needs a second slice (the paged kernel's, or the
+    flash kernel's forward or backward ones), and lse_from_last_slice the
+    forward that returns lse."""
+    from tpumon_torch.ops.flash_attention import column_slices
+    from tpumon_torch.ops.paged_attention import head_dim_slices
+
+    if kernel == "paged_attention":
+        return fault != "lse_from_last_slice" and head_dim_slices(d) > 1
+    if fault == "lse_from_last_slice" and kernel != "flash_attention_tri_fwd":
+        return False
+    return column_slices(d, dtype, kernel.endswith("fwd")
+                         or kernel == "flash_attention") > 1
+
+
+def paged_slice_readings(args, want) -> dict:
+    """{fault: rows_rel_err} of the sliced design's faults that apply."""
+    q = args[0]
+    return {f: rows_rel_err(paged_sliced_plain(*args, f), want, args[4])
+            for f in SLICE_FAULTS
+            if slice_fault_applies(f, "paged_attention", q.shape[-1],
+                                   q.dtype)}
+
+
+def flash_slice_readings(q, k, v, g, lse, dvec, want: dict) -> dict:
+    """{kernel: {fault: (reading, limit)}} of the sliced design's faults
+    that apply: the largest tile_rel_err over the kernel's outputs against
+    flash_limit, or for lse_from_last_slice lse's max abs error against
+    FLASH_TOL's lse limit. ``want`` holds the plain versions' out, lse,
+    dq, dk, dv and rect (non-causal out). The rectangular forward is
+    "flash_attention" (causal=False)."""
+    dname = str(q.dtype)[6:]
+    got = {}
+    for kernel in (*FLASH_OUTPUTS, "flash_attention"):
+        got[kernel] = {}
+        for f in SLICE_FAULTS:
+            if not slice_fault_applies(f, kernel, q.shape[-1], q.dtype):
+                continue
+            if kernel == "flash_attention":
+                out, _ = flash_sliced_plain(q, k, v, f, causal=False)
+                reading = (tile_rel_err(out, want["rect"]),
+                           FLASH_TOL[dname]["out"])
+            elif kernel.endswith("fwd") and f == "lse_from_last_slice":
+                _, lse_f = flash_sliced_plain(q, k, v, f)
+                reading = ((lse_f - want["lse"]).abs().max().item(),
+                           FLASH_TOL[dname]["lse"])
+            elif kernel.endswith("fwd"):
+                out, _ = flash_sliced_plain(q, k, v, f)
+                reading = (tile_rel_err(out, want["out"]),
+                           flash_limit(kernel, dname))
+            else:
+                faulty = flash_sliced_grads(q, k, v, g, lse, dvec, f, kernel)
+                reading = (max(tile_rel_err(faulty[o], want[o])
+                               for o in FLASH_OUTPUTS[kernel]),
+                           flash_limit(kernel, dname))
+            got[kernel][f] = reading
+    return got
+
+
+def p27_paged_cases() -> list:
+    """Phase 27's paged shapes: every P27 head dim (and 264) at groups 1,
+    8 and 16 over phase 26's small mixed-length tables, P27_SPLIT at three
+    of them, and the hd-512 engine's decode shape."""
+    cases = [(f"hd{hd}_group{nh // nkv}_page{P27_PAGE_SIZE}",
+              paged_head_dim_shape(hd, nh, nkv, P27_PAGE_SIZE))
+             for hd in P27_HEAD_DIMS + (264,) for nh, nkv in PAGED_GROUPS]
+    cases += [(f"split_hd{hd}_group12", dict(P27_SPLIT, hd=hd))
+              for hd in (300, 512, 1024)]
+    return cases + [("hd512_engine_decode",
+                     dict(HD512_DECODE, lengths=prod_lengths()))]
+
+
+def p27_flash_cases() -> list:
+    cases = [(f"hd{hd}_t{t}_block{blk}", 4, t, hd, blk)
+             for hd, t, blk in P27_FLASH_CASES]
+    return cases + [("hd512_train",
+                     HD512_TRAIN["batch"] * HD512_MODEL["n_heads"],
+                     HD512_TRAIN["seq"], 512, HD512_TRAIN["block"])]
+
+
+def phase27(gen, bw: float, peaks: dict) -> dict:
+    """Phase 27 (see P27_HEAD_DIMS). Returns the main paths' launches: the
+    hd-512 engine's paged launches, the hd-512 trainer's flash launches,
+    and the rectangular forward's check launches (it lies on no path)."""
+    import torch
+
+    from tpumon_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    print("phase27 cuts: the hd-512 model (HD256_MODEL at 4 query heads) at "
+          "2 layers (bench.py:223-227's depth cut); widths uncut", flush=True)
+    p26_check_paged(gen, p27_paged_cases(), "p27")
+    rect = p26_check_flash(gen, p27_flash_cases(), "p27")
+    print(f"phase27 checks wall_s={time.perf_counter() - t0!r}", flush=True)
+    served = {dt: p26_serve(dt, hd512_model, "hd512", "p27")
+              for dt in ("bfloat16", "float32")}
+    trained = p26_train(peaks["bfloat16"], hd512_model, "hd512", "p27")
+    before = pa.paged_attention.launches
+    for label, lengths, dtype in (
+            ("hd512_full", [64 * 128] * 16, torch.bfloat16),
+            ("hd512_prod_lengths", prod_lengths(), torch.bfloat16),
+            ("hd512_full", [64 * 128] * 16, torch.float32)):
+        time_paged_shape(gen, "p27", label, HD512_DECODE, lengths, bw, peaks,
+                         dtype)
+    pa.paged_attention.launches = before
+    bh, t = HD512_TRAIN["batch"] * HD512_MODEL["n_heads"], HD512_TRAIN["seq"]
+    time_flash_shape(gen, "p27", bh, t, 512, bw, peaks, f32=True)
+    for hd in P27_PAD_HEAD_DIMS:  # the pad route beside SDPA
+        time_flash_shape(gen, "p27_pad", bh, t, hd, bw, peaks)
+    torch.cuda.empty_cache()
+    paged = sum(run["launches"] for run in served.values())
+    print(f"phase27 paged_launches={paged} flash_launches="
+          f"{trained['launches']} wall_s={time.perf_counter() - t0!r}",
+          flush=True)
+    return {"paged": paged, "flash": trained["launches"], "rect": rect}
 
 
 def main() -> int:
@@ -6982,12 +7320,14 @@ def main() -> int:
     mesh = phase24()
     mesh_train = phase25(peaks)
     shapes = phase26(gen, bw, peaks)
+    wide = phase27(gen, bw, peaks)
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
              "replaces": "tpumon/ops/paged_attention.py:65",
              "launches": (stats["launches"] + monitor["paged"] + app["paged"]
-                          + tree["paged"] + mesh["paged"] + shapes["paged"]),
+                          + tree["paged"] + mesh["paged"] + shapes["paged"]
+                          + wide["paged"]),
              "max_abs_err": worst["bfloat16"],
              **times}]
     sources = {"flash_attention_tri_fwd": (
@@ -7004,13 +7344,14 @@ def main() -> int:
         rows.append({"name": kernel, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": (flash_launches[kernel] + mesh_train[kernel]
-                                  + shapes["flash"][kernel]),
+                                  + shapes["flash"][kernel]
+                                  + wide["flash"][kernel]),
                      "max_abs_err": flash_worst[kernel],
                      **flash_times[kernel]})
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": "tpumon_torch/ops/csrc/flash_attention.cu",
                  "replaces": "tpumon/ops/flash_attention.py:62",
-                 "launches": rect["launches"] + shapes["rect"],
+                 "launches": rect["launches"] + shapes["rect"] + wide["rect"],
                  "max_abs_err": rect["max_abs_err"], **rect_times})
     for kernel, source, replaces in (
             ("matmul", "tpumon_torch/ops/csrc/matmul.cu",

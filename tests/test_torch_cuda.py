@@ -96,15 +96,29 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     assert torch.equal(out[zero].float(), torch.zeros_like(out[zero].float()))
 
 
-def test_kernel_rejects_unsupported_sizes_on_card(cuda_device):
-    """A head dim above 256 has no instance: the wrapper raises, naming
-    256, before any launch, and never drops to the plain version."""
-    case = paged_case(nh=4, nkv=2, hd=264)
-    args = [t.to(cuda_device) for t in to_torch(case)]
-    before = paged_attention.launches
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        paged_attention(*args)
-    assert paged_attention.launches == before
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [264, 512, 1024])
+def test_kernel_rejects_unsupported_sizes_on_card(cuda_device, hd, dtype):
+    """No head dim is refused now: above 256 the kernel takes its sliced
+    route (264 among them, refused until then), one launch a call,
+    against the plain version, at one split and at several (a group of
+    12), the pool read in place."""
+    for spec in (dict(PAGED_CARD_CASE, **PAGED_WIDE_SHAPES[0]) | {
+            "hd": hd}, dict(PAGED_WIDE_SPLIT_CASE, hd=hd)):
+        args = [t.to(cuda_device) for t in to_torch(paged_case(**spec),
+                                                     dtype)]
+        pool = args[1].clone()
+        before = paged_attention.launches
+        out = paged_attention(*args)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == before + 1
+        assert out.shape == args[0].shape and torch.equal(args[1], pool)
+        ref = paged_attention_reference(*args)
+        assert torch.isfinite(out.float()).all()
+        assert rows_rel_err(out, ref, args[4]) <= PAGED_TOL[str(dtype)[6:]]
+        zero = [i for i, n in enumerate(spec["lengths"]) if n == 0]
+        assert torch.equal(out[zero].float(),
+                           torch.zeros_like(out[zero].float()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -316,21 +330,37 @@ def test_flash_dkv_kernel_matches_plain_on_card(cuda_device, dtype, hd, t):
     _close(dv, want_dv, "grad")
 
 
-def test_flash_kernels_reject_unsupported_sizes_on_card(cuda_device):
-    """A head dim above 256 raises, naming 256, before any launch; T is
-    held to the caller's block alone (96 at block 32 runs)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [264, 512, 1024])
+def test_flash_kernels_reject_unsupported_sizes_on_card(cuda_device, hd,
+                                                        dtype):
+    """No head dim is refused now: above 256 the forward (out, lse), dQ,
+    dK/dV and the rectangular forward take the sliced route (264 among
+    them, refused until then), each one launch, against the plain
+    versions; T is held to the caller's block alone (T 96 at block 32)."""
     from tpumon_torch.ops import flash_attention as fa
 
-    q = torch.randn(2, 128, 264, device=cuda_device)
-    before = fa.flash_attention_tri_fwd.launches
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        fa.flash_attention_tri_fwd(q, q, q)
-    assert fa.flash_attention_tri_fwd.launches == before
-    q = torch.randn(2, 96, 64, device=cuda_device)
-    out, _ = fa.flash_attention_tri_fwd(q, q, q, block=32)
+    q, k, v, g, want, want_lse, dvec = flash_inputs(cuda_device, dtype, hd,
+                                                    96)
+    kernels = (fa.flash_attention_tri_fwd, fa.flash_attention_tri_bwd_dq,
+               fa.flash_attention_tri_bwd_dkv, fa.flash_attention)
+    before = [x.launches for x in kernels]
+    out, lse = fa.flash_attention_tri_fwd(q, k, v, block=32)
+    dq = fa.flash_attention_tri_bwd_dq(q, k, v, g, want_lse, dvec, block=32)
+    dk, dv = fa.flash_attention_tri_bwd_dkv(q, k, v, g, want_lse, dvec,
+                                            block=32)
+    rect = fa.flash_attention(q, k, v, causal=False, block_q=32, block_k=32)
     torch.cuda.synchronize()
-    assert fa.flash_attention_tri_fwd.launches == before + 1
-    _close(out, fa.flash_attention_tri_fwd_reference(q, q, q)[0], "out")
+    assert [x.launches for x in kernels] == [n + 1 for n in before]
+    _close(out, want, "out")
+    _close(lse, want_lse, "lse")
+    _close(dq, fa.flash_attention_tri_bwd_dq_reference(
+        q, k, v, g, want_lse, dvec), "grad")
+    want_dk, want_dv = fa.flash_attention_tri_bwd_dkv_reference(
+        q, k, v, g, want_lse, dvec)
+    _close(dk, want_dk, "grad")
+    _close(dv, want_dv, "grad")
+    _close(rect, fa.flash_attention_reference(q, k, v, False), "out")
 
 
 # (head_dim, T, block) beside the shared list: T past several 128-row

@@ -17,8 +17,16 @@ the same bits (as its own tests run it):
 - matmul and the int8 product at (M, K, N) = (16, 40, 48) and the other
   edge shapes of ``GEMM_EDGE_CASES``, at blocks equal to the shape.
 
+and above 256, where the kernels take the sliced route (chip_smoke.py
+phase 27):
+
+- paged decode at head dims 300, 384, 512 and 1024, GQA groups 1 and 8,
+  pages of 8 rows, mixed lengths with a zero-length sequence;
+- the causal forward (out, lse) and backward (dq, dk, dv) and the
+  rectangular forward at head dims 320, 512 and 1024, T 64, block 32.
+
 The CUDA kernels are held to these plain twins on the card
-(tests/test_torch_cuda.py, chip_smoke.py phase 26).
+(tests/test_torch_cuda.py, chip_smoke.py phases 26 and 27).
 
 Tolerances. f32: 1e-5 of the reference's largest magnitude (summation
 order only). bf16, the port's existing parity bounds: paged 3e-2 max abs
@@ -37,10 +45,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from tests.torch_parity import (  # noqa: E402
     FLASH_SHAPE_CASES,
+    FLASH_WIDE_HEAD_DIMS,
     GEMM_EDGE_CASES,
     PAGED_GROUPS,
     PAGED_HEAD_DIMS,
     PAGED_PAGE_SIZES,
+    PAGED_WIDE_GROUPS,
+    PAGED_WIDE_HEAD_DIMS,
     jax_f32,
     paged_head_dim_case,
     to_jax,
@@ -80,6 +91,21 @@ def assert_close(got, want, dtype: str, kind: str) -> None:
 @pytest.mark.parametrize("hd", PAGED_HEAD_DIMS)
 def test_paged_matches_reference_kernel(hd, nh, nkv, page_size, dtype):
     case = paged_head_dim_case(hd, nh, nkv, page_size)
+    want = jax_pa.paged_attention(*to_jax(case, jnp.dtype(dtype)),
+                                  interpret=True)
+    got = pa.paged_attention(*to_torch(case, getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    assert_close(got, want, dtype, "paged")
+    assert torch.equal(got[2].float(), torch.zeros_like(got[2].float()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nh,nkv", PAGED_WIDE_GROUPS)
+@pytest.mark.parametrize("hd", PAGED_WIDE_HEAD_DIMS)
+def test_paged_wide_matches_reference_kernel(hd, nh, nkv, dtype):
+    """Head dims above 256 (the kernel's sliced route on the card), pages
+    of 8 rows, a zero-length sequence among the mixed lengths."""
+    case = paged_head_dim_case(hd, nh, nkv, 8)
     want = jax_pa.paged_attention(*to_jax(case, jnp.dtype(dtype)),
                                   interpret=True)
     got = pa.paged_attention(*to_torch(case, getattr(torch, dtype)))
@@ -128,6 +154,21 @@ def test_flash_tri_matches_reference_kernels(hd, t, block, dtype):
     for got, want in zip(grads, jgrads):
         assert got.dtype == tdt
         assert_close(got, want, dtype, "flash")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", FLASH_WIDE_HEAD_DIMS)
+def test_flash_tri_wide_matches_reference_kernels(hd, dtype):
+    """Head dims above 256 (the kernels' sliced route on the card), T 64,
+    block 32."""
+    test_flash_tri_matches_reference_kernels(hd, 64, 32, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", FLASH_WIDE_HEAD_DIMS)
+def test_flash_rect_wide_matches_reference_kernel(hd, dtype, causal):
+    test_flash_rect_matches_reference_kernel(hd, 64, 32, dtype, causal)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -8,9 +8,8 @@ head_dim 8, 16 and 48 the padded forward, lse and the three gradients must
 equal the plain twins at the true shape, and the padded columns of the
 gradients must be zero. Also: which instance a head dim runs at (the paged
 kernel's 16 ... 256 read the pool at its true head dim; the flash
-kernels' 32 ... 256 through the pad), and the ``ValueError`` that names
-the limit for a shape no kernel takes (both: a head dim above 256),
-raised before anything reaches the card.
+kernels' 32 ... 256 through the pad), and, above 256, the sliced route's
+padded head dim and column slices: no head dim is refused.
 
 Tolerances: f32 1e-6 (the zero columns add exact zeros; only the products'
 blocking may reorder the sums); bf16 1e-3 of the tile norm (a bf16
@@ -82,23 +81,36 @@ def test_padded_columns_come_back_zero():
 
 
 def test_instances_and_limits():
+    """No head dim is refused. The flash kernels: the instances up to 256;
+    above, the sliced route at the head dim padded to a multiple of 256,
+    in column slices of 256 (the bf16 forward) or 128 (the backward, and
+    f32). The paged kernel: the instances up to 256; above, the 256
+    instance's tiles in 256-column slices over the pool's true head dim
+    (f32: group tiles of 4 query heads, as at 256)."""
     assert [fa.kernel_head_dim(d) for d in (
         1, 8, 32, 40, 64, 72, 128, 129, 192, 255, 256)] == [
         32, 32, 32, 64, 64, 128, 128, 256, 256, 256, 256]
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        fa.kernel_head_dim(257)
     assert fa.KERNEL_HEAD_DIMS == (32, 64, 128, 256)
-    # the paged kernel: any head dim up to 256 runs in the next instance;
-    # above 256 raises before any launch, naming 256
+    wide = (257, 300, 512, 513, 1024)
+    assert [fa.kernel_head_dim(d) for d in wide] == [512, 512, 512, 768,
+                                                     1024]
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [fa.column_slices(d, bf16, True) for d in wide] == [2, 2, 2, 3, 4]
+    assert [fa.column_slices(d, bf16, False) for d in wide] == [
+        4, 4, 4, 6, 8]
+    assert [fa.column_slices(d, f32, True) for d in wide] == [4, 4, 4, 6, 8]
+    assert fa.column_slices(256, bf16, True) == 1
+    for bad in (0, -3):
+        with pytest.raises(ValueError, match="at least 1"):
+            fa.kernel_head_dim(bad)
+    # the paged kernel
     assert [pa.kernel_head_dim(d) for d in (
         1, 8, 16, 24, 72, 96, 129, 192, 256)] == [
         16, 16, 16, 32, 128, 128, 256, 256, 256]
-    q = torch.zeros(2, 4, 264)
-    pool = torch.zeros(2, 4, 8, 264)
-    table = torch.zeros(2, 2, dtype=torch.int32)
-    lengths = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        pa._launch(q, pool, pool, table, lengths)
+    assert [pa.kernel_head_dim(d) for d in wide] == [256] * 5
+    assert [pa.head_dim_slices(d) for d in wide] == [2, 2, 2, 3, 4]
+    assert [pa.group_tile(f32, d) for d in wide] == [4] * 5
+    assert [pa.group_tile(bf16, d) for d in wide] == [8] * 5
     assert pa.KERNEL_HEAD_DIMS == (16, 32, 64, 128, 256)
 
 

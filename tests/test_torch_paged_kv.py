@@ -333,6 +333,16 @@ def hd256_weights():
     return bridged_params(JaxModelConfig(**HD256), seed=3)
 
 
+# A head-dim-512 model (d_model 1024 over 2 heads on 1 kv head: the
+# sliced route's head dim, at a small width), f32.
+HD512 = dict(HD256, d_model=1024)
+
+
+@pytest.fixture(scope="module")
+def hd512_weights():
+    return bridged_params(JaxModelConfig(**HD512), seed=3)
+
+
 @pytest.mark.parametrize("paged_attn", ["gather", "kernel"])
 def test_head_dim_256_engine_streams_identical_to_reference(hd256_weights,
                                                             paged_attn):
@@ -340,15 +350,27 @@ def test_head_dim_256_engine_streams_identical_to_reference(hd256_weights,
     the reference engine's greedy streams exactly, step for step (the
     kernel read path: the port's plain version against the reference's
     Pallas kernel in interpret mode)."""
+    engine_streams_match(HD256, 256, hd256_weights, paged_attn)
+
+
+@pytest.mark.parametrize("paged_attn", ["gather", "kernel"])
+def test_head_dim_512_engine_streams_identical_to_reference(hd512_weights,
+                                                            paged_attn):
+    """The same at head_dim 512 (the kernel's sliced route on the card)."""
+    engine_streams_match(HD512, 512, hd512_weights, paged_attn)
+
+
+def engine_streams_match(widths: dict, head_dim: int, weights,
+                         paged_attn: str) -> None:
     from tpumon.loadgen import serving as jax_serving
     from tpumon_torch.loadgen.serving import ServingEngine
 
-    jparams, tree = hd256_weights
-    assert ModelConfig(**HD256).head_dim == 256
-    jcfg = JaxServeConfig(model=JaxModelConfig(**HD256), slots=2,
+    jparams, tree = weights
+    assert ModelConfig(**widths).head_dim == head_dim
+    jcfg = JaxServeConfig(model=JaxModelConfig(**widths), slots=2,
                           prefill_len=PS, kv_layout="paged",
                           paged_attn=paged_attn)
-    tcfg = ServeConfig(model=ModelConfig(**HD256), slots=2, prefill_len=PS,
+    tcfg = ServeConfig(model=ModelConfig(**widths), slots=2, prefill_len=PS,
                        kv_layout="paged", paged_attn=paged_attn)
     streams = []
     for eng in (jax_serving.ServingEngine(cfg=jcfg, params=jparams),

@@ -93,18 +93,35 @@ def test_schedule_matches_reference(weights, attention, t):
 HD256 = dict(SMALL, d_model=512, n_heads=2, n_kv_heads=1, d_ff=256)
 
 
+# A head-dim-512 model (d_model 1024 over 2 heads on 1 kv head: the
+# sliced route's head dim, at a small width), f32.
+HD512 = dict(SMALL, d_model=1024, n_heads=2, n_kv_heads=1, d_ff=256)
+
+
 @pytest.mark.parametrize("attention,t", [("flash", 100), ("naive", 64)])
 def test_head_dim_256_step_matches_reference(attention, t):
     """One training step's logits, loss and every gradient at head_dim 256
     (flash: the kernels' 256 instance on the card; T = 100 unaligned to
     the block grid) against the reference's, within the tolerances
     above."""
-    jcfg = jax_model.ModelConfig(**HD256, attention=attention,
+    step_matches_reference(HD256, 256, attention, t)
+
+
+@pytest.mark.parametrize("attention,t", [("flash", 100), ("naive", 64)])
+def test_head_dim_512_step_matches_reference(attention, t):
+    """The same at head_dim 512 (flash: the kernels' sliced route on the
+    card, two column slices of 256 or four of 128)."""
+    step_matches_reference(HD512, 512, attention, t)
+
+
+def step_matches_reference(widths: dict, head_dim: int, attention: str,
+                           t: int) -> None:
+    jcfg = jax_model.ModelConfig(**widths, attention=attention,
                                  attn_block_k=32)
-    tcfg = model.ModelConfig(**HD256, attention=attention, attn_block_k=32)
-    assert tcfg.head_dim == 256
+    tcfg = model.ModelConfig(**widths, attention=attention, attn_block_k=32)
+    assert tcfg.head_dim == head_dim
     jparams, tree = bridged_params(jcfg, seed=6)
-    toks = tokens_np(t, seed=t + 256)
+    toks = tokens_np(t, seed=t + head_dim)
     loss, grads = jax.value_and_grad(partial(jax_model.loss_fn, jcfg))(
         jparams, jnp.asarray(toks))
     logits = jax_model.forward(jcfg, jparams, jnp.asarray(toks[:, :-1]))

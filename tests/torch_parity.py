@@ -89,6 +89,13 @@ from chip_smoke import (  # noqa: E402
 )
 
 
+# Above 256, where the kernels take the sliced route (chip_smoke.py phase
+# 27): the paged kernel at groups 1 and 8, the flash kernels at T 64.
+PAGED_WIDE_HEAD_DIMS = (300, 384, 512, 1024)
+PAGED_WIDE_GROUPS = ((2, 2), (8, 1))
+FLASH_WIDE_HEAD_DIMS = (320, 512, 1024)
+
+
 def paged_head_dim_case(hd, nh, nkv, page_size, seed=17):
     """paged_case at one of phase 26's paged shapes (paged_head_dim_shape)
     over a 24-page pool."""

@@ -88,8 +88,15 @@
 // bf16 kernels take P as ex2.approx of a pre-scaled FFMA (prob; relative
 // error about 2^-22, results below 2^-126 flushed to 0).
 //
-// Supported: float32 and bfloat16, head dim 32, 64, 128 or 256, any T >= 1.
-// The Python wrapper (tpumon_torch/ops/flash_attention.py) checks
+// Head dims above 256 (D a multiple of 256; the wrapper zero-pads one
+// between) take the sliced route: each CTA owns 64 rows and one 128-column
+// slice of the output(s), and recomputes S and dP over all of D, streamed
+// in chunks, as the forward's sliced route does (flash_fwd.cuh): bf16
+// through flash_wgmma.cuh's item ring, one arithmetic warpgroup; f32 on
+// CUDA cores with 128-column chunks. D stays the wrapper's, computed once.
+//
+// Supported: float32 and bfloat16, head dim 32, 64, 128 or 256, or a
+// multiple of 256 above; any T >= 1. The Python wrapper (tpumon_torch/ops/flash_attention.py) checks
 // shapes and types; the launchers re-check what they index by.
 
 #include "flash_tri_common.cuh"
@@ -99,6 +106,53 @@
 namespace {
 
 using namespace tpumon::flash;
+
+// The f32 dQ kernels' dS on one 32-row k tile, into sds ([kOwn][kLdP]):
+// P = exp(S scale - lse), 0 at keys past the row in a tile that reaches
+// past q0; dS = P (dP - D) scale.
+__device__ __forceinline__ void dscores_tile(const float (&s)[kRows][kCols],
+                                             const float (&dp)[kRows][kCols],
+                                             const float (&lse_r)[kRows], const float (&d_r)[kRows],
+                                             float* sds, int q0, int k0, float scale) {
+  const int tx = lane_tx(), ty = lane_ty();
+  const bool diag = k0 + kStream > q0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qpos = q0 + ty + kRowGroups * r;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int kcol = tx + kColGroups * c;
+      const bool masked = diag && k0 + kcol > qpos;
+      const float p = masked ? 0.f : expf(s[r][c] * scale - lse_r[r]);
+      sds[(ty + kRowGroups * r) * kLdP + kcol] = p * (dp[r][c] - d_r[r]) * scale;
+    }
+  }
+}
+
+// The f32 dK/dV kernels' P^T and dS^T on one 32-row q tile (rows keys):
+// P^T into spt ([kOwn][kLdP]), 0 at queries before the key in a tile that
+// starts before the CTA's last key and at queries past T; dS^T into s,
+// kept for the dK product.
+__device__ __forceinline__ void dscores_t_tile(float (&s)[kRows][kCols],
+                                               const float (&dp)[kRows][kCols],
+                                               const float (&lse_c)[kCols],
+                                               const float (&d_c)[kCols], float* spt, int q0,
+                                               int k0, int t, float scale) {
+  const int tx = lane_tx(), ty = lane_ty();
+  const bool diag = q0 < k0 + kOwn;  // only these tiles hold queries before a key
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int kpos = k0 + ty + kRowGroups * r;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int qcol = tx + kColGroups * c;
+      const bool masked = (diag && q0 + qcol < kpos) || q0 + qcol >= t;
+      const float p = masked ? 0.f : expf(s[r][c] * scale - lse_c[c]);
+      s[r][c] = p * (dp[r][c] - d_c[c]) * scale;
+      spt[(ty + kRowGroups * r) * kLdP + qcol] = p;
+    }
+  }
+}
 
 // f32: CUDA cores. grid (ceil(T / 64), BH). Owned rows: 64 query rows;
 // streamed: 32 key rows.
@@ -148,19 +202,7 @@ flash_tri_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
     zero(dp);
     mma<kRows, kCols, HD, LD, 1, LD, 1>(s, sq, sk);
     mma<kRows, kCols, HD, LD, 1, LD, 1>(dp, sdo, sv);
-    const bool diag = k0 + kStream > q0;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + ty + kRowGroups * r;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int kcol = tx + kColGroups * c;
-        const bool masked = diag && k0 + kcol > qpos;
-        const float p = masked ? 0.f : expf(s[r][c] * scale - lse_r[r]);
-        const float ds = p * (dp[r][c] - d_r[r]) * scale;
-        sds[(ty + kRowGroups * r) * kLdP + kcol] = ds;
-      }
-    }
+    dscores_tile(s, dp, lse_r, d_r, sds, q0, k0, scale);
     __syncthreads();
     mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc, sds, sk);
   }
@@ -224,19 +266,7 @@ flash_tri_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ 
     zero(dp);
     mma<kRows, kCols, HD, LD, 1, LD, 1>(s, sk, sq);   // S^T [key, query]
     mma<kRows, kCols, HD, LD, 1, LD, 1>(dp, sv, sdo); // dP^T
-    const bool diag = q0 < k0 + kOwn;  // only these tiles hold queries before a key
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int kpos = k0 + ty + kRowGroups * r;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int qcol = tx + kColGroups * c;
-        const bool masked = (diag && q0 + qcol < kpos) || q0 + qcol >= t;
-        const float p = masked ? 0.f : expf(s[r][c] * scale - lse_c[c]);
-        s[r][c] = p * (dp[r][c] - d_c[c]) * scale;  // dS^T, kept for the dK product
-        spt[(ty + kRowGroups * r) * kLdP + qcol] = p;
-      }
-    }
+    dscores_t_tile(s, dp, lse_c, d_c, spt, q0, k0, t, scale);
     __syncthreads();
     mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc_dv, spt, sdo + col0);  // dV += P^T dO
     __syncthreads();
@@ -284,6 +314,171 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, dvec, static_cast<float*>(dk), static_cast<float*>(dv),
       t, scale);
+  return cudaGetLastError();
+}
+
+// f32, the sliced route (head dims above 256; D a multiple of 256): each
+// CTA owns 64 rows and one 128-column slice of the output(s), and computes
+// S and dP over all of D in 128-column chunks staged by the CTA. grid
+// (ceil(T / 64) x D / 128, BH), 128 threads.
+constexpr int kSliceF32 = 128;
+
+template <int W>
+constexpr int bwd_wide_smem_bytes() {
+  return ((2 * kOwn + 2 * kStream) * (W + 1) + kOwn * kLdP) * (int)sizeof(float);
+}
+
+// dQ: owned 64 query rows q0.. (the longest first; a bh's slices next to
+// each other), streamed 32 key rows; dQ's columns W slice...
+__global__ void __launch_bounds__(kThreads)
+flash_tri_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ dvec,
+                             float* __restrict__ dq, int t, int d, float scale) {
+  constexpr int W = kSliceF32;
+  constexpr int LD = W + 1;
+  constexpr int kOut = W / kColGroups;
+  extern __shared__ float smem[];
+  float* sq = smem;                // [kOwn][LD]: Q's chunk
+  float* sdo = sq + kOwn * LD;     // [kOwn][LD]: dO's chunk
+  float* sk = sdo + kOwn * LD;     // [kStream][LD]: K's chunk, then K's slice
+  float* sv = sk + kStream * LD;   // [kStream][LD]: V's chunk
+  float* sds = sv + kStream * LD;  // [kOwn][kLdP]: dS
+
+  const int slices = d / W, nch = d / W;
+  const int bh = blockIdx.y, slice = blockIdx.x % slices;
+  const int q0 = (gridDim.x / slices - 1 - blockIdx.x / slices) * kOwn;
+  const size_t base = (size_t)bh * t * d;
+  const int tx = lane_tx(), ty = lane_ty();
+  float lse_r[kRows], d_r[kRows];  // rows past T (not stored) read 0
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qpos = q0 + ty + kRowGroups * r;
+    lse_r[r] = qpos < t ? lse[(size_t)bh * t + qpos] : 0.f;
+    d_r[r] = qpos < t ? dvec[(size_t)bh * t + qpos] : 0.f;
+  }
+  float acc[kRows][kOut];
+  zero(acc);
+
+  const int n_k = min((q0 + kOwn) / kStream, (t + kStream - 1) / kStream);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kStream;
+    float s[kRows][kCols], dp[kRows][kCols];
+    zero(s);
+    zero(dp);
+    for (int c = 0; c < nch; ++c) {  // S and dP over all of D, chunk by chunk
+      __syncthreads();  // the previous chunk (or dS K) is consumed
+      stage_cols<W, kOwn>(sq, q + base + (size_t)q0 * d + c * W, d, t - q0);
+      stage_cols<W, kOwn>(sdo, dout + base + (size_t)q0 * d + c * W, d, t - q0);
+      stage_cols<W, kStream>(sk, k + base + (size_t)k0 * d + c * W, d, t - k0);
+      stage_cols<W, kStream>(sv, v + base + (size_t)k0 * d + c * W, d, t - k0);
+      __syncthreads();
+      mma<kRows, kCols, W, LD, 1, LD, 1>(s, sq, sk);
+      mma<kRows, kCols, W, LD, 1, LD, 1>(dp, sdo, sv);
+    }
+    __syncthreads();  // every chunk is consumed
+    stage_cols<W, kStream>(sk, k + base + (size_t)k0 * d + slice * W, d, t - k0);
+    dscores_tile(s, dp, lse_r, d_r, sds, q0, k0, scale);
+    __syncthreads();
+    mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc, sds, sk);
+  }
+  store_cols<W>(dq + base + slice * W, d, q0, t, acc);
+}
+
+// dK/dV: owned 64 key rows k0.. (the first k tile first; a bh's slices
+// next to each other), streamed 32 query rows from the diagonal to T; dK's
+// and dV's columns W slice...
+__global__ void __launch_bounds__(kThreads)
+flash_tri_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ dvec,
+                              float* __restrict__ dk, float* __restrict__ dv, int t, int d,
+                              float scale) {
+  constexpr int W = kSliceF32;
+  constexpr int LD = W + 1;
+  constexpr int kOut = W / kColGroups;
+  extern __shared__ float smem[];
+  float* sk = smem;                 // [kOwn][LD]: K's chunk
+  float* sv = sk + kOwn * LD;       // [kOwn][LD]: V's chunk
+  float* sq = sv + kOwn * LD;       // [kStream][LD]: Q's chunk, then Q's slice
+  float* sdo = sq + kStream * LD;   // [kStream][LD]: dO's chunk, then dO's slice
+  float* spt = sdo + kStream * LD;  // [kOwn][kLdP]: P^T, then dS^T
+
+  const int slices = d / W, nch = d / W;
+  const int bh = blockIdx.y, slice = blockIdx.x % slices;
+  const int k0 = blockIdx.x / slices * kOwn;  // k tile 0 has the most q tiles: first
+  const size_t base = (size_t)bh * t * d;
+  const int tx = lane_tx(), ty = lane_ty();
+  float acc_dk[kRows][kOut], acc_dv[kRows][kOut];
+  zero(acc_dk);
+  zero(acc_dv);
+
+  for (int q0 = k0; q0 < t; q0 += kStream) {  // q tiles at or above the diagonal
+    float lse_c[kCols], d_c[kCols];  // queries past T: P = 0 below
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int qpos = q0 + tx + kColGroups * c;
+      lse_c[c] = qpos < t ? lse[(size_t)bh * t + qpos] : 0.f;
+      d_c[c] = qpos < t ? dvec[(size_t)bh * t + qpos] : 0.f;
+    }
+    float s[kRows][kCols], dp[kRows][kCols];
+    zero(s);
+    zero(dp);
+    for (int c = 0; c < nch; ++c) {  // S^T and dP^T over all of D
+      __syncthreads();  // the previous chunk (or dS^T Q) is consumed
+      stage_cols<W, kOwn>(sk, k + base + (size_t)k0 * d + c * W, d, t - k0);
+      stage_cols<W, kOwn>(sv, v + base + (size_t)k0 * d + c * W, d, t - k0);
+      stage_cols<W, kStream>(sq, q + base + (size_t)q0 * d + c * W, d, t - q0);
+      stage_cols<W, kStream>(sdo, dout + base + (size_t)q0 * d + c * W, d, t - q0);
+      __syncthreads();
+      mma<kRows, kCols, W, LD, 1, LD, 1>(s, sk, sq);   // S^T [key, query]
+      mma<kRows, kCols, W, LD, 1, LD, 1>(dp, sv, sdo); // dP^T
+    }
+    dscores_t_tile(s, dp, lse_c, d_c, spt, q0, k0, t, scale);
+    __syncthreads();  // every chunk is consumed, P^T is written
+    stage_cols<W, kStream>(sq, q + base + (size_t)q0 * d + slice * W, d, t - q0);
+    stage_cols<W, kStream>(sdo, dout + base + (size_t)q0 * d + slice * W, d, t - q0);
+    __syncthreads();
+    mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc_dv, spt, sdo);  // dV += P^T dO
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        spt[(ty + kRowGroups * r) * kLdP + tx + kColGroups * c] = s[r][c];
+    __syncthreads();
+    mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(acc_dk, spt, sq);  // dK += dS^T Q
+  }
+  store_cols<W>(dk + base + slice * W, d, k0, t, acc_dk);
+  store_cols<W>(dv + base + slice * W, d, k0, t, acc_dv);
+}
+
+cudaError_t launch_dq_wide_f32(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* dvec, void* dq, int bh, int t,
+                               int d, float scale, cudaStream_t stream) {
+  constexpr int smem = bwd_wide_smem_bytes<kSliceF32>();
+  cudaError_t err = cudaFuncSetAttribute(flash_tri_bwd_dq_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + kOwn - 1) / kOwn * (d / kSliceF32), bh);
+  flash_tri_bwd_dq_wide_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, dvec, static_cast<float*>(dq), t, d, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_wide_f32(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* dvec, void* dk, void* dv, int bh,
+                                int t, int d, float scale, cudaStream_t stream) {
+  constexpr int smem = bwd_wide_smem_bytes<kSliceF32>();
+  cudaError_t err = cudaFuncSetAttribute(flash_tri_bwd_dkv_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + kOwn - 1) / kOwn * (d / kSliceF32), bh);
+  flash_tri_bwd_dkv_wide_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, dvec, static_cast<float*>(dk), static_cast<float*>(dv),
+      t, d, scale);
   return cudaGetLastError();
 }
 
@@ -762,7 +957,248 @@ flash_tri_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
   }
 }
 
+// --- The sliced route (head dims above 256; flash_wgmma.cuh's wide) -------
+//
+// D is a multiple of 256. A CTA owns 64 rows and one kWideCols-column slice
+// of the output(s): dK and dV as two m64n128 accumulators fit one
+// warpgroup's registers beside S, dP and their fragments, as at head dim
+// 128. For each streamed tile the warpgroup computes S and dP over all of
+// D, chunk by chunk (wide::scores), then P and dS, then the gradient
+// products over the slice's columns, read MN-major from the 256-column
+// chunk that holds them (a last item of the tile).
+constexpr int kWideCols = 128;
+
+// Rows `row` and + 8 of an owned tile (from row0 of bh's slice) of an
+// m64n{kWideCols} accumulator, to columns col.. of a [BH, T, d] bf16
+// tensor; rows at or past T are not stored.
+__device__ __forceinline__ void store_wide(bf16* __restrict__ dst, const float (&acc)[kWideCols / 2],
+                                           int bh, int t, int d, int row0, int row, int tq,
+                                           int col) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + row + 8 * i;
+    if (r >= t) continue;
+    bf16* p = dst + (static_cast<size_t>(bh) * t + r) * d + col + 2 * tq;
+#pragma unroll
+    for (int jj = 0; jj < kWideCols / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(p + 8 * jj) =
+          pack_bf16(acc[4 * jj + 2 * i], acc[4 * jj + 2 * i + 1]);
+  }
+}
+
+// dQ. grid (ceil(T / 64) x D / kWideCols, BH), wide::kThreads; maps
+// [BH, T, D] bf16 in Tile<256, 64> boxes. The CTA owns q rows q0.. (the
+// longest first; a bh's slices next to each other) and streams the k
+// tiles up to its diagonal (64-row tiles: the last is the diagonal one).
+// Items a k tile: D / 256 (Q, K) chunks, D / 256 (dO, V) chunks, then the
+// K chunk that holds the slice.
+__global__ void __launch_bounds__(wide::kThreads, 1)
+flash_tri_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
+                                   const __grid_constant__ CUtensorMap tma_do,
+                                   const __grid_constant__ CUtensorMap tma_k,
+                                   const __grid_constant__ CUtensorMap tma_v,
+                                   const float* __restrict__ lse, const float* __restrict__ dvec,
+                                   bf16* __restrict__ dq, int t, int d, float scale) {
+  constexpr int R = wide::kRows, C = wide::kChunk;
+  extern __shared__ uint8_t smem_raw[];
+  const wide::Ring ring = wide::ring_init(smem_raw);
+  const int nch = d / C, slices = d / kWideCols;
+  const int bh = blockIdx.y, slice = blockIdx.x % slices;
+  const int q0 = (gridDim.x / slices - 1 - blockIdx.x / slices) * R;
+  const int n_k = q0 / R + 1;
+  const int col = slice * kWideCols, col_in = col % C;  // dQ's first column, in its K chunk
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == 4) {
+    if (lane == 0) {
+      int i = 0;
+      for (int j = 0; j < n_k; ++j) {
+        for (int c = 0; c < nch; ++c)
+          wide::load_pair(ring, i++, &tma_q, q0, &tma_k, j * R, c * C, bh);
+        for (int c = 0; c < nch; ++c)
+          wide::load_pair(ring, i++, &tma_do, q0, &tma_v, j * R, c * C, bh);
+        wide::load_pair(ring, i++, &tma_k, j * R, nullptr, 0, col - col_in, bh);
+      }
+    }
+    return;
+  }
+  const int row = warp * 16 + (lane >> 2);  // this thread's first row of the q tile
+  const int tq = lane & 3;
+  float lse_r[2], dd[2];  // rows past T (padding of the tile) read 0
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = q0 + row + 8 * e;
+    const size_t at = static_cast<size_t>(bh) * t + r;
+    lse_r[e] = r < t ? lse[at] : 0.f;
+    dd[e] = r < t ? dvec[at] : 0.f;
+  }
+  float s[R / 2], dp[R / 2];   // S and dP: m64n64 accumulators
+  float acc[kWideCols / 2];    // dQ's slice: m64n128 accumulator
+  uint32_t ds[R / 16][4];      // dS: k16 A fragments
+#pragma unroll
+  for (int x = 0; x < kWideCols / 2; ++x) acc[x] = 0.f;
+
+  int i = 0;
+  for (int j = 0; j < n_k; ++j) {
+    wide::scores(ring, i, nch, s);
+    wide::scores(ring, i, nch, dp);
+    const int rel = q0 + row - j * R;
+    if (j == n_k - 1)
+      dscores<true, R>(s, dp, lse_r, dd, scale, rel, tq);
+    else
+      dscores<false, R>(s, dp, lse_r, dd, scale, rel, tq);
+    pack_frags<R>(ds, dp);
+    const int st = wide::ready(ring, i++);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+      wgmma_rs<kWideCols>(acc, ds[kk], desc_mn<C, R>(ring.a(st), kk, col_in));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    wide::release(ring, st);
+  }
+  store_wide(dq, acc, bh, t, d, q0, row, tq, col);
+}
+
+// dK/dV. grid (ceil(T / 64) x D / kWideCols, BH), wide::kThreads; maps as
+// dQ's. The CTA owns key rows k0.. (the first k tile first; a bh's slices
+// next to each other) and streams the q tiles from its diagonal to T (the
+// first masked). Items a q tile: D / 256 (K, Q) chunks, D / 256 (V, dO)
+// chunks, then the Q and dO chunks that hold the slice with the tile's 64
+// lse and D values (a bulk copy; written by the loading thread where the
+// tile reaches past T or T % 4 != 0: lse kLsePastT and D 0 past T).
+__global__ void __launch_bounds__(wide::kThreads, 1)
+flash_tri_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
+                                    const __grid_constant__ CUtensorMap tma_do,
+                                    const __grid_constant__ CUtensorMap tma_k,
+                                    const __grid_constant__ CUtensorMap tma_v,
+                                    const float* __restrict__ lse, const float* __restrict__ dvec,
+                                    bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int d,
+                                    float scale) {
+  constexpr int R = wide::kRows, C = wide::kChunk;
+  extern __shared__ uint8_t smem_raw[];
+  const wide::Ring ring = wide::ring_init(smem_raw);
+  const int nch = d / C, slices = d / kWideCols;
+  const int bh = blockIdx.y, slice = blockIdx.x % slices;
+  const int k0 = blockIdx.x / slices * R;  // the first k tile, the longest, first
+  const int n_q = (t - k0 + R - 1) / R;    // q tiles from the diagonal to T
+  const int col = slice * kWideCols, col_in = col % C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == 4) {
+    if (lane == 0) {
+      int i = 0;
+      for (int j = 0; j < n_q; ++j) {
+        const int q0 = k0 + j * R;
+        for (int c = 0; c < nch; ++c)
+          wide::load_pair(ring, i++, &tma_k, k0, &tma_q, q0, c * C, bh);
+        for (int c = 0; c < nch; ++c)
+          wide::load_pair(ring, i++, &tma_v, k0, &tma_do, q0, c * C, bh);
+        const int st = wide::acquire(ring, i++);
+        const size_t at = static_cast<size_t>(bh) * t + q0;
+        const bool bulk = q0 + R <= t && t % 4 == 0;
+        float* sl = ring.lse(st);
+        float* sd = ring.dvec(st);
+        if (!bulk)  // before the arrival below, which releases these writes
+          for (int x = 0; x < R; ++x) {
+            sl[x] = q0 + x < t ? lse[at + x] : kLsePastT;
+            sd[x] = q0 + x < t ? dvec[at + x] : 0.f;
+          }
+        mbar_expect_tx(&ring.full[st], 2 * wide::LT::kBytes + (bulk ? 2 * R * 4 : 0));
+        load_tile<C, R>(ring.a(st), &tma_q, &ring.full[st], q0, bh, col - col_in);
+        load_tile<C, R>(ring.b(st), &tma_do, &ring.full[st], q0, bh, col - col_in);
+        if (bulk) {
+          bulk_load(sl, lse + at, R * 4, &ring.full[st]);
+          bulk_load(sd, dvec + at, R * 4, &ring.full[st]);
+        }
+      }
+    }
+    return;
+  }
+  const int row = warp * 16 + (lane >> 2);  // this thread's first key row of the k tile
+  const int tq = lane & 3;
+  float s[R / 2], dp[R / 2];  // S^T and dP^T: m64n64 accumulators
+  float acc_dk[kWideCols / 2], acc_dv[kWideCols / 2];
+  uint32_t pf[R / 16][4], dsf[R / 16][4];  // P^T, dS^T: k16 A fragments
+#pragma unroll
+  for (int x = 0; x < kWideCols / 2; ++x) acc_dk[x] = acc_dv[x] = 0.f;
+
+  int i = 0;
+  for (int j = 0; j < n_q; ++j) {
+    wide::scores(ring, i, nch, s);
+    wide::scores(ring, i, nch, dp);
+    const int st = wide::ready(ring, i++);
+    const int rel = row - j * R;
+    if (j == 0)
+      dscores_t<true, R>(s, dp, ring.lse(st), ring.dvec(st), scale, rel, tq);
+    else
+      dscores_t<false, R>(s, dp, ring.lse(st), ring.dvec(st), scale, rel, tq);
+    pack_frags<R>(pf, s);
+    pack_frags<R>(dsf, dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+      wgmma_rs<kWideCols>(acc_dv, pf[kk], desc_mn<C, R>(ring.b(st), kk, col_in));
+#pragma unroll
+    for (int kk = 0; kk < R / 16; ++kk)
+      wgmma_rs<kWideCols>(acc_dk, dsf[kk], desc_mn<C, R>(ring.a(st), kk, col_in));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc_dk);
+    fence_operands(acc_dv);
+    wide::release(ring, st);
+  }
+  store_wide(dk, acc_dk, bh, t, d, k0, row, tq, col);
+  store_wide(dv, acc_dv, bh, t, d, k0, row, tq, col);
+}
+
 }  // namespace hop
+
+// The sliced route's bf16 launchers: D a multiple of 256.
+cudaError_t wide_maps(CUtensorMap (&maps)[4], const void* q, const void* dout, const void* k,
+                      const void* v, int bh, int t, int d) {
+  using namespace hop;
+  if (encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
+  const void* src[4] = {q, dout, k, v};
+  for (int x = 0; x < 4; ++x)
+    if (!tile_map<wide::kChunk, wide::kRows>(&maps[x], src[x], bh, t, d))
+      return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+cudaError_t launch_dq_wide_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* lse, const float* dvec, void* dq, int bh, int t,
+                                 int d, float scale, cudaStream_t stream) {
+  using namespace hop;
+  CUtensorMap maps[4];
+  cudaError_t err = wide_maps(maps, q, dout, k, v, bh, t, d);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_tri_bwd_dq_wide_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, wide::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + wide::kRows - 1) / wide::kRows * (d / kWideCols), bh);
+  flash_tri_bwd_dq_wide_wgmma_kernel<<<grid, wide::kThreads, wide::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dvec, static_cast<bf16*>(dq), t, d, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_wide_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                  const float* lse, const float* dvec, void* dk, void* dv,
+                                  int bh, int t, int d, float scale, cudaStream_t stream) {
+  using namespace hop;
+  CUtensorMap maps[4];
+  cudaError_t err = wide_maps(maps, q, dout, k, v, bh, t, d);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_tri_bwd_dkv_wide_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, wide::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + wide::kRows - 1) / wide::kRows * (d / kWideCols), bh);
+  flash_tri_bwd_dkv_wide_wgmma_kernel<<<grid, wide::kThreads, wide::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dvec, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), t, d, scale);
+  return cudaGetLastError();
+}
 
 template <int HD>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
@@ -805,6 +1241,16 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
       maps[0], maps[1], maps[2], maps[3], lse, dvec, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), t, scale);
   return cudaGetLastError();
+}
+
+// The sliced route's: its ring slots stream 64-row tiles, the CTA owns
+// 64 rows, no setmaxnreg (0: ptxas's count holds).
+cudaError_t bwd_config_wide(int* out) {
+  using namespace hop;
+  const int v[9] = {wide::kSmem, wide::kSmem, wide::kSlots, wide::kSlots, wide::kRows,
+                    wide::kRows, 0,           0,           wide::kRows};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return cudaSuccess;
 }
 
 // The bf16 kernels' configuration at head_dim (32, 64, 128 or 256), into
@@ -851,7 +1297,8 @@ cudaError_t bwd_config(int* out) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q/k/v/dout and the outputs
+// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 128 or 256, or a
+// multiple of 256 above (the sliced route). q/k/v/dout and the outputs
 // [bh, t, head_dim]; lse and dvec [bh, t] float32; all contiguous,
 // 16-byte aligned, on the current device; t >= 1. Each launches one kernel
 // on `stream` and returns cudaGetLastError() (0 on success); neither
@@ -863,6 +1310,10 @@ int tpumon_flash_tri_bwd_dq(const void* q, const void* k, const void* v, const v
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dvec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim > 256 && head_dim % 256 == 0 && (dtype == 0 || dtype == 1))
+    return dtype == 0 ? (int)launch_dq_wide_f32(q, k, v, dout, l, d, dq, bh, t, head_dim, scale, s)
+                      : (int)launch_dq_wide_wgmma(q, k, v, dout, l, d, dq, bh, t, head_dim, scale,
+                                                  s);
 #define TPUMON_DQ_F32(HD) launch_dq_f32<HD>(q, k, v, dout, l, d, dq, bh, t, scale, s)
 #define TPUMON_DQ_WGMMA(HD) launch_dq_wgmma<HD>(q, k, v, dout, l, d, dq, bh, t, scale, s)
   TPUMON_DISPATCH(TPUMON_DQ);
@@ -877,6 +1328,11 @@ int tpumon_flash_tri_bwd_dkv(const void* q, const void* k, const void* v, const 
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(dvec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim > 256 && head_dim % 256 == 0 && (dtype == 0 || dtype == 1))
+    return dtype == 0
+               ? (int)launch_dkv_wide_f32(q, k, v, dout, l, d, dk, dv, bh, t, head_dim, scale, s)
+               : (int)launch_dkv_wide_wgmma(q, k, v, dout, l, d, dk, dv, bh, t, head_dim, scale,
+                                            s);
 #define TPUMON_DKV_F32(HD) \
   launch_dkv_f32<HD>(q, k, v, dout, l, d, dk, dv, bh, t, scale, s)
 #define TPUMON_DKV_WGMMA(HD) \
@@ -890,6 +1346,7 @@ int tpumon_flash_tri_bwd_dkv(const void* q, const void* k, const void* v, const 
 // registers after setmaxnreg and owned rows at head_dim, into out[9]
 // (bwd_config).
 int tpumon_flash_bwd_config(int head_dim, int* out) {
+  if (head_dim > 256 && head_dim % 256 == 0) return (int)bwd_config_wide(out);
   switch (head_dim) {
     case 32:
       return (int)bwd_config<32>(out);

@@ -62,8 +62,22 @@
 // so each row's running max is a real score from the first step on and
 // rows past the caller's real length (padding) stay finite.
 //
-// Supported: float32 and bfloat16, head dim 32, 64, 128 or 256, any T >= 1.
-// lse may be null (no logsumexp written).
+// Head dims above 256: the sliced route (flash_wgmma.cuh's wide
+// namespace; D a multiple of 256, the wrapper zero-pads one between). A
+// CTA owns one (bh, 64-row q tile, slice of the output's columns: bf16
+// 256, f32 128); for each k tile it computes S over all of D in chunks,
+// Q's and K's chunks streamed together and their products added into one
+// S, then the online-softmax step and O += P V over V's columns of the
+// slice. Every slice takes the same chunks in the same order, so the
+// slices' row max, sum and lse agree; only slice 0 writes lse. bf16: one
+// arithmetic warpgroup and a load warp over a 3-slot TMA ring (64-row
+// tiles), the O slice an m64n256 accumulator, S m64n64. f32: CUDA cores,
+// 64 q rows, 32-row k tiles, 128-column chunks staged by the CTA. Q is
+// read once per k tile: a simple schedule, not a fast one.
+//
+// Supported: float32 and bfloat16, head dim 32, 64, 128 or 256, or any
+// multiple of 256 above it; any T >= 1. lse may be null (no logsumexp
+// written).
 #pragma once
 
 #include "flash_tri_common.cuh"
@@ -71,6 +85,36 @@
 
 namespace tpumon {
 namespace flash {
+
+// The f32 kernels' online-softmax step on one 32-row k tile's scores:
+// scaled, masked where the tile can hold masked keys (causal: keys past
+// the row, in a tile that reaches past q0; else keys at or past T, in a
+// last tile that reaches past it), m and l updated, o rescaled and P
+// written to sp ([kOwn][kLdP]).
+template <bool CAUSAL, int OUT>
+__device__ __forceinline__ void softmax_tile(float (&s)[kRows][kCols], float (&m)[kRows],
+                                             float (&l)[kRows], float (&o)[kRows][OUT], float* sp,
+                                             int q0, int k0, int t, float scale) {
+  const int tx = lane_tx(), ty = lane_ty();
+  const bool diag = CAUSAL && k0 + kStream > q0;  // only these tiles hold keys past a row
+  const bool tail = !CAUSAL && k0 + kStream > t;  // keys past T (with the mask: past the row)
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qpos = q0 + ty + kRowGroups * r;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const float x = s[r][c] * scale;
+      const int kpos = k0 + tx + kColGroups * c;
+      s[r][c] = (diag && kpos > qpos) || (tail && kpos >= t) ? kNegInf : x;
+    }
+    const float alpha = online_softmax_update_row<kColGroups, kCols>(s[r], m[r], l[r]);
+#pragma unroll
+    for (int c = 0; c < OUT; ++c) o[r][c] *= alpha;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      sp[(ty + kRowGroups * r) * kLdP + tx + kColGroups * c] = s[r][c];
+  }
+}
 
 // f32: CUDA cores. grid (T / 64, BH), 128 threads, 32-row k tiles; the
 // thread layout of flash_tri_common.cuh.
@@ -115,24 +159,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[kRows][kCols];
     zero(s);
     mma<kRows, kCols, HD, LD, 1, LD, 1>(s, sq, sk);
-    const bool diag = CAUSAL && k0 + kStream > q0;  // only these tiles hold keys past a row
-    const bool tail = !CAUSAL && k0 + kStream > t;  // keys past T (with the mask: past the row)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + ty + kRowGroups * r;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float x = s[r][c] * scale;
-        const int kpos = k0 + tx + kColGroups * c;
-        s[r][c] = (diag && kpos > qpos) || (tail && kpos >= t) ? kNegInf : x;
-      }
-      const float alpha = online_softmax_update_row<kColGroups, kCols>(s[r], m[r], l[r]);
-#pragma unroll
-      for (int c = 0; c < kOut; ++c) o[r][c] *= alpha;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        sp[(ty + kRowGroups * r) * kLdP + tx + kColGroups * c] = s[r][c];
-    }
+    softmax_tile<CAUSAL>(s, m, l, o, sp, q0, k0, t, scale);
     __syncthreads();
     mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(o, sp, sv);
   }
@@ -160,6 +187,86 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* ou
   flash_fwd_kernel<HD, CAUSAL><<<dim3((t + kOwn - 1) / kOwn, bh), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), lse, t, scale);
+  return cudaGetLastError();
+}
+
+// f32, the sliced route: grid (ceil(T / 64) x slices, BH), 128 threads;
+// a CTA owns q rows q0.. (the longest first; a bh's slices next to each
+// other) and columns W slice.. of out; D = d, a multiple of W.
+constexpr int kSliceF32 = 128;  // the f32 sliced route's output slice and S chunk
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, int t, int d, float scale) {
+  constexpr int W = kSliceF32;
+  constexpr int LD = W + 1;
+  constexpr int kOut = W / kColGroups;
+  extern __shared__ float smem[];
+  float* sq = smem;               // [kOwn][LD]: Q's chunk
+  float* sk = sq + kOwn * LD;     // [kStream][LD]: K's chunk, then V's slice
+  float* sp = sk + kStream * LD;  // [kOwn][kLdP]: P
+
+  const int slices = d / W, nch = d / W;
+  const int bh = blockIdx.y, slice = blockIdx.x % slices;
+  const int q0 = (gridDim.x / slices - 1 - blockIdx.x / slices) * kOwn;  // longest rows first
+  const size_t base = (size_t)bh * t * d;
+  const int tx = lane_tx(), ty = lane_ty();
+
+  float m[kRows], l[kRows], o[kRows][kOut];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+  }
+  zero(o);
+
+  const int tiles = (t + kStream - 1) / kStream;
+  const int n_k = CAUSAL ? min((q0 + kOwn) / kStream, tiles) : tiles;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kStream;
+    float s[kRows][kCols];
+    zero(s);
+    for (int c = 0; c < nch; ++c) {  // S over all of D, chunk by chunk
+      __syncthreads();  // the previous chunk (or P V) is consumed
+      stage_cols<W, kOwn>(sq, q + base + (size_t)q0 * d + c * W, d, t - q0);
+      stage_cols<W, kStream>(sk, k + base + (size_t)k0 * d + c * W, d, t - k0);
+      __syncthreads();
+      mma<kRows, kCols, W, LD, 1, LD, 1>(s, sq, sk);
+    }
+    __syncthreads();  // every chunk is consumed
+    stage_cols<W, kStream>(sk, v + base + (size_t)k0 * d + slice * W, d, t - k0);
+    softmax_tile<CAUSAL>(s, m, l, o, sp, q0, k0, t, scale);
+    __syncthreads();
+    mma<kRows, kOut, kStream, kLdP, 1, 1, LD>(o, sp, sk);
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    const float inv = 1.f / l_safe;
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) o[r][c] *= inv;
+    if (lse != nullptr && slice == 0 && tx == 0 && q0 + ty + kRowGroups * r < t)
+      lse[(size_t)bh * t + q0 + ty + kRowGroups * r] = m[r] + logf(l_safe);
+  }
+  store_cols<W>(out + base + slice * W, d, q0, t, o);
+}
+
+template <bool CAUSAL>
+cudaError_t launch_fwd_wide_f32(const void* q, const void* k, const void* v, void* out,
+                                float* lse, int bh, int t, int d, float scale,
+                                cudaStream_t stream) {
+  constexpr int LD = kSliceF32 + 1;
+  const int smem = ((kOwn + kStream) * LD + kOwn * kLdP) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<CAUSAL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + kOwn - 1) / kOwn * (d / kSliceF32), bh);
+  flash_fwd_wide_kernel<CAUSAL><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), lse, t, d, scale);
   return cudaGetLastError();
 }
 
@@ -430,7 +537,112 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
   }
 }
 
+// The sliced route: grid (ceil(T / 64) x D / 256, BH), wide::kThreads;
+// maps [BH, T, D] bf16 in Tile<256, 64> boxes. The CTA owns q rows q0..
+// (the longest first; a bh's slices next to each other) and out's columns
+// 256 slice..; it walks the k tiles up to its diagonal (64-row tiles: the
+// last is the diagonal one), or all of them. Items a k tile: its D / 256
+// (Q, K) chunks, then V's slice.
+template <bool CAUSAL>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+flash_fwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
+                            const __grid_constant__ CUtensorMap tma_k,
+                            const __grid_constant__ CUtensorMap tma_v, bf16* __restrict__ out,
+                            float* __restrict__ lse, int t, int d, float scale_log2) {
+  using namespace wide;
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring = ring_init(smem_raw);
+  const int nch = d / kChunk, slices = d / kChunk;
+  const int bh = blockIdx.y, slice = blockIdx.x % slices;
+  const int q0 = (gridDim.x / slices - 1 - blockIdx.x / slices) * kRows;
+  const int tiles = (t + kRows - 1) / kRows;
+  const int n_k = CAUSAL ? q0 / kRows + 1 : tiles;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == 4) {
+    if (lane == 0) {
+      int i = 0;
+      for (int j = 0; j < n_k; ++j) {
+        for (int c = 0; c < nch; ++c, ++i)
+          load_pair(ring, i, &tma_q, q0, &tma_k, j * kRows, c * kChunk, bh);
+        load_pair(ring, i++, &tma_v, j * kRows, nullptr, 0, slice * kChunk, bh);
+      }
+    }
+    return;
+  }
+  const int row = warp * 16 + (lane >> 2);  // this thread's first row of the q tile
+  const int tq = lane & 3;
+  float s[kRows / 2];      // S: m64n64 accumulator
+  float o[kChunk / 2];     // O's slice: m64n256 accumulator
+  uint32_t p[kRows / 16][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+  for (int x = 0; x < kChunk / 2; ++x) o[x] = 0.f;
+
+  int i = 0;
+  for (int j = 0; j < n_k; ++j) {
+    scores(ring, i, nch, s);
+    if (j == n_k - 1)  // the diagonal tile, or the one that reaches past T
+      softmax_step<CAUSAL, true, kRows>(s, m, l, alpha, scale_log2, row, tq, t - j * kRows);
+    else
+      softmax_step<CAUSAL, false, kRows>(s, m, l, alpha, scale_log2, row, tq, kRows);
+#pragma unroll
+    for (int jj = 0; jj < kChunk / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        o[4 * jj + 2 * e] *= alpha[e];
+        o[4 * jj + 2 * e + 1] *= alpha[e];
+      }
+    pack_frags<kRows>(p, s);
+    const int st = ready(ring, i++);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      wgmma_rs<kChunk>(o, p[kk], desc_mn<kChunk, kRows>(ring.a(st), kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(o);
+    release(ring, st);
+  }
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = q0 + row + 8 * e;
+    if (r >= t) continue;
+    const float l_safe = l[e] == 0.f ? 1.f : l[e];
+    const float inv = 1.f / l_safe;
+    bf16* dst = out + (static_cast<size_t>(bh) * t + r) * d + slice * kChunk + 2 * tq;
+#pragma unroll
+    for (int jj = 0; jj < kChunk / 8; ++jj)
+      *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
+          pack_bf16(o[4 * jj + 2 * e] * inv, o[4 * jj + 2 * e + 1] * inv);
+    if (lse != nullptr && slice == 0 && tq == 0)
+      lse[static_cast<size_t>(bh) * t + r] = m[e] * scale_log2 * kLn2 + logf(l_safe);
+  }
+}
+
 }  // namespace wg
+
+template <bool CAUSAL>
+cudaError_t launch_fwd_wide_wgmma(const void* q, const void* k, const void* v, void* out,
+                                  float* lse, int bh, int t, int d, float scale,
+                                  cudaStream_t stream) {
+  namespace W = wg::wide;
+  if (hopper::encoder() == nullptr) return cudaErrorSharedObjectInitFailed;
+  CUtensorMap maps[3];
+  const void* src[3] = {q, k, v};
+  for (int x = 0; x < 3; ++x)
+    if (!wg::tile_map<W::kChunk, W::kRows>(&maps[x], src[x], bh, t, d))
+      return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(wg::flash_fwd_wide_wgmma_kernel<CAUSAL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, W::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + W::kRows - 1) / W::kRows * (d / W::kChunk), bh);
+  wg::flash_fwd_wide_wgmma_kernel<CAUSAL><<<grid, W::kThreads, W::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<wg::bf16*>(out), lse, t, d,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
 
 template <int HD, bool CAUSAL>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
@@ -452,12 +664,18 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
   return cudaGetLastError();
 }
 
-// The bf16 kernel's configuration at head_dim (32, 64, 128 or 256):
-// out[0] dynamic shared-memory bytes, out[1] K and V stages, out[2] and
-// out[3] the registers per thread after setmaxnreg (loads, arithmetic),
-// out[4] the k rows of a stage. Returns cudaErrorInvalidValue for another
-// head dim.
+// The bf16 kernel's configuration at head_dim (32, 64, 128 or 256; or a
+// multiple of 256 above, the sliced route): out[0] dynamic shared-memory
+// bytes, out[1] K and V stages (the sliced route: ring slots), out[2] and
+// out[3] the registers per thread after setmaxnreg (loads, arithmetic; 0
+// on the sliced route, which sets none: ptxas's count holds), out[4] the k
+// rows of a stage. Returns cudaErrorInvalidValue for another head dim.
 inline cudaError_t fwd_config(int head_dim, int* out) {
+  if (head_dim > 256 && head_dim % wg::wide::kChunk == 0) {
+    const int v[5] = {wg::wide::kSmem, wg::wide::kSlots, 0, 0, wg::wide::kRows};
+    for (int x = 0; x < 5; ++x) out[x] = v[x];
+    return cudaSuccess;
+  }
   const int smem = head_dim == 32    ? wg::fwd_smem<32>()
                    : head_dim == 64  ? wg::fwd_smem<64>()
                    : head_dim == 128 ? wg::fwd_smem<128>()
@@ -474,7 +692,8 @@ inline cudaError_t fwd_config(int head_dim, int* out) {
 
 // dtype: 0 = float32 on CUDA cores (tensor cores would round f32 inputs
 // to TF32), 1 = bfloat16 on tensor cores (wgmma); head_dim 32, 64, 128 or
-// 256; t >= 1. Returns cudaGetLastError() of the launch.
+// 256, or a multiple of 256 above (the sliced route); t >= 1. Returns
+// cudaGetLastError() of the launch.
 template <bool CAUSAL>
 cudaError_t launch_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
                        void* out, float* lse, int bh, int t, float scale, cudaStream_t stream) {
@@ -494,6 +713,11 @@ cudaError_t launch_fwd(int dtype, int head_dim, const void* q, const void* k, co
       return dtype == 0 ? launch_fwd_f32<256, CAUSAL>(q, k, v, out, lse, bh, t, scale, stream)
                         : launch_fwd_wgmma<256, CAUSAL>(q, k, v, out, lse, bh, t, scale, stream);
     default:
+      if (head_dim > 256 && head_dim % wg::wide::kChunk == 0)
+        return dtype == 0
+                   ? launch_fwd_wide_f32<CAUSAL>(q, k, v, out, lse, bh, t, head_dim, scale, stream)
+                   : launch_fwd_wide_wgmma<CAUSAL>(q, k, v, out, lse, bh, t, head_dim, scale,
+                                                   stream);
       return cudaErrorInvalidValue;
   }
 }

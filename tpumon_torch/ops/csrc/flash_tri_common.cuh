@@ -1,6 +1,6 @@
 // Tiles, staging and the register-tiled product shared by the f32 causal
-// flash-attention kernels (flash_attention_tri_fwd.cu and
-// flash_attention_tri_bwd.cu); the bf16 kernels use flash_tri_mma.cuh.
+// flash-attention kernels (flash_fwd.cuh and flash_attention_tri_bwd.cu);
+// the bf16 kernels use flash_wgmma.cuh.
 //
 // A CTA of kThreads = 128 threads owns kOwn = 64 rows (query rows in the
 // forward and dQ kernels, key rows in the dK/dV kernel) and loops over the
@@ -71,6 +71,43 @@ __device__ __forceinline__ void mma(float (&acc)[RM][CN], const float* a, const 
     for (int r = 0; r < RM; ++r)
 #pragma unroll
       for (int c = 0; c < CN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+  }
+}
+
+// The sliced route (head dims above 256): ROWS rows of W floats from
+// device memory rows `ld` floats apart (src points at the first), into
+// shared memory with row stride W + 1; rows at or past `valid` are zeros.
+template <int W, int ROWS>
+__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ src, int ld,
+                                           int valid) {
+  constexpr int kVecPerRow = W / 4;
+  for (int i = threadIdx.x; i < ROWS * kVecPerRow; i += kThreads) {
+    const int r = i / kVecPerRow;
+    const int c = (i % kVecPerRow) * 4;
+    const float4 x = r < valid ? *reinterpret_cast<const float4*>(src + (size_t)r * ld + c)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* d = dst + r * (W + 1) + c;
+    d[0] = x.x;
+    d[1] = x.y;
+    d[2] = x.z;
+    d[3] = x.w;
+  }
+}
+
+// This thread's [kRows, OUT / 8] tile of an owned-row output into OUT
+// columns of a row-major f32 tensor whose rows are `ld` floats apart (dst
+// points at row 0's first such column), from row `row0`; rows at or past
+// t are not stored.
+template <int OUT>
+__device__ __forceinline__ void store_cols(float* __restrict__ dst, int ld, int row0, int t,
+                                           const float (&acc)[kRows][OUT / kColGroups]) {
+  const int ty = lane_ty(), tx = lane_tx();
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (row0 + ty + kRowGroups * r >= t) continue;
+    float* row = dst + (size_t)(row0 + ty + kRowGroups * r) * ld;
+#pragma unroll
+    for (int c = 0; c < OUT / kColGroups; ++c) row[tx + kColGroups * c] = acc[r][c];
   }
 }
 

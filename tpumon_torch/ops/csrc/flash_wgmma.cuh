@@ -62,22 +62,23 @@ __device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int kk, int col
                    L::kBoxBytes, L::kGroupBytes, L::kLayout);
 }
 
-// One tile starting at `row` of bh's [T, HD] slice; its bytes complete on
-// `bar`.
+// One tile starting at `row` of bh's [T, HD] slice (or, from a wider map,
+// the HD columns from col0 on); its bytes complete on `bar`.
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
-                                          int row, int bh) {
+                                          int row, int bh, int col0 = 0) {
   using L = Tile<HD, ROWS>;
 #pragma unroll
   for (int b = 0; b < L::kBoxes; ++b)
-    tma_load_3d(dst + b * L::kBoxBytes, map, bar, b * L::kBoxCols, row, bh);
+    tma_load_3d(dst + b * L::kBoxBytes, map, bar, col0 + b * L::kBoxCols, row, bh);
 }
 
-// The 3-d [BH, T, HD] bf16 map whose boxes are Tile<HD, ROWS>'s.
+// The 3-d [BH, T, D] bf16 map (D = HD, or a multiple of it whose HD-column
+// chunks load as tiles) whose boxes are Tile<HD, ROWS>'s.
 template <int HD, int ROWS>
-inline bool tile_map(CUtensorMap* map, const void* p, int bh, int t) {
+inline bool tile_map(CUtensorMap* map, const void* p, int bh, int t, int d = HD) {
   using L = Tile<HD, ROWS>;
-  return tensor_map_3d(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, HD, t, bh, L::kBoxCols,
+  return tensor_map_3d(map, p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, d, t, bh, L::kBoxCols,
                        ROWS, L::kSwizzle);
 }
 
@@ -136,6 +137,118 @@ __device__ __forceinline__ void pack_frags(uint32_t (&p)[N / 16][4], const float
 #pragma unroll
     for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
+
+// --- The sliced route: head dims above 256 ------------------------------
+//
+// The head dim D is a multiple of kChunk = 256 (the wrapper zero-pads one
+// between). A CTA owns one slice of the output's columns (forward: 256,
+// backward: 128) and computes its scores over all of D: the operands of a
+// score product stream in 256-column chunks, as Tile<256, 64>s read from
+// the [BH, T, D] maps at column 256 c, and each chunk's wgmmas add into
+// the same accumulator. A CTA has kThreads: warps 0-3 are one arithmetic
+// warpgroup, lane 0 of warp 4 issues the loads. Loads stream as items
+// through a ring of kSlots slots, each two tiles (A, B) and room for 64
+// lse and 64 D values; item i sits in slot i % kSlots and waits on parity
+// (i / kSlots) & 1, so the producer and the consumer count the same items
+// in the same order and the ring's phases follow. A simple schedule, not
+// a fast one: each chunk's product completes before the next is issued,
+// and every slice recomputes the scores.
+namespace wide {
+
+constexpr int kThreads = 160;
+constexpr int kRows = 64;     // rows of every tile: the q tile, the k tile
+constexpr int kChunk = 256;   // columns of a streamed chunk
+constexpr int kSlots = 3;
+using LT = Tile<kChunk, kRows>;
+constexpr int kSlotBytes = 2 * LT::kBytes + 1024;  // A, B, lse and D; 1024-aligned
+constexpr int kSmem = kSlots * kSlotBytes + 2 * kSlots * 8 + 1024;
+
+struct Ring {
+  uint8_t* base;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ uint8_t* a(int slot) const { return base + slot * kSlotBytes; }
+  __device__ uint8_t* b(int slot) const { return a(slot) + LT::kBytes; }
+  __device__ float* lse(int slot) const { return reinterpret_cast<float*>(b(slot) + LT::kBytes); }
+  __device__ float* dvec(int slot) const { return lse(slot) + kRows; }
+};
+
+// The ring in dynamic shared memory, its barriers initialised (full: the
+// producer's one arrival with the bytes; empty: lane 0 of each arithmetic
+// warp). Block-collective.
+__device__ __forceinline__ Ring ring_init(uint8_t* smem_raw) {
+  Ring r;
+  r.base = align1024(smem_raw);
+  r.full = reinterpret_cast<uint64_t*>(r.base + kSlots * kSlotBytes);
+  r.empty = r.full + kSlots;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// The producer: item i's slot, once free.
+__device__ __forceinline__ int acquire(const Ring& r, int i) {
+  const int s = i % kSlots;
+  mbar_wait(&r.empty[s], ((i / kSlots) & 1) ^ 1);
+  return s;
+}
+
+// The consumer: item i's slot, once loaded.
+__device__ __forceinline__ int ready(const Ring& r, int i) {
+  const int s = i % kSlots;
+  mbar_wait(&r.full[s], (i / kSlots) & 1);
+  return s;
+}
+
+__device__ __forceinline__ void release(const Ring& r, int slot) {
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&r.empty[slot]);
+}
+
+// The producer: rows `row_a` of map_a and `row_b` of map_b (null: A only),
+// columns col.. of each, into item i's slot.
+__device__ __forceinline__ void load_pair(const Ring& r, int i, const CUtensorMap* map_a,
+                                          int row_a, const CUtensorMap* map_b, int row_b,
+                                          int col, int bh) {
+  const int s = acquire(r, i);
+  mbar_expect_tx(&r.full[s], (map_b ? 2 : 1) * LT::kBytes);
+  load_tile<kChunk, kRows>(r.a(s), map_a, &r.full[s], row_a, bh, col);
+  if (map_b) load_tile<kChunk, kRows>(r.b(s), map_b, &r.full[s], row_b, bh, col);
+}
+
+// D[64 x 64] (+)= A_c B_c^T over one 256-column chunk, A and B K-major
+// 64-row tiles; the first chunk's first k16 slice overwrites D.
+__device__ __forceinline__ void scores_chunk(float (&d)[32], const uint8_t* a, const uint8_t* b,
+                                             bool first) {
+  if (first) {
+    wgmma_scores<64, kChunk, kRows, kRows>(d, a, 0, b);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      wgmma_ss<64>(d, desc_kmajor<kChunk, kRows>(a, 0, kk), desc_kmajor<kChunk, kRows>(b, 0, kk));
+  }
+}
+
+// The consumer: D = A B^T over all of D's nch chunks, items i.. (advanced
+// past them), each chunk's product complete before its slot is released.
+__device__ __forceinline__ void scores(const Ring& r, int& i, int nch, float (&d)[32]) {
+  for (int c = 0; c < nch; ++c) {
+    const int s = ready(r, i++);
+    wgmma_fence();
+    scores_chunk(d, r.a(s), r.b(s), c == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(d);
+    release(r, s);
+  }
+}
+
+}  // namespace wide
 
 }  // namespace wg
 }  // namespace flash

@@ -75,9 +75,26 @@
 // zeroed before P V, so rows past the length that hold anything (NaN
 // included) do not reach the output.
 //
-// Supported: float32 and bfloat16, any head_dim from 1 to 256 (instances
-// 16, 32, 64, 128 and 256: bf16's mma.sync takes 16 columns a k-step),
-// any GQA group, any page size. The Python wrapper (tpumon_torch/ops/
+// - A head dim above 256 takes the sliced route (WIDE): the output's
+//   columns are cut into slices of kSlice = 256, one more grid axis (z:
+//   sequence x slice), and each CTA owns one slice. Its scores still run
+//   over the whole head dim: for each tile of rows the load warp streams
+//   the K rows in 256-column chunks, then the slice's 256 columns of V,
+//   each an item of its own ring slot (a slot is one 256-instance tile:
+//   2 x stages slots, the 256 instance's bytes), and the consumers add
+//   each chunk's products into the same score registers before the
+//   softmax. Every slice computes the same scores in the same order, so
+//   the slices' softmax states agree; each merges its own columns, with
+//   its own workspace rows and arrival counters. q is read from device
+//   memory chunk by chunk (it stays in L1), so no head dim is too wide for
+//   shared memory or registers. K is read once per slice (from L2 for all
+//   but the first): a simple schedule, not a fast one. A chunk's boxes
+//   wholly past the head dim are not loaded, and its k-steps past the head
+//   dim are not issued.
+//
+// Supported: float32 and bfloat16, any head_dim >= 1 (instances 16, 32,
+// 64, 128 and 256: bf16's mma.sync takes 16 columns a k-step; above 256
+// the 256 instance's tiles in slices), any GQA group, any page size. The Python wrapper (tpumon_torch/ops/
 // paged_attention.py) checks shapes and types; the launcher below
 // re-checks what it indexes by.
 
@@ -100,6 +117,7 @@ constexpr int kThreads = 32 * (kConsumerWarps + 1);  // + the load warp
 constexpr int kMaxGroup = 8;                         // query heads per group tile, at most
 constexpr int kMaxStages = 8;
 constexpr int kDefaultStages = 3;
+constexpr int kSlice = 256;  // output columns a CTA of the sliced route owns
 constexpr float kLog2e = 1.4426950408889634f;
 
 // A tile of up to kRows rows of one page, as TMA writes it: boxes of
@@ -217,6 +235,93 @@ __device__ __forceinline__ void for_each_tile(const Params& p, int page0, int pa
   }
 }
 
+// The sliced route's items of one split in order: for each tile of
+// for_each_tile's, `per_tile` items (the K chunks, then the V slice), each
+// in the next of `slots` ring slots; fn(page index, r0, rows of the tile
+// at or below the length, item, slot, parity).
+template <typename Fn>
+__device__ __forceinline__ void for_each_item(const Params& p, int page0, int page1, int len,
+                                              int per_tile, int slots, Fn&& fn) {
+  int slot = 0;
+  uint32_t parity = 0;
+  for (int pg = page0; pg < page1; ++pg) {
+    const int rows = min(p.page_size, len - pg * p.page_size);
+    for (int r0 = 0; r0 < rows; r0 += p.tile_rows)
+      for (int it = 0; it < per_tile; ++it) {
+        fn(pg, r0, min(p.tile_rows, rows - r0), it, slot, parity);
+        if (++slot == slots) {
+          slot = 0;
+          parity ^= 1;
+        }
+      }
+  }
+}
+
+// One tile's online-softmax step and O^T += V^T P^T for a bf16 consumer
+// warp, in consume_bf16's layouts: s holds the warp's S^T fragment (keys
+// key0 + lane / 4 and + 8, raw scores), keys at or past `valid` are
+// masked and their V values zeroed; m, l and o are the warp's state, vt
+// the tile's V rows. key0 < valid: the warp's first key is live.
+template <int HD>
+__device__ __forceinline__ void softmax_pv_bf16(float (&s)[4], float (&o)[HD / 16][4],
+                                                float (&m)[2], float (&l)[2], const uint8_t* vt,
+                                                int key0, int valid, float scale_log2) {
+  using L = Tile<bf16, HD>;
+  const int lane = threadIdx.x & 31;
+  const int quad = lane >> 2, t4 = lane & 3;
+  const int k_lo = key0 + quad, k_hi = k_lo + 8;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    s[e] = k_lo < valid ? s[e] * scale_log2 : kNegInf;
+    s[2 + e] = k_hi < valid ? s[2 + e] * scale_log2 : kNegInf;
+  }
+  float pr[4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float mx = fmaxf(s[e], s[2 + e]);
+#pragma unroll
+    for (int o2 = 4; o2 < 32; o2 <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+    const float m_new = fmaxf(m[e], mx);
+    const float alpha = ex2(m[e] - m_new);
+    pr[e] = ex2(s[e] - m_new);
+    pr[2 + e] = ex2(s[2 + e] - m_new);
+    float sum = pr[e] + pr[2 + e];
+#pragma unroll
+    for (int o2 = 4; o2 < 32; o2 <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o2);
+    l[e] = l[e] * alpha + sum;
+    m[e] = m_new;
+#pragma unroll
+    for (int mt = 0; mt < HD / 16; ++mt) {
+      o[mt][e] *= alpha;
+      o[mt][2 + e] *= alpha;
+    }
+  }
+  // P^T as the B fragment of O^T = V^T P^T: keys 2 t4 (+ 1) and + 8,
+  // query lane / 4.
+  const uint32_t pb0 = movmatrix_trans(pack_bf16(pr[0], pr[1]));
+  const uint32_t pb1 = movmatrix_trans(pack_bf16(pr[2], pr[3]));
+  // A thread's V^T fragment holds keys key0 + 2 t4 (+ 1) in a[0..1]
+  // and those + 8 in a[2..3]; zero the masked ones' values.
+  const bool partial = key0 + 16 > valid;
+  const int kv = key0 + 2 * t4;
+  const uint32_t mask_lo = (kv < valid ? 0x0000ffffu : 0u) | (kv + 1 < valid ? 0xffff0000u : 0u);
+  const uint32_t mask_hi =
+      (kv + 8 < valid ? 0x0000ffffu : 0u) | (kv + 9 < valid ? 0xffff0000u : 0u);
+#pragma unroll
+  for (int mt = 0; mt < HD / 16; ++mt) {
+    uint32_t a[4];
+    ldmatrix_x4_trans(a, vt + L::offset(key0 + (lane & 7) + (lane >> 4) * 8,
+                                        16 * mt + ((lane >> 3) & 1) * 8));
+    if (partial) {
+      a[0] &= mask_lo;
+      a[1] &= mask_lo;
+      a[2] &= mask_hi;
+      a[3] &= mask_hi;
+    }
+    mma_bf16(o[mt], a, pb0, pb1);
+  }
+}
+
 // bf16 consumer warp w: keys w * 16 .. + 15 of every tile. Accumulator
 // layouts (m16n8): s[0..1] is S^T[key lane / 4][query 2 (lane % 4) + e],
 // s[2..3] the key + 8; o[mt] is O^T[head-dim row 16 mt + lane / 4 (+ 8 for
@@ -272,58 +377,7 @@ __device__ __forceinline__ void consume_bf16(const Params& p, const uint8_t* rin
                                       16 * ks + (lane >> 4) * 8));
         mma_bf16(s, a, qf[ks][0], qf[ks][1]);
       }
-      const int k_lo = key0 + quad, k_hi = k_lo + 8;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[e] = k_lo < valid ? s[e] * p.scale_log2 : kNegInf;
-        s[2 + e] = k_hi < valid ? s[2 + e] * p.scale_log2 : kNegInf;
-      }
-      float pr[4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float mx = fmaxf(s[e], s[2 + e]);
-#pragma unroll
-        for (int o2 = 4; o2 < 32; o2 <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
-        // key0 < valid: the warp's first key is live, so m_new is a score
-        const float m_new = fmaxf(m[e], mx);
-        const float alpha = ex2(m[e] - m_new);
-        pr[e] = ex2(s[e] - m_new);
-        pr[2 + e] = ex2(s[2 + e] - m_new);
-        float sum = pr[e] + pr[2 + e];
-#pragma unroll
-        for (int o2 = 4; o2 < 32; o2 <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o2);
-        l[e] = l[e] * alpha + sum;
-        m[e] = m_new;
-#pragma unroll
-        for (int mt = 0; mt < HD / 16; ++mt) {
-          o[mt][e] *= alpha;
-          o[mt][2 + e] *= alpha;
-        }
-      }
-      // P^T as the B fragment of O^T = V^T P^T: keys 2 t4 (+ 1) and + 8,
-      // query lane / 4.
-      const uint32_t pb0 = movmatrix_trans(pack_bf16(pr[0], pr[1]));
-      const uint32_t pb1 = movmatrix_trans(pack_bf16(pr[2], pr[3]));
-      // A thread's V^T fragment holds keys key0 + 2 t4 (+ 1) in a[0..1]
-      // and those + 8 in a[2..3]; zero the masked ones' values.
-      const bool partial = key0 + 16 > valid;
-      const int kv = key0 + 2 * t4;
-      const uint32_t mask_lo = (kv < valid ? 0x0000ffffu : 0u) | (kv + 1 < valid ? 0xffff0000u : 0u);
-      const uint32_t mask_hi =
-          (kv + 8 < valid ? 0x0000ffffu : 0u) | (kv + 9 < valid ? 0xffff0000u : 0u);
-#pragma unroll
-      for (int mt = 0; mt < HD / 16; ++mt) {
-        uint32_t a[4];
-        ldmatrix_x4_trans(a, vt + L::offset(key0 + (lane & 7) + (lane >> 4) * 8,
-                                            16 * mt + ((lane >> 3) & 1) * 8));
-        if (partial) {
-          a[0] &= mask_lo;
-          a[1] &= mask_lo;
-          a[2] &= mask_hi;
-          a[3] &= mask_hi;
-        }
-        mma_bf16(o[mt], a, pb0, pb1);
-      }
+      softmax_pv_bf16<HD>(s, o, m, l, vt, key0, valid, p.scale_log2);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[slot]);
@@ -342,6 +396,34 @@ __device__ __forceinline__ void consume_bf16(const Params& p, const uint8_t* rin
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       acc[(2 * t4 + (i & 1)) * HD + 16 * mt + quad + 8 * (i >> 1)] = o[mt][i];
+}
+
+// The f32 consumers' online-softmax step over a block of K keys (scores
+// s[key][query head], pre-scaled, its first key live so each head's new
+// max is a score) for the first gsz of G query heads: updates m and l,
+// rescales o, and leaves P in s.
+template <int K, int G, int C>
+__device__ __forceinline__ void online_update_f32(float (&s)[K][G], float (&m)[G], float (&l)[G],
+                                                  float (&o)[G][C], int gsz) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g >= gsz) continue;
+    float mx = s[0][g];
+#pragma unroll
+    for (int kk = 1; kk < K; ++kk) mx = fmaxf(mx, s[kk][g]);
+    const float m_new = fmaxf(m[g], mx);
+    const float alpha = ex2(m[g] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      s[kk][g] = ex2(s[kk][g] - m_new);
+      sum += s[kk][g];
+    }
+    l[g] = l[g] * alpha + sum;
+    m[g] = m_new;
+#pragma unroll
+    for (int j = 0; j < C; ++j) o[g][j] *= alpha;
+  }
 }
 
 // f32 consumer warp w: keys w * 8 .. + 7 of every tile, kSub at a time;
@@ -419,25 +501,7 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
             }
           }
         }
-#pragma unroll
-        for (int g = 0; g < kG; ++g) {
-          if (g >= gsz) continue;
-          float mx = s[0][g];
-#pragma unroll
-          for (int kk = 1; kk < kSub; ++kk) mx = fmaxf(mx, s[kk][g]);
-          const float m_new = fmaxf(m[g], mx);
-          const float alpha = ex2(m[g] - m_new);
-          float sum = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < kSub; ++kk) {
-            s[kk][g] = ex2(s[kk][g] - m_new);
-            sum += s[kk][g];
-          }
-          l[g] = l[g] * alpha + sum;
-          m[g] = m_new;
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) o[g][j] *= alpha;
-        }
+        online_update_f32(s, m, l, o, gsz);
 #pragma unroll
         for (int kk = 0; kk < kSub; ++kk) {
           if (k0 + kk < n) {  // masked keys' V rows are never read
@@ -471,13 +535,200 @@ __device__ __forceinline__ void consume_f32(const Params& p, const uint8_t* ring
       for (int j = 0; j < kCols; ++j) acc[g * HD + col + j] = o[g][j];
 }
 
+// The sliced route's bf16 consumer warp w: keys w * 16 .. + 15 of every
+// tile, as consume_bf16 at the 256 instance, but with the head dim in
+// chunks: items 0 .. nch - 1 of a tile are its K rows' 256-column chunks,
+// whose products add into one S^T accumulator (q's chunk read from device
+// memory as each chunk's B fragments; k-steps past the head dim not
+// issued), and item nch is the V rows' columns of this CTA's slice, for
+// the softmax step and O^T = V^T P^T over the slice.
+__device__ __forceinline__ void consume_bf16_wide(const Params& p, const uint8_t* ring,
+                                                  uint64_t* full, uint64_t* empty, int b,
+                                                  int head0, int gsz, int page0, int page1,
+                                                  int len, float* ep_acc,
+                                                  float (*ep_m)[kMaxGroup],
+                                                  float (*ep_l)[kMaxGroup]) {
+  using L = Tile<bf16, kSlice>;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quad = lane >> 2, t4 = lane & 3;
+  const int hd = p.head_dim;
+  const int nch = (hd + kSlice - 1) / kSlice;
+  const uint16_t* qrow = static_cast<const uint16_t*>(p.q) +
+                         ((size_t)b * p.num_heads + head0 + quad) * hd;
+
+  float o[kSlice / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < kSlice / 16; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[mt][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float s[4];
+  const int key0 = w * L::kKeysPerWarp;
+
+  for_each_item(p, page0, page1, len, nch + 1, 2 * p.stages,
+                [&](int, int, int valid, int it, int slot, uint32_t parity) {
+    mbar_wait(&full[slot], parity);
+    if (key0 < valid) {  // warp-uniform
+      const uint8_t* tile = ring + slot * L::kBytes;
+      if (it < nch) {  // a K chunk: S^T += K_c Q_c^T
+        if (it == 0) s[0] = s[1] = s[2] = s[3] = 0.f;
+        const int c0 = it * kSlice;
+#pragma unroll
+        for (int ks = 0; ks < kSlice / 16; ++ks) {
+          if (c0 + 16 * ks >= hd) break;  // warp-uniform
+          uint32_t qf[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int c = c0 + 16 * ks + 8 * i + 2 * t4;
+            const uint32_t lo = quad < gsz && c < hd ? qrow[c] : 0u;
+            const uint32_t hi = quad < gsz && c + 1 < hd ? qrow[c + 1] : 0u;
+            qf[i] = lo | hi << 16;
+          }
+          uint32_t a[4];
+          ldmatrix_x4(a, tile + L::offset(key0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                          16 * ks + (lane >> 4) * 8));
+          mma_bf16(s, a, qf[0], qf[1]);
+        }
+      } else {  // the V slice: the softmax step, then O^T += V^T P^T
+        softmax_pv_bf16<kSlice>(s, o, m, l, tile, key0, valid, p.scale_log2);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  });
+
+  if (quad == 0)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      ep_m[w][2 * t4 + e] = m[e];
+      ep_l[w][2 * t4 + e] = l[e];
+    }
+  named_sync(1, 32 * kConsumerWarps);  // every warp is done with the ring
+  float* acc = ep_acc + w * kMaxGroup * kSlice;
+#pragma unroll
+  for (int mt = 0; mt < kSlice / 16; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      acc[(2 * t4 + (i & 1)) * kSlice + 16 * mt + quad + 8 * (i >> 1)] = o[mt][i];
+}
+
+// The sliced route's f32 consumer warp w: keys w * 8 .. + 7 of every
+// tile, as consume_f32 at the 256 instance (a lane owns 8 columns of a
+// chunk, group tile 4), with the head dim in chunks: items 0 .. nch - 1
+// add each key's partial dot products with q's chunk (read from device
+// memory) into per-lane sums, which item nch, the V slice, reduces over
+// the warp before the softmax step and P V over the slice's columns.
+__device__ __forceinline__ void consume_f32_wide(const Params& p, const uint8_t* ring,
+                                                 uint64_t* full, uint64_t* empty, int b,
+                                                 int head0, int gsz, int page0, int page1,
+                                                 int len, float* ep_acc,
+                                                 float (*ep_m)[kMaxGroup],
+                                                 float (*ep_l)[kMaxGroup]) {
+  using L = Tile<float, kSlice>;
+  constexpr int kG = L::kGroup;
+  constexpr int kCols = kSlice / 32;
+  constexpr int kKeys = L::kKeysPerWarp;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = kCols * lane;
+  const int hd = p.head_dim;
+  const int nch = (hd + kSlice - 1) / kSlice;
+
+  auto load = [&](const uint8_t* tile, int row, float (&x)[kCols]) {
+#pragma unroll
+    for (int u = 0; u < kCols / 4; ++u) {
+      const float4 v = *reinterpret_cast<const float4*>(tile + L::offset(row, col + 4 * u));
+      x[4 * u] = v.x, x[4 * u + 1] = v.y, x[4 * u + 2] = v.z, x[4 * u + 3] = v.w;
+    }
+  };
+
+  float o[kG][kCols], d[kKeys][kG], m[kG], l[kG];
+  const float* qb = static_cast<const float*>(p.q) + ((size_t)b * p.num_heads + head0) * hd;
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) o[g][j] = 0.f;
+  }
+  const int key0 = w * kKeys;
+
+  for_each_item(p, page0, page1, len, nch + 1, 2 * p.stages,
+                [&](int, int, int valid, int it, int slot, uint32_t parity) {
+    mbar_wait(&full[slot], parity);
+    if (key0 < valid) {  // warp-uniform
+      const uint8_t* tile = ring + slot * L::kBytes;
+      const int n = min(kKeys, valid - key0);
+      if (it < nch) {  // a K chunk: this lane's share of each key's dot products
+        const int c = it * kSlice + col;
+        float q[kG][kCols];
+#pragma unroll
+        for (int g = 0; g < kG; ++g)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j)
+            q[g][j] = g < gsz && c + j < hd ? qb[g * hd + c + j] : 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kKeys; ++kk) {
+          float x[kCols];
+          if (kk < n) load(tile, key0 + kk, x);
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            float acc = it == 0 ? 0.f : d[kk][g];
+            if (kk < n)
+#pragma unroll
+              for (int j = 0; j < kCols; ++j) acc = fmaf(q[g][j], x[j], acc);
+            d[kk][g] = acc;
+          }
+        }
+      } else {  // the V slice: scores, the online update, then P V
+        float s[kKeys][kG];
+#pragma unroll
+        for (int kk = 0; kk < kKeys; ++kk)
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            const float x = warp_sum(d[kk][g]) * p.scale_log2;
+            s[kk][g] = kk < n && g < gsz ? x : kNegInf;
+          }
+        online_update_f32(s, m, l, o, gsz);
+#pragma unroll
+        for (int kk = 0; kk < kKeys; ++kk) {
+          if (kk < n) {  // masked keys' V rows are never read
+            float x[kCols];
+            load(tile, key0 + kk, x);
+#pragma unroll
+            for (int g = 0; g < kG; ++g)
+              if (g < gsz)
+#pragma unroll
+                for (int j = 0; j < kCols; ++j) o[g][j] = fmaf(s[kk][g], x[j], o[g][j]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  });
+
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      ep_m[w][g] = m[g];
+      ep_l[w][g] = l[g];
+    }
+  named_sync(1, 32 * kConsumerWarps);  // every warp is done with the ring
+  float* acc = ep_acc + w * kMaxGroup * kSlice;
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[g * kSlice + col + j] = o[g][j];
+}
+
 // The manual route: the load warp's lanes copy the tile of rows r0.. of
 // one page (`src` points at the page's first row) into a stage in Tile's
 // swizzled layout, 16 bytes at a time, zeros past the head dim and past
-// the page.
+// the page; the tile's columns start at the row's column `col` (the
+// sliced route's chunks).
 template <typename T, int HD>
 __device__ __forceinline__ void copy_tile(uint8_t* dst, const T* src, const Params& p, int r0,
-                                          int lane) {
+                                          int lane, int col = 0) {
   using L = Tile<T, HD>;
   constexpr int kPer = 16 / L::kElem;  // elements in a 16-byte chunk
   constexpr int kChunks = HD / kPer;   // chunks in a row
@@ -488,31 +739,41 @@ __device__ __forceinline__ void copy_tile(uint8_t* dst, const T* src, const Para
     const bool live = r0 + r < p.page_size;
 #pragma unroll
     for (int e = 0; e < kPer; ++e)
-      chunk[e] = live && c0 + e < hd ? src[(size_t)(r0 + r) * hd + c0 + e] : from_float<T>(0.f);
+      chunk[e] = live && col + c0 + e < hd ? src[(size_t)(r0 + r) * hd + col + c0 + e]
+                                           : from_float<T>(0.f);
     *reinterpret_cast<uint4*>(dst + L::offset(r, c0)) = *reinterpret_cast<const uint4*>(chunk);
   }
 }
 
-// grid (splits, n_kv_heads x group tiles, batch), kThreads threads, 1024 +
-// stages * 2 * Tile::kBytes bytes of dynamic shared memory. tma_k / tma_v map the pools
-// as [kv head x page, page_size, head_dim] in boxes of Tile's columns and
-// tile_rows rows (unused when p.manual).
-template <typename T, int HD>
+// grid (splits, n_kv_heads x group tiles, batch; WIDE: batch x slices),
+// kThreads threads, 1024 + stages * 2 * Tile::kBytes bytes of dynamic
+// shared memory (WIDE: 2 x stages slots of one tile each). tma_k / tma_v
+// map the pools as [kv head x page, page_size, head_dim] in boxes of
+// Tile's columns and tile_rows rows (unused when p.manual).
+template <typename T, int HD, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
                        const __grid_constant__ CUtensorMap tma_v, const Params p) {
   using L = Tile<T, HD>;
+  static_assert(!WIDE || HD == kSlice, "the sliced route runs the 256 instance's tiles");
+  constexpr int kSlots = WIDE ? 2 * kMaxStages : kMaxStages;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
+  __shared__ uint64_t full[kSlots], empty[kSlots];
   __shared__ float ep_m[kConsumerWarps][kMaxGroup], ep_l[kConsumerWarps][kMaxGroup];
   __shared__ int is_last;
   uint8_t* ring = align1024(smem_raw);
   float* ep_acc = reinterpret_cast<float*>(ring);  // [warp][query][HD], once the ring is idle
 
-  const int split = blockIdx.x, b = blockIdx.z;
+  const int hd = p.head_dim;
+  // WIDE: blockIdx.z is (sequence, slice); this CTA's columns col0 ..
+  // col0 + cols - 1 of each head, W a head's room in the workspace.
+  const int slices = WIDE ? (hd + kSlice - 1) / kSlice : 1;
+  const int split = blockIdx.x, b = WIDE ? blockIdx.z / slices : blockIdx.z;
+  const int col0 = WIDE ? (blockIdx.z % slices) * kSlice : 0;
+  const int cols = WIDE ? min(kSlice, hd - col0) : hd;
+  const int W = WIDE ? kSlice : hd;
   const int splits = gridDim.x;
   const int group = p.num_heads / p.num_kv_heads;
-  const int hd = p.head_dim;
   // Group tile gt of kv head h: query heads head0 .. head0 + gsz - 1;
   // stride = min(group, kGroup), the tile's room in the workspace.
   const int gtiles = (group + L::kGroup - 1) / L::kGroup;
@@ -525,17 +786,24 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
   const int len = min(max(p.lengths[b], 0), p.max_pages * p.page_size);
   const int n_pages = (len + p.page_size - 1) / p.page_size;
   const int n_live = (n_pages + p.pages_per_split - 1) / p.pages_per_split;
-  T* out = static_cast<T*>(p.out) + ((size_t)b * p.num_heads + head0) * hd;
+  T* out = static_cast<T*>(p.out) + ((size_t)b * p.num_heads + head0) * hd + col0;
   if (split >= n_live) {
-    if (split == 0)  // length 0
-      for (int i = threadIdx.x; i < gsz * hd; i += kThreads) out[i] = from_float<T>(0.f);
+    if (split == 0) {  // length 0
+      if constexpr (WIDE) {
+        for (int i = threadIdx.x; i < gsz * cols; i += kThreads)
+          out[(i / cols) * hd + i % cols] = from_float<T>(0.f);
+      } else {
+        for (int i = threadIdx.x; i < gsz * hd; i += kThreads) out[i] = from_float<T>(0.f);
+      }
+    }
     return;
   }
   const int page0 = split * p.pages_per_split;
   const int page1 = min(page0 + p.pages_per_split, n_pages);
+  const int n_slots = WIDE ? 2 * p.stages : p.stages;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < p.stages; ++s) {
+    for (int s = 0; s < n_slots; ++s) {
       mbar_init(&full[s], p.manual ? 32 : 1);  // every lane of the load warp, or its TMA
       mbar_init(&empty[s], kConsumerWarps);    // lane 0 of each consumer warp
     }
@@ -550,33 +818,70 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
     // each tile's K and V boxes once its stage is free; on the manual
     // route every lane copies its share and arrives.
     const int* tab = p.table + (size_t)b * p.max_pages;
-    const uint32_t tx = 2u * L::kBoxes * p.tile_rows * L::kRowBytes;
     int page_l = 0;
-    for_each_tile(p, page0, page1, len, [&](int pg, int r0, int, int slot, uint32_t parity) {
-      if (r0 == 0 && (pg - page0) % 32 == 0) {
+    auto page_of = [&](int pg, bool first) {
+      if (first && (pg - page0) % 32 == 0) {
         const int mine = pg + lane;
         page_l = mine < page1 ? min(max(tab[mine], 0), p.num_pages - 1) : 0;
       }
-      const int page = __shfl_sync(0xffffffffu, page_l, (pg - page0) % 32);
-      mbar_wait(&empty[slot], parity ^ 1);
-      uint8_t* kt = ring + slot * 2 * L::kBytes;
-      const int outer = h * p.num_pages + page;
-      if (p.manual) {
-        const size_t at = (size_t)outer * p.page_size * hd;
-        copy_tile<T, HD>(kt, static_cast<const T*>(p.k_pages) + at, p, r0, lane);
-        copy_tile<T, HD>(kt + L::kBytes, static_cast<const T*>(p.v_pages) + at, p, r0, lane);
-        mbar_arrive(&full[slot]);  // releases this lane's writes
-      } else if (lane == 0) {
-        mbar_expect_tx(&full[slot], tx);
-#pragma unroll
-        for (int bx = 0; bx < L::kBoxes; ++bx) {
-          tma_load_3d(kt + bx * L::kBoxBytes, &tma_k, &full[slot], bx * L::kBoxCols, r0, outer);
-          tma_load_3d(kt + L::kBytes + bx * L::kBoxBytes, &tma_v, &full[slot], bx * L::kBoxCols,
-                      r0, outer);
+      return __shfl_sync(0xffffffffu, page_l, (pg - page0) % 32);
+    };
+    if constexpr (WIDE) {
+      // Items 0 .. nch - 1 of a tile: K's 256-column chunks; item nch: V's
+      // columns of this slice. Boxes wholly past the head dim are left out.
+      const int nch = slices;
+      for_each_item(p, page0, page1, len, nch + 1, n_slots,
+                    [&](int pg, int r0, int, int it, int slot, uint32_t parity) {
+        const int page = page_of(pg, r0 == 0 && it == 0);
+        mbar_wait(&empty[slot], parity ^ 1);
+        uint8_t* dst = ring + slot * L::kBytes;
+        const int outer = h * p.num_pages + page;
+        const bool is_v = it == nch;
+        const int col = is_v ? col0 : it * kSlice;
+        if (p.manual) {
+          const T* src = static_cast<const T*>(is_v ? p.v_pages : p.k_pages) +
+                         (size_t)outer * p.page_size * hd;
+          copy_tile<T, HD>(dst, src, p, r0, lane, col);
+          mbar_arrive(&full[slot]);  // releases this lane's writes
+        } else if (lane == 0) {
+          const int boxes = min(L::kBoxes, (hd - col + L::kBoxCols - 1) / L::kBoxCols);
+          mbar_expect_tx(&full[slot], (uint32_t)(boxes * p.tile_rows * L::kRowBytes));
+          for (int bx = 0; bx < boxes; ++bx)
+            tma_load_3d(dst + bx * L::kBoxBytes, is_v ? &tma_v : &tma_k, &full[slot],
+                        col + bx * L::kBoxCols, r0, outer);
         }
-      }
-      __syncwarp();
-    });
+        __syncwarp();
+      });
+    } else {
+      const uint32_t tx = 2u * L::kBoxes * p.tile_rows * L::kRowBytes;
+      for_each_tile(p, page0, page1, len, [&](int pg, int r0, int, int slot, uint32_t parity) {
+        const int page = page_of(pg, r0 == 0);
+        mbar_wait(&empty[slot], parity ^ 1);
+        uint8_t* kt = ring + slot * 2 * L::kBytes;
+        const int outer = h * p.num_pages + page;
+        if (p.manual) {
+          const size_t at = (size_t)outer * p.page_size * hd;
+          copy_tile<T, HD>(kt, static_cast<const T*>(p.k_pages) + at, p, r0, lane);
+          copy_tile<T, HD>(kt + L::kBytes, static_cast<const T*>(p.v_pages) + at, p, r0, lane);
+          mbar_arrive(&full[slot]);  // releases this lane's writes
+        } else if (lane == 0) {
+          mbar_expect_tx(&full[slot], tx);
+#pragma unroll
+          for (int bx = 0; bx < L::kBoxes; ++bx) {
+            tma_load_3d(kt + bx * L::kBoxBytes, &tma_k, &full[slot], bx * L::kBoxCols, r0, outer);
+            tma_load_3d(kt + L::kBytes + bx * L::kBoxBytes, &tma_v, &full[slot],
+                        bx * L::kBoxCols, r0, outer);
+          }
+        }
+        __syncwarp();
+      });
+    }
+  } else if constexpr (WIDE && sizeof(T) == 2) {
+    consume_bf16_wide(p, ring, full, empty, b, head0, gsz, page0, page1, len, ep_acc, ep_m,
+                      ep_l);
+  } else if constexpr (WIDE) {
+    consume_f32_wide(p, ring, full, empty, b, head0, gsz, page0, page1, len, ep_acc, ep_m,
+                     ep_l);
   } else if constexpr (sizeof(T) == 2) {
     consume_bf16<HD>(p, ring, full, empty, b, head0, gsz, page0, page1, len, ep_acc, ep_m,
                      ep_l);
@@ -587,16 +892,17 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
 
   // Merge the four warps' states, in warp order. Warp 0 saw the split's
   // first key, so mx is a score and sum > 0.
-  const int bh = b * gridDim.y + blockIdx.y;  // (sequence, kv head, group tile)
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;  // (sequence[, slice], kv head, group tile)
   const int part = bh * splits + split;
   float* part_acc = p.partials;
   float2* part_ml = reinterpret_cast<float2*>(p.partials + (size_t)gridDim.z * gridDim.y *
-                                                               splits * stride * hd);
+                                                               splits * stride * W);
   // Over the instance's HD columns a head (a power of two: the indices are
-  // shifts), skipping those past the pool's head dim; o indexes the output.
+  // shifts), skipping those past this CTA's columns; o indexes the output,
+  // a the workspace.
   for (int i = threadIdx.x; i < gsz * HD; i += kThreads) {
-    const int g = i / HD, d = i % HD, o = g * hd + d;
-    if (d >= hd) continue;
+    const int g = i / HD, d = i % HD, o = g * hd + d, a = g * W + d;
+    if (d >= cols) continue;
     float mx = kNegInf;
 #pragma unroll
     for (int w = 0; w < kConsumerWarps; ++w) mx = fmaxf(mx, ep_m[w][g]);
@@ -610,14 +916,14 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
     if (n_live == 1) {
       out[o] = from_float<T>(acc / sum);
     } else {
-      part_acc[(size_t)part * stride * hd + o] = acc;
+      part_acc[(size_t)part * stride * W + a] = acc;
       if (d == 0) part_ml[(size_t)part * stride + g] = make_float2(mx, sum);
     }
   }
   if (n_live == 1) return;
 
-  // The last split of (b, h, gt) to arrive merges the partials in split
-  // order.
+  // The last split of (b[, slice], h, gt) to arrive merges the partials in
+  // split order.
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) is_last = atomicAdd(&p.counters[bh], 1) == n_live - 1;
@@ -626,8 +932,8 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
   __threadfence();
   const int first = bh * splits;
   for (int i = threadIdx.x; i < gsz * HD; i += kThreads) {
-    const int g = i / HD, d = i % HD, o = g * hd + d;
-    if (d >= hd) continue;
+    const int g = i / HD, d = i % HD, o = g * hd + d, a = g * W + d;
+    if (d >= cols) continue;
     float mx = kNegInf;
     for (int s = 0; s < n_live; ++s)
       mx = fmaxf(mx, __ldcg(&part_ml[(size_t)(first + s) * stride + g]).x);
@@ -636,7 +942,7 @@ paged_attention_kernel(const __grid_constant__ CUtensorMap tma_k,
       const float2 ml = __ldcg(&part_ml[(size_t)(first + s) * stride + g]);
       const float e = ex2(ml.x - mx);
       sum += ml.y * e;
-      acc += __ldcg(&part_acc[(size_t)(first + s) * stride * hd + o]) * e;
+      acc += __ldcg(&part_acc[(size_t)(first + s) * stride * W + a]) * e;
     }
     out[o] = from_float<T>(acc / sum);
   }
@@ -649,14 +955,17 @@ int smem_bytes(int stages) {
 }
 
 // The instance a head dim runs at: the least of 16, 32, 64, 128, 256 not
-// below it; 0 above 256.
+// below it; above 256, 256 (the sliced route runs its tiles).
 int instance(int head_dim) {
   for (int hd = 16; hd <= 256; hd *= 2)
     if (head_dim <= hd) return hd;
-  return 0;
+  return 256;
 }
 
-template <typename T, int HD>
+// The column slices a CTA's outputs are cut into: 1 up to 256.
+int slices(int head_dim) { return (head_dim + kSlice - 1) / kSlice; }
+
+template <typename T, int HD, bool WIDE = false>
 cudaError_t launch(Params p, int batch, cudaStream_t stream) {
   using L = Tile<T, HD>;
   p.tile_rows = p.page_size < L::kRows ? p.page_size : L::kRows;
@@ -672,19 +981,21 @@ cudaError_t launch(Params p, int batch, cudaStream_t stream) {
         return cudaErrorInvalidValue;
   }
   const int smem = smem_bytes<T, HD>(p.stages);
-  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T, HD>,
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T, HD, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   p.scale_log2 = kLog2e / sqrtf((float)p.head_dim);
   const int group = p.num_heads / p.num_kv_heads;
   const dim3 grid((p.max_pages + p.pages_per_split - 1) / p.pages_per_split,
-                  p.num_kv_heads * ((group + L::kGroup - 1) / L::kGroup), batch);
-  paged_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(maps[0], maps[1], p);
+                  p.num_kv_heads * ((group + L::kGroup - 1) / L::kGroup),
+                  batch * (WIDE ? slices(p.head_dim) : 1));
+  paged_attention_kernel<T, HD, WIDE><<<grid, kThreads, smem, stream>>>(maps[0], maps[1], p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(const Params& p, int batch, cudaStream_t stream) {
+  if (p.head_dim > kSlice) return launch<T, kSlice, true>(p, batch, stream);
   switch (instance(p.head_dim)) {
     case 16:
       return launch<T, 16>(p, batch, stream);
@@ -765,8 +1076,8 @@ int config_smem(int head_dim, int stages) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q/out [batch, num_heads, head_dim];
-// k_pages/v_pages [num_kv_heads, num_pages, page_size, head_dim], head_dim
-// 1 to 256; table [batch, max_pages] int32; lengths [batch] int32; all
+// k_pages/v_pages [num_kv_heads, num_pages, page_size, head_dim], any
+// head_dim >= 1; table [batch, max_pages] int32; lengths [batch] int32; all
 // contiguous, 16-byte aligned, on the current device. One split per
 // (sequence, kv head, group tile), the default ring: needs no workspace.
 // Launches on `stream` and returns cudaGetLastError() (0 on success);
@@ -784,10 +1095,11 @@ int tpumon_paged_attention(const void* q, const void* k_pages, const void* v_pag
 // CTAs per (sequence, kv head, group tile) and a ring of `stages` stages
 // (0: the default). With group = num_heads / num_kv_heads, G the group
 // tile (tpumon_paged_attention_config's out[3]), tiles = ceil(group / G)
-// and stride = min(group, G): partials, f32, batch * num_kv_heads * tiles
-// * splits * stride * (head_dim + 2) values, any contents; counters,
-// int32, batch * num_kv_heads * tiles values, all 0 (the kernel leaves
-// them 0 again).
+// and stride = min(group, G), and S the column slices (out[5]: 1 up to
+// head dim 256, else ceil(head_dim / 256)) of W columns (head_dim, or 256
+// where S > 1): partials, f32, batch * S * num_kv_heads * tiles * splits *
+// stride * (W + 2) values, any contents; counters, int32, batch * S *
+// num_kv_heads * tiles values, all 0 (the kernel leaves them 0 again).
 int tpumon_paged_attention_split(const void* q, const void* k_pages, const void* v_pages,
                                  const void* table, const void* lengths, void* out, int batch,
                                  int num_heads, int num_kv_heads, int num_pages, int page_size,
@@ -798,10 +1110,11 @@ int tpumon_paged_attention_split(const void* q, const void* k_pages, const void*
                         stages == 0 ? kDefaultStages : stages, partials, counters, stream);
 }
 
-// The kernel's configuration at a head dim of 1 to 256: out[0] its dynamic
+// The kernel's configuration at a head dim >= 1: out[0] its dynamic
 // shared-memory bytes at `stages` stages (0: the default), out[1] the
 // default stages, out[2] the rows of a stage at `page_size`, out[3] the
-// group tile (query heads a CTA serves), out[4] the instance's head dim.
+// group tile (query heads a CTA serves), out[4] the instance's head dim,
+// out[5] the column slices (1 up to 256; above, the sliced route's).
 // Returns cudaErrorInvalidValue for a head dim or dtype it does not take.
 int tpumon_paged_attention_config(int head_dim, int dtype, int stages, int page_size, int* out) {
   const int st = stages == 0 ? kDefaultStages : stages;
@@ -822,6 +1135,7 @@ int tpumon_paged_attention_config(int head_dim, int dtype, int stages, int page_
   out[2] = page_size < rows ? page_size : rows;
   out[3] = group;
   out[4] = inst;
+  out[5] = slices(head_dim);
   return 0;
 }
 

@@ -32,10 +32,13 @@ runs through the next instance: ``pad_head_dim`` zero-pads q, k, v (and
 dO) along D, passes the true scale ``1/sqrt(D)`` and slices the outputs
 back. Zero columns change neither QK^T nor the softmax, and they come back
 as zero gradient columns, so this is the same kernel at a wider shape (it
-costs the padded copies' bytes). A head dim above 256 has no instance and
-raises ``ValueError`` before any launch. T takes the reference's contract
-alone, a multiple of the caller's blocks, at any size: the kernels load
-zeros past T, mask keys at or past it, and store no row at or past it.
+costs the padded copies' bytes). A head dim above 256 takes the sliced
+route, padded the same way to a multiple of 256 (``CHUNK``): each CTA owns
+one column slice of the output (``column_slices``) and computes the
+scores over the whole head dim in 256-column chunks. No head dim is
+refused. T takes the reference's contract alone, a multiple of the
+caller's blocks, at any size: the kernels load zeros past T, mask keys at
+or past it, and store no row at or past it.
 """
 
 from __future__ import annotations
@@ -50,6 +53,12 @@ from tpumon_torch.ops import _build
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # instances; a D between pads to the next
+# Above 256 the sliced route: D pads to a multiple of CHUNK, and a CTA owns
+# SLICE_COLS columns of each output (the bf16 forward 256: its O slice is
+# the 256 instance's accumulator; else 128: dK and dV, or the f32 kernels'
+# tiles, fit the registers beside the scores).
+CHUNK = 256
+SLICE_COLS = {"bf16_forward": 256, "other": 128}
 # The plain versions materialise [chunk, T, T] f32 tensors; chunking the
 # folded batch keeps each near 1 GiB at long T.
 _PLAIN_CHUNK_ELEMS = 1 << 28
@@ -77,15 +86,24 @@ def _check(q, k, v, block: int, *more, block_k: int | None = None) -> None:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The instance a head dim ``d`` runs at on the card: the least of
-    ``KERNEL_HEAD_DIMS`` not below it. Raises ValueError above 256."""
+    """The head dim ``d`` runs at on the card: the least of
+    ``KERNEL_HEAD_DIMS`` not below it, or above 256 the least multiple of
+    CHUNK not below it (the sliced route)."""
+    if d < 1:
+        raise ValueError(f"head_dim must be at least 1; got {d}")
     for hd in KERNEL_HEAD_DIMS:
         if d <= hd:
             return hd
-    raise ValueError(
-        f"the CUDA kernels take head_dim up to {KERNEL_HEAD_DIMS[-1]} "
-        f"(instances {KERNEL_HEAD_DIMS}; one between them is zero-padded "
-        f"to the next); got head_dim={d}")
+    return -(-d // CHUNK) * CHUNK
+
+
+def column_slices(d: int, dtype: torch.dtype, forward: bool) -> int:
+    """The CTAs a (row tile, bh) takes at head dim ``d``: 1 up to 256,
+    above it the padded head dim over the route's SLICE_COLS."""
+    if d <= KERNEL_HEAD_DIMS[-1]:
+        return 1
+    kind = "bf16_forward" if forward and dtype == torch.bfloat16 else "other"
+    return kernel_head_dim(d) // SLICE_COLS[kind]
 
 
 def _on_cuda(*tensors) -> bool:
@@ -96,7 +114,6 @@ def _on_cuda(*tensors) -> bool:
         return False
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
-    kernel_head_dim(q.shape[-1])
     return True
 
 
@@ -249,8 +266,9 @@ flash_attention_tri_fwd.launches = 0
 def fwd_kernel_config(head_dim: int) -> dict:
     """The bf16 forward kernel's dynamic shared-memory bytes, K/V ring
     stages, registers per thread after setmaxnreg (loading warpgroup,
-    arithmetic warpgroups) and k rows a stage at ``head_dim``, from the
-    built library."""
+    arithmetic warpgroups; 0 on the sliced route, which sets none) and k
+    rows a stage at ``head_dim`` (an instance, or a multiple of 256
+    above), from the built library."""
     lib = _build.load("flash_attention_tri_fwd")
     out = (ctypes.c_int * 5)()
     _build.check(lib, lib.tpumon_flash_fwd_config(head_dim, out),
@@ -262,8 +280,8 @@ def fwd_kernel_config(head_dim: int) -> dict:
 def bwd_kernel_config(head_dim: int) -> dict:
     """The bf16 backward kernels' dynamic shared-memory bytes, streamed
     stages and streamed tile rows (dQ: k tiles, dK/dV: q tiles), the
-    registers per thread after setmaxnreg and the rows a CTA owns at
-    ``head_dim``, from the built library."""
+    registers per thread after setmaxnreg (0 on the sliced route) and the
+    rows a CTA owns at ``head_dim``, from the built library."""
     lib = _build.load("flash_attention_tri_bwd")
     out = (ctypes.c_int * 9)()
     _build.check(lib, lib.tpumon_flash_bwd_config(head_dim, out),

@@ -11,8 +11,9 @@ the same launch — the gathered ``[B, S]`` context never exists in device
 memory; on a CPU tensor it runs ``paged_attention_reference``, the plain
 PyTorch version that mirrors the reference's dense-gather oracle step
 for step (and is the engine's ``paged_attn="gather"`` read path). On the
-card the kernel takes any head_dim from 1 to 256 and any GQA group; a
-head_dim above 256 raises ``ValueError`` before any launch.
+card the kernel takes any head_dim and any GQA group: above 256 its
+outputs are cut into column slices of 256 (``head_dim_slices``), a CTA a
+slice, each computing the scores over the whole head dim.
 """
 
 from __future__ import annotations
@@ -32,7 +33,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (bf16 head dim % 8, f32 % 4) is copied into the tile by the load warp.
 # Any GQA group runs: the kernel takes query heads in tiles of GROUP_TILE
 # per kv head (group_tile: 4 for f32 at the 256 instance, its registers).
+# A head dim above 256 runs the 256 instance's tiles in column slices of
+# SLICE_COLS: a CTA owns a slice of the output's columns, streams K in
+# 256-column chunks into its scores and reads V at its slice only.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+SLICE_COLS = 256
 GROUP_TILE = 8
 # The split rule (pages_per_split): about SPLIT_TARGET_CTAS CTAs a call
 # (two resident on each of an H100's 132 SMs), none shorter than
@@ -79,14 +84,17 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 
 def kernel_head_dim(hd: int) -> int:
     """The instance a head dim runs at: the least of KERNEL_HEAD_DIMS not
-    below it. Raises ValueError above 256."""
-    for inst in KERNEL_HEAD_DIMS:
-        if hd <= inst:
-            return inst
-    raise ValueError(
-        f"the CUDA kernel takes head_dim up to {KERNEL_HEAD_DIMS[-1]} "
-        f"(instances {KERNEL_HEAD_DIMS}; a head dim between them runs in the "
-        f"next); got head_dim={hd}")
+    below it; above 256, 256 (its tiles, in head_dim_slices slices)."""
+    if hd < 1:
+        raise ValueError(f"head_dim must be at least 1; got {hd}")
+    return next((inst for inst in KERNEL_HEAD_DIMS if hd <= inst),
+                KERNEL_HEAD_DIMS[-1])
+
+
+def head_dim_slices(hd: int) -> int:
+    """The column slices of SLICE_COLS a head dim's outputs are cut into:
+    1 up to 256 (the instances), ceil(hd / 256) above."""
+    return -(-hd // SLICE_COLS)
 
 
 def group_tile(dtype: torch.dtype, hd: int) -> int:
@@ -126,20 +134,21 @@ def kernel_config(head_dim: int, dtype: torch.dtype, page_size: int,
                   stages: int = 0) -> dict:
     """The kernel's dynamic shared memory at ``stages`` ring stages (0: its
     default), its default stages, the rows of a stage at ``page_size``,
-    its group tile and the instance ``head_dim`` runs at. Builds the
-    library (needs nvcc)."""
+    its group tile, the instance ``head_dim`` runs at and its column
+    slices. Builds the library (needs nvcc)."""
     lib = _build.load("paged_attention")
     fn = lib.tpumon_paged_attention_config
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     _build.check(lib, fn(head_dim, _DTYPES[dtype], stages, page_size,
                          ctypes.addressof(out)), "paged_attention config")
     return {"smem_bytes": out[0], "default_stages": out[1],
-            "stage_rows": out[2], "group_tile": out[3], "instance": out[4]}
+            "stage_rows": out[2], "group_tile": out[3], "instance": out[4],
+            "slices": out[5]}
 
 
-# Arrival counters of the split kernel, one int32 per (sequence, kv head),
-# per (device, stream): zeroed once when made, left at 0 by every launch.
+# Arrival counters of the split kernel, one int32 per (sequence, column
+# slice, kv head, group tile), per (device, stream): zeroed once when made, left at 0 by every launch.
 _counters: dict[tuple, torch.Tensor] = {}
 
 
@@ -220,7 +229,6 @@ def _launch(q, k_pages, v_pages, page_table, lengths, pages: int = 0,
     b, nh, hd = q.shape
     nkv, num_pages, page_size, _ = k_pages.shape
     max_pages = page_table.shape[1]
-    kernel_head_dim(hd)  # raises above 256, before any launch
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("the CUDA kernel needs 16-byte aligned q/k/v")
     out = torch.empty_like(q)
@@ -239,11 +247,13 @@ def _launch(q, k_pages, v_pages, page_table, lengths, pages: int = 0,
         else:
             splits = -(-max_pages // pages)
             group, gt = nh // nkv, group_tile(q.dtype, hd)
-            tiles = -(-group // gt)
-            rows = b * nkv * tiles * splits * min(group, gt)
-            partials = torch.empty(rows * (hd + 2), dtype=torch.float32,
+            tiles, slices = -(-group // gt), head_dim_slices(hd)
+            width = hd if slices == 1 else SLICE_COLS
+            rows = b * slices * nkv * tiles * splits * min(group, gt)
+            partials = torch.empty(rows * (width + 2), dtype=torch.float32,
                                    device=q.device)
-            counters = _arrival_counters(q.device, stream, b * nkv * tiles)
+            counters = _arrival_counters(q.device, stream,
+                                         b * slices * nkv * tiles)
             err = split(*args, pages, stages, partials.data_ptr(),
                         counters.data_ptr(), stream.cuda_stream)
     _build.check(lib, err, "paged_attention launch")
