@@ -61,6 +61,7 @@ from tpumon_torch.ops.flash_attention import (
     flash_attention_tri_bwd,
     flash_attention_tri_fwd,
 )
+from tpumon_torch.tracing import profiler_span
 
 
 @dataclass(frozen=True)
@@ -577,8 +578,11 @@ def value_and_grad(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss = loss_fn(cfg, params, tokens)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        with profiler_span("train.forward"):
+            loss = loss_fn(cfg, params, tokens)
+        with profiler_span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), grads
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -591,7 +595,7 @@ def sgd_train_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``torch.no_grad()``), so no second copy of the weights is live; the
     returned dict is ``params`` itself."""
     loss, grads = value_and_grad(cfg, params, tokens)
-    with torch.no_grad():
+    with torch.no_grad(), profiler_span("train.update"):
         for p, g in zip(param_leaves(params), grads):
             p.sub_(lr * g)
     return params, loss

@@ -106,6 +106,12 @@ def init_pool(cfg, num_pages: int, device: str | torch.device,
             "v": torch.zeros(shape, dtype=m.torch_dtype, device=device)}
 
 
+def prefill_rows(table_row: torch.Tensor, page: int) -> int:
+    """Rows of its sequence that one ``paged_prefill`` chunk gathers and
+    attends over: every page of the table, whatever the chunk's end."""
+    return table_row.shape[0] * page
+
+
 def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
                   length: int, page_id: int, table_row: torch.Tensor,
                   start: int) -> torch.Tensor:
@@ -129,7 +135,7 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
 
     p = cfg.prefill_len  # == page_size
     dev = tokens.device
-    s_max = table_row.shape[0] * p
+    s_max = prefill_rows(table_row, p)
 
     pos = start + torch.arange(p, dtype=torch.int32, device=dev)[None]
     row = torch.arange(s_max, dtype=torch.int32, device=dev)

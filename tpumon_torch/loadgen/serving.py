@@ -88,6 +88,7 @@ from tpumon_torch.loadgen.paged_kv import (
     paged_decode_rounds,
     paged_decode_step,
     paged_prefill,
+    prefill_rows,
 )
 from tpumon_torch.loadgen.prefix_cache import PrefixCache
 from tpumon_torch.loadgen.prompt_lookup import ngram_propose
@@ -95,7 +96,7 @@ from tpumon_torch.loadgen.quant import QTensor, quantize_params
 from tpumon_torch.loadgen.speculative import decode_block, greedy_accept_len
 from tpumon_torch.metrics_text import MetricsWriter
 from tpumon_torch.ops import threefry
-from tpumon_torch.tracing import quantiles
+from tpumon_torch.tracing import profiler_span, quantiles
 
 # TTFT histogram bucket upper bounds, seconds (JetStream buckets are
 # seconds; the serving distiller converts quantiles to ms).
@@ -568,6 +569,11 @@ class Request:
     _replay_n: int = 0
     ttft_s: float | None = None
     first_tok_t: float | None = None  # monotonic at first emit (TPOT)
+    # TTFT less the engine steps that ran this request's prefill chunks
+    # (the last one up to the first token): the wait for a slot, pages
+    # or a chunk turn. Set with ttft_s; _service_s sums those steps.
+    queue_wait_s: float | None = None
+    _service_s: float = 0.0
     output: list[int] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
     # Streaming: tokens are pushed here as they are emitted (None = end
@@ -803,6 +809,18 @@ class ServingEngine:
         self.cancelled_total = 0
         self.completed_total = 0
         self.decode_steps_total = 0
+        # Rows the attention reads, from the host values that size each
+        # call: every prefill chunk's gathered rows and the rows below its
+        # end; every decode call's rows over all batch rows and over the
+        # active slots alone (parked and free slots read for nothing).
+        self.prefill_rows_gathered = 0
+        self.prefill_rows_needed = 0
+        self.decode_rows_read = 0
+        self.decode_rows_live = 0
+        # This step's start, and the requests one of whose prefill chunks
+        # ran in it (id -> Request): Request.queue_wait_s's accounting.
+        self._step_t0 = time.monotonic()
+        self._chunked: dict[int, Request] = {}
         self._ttft_counts = [0] * len(TTFT_BUCKETS_S)
         self._ttft_inf = 0
         self._ttft_sum = 0.0
@@ -1244,7 +1262,8 @@ class ServingEngine:
     def _sync_tables(self) -> None:
         """Upload the host page tables when admission changed them."""
         if self._tables_dirty:
-            self._tables_dev = self._h2d(self._tables_host)
+            with profiler_span("serve.admit"):
+                self._tables_dev = self._h2d(self._tables_host)
             self._tables_dirty = False
 
     def _reserve_next_locked(self) -> tuple[Request, list, int] | None:
@@ -1397,26 +1416,34 @@ class ServingEngine:
         req = work.req
         p = self.cfg.prefill_len
         draft_mode = self.spec_len and self.cfg.spec_source == "draft"
-        if work.next_c0 < work.n:
-            c0 = work.next_c0
-            chunk = req.prompt[c0:c0 + p]
-            ln = len(chunk)
-            toks = self._h2d(chunk + [0] * (p - ln))
-            if self.paged:
-                work.logits = paged_prefill(
-                    self.cfg, self.params, self.pool, toks, ln,
-                    work.pages[c0 // p], work.table_row, c0)
-            else:
-                work.logits = self._prefill(self.params, self.cache, toks,
-                                            ln, slot, c0)
-            work.next_c0 = c0 + p
-        elif draft_mode and work.draft_c0 < work.n:
-            c0 = work.draft_c0
-            chunk = req.prompt[c0:c0 + p]
-            ln = len(chunk)
-            prefill(self._draft_scfg, self.draft_params, self.draft_cache,
-                    self._h2d(chunk + [0] * (p - ln)), ln, slot, c0)
-            work.draft_c0 = c0 + p
+        self._chunked[id(req)] = req
+        with profiler_span("serve.chunk"):
+            if work.next_c0 < work.n:
+                c0 = work.next_c0
+                chunk = req.prompt[c0:c0 + p]
+                ln = len(chunk)
+                toks = self._h2d(chunk + [0] * (p - ln))
+                if self.paged:
+                    gathered = prefill_rows(work.table_row, p)
+                    work.logits = paged_prefill(
+                        self.cfg, self.params, self.pool, toks, ln,
+                        work.pages[c0 // p], work.table_row, c0)
+                else:
+                    gathered = self.cfg.model.max_seq  # the slot's cache
+                    work.logits = self._prefill(self.params, self.cache,
+                                                toks, ln, slot, c0)
+                work.next_c0 = c0 + p
+                with self._lock:
+                    self.prefill_rows_gathered += gathered
+                    self.prefill_rows_needed += c0 + ln
+            elif draft_mode and work.draft_c0 < work.n:
+                c0 = work.draft_c0
+                chunk = req.prompt[c0:c0 + p]
+                ln = len(chunk)
+                prefill(self._draft_scfg, self.draft_params,
+                        self.draft_cache, self._h2d(chunk + [0] * (p - ln)),
+                        ln, slot, c0)
+                work.draft_c0 = c0 + p
         if work.next_c0 < work.n or (
                 draft_mode and work.draft_c0 < work.n):
             return
@@ -1429,7 +1456,8 @@ class ServingEngine:
         if draft_mode:
             self._draft_pos[slot] = work.n
         self._prefill_work[slot] = None
-        self._after_prefill(slot, req, work.n, work.logits)
+        with profiler_span("serve.first_token"):
+            self._after_prefill(slot, req, work.n, work.logits)
 
     def _after_prefill(self, slot: int, req: Request, n: int,
                        logits: torch.Tensor) -> None:
@@ -1447,6 +1475,8 @@ class ServingEngine:
             if req.ttft_s is None:
                 req.ttft_s = now - req.enqueued
                 req.first_tok_t = now
+                req.queue_wait_s = req.ttft_s - (
+                    req._service_s + now - self._step_t0)
                 self._observe_ttft(req.ttft_s)
                 tst = self._tenant_locked(req)
                 if tst is not None:
@@ -1518,35 +1548,38 @@ class ServingEngine:
         ``reporter`` attached, the step counts as declared device work: it
         ends in the decode's one device->host sync, so its wall time
         covers the device work it queued."""
-        if self.reporter is not None:
-            with self.reporter.device_work():
-                return self._step_inner()
-        return self._step_inner()
+        with profiler_span("serve.engine_step"):
+            if self.reporter is not None:
+                with self.reporter.device_work():
+                    return self._step_inner()
+            return self._step_inner()
 
     def _step_inner(self) -> bool:
-        self._admit()
-        # Cancelled mid-flight requests free their slot (and pages)
-        # before the prefill tick, so a dead request's chunks never
-        # consume the step's budget.
-        for slot in range(self.cfg.slots):
-            req = self._slots[slot]
-            if req is not None and req.cancelled.is_set():
-                if self._prefill_work[slot] is not None:
-                    self._abort_prefill(slot)
-                else:
-                    self._complete(slot)
-        # Drain sweep: requests placed on a drained domain abort and
-        # requeue, every step while the mark persists; with no undrained
-        # domain to requeue to, nothing is swept.
-        if self._drained:
-            with self._lock:
-                drained = set(self._drained)
-                has_home = any(s not in drained for s in self.slices)
-            if drained and has_home:
-                for slot in range(self.cfg.slots):
-                    req = self._slots[slot]
-                    if req is not None and req.slice in drained:
-                        self._requeue_slot(slot)
+        self._step_t0 = time.monotonic()
+        with profiler_span("serve.admit"):
+            self._admit()
+            # Cancelled mid-flight requests free their slot (and pages)
+            # before the prefill tick, so a dead request's chunks never
+            # consume the step's budget.
+            for slot in range(self.cfg.slots):
+                req = self._slots[slot]
+                if req is not None and req.cancelled.is_set():
+                    if self._prefill_work[slot] is not None:
+                        self._abort_prefill(slot)
+                    else:
+                        self._complete(slot)
+            # Drain sweep: requests placed on a drained domain abort and
+            # requeue, every step while the mark persists; with no
+            # undrained domain to requeue to, nothing is swept.
+            if self._drained:
+                with self._lock:
+                    drained = set(self._drained)
+                    has_home = any(s not in drained for s in self.slices)
+                if drained and has_home:
+                    for slot in range(self.cfg.slots):
+                        req = self._slots[slot]
+                        if req is not None and req.slice in drained:
+                            self._requeue_slot(slot)
         self._prefill_tick()
         # Decode batch: slots mid-prefill are excluded (the batched step
         # computes them as garbage the host ignores, like free slots).
@@ -1570,9 +1603,38 @@ class ServingEngine:
                 self._spec_round(active)
             else:
                 self._plain_step(active)
+        # A request still in prefill whose chunk ran in this step waited
+        # on nothing during it.
+        step_s = time.monotonic() - self._step_t0
+        for req in self._chunked.values():
+            if req.ttft_s is None:
+                req._service_s += step_s
+        self._chunked.clear()
         with self._lock:
             pending = bool(self._queue)
         return pending or any(s is not None for s in self._slots)
+
+    def _decode_rows(self, active: list[int], rounds: int = 1,
+                     whole: bool = False) -> tuple[int, int]:
+        """(rows read over every batch row, rows read over the active
+        slots) by the attention of ``rounds`` decode rounds from the
+        slots' positions: rows 0..position for the paged kernel and ring
+        read (their ``positions + 1`` lengths); every row for the gather
+        read, the dense cache, or ``whole``."""
+        if self.paged and self.cfg.paged_attn != "gather" and not whole:
+            cap = self._seq_cap - 1
+            pos = self._host_positions
+            if rounds == 1:
+                return (sum(pos) + len(pos),
+                        sum(pos[s] for s in active) + len(active))
+
+            def rows(p: int) -> int:
+                return sum(min(p + r, cap) + 1 for r in range(rounds))
+            return (sum(rows(p) for p in pos),
+                    sum(rows(pos[s]) for s in active))
+        width = rounds * (self._max_pages * self.cfg.prefill_len
+                          if self.paged else self.cfg.model.max_seq)
+        return width * self.cfg.slots, width * len(active)
 
     def _plain_step(self, active: list[int]) -> None:
         # Fused block decode when configured and every active slot has
@@ -1582,35 +1644,43 @@ class ServingEngine:
                          for s in active):
             self._block_step(active, n)
             return
-        if self.paged:
-            self._sync_tables()
-            logits = paged_decode_step(
-                self.cfg, self.params, self.pool, self.last_tokens,
-                self.positions, self._tables_dev)
-        else:
-            logits = self._decode(self.params, self.cache,
-                                  self.last_tokens, self.positions)
-        nxt = sample_tokens(logits, self._sample_key, self.rids,
-                            self.tok_ctrs, self.temps, self.topks)
-        self.tok_ctrs = self.tok_ctrs + 1
-        self.last_tokens = nxt
-        self.positions = torch.clamp(self.positions + 1,
-                                     max=self._seq_cap - 1)
-        # ONE device→host sync per step; positions tracked host-side.
-        nxt_host = nxt.tolist()
-        self._host_last = list(nxt_host)
-        with self._lock:
-            self.decode_steps_total += 1
-            self.tokens_total += len(active)
-        for slot in active:
-            req = self._slots[slot]
-            req.emit([nxt_host[slot]])
-            self._host_positions[slot] = min(
-                self._host_positions[slot] + 1, self._seq_cap - 1)
-            if (len(req.output) >= req.max_new + 1
-                    or req.hit_stop()
-                    or self._host_positions[slot] >= self._seq_cap - 1):
-                self._complete(slot)
+        with profiler_span("serve.decode_launch"):
+            read, live = self._decode_rows(active)
+            if self.paged:
+                self._sync_tables()
+                logits = paged_decode_step(
+                    self.cfg, self.params, self.pool, self.last_tokens,
+                    self.positions, self._tables_dev)
+            else:
+                logits = self._decode(self.params, self.cache,
+                                      self.last_tokens, self.positions)
+            nxt = sample_tokens(logits, self._sample_key, self.rids,
+                                self.tok_ctrs, self.temps, self.topks)
+            self.tok_ctrs = self.tok_ctrs + 1
+            self.last_tokens = nxt
+            self.positions = torch.clamp(self.positions + 1,
+                                         max=self._seq_cap - 1)
+        # ONE device→host sync per step; positions tracked host-side, for
+        # every slot as the device advances them.
+        with profiler_span("serve.sync"):
+            nxt_host = nxt.tolist()
+        with profiler_span("serve.emit"):
+            self._host_last = list(nxt_host)
+            self._host_positions = [min(p + 1, self._seq_cap - 1)
+                                    for p in self._host_positions]
+            with self._lock:
+                self.decode_steps_total += 1
+                self.tokens_total += len(active)
+                self.decode_rows_read += read
+                self.decode_rows_live += live
+            for slot in active:
+                req = self._slots[slot]
+                req.emit([nxt_host[slot]])
+                if (len(req.output) >= req.max_new + 1
+                        or req.hit_stop()
+                        or self._host_positions[slot]
+                        >= self._seq_cap - 1):
+                    self._complete(slot)
 
     def _block_step(self, active: list[int], n: int) -> None:
         """One fused block of n decode steps and samples (decode_rounds or
@@ -1618,39 +1688,49 @@ class ServingEngine:
         replay in order up to its own stop; tokens generated past it are
         discarded (the block-decode trade), and their sampling indices are
         never used again by that request."""
-        if self.paged:
-            self._sync_tables()
-            self.last_tokens, self.positions, toks = paged_decode_rounds(
-                self.cfg, self.params, self.pool, self.last_tokens,
-                self.positions, self._tables_dev, self._sample_key,
-                self.rids, self.tok_ctrs, self.temps, self.topks, steps=n,
-                seq_cap=self._seq_cap)
-        else:
-            self.last_tokens, self.positions, toks = self._decode_rounds(
-                self.params, self.cache, self.last_tokens,
-                self.positions, self._sample_key, self.rids,
-                self.tok_ctrs, self.temps, self.topks, steps=n)
-        self.tok_ctrs = self.tok_ctrs + n
-        toks_host = toks.tolist()  # [B, n]
-        emitted = 0
-        with self._lock:
-            self.decode_steps_total += n
-        for slot in active:
-            req = self._slots[slot]
-            for tok in toks_host[slot]:
-                req.emit([tok])
-                emitted += 1
-                self._host_positions[slot] = min(
-                    self._host_positions[slot] + 1, self._seq_cap - 1)
-                if (len(req.output) >= req.max_new + 1
-                        or req.hit_stop()
-                        or self._host_positions[slot]
-                        >= self._seq_cap - 1):
-                    self._complete(slot)
-                    break
-        self._host_last = [row[-1] for row in toks_host]
-        with self._lock:
-            self.tokens_total += emitted
+        with profiler_span("serve.decode_launch"):
+            read, live = self._decode_rows(active, n)
+            if self.paged:
+                self._sync_tables()
+                self.last_tokens, self.positions, toks = (
+                    paged_decode_rounds(
+                        self.cfg, self.params, self.pool, self.last_tokens,
+                        self.positions, self._tables_dev, self._sample_key,
+                        self.rids, self.tok_ctrs, self.temps, self.topks,
+                        steps=n, seq_cap=self._seq_cap))
+            else:
+                self.last_tokens, self.positions, toks = (
+                    self._decode_rounds(
+                        self.params, self.cache, self.last_tokens,
+                        self.positions, self._sample_key, self.rids,
+                        self.tok_ctrs, self.temps, self.topks, steps=n))
+            self.tok_ctrs = self.tok_ctrs + n
+        with profiler_span("serve.sync"):
+            toks_host = toks.tolist()  # [B, n]
+        with profiler_span("serve.emit"):
+            emitted = 0
+            cap = self._seq_cap - 1
+            with self._lock:
+                self.decode_steps_total += n
+                self.decode_rows_read += read
+                self.decode_rows_live += live
+            for slot in active:
+                req = self._slots[slot]
+                pos = self._host_positions[slot]
+                for tok in toks_host[slot]:
+                    req.emit([tok])
+                    emitted += 1
+                    pos = min(pos + 1, cap)
+                    if (len(req.output) >= req.max_new + 1
+                            or req.hit_stop() or pos >= cap):
+                        self._complete(slot)
+                        break
+            # Every slot advanced n rows on the device, clamped.
+            self._host_positions = [min(p + n, cap)
+                                    for p in self._host_positions]
+            self._host_last = [row[-1] for row in toks_host]
+            with self._lock:
+                self.tokens_total += emitted
 
     def _seq_token(self, req: Request, i: int) -> int:
         """Token at sequence index ``i``: prompt, then emitted output."""
@@ -1658,13 +1738,27 @@ class ServingEngine:
         return req.prompt[i] if i < n else req.output[i - n]
 
     def _spec_round(self, active: list[int]) -> None:
-        """One speculative round: spec_len draft steps + one verify block;
-        each greedy slot accepts its longest agreed prefix plus the
-        target's own next token, each sampled slot emits one token drawn
-        from the verified logits (plain decode for it)."""
-        if self.cfg.spec_source == "prompt":
-            self._spec_round_prompt(active)
-            return
+        """One speculative round: spec_len draft steps (or prompt-lookup
+        proposals) + one verify block; each greedy slot accepts its longest
+        agreed prefix plus the target's own next token, each sampled slot
+        emits one token drawn from the verified logits (plain decode for
+        it)."""
+        with profiler_span("serve.decode_launch"):
+            if self.cfg.spec_source == "prompt":
+                prop_h = self._prompt_proposals()
+                proposed = self._h2d(prop_h)
+            else:
+                proposed, prop_h = self._draft_proposals(active), None
+            host = self._spec_verify(active, proposed, fetch_proposed=(
+                prop_h is None))
+        with profiler_span("serve.sync"):
+            fetched = torch.cat(host, dim=1).tolist()  # the one sync
+        with profiler_span("serve.emit"):
+            self._spec_emit(active, fetched, host[0].shape[1], prop_h)
+
+    def _draft_proposals(self, active: list[int]) -> torch.Tensor:
+        """The draft model's spec_len greedy proposals [B, spec_len], its
+        cache first caught up to the target frontier."""
         cfg, params, cache = self._draft_scfg, self.draft_params, (
             self.draft_cache)
         # Catch the draft cache up to the target frontier first: plain
@@ -1699,13 +1793,12 @@ class ServingEngine:
         # One more draft step feeding the last proposal, so the draft
         # cache holds its K/V when every proposal is accepted.
         decode_step(cfg, params, cache, dt_tok, dpos)
-        self._spec_verify_emit(active, torch.stack(drafts, dim=1),
-                               prop_h=None)
+        return torch.stack(drafts, dim=1)
 
-    def _spec_round_prompt(self, active: list[int]) -> None:
-        """Prompt-lookup round: host-side n-gram proposals from each
-        request's own context (``ngram_propose``), no draft model; the
-        verify and acceptance are the draft round's."""
+    def _prompt_proposals(self) -> list[list[int]]:
+        """Prompt-lookup proposals: host-side n-grams from each request's
+        own context (``ngram_propose``), no draft model; the verify and
+        acceptance are the draft round's."""
         g = self.spec_len
         prop_rows = []
         for s in range(self.cfg.slots):
@@ -1716,17 +1809,15 @@ class ServingEngine:
                 prop_rows.append(
                     ngram_propose(req.prompt + req.output, g,
                                   window=self.cfg.spec_ngram_window))
-        self._spec_verify_emit(active, self._h2d(prop_rows),
-                               prop_h=prop_rows)
+        return prop_rows
 
-    def _spec_verify_emit(self, active: list[int], proposed: torch.Tensor,
-                          prop_h: list | None) -> None:
-        """One target verify block over [feed, proposals], greedy-prefix
-        acceptance plus the target's token, sampled slots drawn from the
-        verified logits. ``prop_h`` is the host copy of ``proposed`` when
-        the proposer has one; else it comes back with the verify argmax in
-        the round's one device→host sync."""
-        g = self.spec_len
+    def _spec_verify(self, active: list[int], proposed: torch.Tensor,
+                     fetch_proposed: bool) -> list[torch.Tensor]:
+        """One target verify block over [feed, proposals]; returns what
+        the round's one device→host sync fetches: the verify argmax
+        [B, g+1], then the proposals when the proposer has no host copy,
+        then (a sampled slot sharing the round) a draw from the verified
+        logits [B, 1]."""
         ver_in = torch.cat([self.last_tokens[:, None], proposed], dim=1)
         if self.paged:
             self._sync_tables()
@@ -1737,19 +1828,25 @@ class ServingEngine:
             vlogits = decode_block(self.cfg, self.params, self.cache,
                                    ver_in, self.positions)
         tgt = torch.argmax(vlogits, dim=-1).to(torch.int32)  # [B, g+1]
-        host = [tgt] if prop_h is not None else [tgt, proposed]
+        host = [tgt, proposed] if fetch_proposed else [tgt]
         # The sampler (a full-vocab sort for top-k) runs only when a
         # sampled slot shares the round.
-        any_temp = any(self._slots[s].temperature > 0 for s in active)
-        if any_temp:
+        if any(self._slots[s].temperature > 0 for s in active):
             host.append(sample_tokens(vlogits[:, 0], self._sample_key,
                                       self.rids, self.tok_ctrs,
                                       self.temps, self.topks)[:, None])
-        width = [h.shape[1] for h in host]
-        fetched = torch.cat(host, dim=1).tolist()  # the one sync
-        tgt_h = [row[:width[0]] for row in fetched]
+        return host
+
+    def _spec_emit(self, active: list[int], fetched: list, width: int,
+                   prop_h: list | None) -> None:
+        """Greedy-prefix acceptance plus the target's token, sampled slots
+        their draw, from the fetched rows (``width``: the verify argmax's
+        columns; ``prop_h``: the proposals' host copy, else fetched)."""
+        g = self.spec_len
+        tgt_h = [row[:width] for row in fetched]
         if prop_h is None:
-            prop_h = [row[width[0]:width[0] + g] for row in fetched]
+            prop_h = [row[width:width + g] for row in fetched]
+        any_temp = any(self._slots[s].temperature > 0 for s in active)
         samp_h = [row[-1] for row in fetched] if any_temp else None
         emitted_n = accepted_n = proposed_n = 0
         for slot in active:
@@ -1785,8 +1882,11 @@ class ServingEngine:
         self.tok_ctrs = self._h2d(
             [len(r.output) if (r := self._slots[s]) is not None else 0
              for s in range(self.cfg.slots)])
+        read, live = self._decode_rows(active, whole=True)
         with self._lock:
             self.decode_steps_total += 1
+            self.decode_rows_read += read
+            self.decode_rows_live += live
             self.spec_rounds_total += 1
             self.spec_proposed_total += proposed_n
             self.spec_accepted_total += accepted_n

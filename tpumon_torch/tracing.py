@@ -26,6 +26,10 @@ style answer, sized for an always-on monitor:
 - ``export_chrome()``: the ring as Chrome trace-event JSON
   (``ph``/``ts``/``dur``/``pid``/``tid``), loadable in Perfetto or
   ``chrome://tracing`` — ``GET /api/trace/export`` serves it live.
+- ``profiler_span()``: the spans of the serving engine's and the
+  trainer's stages, which go into a running ``torch.profiler`` trace
+  beside the device's kernels (on its clock), and cost one flag read
+  while no profiler runs. They keep no ring of their own.
 
 Clocking: one ``perf_counter`` pair per span; wall-clock timestamps are
 derived from a single (wall, perf) anchor taken at tracer construction,
@@ -46,6 +50,7 @@ from __future__ import annotations
 
 import contextvars
 import random
+import sys
 import time
 
 # Prometheus-style log-spaced bounds (seconds). 100 µs floor: the data
@@ -238,6 +243,23 @@ class _NoopSpan:
 
 
 _NOOP = _NoopSpan()
+
+
+def profiler_span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    torch profiler runs in this process, else the shared no-op span.
+
+    The range lands in the profiler's own trace, so it shares a clock with
+    the device events that trace holds (the benchmark's slice, a ``GET
+    /api/profile`` capture). With no profiler running it costs a dict
+    lookup and one attribute read, where ``record_function`` itself costs
+    microseconds; and it never imports torch, so the monitor-only paths
+    keep importing this module without it (no torch loaded, no profiler
+    running)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return _NOOP
+    return prof.record_function(name)
 
 
 class SpanTracer:
