@@ -738,14 +738,16 @@ def engine_traffic() -> tuple:
 
 def run_engine() -> tuple:
     """The main path: 16 mixed-length greedy requests at production width
-    through the paged engine, kernel read path. Returns (engine, stats,
-    snapshot of the state before the decode step with the most decoding
-    slots)."""
+    through the paged engine, kernel read path (the decode through the
+    paged kernel, each prompt chunk through the chunk kernel). Returns
+    (engine, stats, snapshot of the state before the decode step with the
+    most decoding slots)."""
     import torch
 
     from tpumon_torch.loadgen.serving import ServingEngine, sample_tokens
     from tpumon_torch.ops import threefry
     from tpumon_torch.ops.paged_attention import paged_attention
+    from tpumon_torch.ops.prefill_attention import prefill_attention
 
     eng = ServingEngine(cfg=engine_config(), seed=0, device="cuda")
     lens, prompts, _ = engine_traffic()
@@ -768,6 +770,7 @@ def run_engine() -> tuple:
         first[what] = time.perf_counter() - t0
     print(f"engine first_call_s={first}", flush=True)
     paged_attention.launches = 0  # count only the main path from here
+    prefill_attention.launches = 0
     threefry.set_launch_counts(0)
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new=max_new) for p in prompts]
@@ -791,21 +794,29 @@ def run_engine() -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = paged_attention.launches
+    chunk_launches = prefill_attention.launches
     draws = threefry.launch_counts()
     steps = eng.decode_steps_total
+    chunks = sum(-(-n // eng.cfg.prefill_len) for n in lens)
+    layers = eng.cfg.model.n_layers
     print(f"engine prompts={lens} max_new={max_new} decode_steps={steps} "
-          f"kernel_launches={launches} threefry_launches={draws} "
-          f"wall_s={wall!r}", flush=True)
+          f"kernel_launches={launches} prefill_launches={chunk_launches} "
+          f"chunks={chunks} threefry_launches={draws} wall_s={wall!r}",
+          flush=True)
     bad = [r.rid for r in reqs
            if r.status != "completed" or len(r.output) != max_new + 1]
     if bad:
         fail(f"requests {bad} did not complete with {max_new + 1} tokens")
-    if launches != eng.cfg.model.n_layers * steps or steps == 0:
+    if launches != layers * steps or steps == 0:
         fail(f"kernel launches {launches} != n_layers x decode steps "
-             f"({eng.cfg.model.n_layers} x {steps})")
+             f"({layers} x {steps})")
+    if chunk_launches != layers * chunks:
+        fail(f"prefill kernel launches {chunk_launches} != n_layers x "
+             f"chunks ({layers} x {chunks})")
     check_sampler_draws(draws, steps + len(reqs), "engine")
     stats = {"wall_s": wall, "tokens": eng.tokens_total, "steps": steps,
-             "launches": launches, "threefry": draws}
+             "launches": launches, "prefill_launches": chunk_launches,
+             "threefry": draws}
     return eng, stats, snap
 
 
@@ -7233,6 +7244,341 @@ def phase27(gen, bw: float, peaks: dict) -> dict:
     return {"paged": paged, "flash": trained["launches"], "rect": rect}
 
 
+# Phase 28: the chunk attention kernel of the paged prefill
+# (ops/prefill_attention.py, csrc/prefill_attention.cu). Kernel vs plain
+# version: chunk_rows_rel_err, the worst ||got - want|| / ||want|| over
+# the chunk's (row, head) rows; a row over n keys has an output spread
+# near sqrt(e / n) at random inputs, as a decode row has (PAGED_TOL).
+# bf16: the plain version rounds the scores to bf16 where the kernel keeps
+# f32; both round P. The limit lies between the kernel's worst reading and
+# the weakest planted fault's (prefill_faulty_plain): on an H100 1.97e-2
+# and 0.078 (table_ignored where the table shares a page with the pool's
+# order), as lower^0.4 x upper^0.6 (PERF.md).
+PREFILL_TOL = 5e-2
+PREFILL_FAULTS = ("offset_ignored", "table_ignored", "kv_head_wrong",
+                  "diagonal_unmasked")
+# The serving cells' shape (Mistral-7B: 32 query heads on 8 kv heads, hd
+# 128, page = chunk = 1,024, 8 pages a table), and hd 64; the chunk's
+# starts and lengths the card tests and phase 28 check.
+PREFILL_CARD_SHAPES = [dict(nh=32, nkv=8, hd=128, page=1024, max_pages=8),
+                       dict(nh=32, nkv=8, hd=64, page=1024, max_pages=8)]
+PREFILL_STARTS = (0, 1024, 3072, 7168)
+PREFILL_LENGTHS = (1, 517, 1024)
+
+
+def prefill_inputs(gen, nh, nkv, hd, page, max_pages, start, p, dtype):
+    """q [1, p, nh, hd] and a (2 x max_pages)-page pool with random values;
+    the table is a random slice of the pages (its page start // page
+    stands for the chunk's own, already written)."""
+    import torch
+
+    dev = gen.device
+    num_pages = 2 * max_pages
+    q = torch.randn(1, p, nh, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(nkv, num_pages, page, hd, generator=gen,
+                    device=dev).to(dtype)
+    v = torch.randn(nkv, num_pages, page, hd, generator=gen,
+                    device=dev).to(dtype)
+    perm = torch.randperm(num_pages, generator=gen, device=dev)
+    table = perm[:max_pages].to(torch.int32).contiguous()
+    return q, k, v, table, start
+
+
+def chunk_rows_rel_err(got, want) -> float:
+    """The worst relative error over the (chunk row, head) rows of [1, P,
+    n_heads, hd] outputs."""
+    a, b = got.float(), want.float()
+    return ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max(
+        ).item()
+
+
+def prefill_faulty_plain(q, k_pool, v_pool, table_row, start: int,
+                         fault: str | None = None):
+    """prefill_attention_reference with one planted fault of the chunk
+    kernel's design (None: none):
+    - offset_ignored: the diagonal at row 0: chunk row i sees keys 0..i,
+      as if the chunk began its sequence;
+    - table_ignored: pages read in pool order (page j for table entry j);
+    - kv_head_wrong: query head h reads kv head h / group + 1 (mod the kv
+      heads);
+    - diagonal_unmasked: the diagonal tile unmasked: each row sees every
+      key of its 128-row tile."""
+    import torch
+
+    from tpumon_torch.ops.prefill_attention import K_TILE, _NEG_INF
+
+    _, p, nh, hd = q.shape
+    nkv, _, page, _ = k_pool.shape
+    n = start // page + 1
+    rows = (torch.arange(n, device=q.device) if fault == "table_ignored"
+            else table_row[:n].long())
+    if fault == "kv_head_wrong":
+        k_pool, v_pool = k_pool.roll(-1, 0), v_pool.roll(-1, 0)
+    s = n * page
+    k = k_pool[:, rows].reshape(nkv, s, hd).transpose(0, 1)[None]
+    v = v_pool[:, rows].reshape(nkv, s, hd).transpose(0, 1)[None]
+    k = torch.repeat_interleave(k, nh // nkv, dim=2)
+    v = torch.repeat_interleave(v, nh // nkv, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / (hd**0.5)
+    i = torch.arange(p, device=q.device)
+    last = {"offset_ignored": i,
+            "diagonal_unmasked": start + i // K_TILE * K_TILE + K_TILE - 1,
+            }.get(fault, start + i)
+    key = torch.arange(s, device=q.device)
+    scores = torch.where((key[None] <= last[:, None])[None, None], scores,
+                         _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def prefill_fault_applies(fault: str, args) -> bool:
+    """Whether a planted fault changes the output at this case: the offset
+    only past the first page, the table only where it is not the pool's
+    order, the kv head only with more than one."""
+    import torch
+
+    _, k_pool, _, table, start = args
+    n = start // k_pool.shape[2] + 1
+    if fault == "offset_ignored":
+        return start > 0
+    if fault == "table_ignored":
+        return not torch.equal(table[:n].cpu(),
+                               torch.arange(n, dtype=torch.int32))
+    if fault == "kv_head_wrong":
+        return k_pool.shape[0] > 1
+    return True
+
+
+def prefill_fault_readings(args, want) -> dict:
+    """{fault: chunk_rows_rel_err against the plain version} for every
+    planted fault that applies to the case."""
+    return {f: chunk_rows_rel_err(prefill_faulty_plain(*args, f), want)
+            for f in PREFILL_FAULTS if prefill_fault_applies(f, args)}
+
+
+def check_prefill_kernel(gen) -> float:
+    """The chunk kernel against its plain version at every card shape,
+    start and length (PREFILL_*), each planted fault read over the limit;
+    returns the worst reading."""
+    import torch
+
+    from tpumon_torch.ops.prefill_attention import (
+        prefill_attention,
+        prefill_attention_reference,
+    )
+
+    worst, least = 0.0, float("inf")
+    for shape in PREFILL_CARD_SHAPES:
+        for start in PREFILL_STARTS:
+            for p in PREFILL_LENGTHS:
+                args = prefill_inputs(gen, **shape, start=start, p=p,
+                                      dtype=torch.bfloat16)
+                out = prefill_attention(*args)
+                again = prefill_attention(*args)
+                torch.cuda.synchronize()
+                ref = prefill_attention_reference(*args)
+                rel = chunk_rows_rel_err(out, ref)
+                finite = bool(torch.isfinite(out.float()).all().item())
+                same = torch.equal(out, again)
+                faults = prefill_fault_readings(args, ref)
+                missed = [f for f, r in faults.items() if not r > PREFILL_TOL]
+                worst = max(worst, rel)
+                least = min([least, *faults.values()])
+                label = f"hd{shape['hd']} start={start} p={p}"
+                print(f"prefill_vs_plain {label} rows_rel_err={rel!r} "
+                      f"tol={PREFILL_TOL} finite={finite} "
+                      f"repeat_identical={same} faults={faults} "
+                      f"missed={missed}", flush=True)
+                if not (rel <= PREFILL_TOL and finite and same):
+                    fail(f"prefill_attention kernel disagrees with its plain "
+                         f"version ({label})")
+                if missed:
+                    fail(f"the prefill limit {PREFILL_TOL} passes planted "
+                         f"faults {missed} ({label})")
+    print(f"prefill_limit worst_kernel={worst!r} least_fault={least!r} "
+          f"tol={PREFILL_TOL}", flush=True)
+    return worst
+
+
+def time_prefill_kernel(gen, bw: float, peaks: dict) -> dict:
+    """Kernel, plain version and SDPA over the gathered rows (the
+    yardstick; the port never calls it) at the cells' shape, one full
+    chunk at each start, beside the bound: the causal pairs' operations
+    over the bf16 peak, or the bytes of q, out and the live K/V rows read
+    once over the memory's rate, whichever is larger."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpumon_torch.ops import prefill_attention as pa
+
+    before = pa.prefill_attention.launches
+    shape = PREFILL_CARD_SHAPES[0]
+    nh, nkv, hd, page = (shape[k] for k in ("nh", "nkv", "hd", "page"))
+    out = {}
+    for start in PREFILL_STARTS:
+        args = prefill_inputs(gen, **shape, start=start, p=page,
+                              dtype=torch.bfloat16)
+        q, k_pool, v_pool, table, _ = args
+        pairs = page * start + page * (page + 1) // 2
+        ops = 4 * hd * pairs * nh
+        nbytes = 2 * q.numel() * 2 + 2 * (start + page) * nkv * hd * 2
+        bound_ms, bound_by = max((nbytes / bw * 1e3, "bytes"),
+                                 (ops / peaks["bfloat16"] * 1e3, "operations"))
+        ms = cuda_ms(lambda: pa.prefill_attention(*args), reps=50)
+        plain_ms = cuda_ms(lambda: pa.prefill_attention_reference(*args),
+                           reps=5)
+        n = start // page + 1
+        rows = table[:n].long()
+        kg = k_pool[:, rows].reshape(nkv, n * page, hd)[None]
+        vg = v_pool[:, rows].reshape(nkv, n * page, hd)[None]
+        qt = q.transpose(1, 2)
+        key = torch.arange(n * page, device=q.device)
+        mask = key[None] <= start + torch.arange(page, device=q.device)[:, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kg, vg, attn_mask=mask, enable_gqa=True)
+        sdpa_ms = cuda_ms(sdpa, reps=10)
+        ref = pa.prefill_attention_reference(*args)
+        sdpa_err = chunk_rows_rel_err(sdpa().transpose(1, 2), ref)
+        print(f"time_prefill_attention start={start} p={page} h{nh}/kv{nkv}/"
+              f"hd{hd} kernel_us={ms * 1e3!r} plain_us={plain_ms * 1e3!r} "
+              f"library_sdpa_gathered_us={sdpa_ms * 1e3!r} bound_us="
+              f"{bound_ms * 1e3!r} ({bound_by}: {ops} op, {nbytes} B) "
+              f"kernel_over_bound={ms / bound_ms!r} achieved_TFLOPs="
+              f"{ops / ms / 1e9!r} library_rows_rel_err={sdpa_err!r}",
+              flush=True)
+        out[start] = {"kernel_us": ms * 1e3, "plain_us": plain_ms * 1e3,
+                      "library_us": sdpa_ms * 1e3, "bound_us": bound_ms * 1e3}
+        del args, kg, vg
+        torch.cuda.empty_cache()
+    pa.prefill_attention.launches = before  # timing launches are not the path's
+    return out
+
+
+# The two routes of paged_prefill at the cells' widths (2 layers, one
+# 2,500-token prompt in three 1,024-row chunks on pages 5, 2, 7 of a
+# 9-page pool): the kernel route against the gather route by
+# - route_pages_rel_err: the worst ||kernel - gather|| / ||gather|| over
+#   the layers' K and V in the prompt's pages (layer 0's pages are equal
+#   by construction; layer 1's carry layer 0's chunk attention);
+# - route_logits_rel_err: the worst such error over the chunks' logits.
+# Each limit lies between the kernel route's reading and the weakest
+# planted fault's (the chunk kernel's faults, PREFILL_FAULTS, put in the
+# kernel's place on the route), as lower^0.4 x upper^0.6 (PERF.md).
+# On an H100: the kernel route 0.95e-2 (pages) and 1.22e-2 (logits), the
+# weakest fault diagonal_unmasked at 0.392 and 0.944.
+ROUTE_PAGES_TOL = 9e-2
+ROUTE_LOGITS_TOL = 1.7e-1
+
+
+def prefill_route_runs(cfg, params, prompt, fault=None) -> tuple:
+    """paged_prefill over ``prompt`` chunk by chunk on a fresh pool with
+    ``cfg.paged_attn``'s route (``fault``: the kernel route with
+    prefill_faulty_plain's fault in the kernel's place). Returns (the
+    chunks' logits, the pool, the prompt's pages)."""
+    import torch
+
+    from tpumon_torch.loadgen import paged_kv
+
+    dev = params["embed"].device
+    pages = [5, 2, 7]
+    table = torch.zeros(8, dtype=torch.int32, device=dev)
+    table[:3] = torch.tensor(pages, dtype=torch.int32)
+    pool = paged_kv.init_pool(cfg, 9, dev)
+    kept = paged_kv.chunk_attention.prefill_attention
+    if fault is not None:
+        paged_kv.chunk_attention.prefill_attention = (
+            lambda *args: prefill_faulty_plain(*args, fault))
+    try:
+        logits = []
+        p = cfg.prefill_len
+        for ci, c0 in enumerate(range(0, len(prompt), p)):
+            chunk = prompt[c0:c0 + p]
+            toks = torch.tensor(chunk + [0] * (p - len(chunk)),
+                                dtype=torch.int32, device=dev)
+            logits.append(paged_kv.paged_prefill(
+                cfg, params, pool, toks, len(chunk), pages[ci], table, c0))
+    finally:
+        paged_kv.chunk_attention.prefill_attention = kept
+    return logits, pool, pages
+
+
+def route_readings(got, want) -> dict:
+    """route_pages_rel_err and route_logits_rel_err of one run of
+    prefill_route_runs against another, and the logits' max abs gap."""
+    (lg, pool, pages), (lw, wpool, _) = got, want
+    pages_err = max(
+        ((pool[n][li][:, pages].float() - wpool[n][li][:, pages].float())
+         .norm() / wpool[n][li][:, pages].float().norm()).item()
+        for n in ("k", "v") for li in range(pool[n].shape[0]))
+    logits_err = max(((a - b).norm() / b.norm()).item()
+                     for a, b in zip(lg, lw))
+    gap = max((a - b).abs().max().item() for a, b in zip(lg, lw))
+    return {"pages": pages_err, "logits": logits_err, "gap": gap}
+
+
+def check_prefill_routes(gen) -> None:
+    """paged_prefill at the cells' widths through the kernel route and the
+    gather route: every layer's pages and every chunk's logits within
+    ROUTE_*_TOL (the logits' max abs gap within ENGINE_TOL too), and each
+    planted fault of the chunk kernel, put on the route, read over a
+    limit."""
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen.model import init_params
+    from tpumon_torch.loadgen.serving import _place
+
+    cfg = dataclasses.replace(engine_config(), prefill_len=1024)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, max_seq=8192))
+    params = _place(init_params(cfg.model, torch.Generator().manual_seed(3)),
+                    "cuda", torch.bfloat16)
+    prompt = torch.randint(0, cfg.model.vocab, (2500,), generator=gen,
+                           device="cuda").tolist()
+    gather = prefill_route_runs(dataclasses.replace(cfg, paged_attn="gather"),
+                                params, prompt)
+    kcfg = dataclasses.replace(cfg, paged_attn="kernel")
+    got = route_readings(prefill_route_runs(kcfg, params, prompt), gather)
+    faults = {f: route_readings(prefill_route_runs(kcfg, params, prompt, f),
+                                gather)
+              for f in PREFILL_FAULTS}
+    missed = [f for f, r in faults.items()
+              if not (r["pages"] > ROUTE_PAGES_TOL
+                      or r["logits"] > ROUTE_LOGITS_TOL)]
+    print(f"prefill_routes route_pages_rel_err={got['pages']!r} "
+          f"tol={ROUTE_PAGES_TOL} route_logits_rel_err={got['logits']!r} "
+          f"tol={ROUTE_LOGITS_TOL} logits_max_abs_gap={got['gap']!r} "
+          f"tol={ENGINE_TOL['bfloat16']} faults={faults} missed={missed}",
+          flush=True)
+    if not (got["pages"] <= ROUTE_PAGES_TOL
+            and got["logits"] <= ROUTE_LOGITS_TOL
+            and got["gap"] <= ENGINE_TOL["bfloat16"]):
+        fail("paged_prefill: the kernel route's pages or logits leave the "
+             "gather route's")
+    if missed:
+        fail(f"the route limits pass planted faults {missed}")
+
+
+def phase28(gen, bw: float, peaks: dict) -> dict:
+    """Phase 28: the chunk attention kernel's build report, its checks and
+    planted faults, its times at the cells' shape, and the two routes of
+    paged_prefill (its launches on the main path: run_engine)."""
+    from tpumon_torch.ops import _build
+    from tpumon_torch.ops.prefill_attention import kernel_config
+
+    t0 = time.perf_counter()
+    print(f"prefill_ptxas config={ {hd: kernel_config(hd) for hd in (64, 128)} } "
+          + " | ".join(_build.ptxas_report("prefill_attention")), flush=True)
+    worst = check_prefill_kernel(gen)
+    check_prefill_routes(gen)
+    times = time_prefill_kernel(gen, bw, peaks)
+    print(f"phase28 wall_s={time.perf_counter() - t0!r}", flush=True)
+    return {"worst": worst, "times": times}
+
+
 def main() -> int:
     import torch
 
@@ -7321,6 +7667,7 @@ def main() -> int:
     mesh_train = phase25(peaks)
     shapes = phase26(gen, bw, peaks)
     wide = phase27(gen, bw, peaks)
+    chunk = phase28(gen, bw, peaks)
 
     rows = [{"name": "paged_attention", "route": "cuda",
              "source": "tpumon_torch/ops/csrc/paged_attention.cu",
@@ -7378,6 +7725,13 @@ def main() -> int:
                      "source": "tpumon_torch/ops/csrc/threefry.cu",
                      "replaces": replaces, "launches": launches,
                      **draws[kernel]})
+    # The chunk attention replaces no Pallas kernel: the reference's chunk
+    # attention is XLA's dense attention over the table.
+    rows.append({"name": "prefill_attention", "route": "cuda",
+                 "source": "tpumon_torch/ops/csrc/prefill_attention.cu",
+                 "replaces": "tpumon/loadgen/paged_kv.py:122 (XLA)",
+                 "launches": stats["prefill_launches"],
+                 "rows_rel_err": chunk["worst"], "times": chunk["times"]})
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

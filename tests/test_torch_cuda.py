@@ -7,7 +7,9 @@ CPU mode). They import no JAX, so they run on a GPU host as they are:
 
 Every kernel is held to its plain version by chip_smoke.py's metrics
 and limits: the paged kernel by rows_rel_err (worst relative error over
-the (sequence, head) rows of length > 0) under PAGED_TOL, the flash
+the (sequence, head) rows of length > 0) under PAGED_TOL, the chunk
+attention of the paged prefill by chunk_rows_rel_err (over the chunk's
+(row, head) rows) under PREFILL_TOL, the flash
 kernels by tile_rel_err under FLASH_TOL, the GEMM kernels by
 gemm_tile_rel_err under GEMM_TOL, the fused threefry draws element for
 element (they compute what their plain versions compute, rounded alike).
@@ -30,6 +32,15 @@ from chip_smoke import (  # noqa: E402
     gemm_tile_rel_err,
     rows_rel_err,
     tile_rel_err,
+)
+from chip_smoke import (  # noqa: E402
+    PREFILL_CARD_SHAPES,
+    PREFILL_LENGTHS,
+    PREFILL_STARTS,
+    PREFILL_TOL,
+    chunk_rows_rel_err,
+    prefill_fault_readings,
+    prefill_inputs,
 )
 from chip_smoke import (  # noqa: E402
     FLASH_SHAPE_CASES,
@@ -838,3 +849,85 @@ def test_workload_footprint_on_card(cuda_device):
     total = torch.cuda.get_device_properties(0).total_memory
     assert any(e["hbm_used"] >= held.numel() * 4 and e["hbm_total"] == total
                for e in fp.values())
+
+
+@pytest.mark.parametrize("p", PREFILL_LENGTHS)
+@pytest.mark.parametrize("start", PREFILL_STARTS)
+@pytest.mark.parametrize("shape", PREFILL_CARD_SHAPES,
+                         ids=lambda sh: f"hd{sh['hd']}")
+def test_prefill_kernel_matches_plain_on_card(cuda_device, shape, start, p):
+    """The chunk attention kernel at the serving cells' shape (32 query
+    heads on 8 kv heads, hd 128, page 1,024) and at hd 64, one launch a
+    call, the pool read in place, within PREFILL_TOL of the plain version;
+    every planted fault of its design reads over the limit there."""
+    from tpumon_torch.ops.prefill_attention import (
+        prefill_attention,
+        prefill_attention_reference,
+    )
+
+    gen = torch.Generator(device=cuda_device).manual_seed(start + p)
+    args = prefill_inputs(gen, **shape, start=start, p=p,
+                          dtype=torch.bfloat16)
+    pool = args[1].clone()
+    before = prefill_attention.launches
+    out = prefill_attention(*args)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 1
+    assert out.shape == args[0].shape and torch.equal(args[1], pool)
+    assert torch.isfinite(out.float()).all()
+    ref = prefill_attention_reference(*args)
+    assert chunk_rows_rel_err(out, ref) <= PREFILL_TOL
+    faults = prefill_fault_readings(args, ref)
+    assert faults and min(faults.values()) > PREFILL_TOL, faults
+
+
+def test_prefill_kernel_launches_once_a_layer_and_chunk_on_card(cuda_device):
+    """The paged engine on the card: one chunk kernel launch a layer and
+    chunk on the kernel route (a bf16 pool at hd 64, page 128), none on
+    the gather route."""
+    from tpumon_torch.loadgen.model import ModelConfig, init_params
+    from tpumon_torch.loadgen.serving import ServeConfig, ServingEngine
+    from tpumon_torch.ops.prefill_attention import prefill_attention
+
+    model = ModelConfig(vocab=256, d_model=512, n_layers=2, n_heads=8,
+                        n_kv_heads=2, d_ff=512, max_seq=512,
+                        compute_dtype="bfloat16")
+    params = init_params(model, torch.Generator().manual_seed(4))
+    prompts = [list(range(1, 301)), [7, 1, 9] * 50, [100]]
+    chunks = sum(-(-len(p) // 128) for p in prompts)
+    for read in ("gather", "kernel"):
+        eng = ServingEngine(cfg=ServeConfig(
+            model=model, slots=2, prefill_len=128, kv_layout="paged",
+            paged_attn=read), params=params, seed=7, device=cuda_device)
+        before = prefill_attention.launches
+        reqs = [eng.submit(p, max_new=3) for p in prompts]
+        eng.drain()
+        torch.cuda.synchronize()
+        assert all(r.status == "completed" for r in reqs)
+        launched = prefill_attention.launches - before
+        assert launched == (model.n_layers * chunks if read == "kernel"
+                            else 0)
+
+
+def test_kernel_f32_sliced_route_reads_no_stale_columns_on_card(cuda_device):
+    """The f32 sliced route loads no box of a K chunk wholly past the head
+    dim (hd 300: columns 320-511 of the second chunk), so those shared
+    memory columns hold what an earlier launch left. A launch over NaN
+    pools at hd 512 leaves NaN in every ring slot on every SM (256 CTAs);
+    the hd-300 call after it at the same grid must stay finite and within
+    the limit."""
+    spec = dict(b=64, nh=4, nkv=2, num_pages=260, page_size=8, max_pages=4,
+                lengths=(32,) * 64, seed=15)
+    poison = [t.to(cuda_device) for t in to_torch(
+        paged_case(**spec, hd=512), torch.float32)]
+    poison[1].fill_(float("nan"))
+    poison[2].fill_(float("nan"))
+    for _ in range(3):
+        paged_attention(*poison)
+    args = [t.to(cuda_device) for t in to_torch(
+        paged_case(**spec, hd=300), torch.float32)]
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    ref = paged_attention_reference(*args)
+    assert rows_rel_err(out, ref, args[4]) <= PAGED_TOL["float32"]

@@ -38,41 +38,55 @@ NUM_PAGES = SLOTS * MAX_PAGES + 1
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def configs(paged_attn, model=SMALL):
+# A small bf16 model whose pool the chunk attention kernel takes (head dim
+# 64, a 128-row page: paged_kv.prefill_reads_kernel), on 4 query heads over
+# 1 kv head. The two frameworks round bf16 at other points (norms, rope),
+# so its logits and pages agree within two bf16 steps at |x| < 8 (2^-4),
+# plus 2^-6 relative above.
+BF16 = dict(vocab=128, d_model=256, n_layers=2, n_heads=4, n_kv_heads=1,
+            d_ff=128, max_seq=512, compute_dtype="bfloat16")
+BF16_PS = 128
+BF16_TOL = dict(atol=2**-4, rtol=2**-6)
+
+
+def configs(paged_attn, model=SMALL, ps=PS):
     jcfg = JaxServeConfig(model=JaxModelConfig(**model), slots=SLOTS,
-                          prefill_len=PS, kv_layout="paged",
+                          prefill_len=ps, kv_layout="paged",
                           paged_attn=paged_attn)
     tcfg = ServeConfig(model=ModelConfig(**model), slots=SLOTS,
-                       prefill_len=PS, kv_layout="paged",
+                       prefill_len=ps, kv_layout="paged",
                        paged_attn=paged_attn)
     return jcfg, tcfg
 
 
-def assert_pools_match(jpool, tpool):
+def assert_pools_match(jpool, tpool, tol=TOL):
     for name in ("k", "v"):
         np.testing.assert_allclose(torch_f32(tpool[name]),
-                                   jax_f32(jpool[name]), **TOL)
+                                   jax_f32(jpool[name]), **tol)
 
 
 class Pair:
     """One reference pool and one port pool driven in lockstep."""
 
-    def __init__(self, paged_attn, model=SMALL, seed=7):
-        self.jcfg, self.tcfg = configs(paged_attn, model)
+    def __init__(self, paged_attn, model=SMALL, seed=7, ps=PS):
+        self.jcfg, self.tcfg = configs(paged_attn, model, ps)
         self.jparams, tree = bridged_params(self.jcfg.model, seed=seed)
         self.tparams = params_from_jax(tree)
-        self.jpool = jax_kv.init_pool(self.jcfg, NUM_PAGES)
-        self.tpool = paged_kv.init_pool(self.tcfg, NUM_PAGES, "cpu")
+        self.ps, self.max_pages = ps, model["max_seq"] // ps
+        num_pages = SLOTS * self.max_pages + 1
+        self.jpool = jax_kv.init_pool(self.jcfg, num_pages)
+        self.tpool = paged_kv.init_pool(self.tcfg, num_pages, "cpu")
 
     def prefill(self, prompt, pages):
         """Chunked prefill of ``prompt`` into ``pages`` on both sides;
         returns each chunk's (reference, port) logits."""
-        row = np.zeros(MAX_PAGES, np.int32)
+        ps = self.ps
+        row = np.zeros(self.max_pages, np.int32)
         row[:len(pages)] = pages
         out = []
-        for ci, c0 in enumerate(range(0, len(prompt), PS)):
-            chunk = prompt[c0:c0 + PS]
-            toks = np.zeros(PS, np.int32)
+        for ci, c0 in enumerate(range(0, len(prompt), ps)):
+            chunk = prompt[c0:c0 + ps]
+            toks = np.zeros(ps, np.int32)
             toks[:len(chunk)] = chunk
             self.jpool, jl = jax_kv.paged_prefill(
                 self.jcfg, self.jparams, self.jpool, jnp.asarray(toks),
@@ -103,11 +117,117 @@ PAGES_A = [5, 9, 2]  # shuffled page ids: the table, not the order, rules
 PAGES_B = [7]
 
 
-def test_prefill_logits_and_pages_match():
-    pair = Pair("gather")
-    for jl, tl in pair.prefill(PROMPT_A, PAGES_A):
-        np.testing.assert_allclose(tl, jl, **TOL)
-    assert_pools_match(pair.jpool, pair.tpool)
+# A 300-token prompt in three 128-row chunks over shuffled pages.
+PROMPT_BF16 = [int(t) for t in np.random.default_rng(2).integers(0, 128, 300)]
+PAGES_BF16 = [5, 9, 2]
+
+
+@pytest.mark.parametrize("paged_attn,dtype", [("gather", "float32"),
+                                              ("gather", "bfloat16"),
+                                              ("kernel", "bfloat16")])
+def test_prefill_logits_and_pages_match(paged_attn, dtype):
+    """Every chunk's logits and every pool page against the reference's
+    dense prefill: SMALL in f32, and BF16, whose pool the chunk attention
+    kernel takes, through the gather route and the kernel route (on the
+    CPU the kernel's plain version)."""
+    if dtype == "float32":
+        pair, prompt, pages, tol = Pair(paged_attn), PROMPT_A, PAGES_A, TOL
+    else:
+        pair = Pair(paged_attn, model=BF16, ps=BF16_PS)
+        prompt, pages, tol = PROMPT_BF16, PAGES_BF16, BF16_TOL
+        assert paged_kv.prefill_reads_kernel(pair.tcfg, pair.tpool) == (
+            paged_attn == "kernel")
+    for jl, tl in pair.prefill(prompt, pages):
+        np.testing.assert_allclose(tl, jl, **tol)
+    assert_pools_match(pair.jpool, pair.tpool, tol)
+
+
+def test_bf16_engine_streams_identical_gather_and_kernel_routes():
+    """The paged engine on BF16 through the gather route and the kernel
+    route (chunks through prefill_attention's plain version, decode
+    through paged_attention's): the same greedy token streams, prompts of
+    one to three chunks, with the kernel route reading only the pages
+    through each chunk's own."""
+    from tpumon_torch.loadgen.serving import ServingEngine
+
+    _, tree = bridged_params(JaxModelConfig(**BF16), seed=11)
+    prompts = [[int(t) for t in np.random.default_rng(n).integers(0, 128, n)]
+               for n in (300, 1, 128, 129, 200)]
+    streams, rows = [], []
+    for read in ("gather", "kernel"):
+        eng = ServingEngine(
+            cfg=ServeConfig(model=ModelConfig(**BF16), slots=2,
+                            prefill_len=BF16_PS, kv_layout="paged",
+                            paged_attn=read),
+            params=params_from_jax(tree), device="cpu")
+        reqs = [eng.submit(p, max_new=6) for p in prompts]
+        eng.drain()
+        assert all(r.status == "completed" for r in reqs)
+        streams.append([r.output for r in reqs])
+        rows.append((eng.prefill_rows_gathered, eng.prefill_rows_needed))
+    assert streams[1] == streams[0]
+    # The rows each chunk reads: the table's 4 pages on the gather route,
+    # the pages through its own on the kernel route.
+    chunks = [(c0, min(BF16_PS, len(p) - c0)) for p in prompts
+              for c0 in range(0, len(p), BF16_PS)]
+    needed = sum(c0 + ln for c0, ln in chunks)
+    assert rows[0] == (len(chunks) * BF16["max_seq"], needed)
+    assert rows[1] == (sum(c0 + BF16_PS for c0, _ in chunks), needed)
+
+
+@pytest.mark.parametrize("feature", ["prefix_cache", "speculative"])
+def test_bf16_cached_and_speculative_engines_identical_gather_and_kernel_routes(
+        feature, monkeypatch):
+    """The other engines that run paged_prefill, on BF16: the prefix-cached
+    engine (a hit's chunks start after its shared pages, page-aligned) and
+    the paged speculative engine (the target's chunks; the draft's prefill
+    is the dense one). The gather route and the kernel route give the same
+    greedy streams; only the kernel route calls prefill_attention, at the
+    chunks' starts, and it reads fewer rows."""
+    from tpumon_torch.loadgen.serving import ServingEngine
+    from tpumon_torch.ops import prefill_attention as chunk_attention
+
+    calls = []
+    plain = chunk_attention.prefill_attention
+
+    def spy(q, k_pool, v_pool, table_row, start):
+        calls.append(start)
+        return plain(q, k_pool, v_pool, table_row, start)
+
+    monkeypatch.setattr(paged_kv.chunk_attention, "prefill_attention", spy)
+    _, tree = bridged_params(JaxModelConfig(**BF16), seed=13)
+    rng = np.random.default_rng(5)
+    shared = [int(t) for t in rng.integers(0, 128, 2 * BF16_PS)]
+    tails = [[int(t) for t in rng.integers(0, 128, n)] for n in (44, 100, 172)]
+    extra = ({"prefix_cache_entries": 4} if feature == "prefix_cache"
+             else {"spec_len": 3})
+    streams, starts, gathered = [], [], []
+    for read in ("gather", "kernel"):
+        calls.clear()
+        eng = ServingEngine(
+            cfg=ServeConfig(model=ModelConfig(**BF16), slots=2,
+                            prefill_len=BF16_PS, kv_layout="paged",
+                            paged_attn=read, **extra),
+            params=params_from_jax(tree), device="cpu")
+        # The first request pins the shared pages; the others hit them.
+        reqs = [eng.submit(shared + tails[0], max_new=6)]
+        eng.drain()
+        reqs += [eng.submit(shared + t, max_new=6) for t in tails[1:]]
+        eng.drain()
+        assert all(r.status == "completed" for r in reqs)
+        if feature == "prefix_cache":
+            assert eng.prefix_cache.hits >= 2
+        else:
+            assert eng.spec_accepted_total > 0
+        streams.append([r.output for r in reqs])
+        starts.append(sorted(set(calls)))
+        gathered.append(eng.prefill_rows_gathered)
+    assert streams[1] == streams[0]
+    assert starts[0] == []
+    # A hit runs only its tail's chunk, at 256; a miss every chunk.
+    assert starts[1] == [0, BF16_PS, 2 * BF16_PS, 3 * BF16_PS]
+    assert len(calls) % BF16["n_layers"] == 0
+    assert gathered[1] < gathered[0]
 
 
 @pytest.mark.parametrize("paged_attn", ["gather", "kernel", "ring"])

@@ -12,8 +12,12 @@ that reads pages in place; ``"ring"`` visits the table's pages one at a
 time through the online-softmax accumulator
 (``ring_attention.paged_ring_decode_attend``), the ring engine mode's read
 path. The append is the same batched scatter at ``(page, offset)`` per
-slot either way. Over a tensor-parallel mesh the pool is the list of the
-shards' pools, each holding its n_kv_heads/tp heads on its device, and
+slot either way. ``"kernel"`` also chooses the prefill chunk's read where
+``ops.prefill_attention`` has an instance for the pool (bf16, head dim 64
+or 128, a page that is a multiple of 128: ``prefill_reads_kernel``): the
+chunk then attends through the table over the pages up to its own alone,
+in one kernel launch a layer; elsewhere it gathers the whole table. Over
+a tensor-parallel mesh the pool is the list of the shards' pools, each holding its n_kv_heads/tp heads on its device, and
 every function here takes the shards' param and pool lists
 (``serving.decoder_forward``); the page tables replicate. ``paged_decode_block`` (T tokens a
 slot, always the gather read) and ``paged_decode_rounds`` (fused block
@@ -35,6 +39,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from tpumon_torch.ops import prefill_attention as chunk_attention
 from tpumon_torch.ops.paged_attention import paged_attention
 
 
@@ -106,9 +111,25 @@ def init_pool(cfg, num_pages: int, device: str | torch.device,
             "v": torch.zeros(shape, dtype=m.torch_dtype, device=device)}
 
 
-def prefill_rows(table_row: torch.Tensor, page: int) -> int:
-    """Rows of its sequence that one ``paged_prefill`` chunk gathers and
-    attends over: every page of the table, whatever the chunk's end."""
+def prefill_reads_kernel(cfg, pool) -> bool:
+    """Whether ``paged_prefill`` reads a chunk's context through the chunk
+    attention kernel (``ops.prefill_attention``): ``paged_attn="kernel"``
+    on one device's compute-dtype pool whose element type, head dim and
+    page the kernel takes. Decided from the pool alone, the same on the
+    CPU (the kernel's plain version) and the card."""
+    if cfg.paged_attn != "kernel" or isinstance(pool, list) or "ks" in pool:
+        return False
+    _, _, _, page, hd = pool["k"].shape
+    return chunk_attention.takes(pool["k"].dtype, hd, page)
+
+
+def prefill_rows(cfg, pool, table_row: torch.Tensor, start: int) -> int:
+    """Rows of its sequence that one ``paged_prefill`` chunk at ``start``
+    reads and attends over: the pages through its own on the kernel route
+    (``start + page``), every page of the table on the gather route."""
+    page = cfg.prefill_len
+    if prefill_reads_kernel(cfg, pool):
+        return start + page
     return table_row.shape[0] * page
 
 
@@ -124,6 +145,11 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
     start: global row of the chunk's first token. Writes the chunk's K/V
     into the pool in place and returns logits[vocab] (f32) at local
     position length-1.
+
+    Where ``prefill_reads_kernel`` holds, each layer writes its page and
+    calls ``ops.prefill_attention`` over the pages through the chunk's
+    own (no mask is built); else it gathers every page of the table and
+    attends densely under the causal mask.
     """
     from tpumon_torch.loadgen.serving import (
         _kv_dequant,
@@ -135,25 +161,37 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
 
     p = cfg.prefill_len  # == page_size
     dev = tokens.device
-    s_max = prefill_rows(table_row, p)
+    s_max = table_row.shape[0] * p
+    kernel = prefill_reads_kernel(cfg, pool)
 
     pos = start + torch.arange(p, dtype=torch.int32, device=dev)[None]
-    row = torch.arange(s_max, dtype=torch.int32, device=dev)
-    mask = (row[None, :] <= pos[0][:, None])[None, None]  # [1,1,P,S]
+    mask = None
+    if not kernel:
+        row = torch.arange(s_max, dtype=torch.int32, device=dev)
+        mask = (row[None, :] <= pos[0][:, None])[None, None]  # [1,1,P,S]
 
-    def make(pool):
-        rows = table_row.long().to(pool["k"].device)
+    def make_write(pool):
         quant = "ks" in pool  # the int8 pool (init_pool)
 
-        def kv_update(li, k, v):
-            # Write the chunk into its fresh page, then attend over the
-            # sequence's pages (this chunk's page included).
-            nkv, hd = k.shape[2], k.shape[3]
+        def write(li, k, v):
+            # The chunk into its fresh page.
             for name, sname, new in (("k", "ks", k), ("v", "vs", v)):
                 if quant:
                     new, scale = _kv_quant(new)
                     pool[sname][li, :, page_id] = scale[0].transpose(0, 1)
                 pool[name][li, :, page_id] = new[0].transpose(0, 1)
+        return write
+
+    def make(pool):
+        rows = table_row.long().to(pool["k"].device)
+        quant = "ks" in pool
+        write = make_write(pool)
+
+        def kv_update(li, k, v):
+            # Write the chunk into its fresh page, then attend over the
+            # sequence's pages (this chunk's page included).
+            nkv, hd = k.shape[2], k.shape[3]
+            write(li, k, v)
             ck = pool["k"][li][:, rows]  # [nkv, max_pages, ps, hd]
             cv = pool["v"][li][:, rows]
             if quant:
@@ -164,8 +202,22 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
             return ck, cv  # [1, S, nkv, hd]
         return kv_update
 
-    x = decoder_forward(cfg, params, tokens[None], pos, mask,
-                        _per_store(pool, make))
+    def make_attend(pool):
+        table = table_row.to(device=pool["k"].device, dtype=torch.int32)
+        write = make_write(pool)
+
+        def attend(li, q, k, v):
+            write(li, k, v)
+            return chunk_attention.prefill_attention(
+                q, pool["k"][li], pool["v"][li], table, start)
+        return attend
+
+    if kernel:
+        x = decoder_forward(cfg, params, tokens[None], pos, mask, None,
+                            attend=make_attend(pool))
+    else:
+        x = decoder_forward(cfg, params, tokens[None], pos, mask,
+                            _per_store(pool, make))
     return _logits(cfg, params, x, (0, length - 1))
 
 

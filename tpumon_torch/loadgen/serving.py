@@ -147,11 +147,16 @@ class ServeConfig:
     # pool (tpumon_torch.loadgen.paged_kv).
     kv_layout: str = "dense"
     pool_pages: int = 0  # 0 = the dense equivalent, slots*max_pages + 1
-    # Paged decode read path: "gather" (plain torch: gather the table's
-    # pages, attend densely), "kernel" (tpumon_torch.ops.paged_attention,
-    # the CUDA kernel on a GPU; its plain version on the CPU) or "ring"
+    # Paged read path: "gather" (plain torch: gather the table's pages,
+    # attend densely), "kernel" (tpumon_torch.ops.paged_attention, the
+    # CUDA kernel on a GPU; its plain version on the CPU) or "ring"
     # (ring_attention.paged_ring_decode_attend: the table's pages one at a
-    # time through the online-softmax accumulator).
+    # time through the online-softmax accumulator). It chooses the
+    # prefill chunk's read as well: "kernel" reads it through
+    # tpumon_torch.ops.prefill_attention (the pages up to the chunk's own)
+    # where that kernel takes the pool (bf16, head dim 64 or 128, a page
+    # that is a multiple of 128; paged_kv.prefill_reads_kernel); every
+    # other pool, and "gather" and "ring", gather the whole table.
     paged_attn: str = "gather"
     # Fused plain decode: this many (decode step -> sample) pairs per
     # engine step with one device→host sync (decode_rounds /
@@ -249,7 +254,7 @@ def decoder_forward(cfg: ServeConfig, params: dict, tokens: torch.Tensor,
     attention for every layer: it writes the block's K/V and returns the
     attention output [B, T, n_heads, hd] directly (the
     ``paged_attn="kernel"`` and ``"ring"`` paths; ``mask`` is then unused
-    — they mask by sequence length).
+    — they mask by sequence length — and may be None).
 
     Over a tensor-parallel mesh ``params`` is the list of shard param
     dicts (``model.shard_params``) and ``kv_update`` / ``attend`` the
@@ -271,7 +276,7 @@ def decoder_forward(cfg: ServeConfig, params: dict, tokens: torch.Tensor,
     b, t = tokens.shape
     devs = [sh["embed"].device for sh in shards]
     poss = [pos.to(d) for d in devs]
-    masks = [mask.to(d) for d in devs]
+    masks = [None if mask is None else mask.to(d) for d in devs]
     xs = [sh["embed"].to(dt)[tokens.to(d).long()]  # [B, T, D]
           for sh, d in zip(shards, devs)]
     for li in range(len(shards[0]["layers"])):
@@ -1424,7 +1429,8 @@ class ServingEngine:
                 ln = len(chunk)
                 toks = self._h2d(chunk + [0] * (p - ln))
                 if self.paged:
-                    gathered = prefill_rows(work.table_row, p)
+                    gathered = prefill_rows(self.cfg, self.pool,
+                                            work.table_row, c0)
                     work.logits = paged_prefill(
                         self.cfg, self.params, self.pool, toks, ln,
                         work.pages[c0 // p], work.table_row, c0)

@@ -290,14 +290,6 @@ __host__ __device__ constexpr int k_rows() {
   return HD > 128 ? 64 : 128;
 }
 
-// Q (kBM rows), kStages K tiles, kStages V tiles (k_rows rows), then the
-// mbarriers: Q's, and a full and an empty one per K and per V stage.
-// + 1024: the tiles start at the first 1024-byte boundary.
-template <int HD>
-constexpr int fwd_smem() {
-  return Tile<HD, kBM>::kBytes + 2 * kStages * Tile<HD, k_rows<HD>()>::kBytes +
-         (1 + 4 * kStages) * 8 + 1024;
-}
 
 // The online-softmax step on this thread's S fragment of an N-column k
 // tile: s[4 j + 2 i + e] is the raw score Q K^T of row `row + 8 i` (of the
@@ -351,9 +343,182 @@ __device__ __forceinline__ void softmax_step(float (&s)[N / 2], float (&m)[2], f
   }
 }
 
+// The K/V ring of the bf16 forward kernels (flash_fwd_wgmma_kernel here,
+// chunk_attention_kernel in prefill_attention.cu), kBN k rows a stage: in
+// dynamic shared memory the Q tile (kBM rows), kStages K tiles, kStages V
+// tiles, then the mbarriers: Q's, and a full and an empty one per K and
+// per V stage (+ 1024: the tiles start at the first 1024-byte boundary).
+// Stage s of a ring holds tiles s, s + kStages, ...: tile j waits on
+// parity (j / kStages) & 1.
+template <int HD, int kBN>
+struct KvRing {
+  using LQ = Tile<HD, kBM>;
+  using LK = Tile<HD, kBN>;
+  static constexpr int kBytes =
+      LQ::kBytes + 2 * kStages * LK::kBytes + (1 + 4 * kStages) * 8 + 1024;
+  uint8_t* sq;
+  uint8_t* sk;
+  uint8_t* sv;
+  uint64_t* full_q;
+  uint64_t* full_k;
+  uint64_t* empty_k;
+  uint64_t* full_v;
+  uint64_t* empty_v;
+};
+
+template <int HD>
+constexpr int fwd_smem() {
+  return KvRing<HD, k_rows<HD>()>::kBytes;
+}
+
+// The ring in dynamic shared memory, its barriers initialised (full: the
+// load thread's one arrival with the bytes; empty: lane 0 of each
+// arithmetic warp). Block-collective.
+template <int HD, int kBN>
+__device__ __forceinline__ KvRing<HD, kBN> kv_ring_init(uint8_t* smem_raw) {
+  using R = KvRing<HD, kBN>;
+  R r;
+  r.sq = align1024(smem_raw);
+  r.sk = r.sq + R::LQ::kBytes;
+  r.sv = r.sk + kStages * R::LK::kBytes;
+  r.full_q = reinterpret_cast<uint64_t*>(r.sv + kStages * R::LK::kBytes);
+  r.full_k = r.full_q + 1;
+  r.empty_k = r.full_k + kStages;
+  r.full_v = r.empty_k + kStages;
+  r.empty_v = r.full_v + kStages;
+  if (threadIdx.x == 0) {
+    mbar_init(r.full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&r.full_k[s], 1);
+      mbar_init(&r.full_v[s], 1);
+      mbar_init(&r.empty_k[s], 8);  // lane 0 of each arithmetic warp
+      mbar_init(&r.empty_v[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return r;
+}
+
+// The load thread, after Q: the K and V tiles 0..n_k-1 in the order the
+// arithmetic needs them (K_j, then V_{j-1}), each into its stage once
+// free, running ahead by up to the ring's depth. load(map, dst, bar, j)
+// issues tile j of map (tma_k or tma_v) into dst, completing on bar,
+// whose bytes are expected here.
+template <int HD, int kBN, typename Load>
+__device__ __forceinline__ void load_kv(const KvRing<HD, kBN>& r, const CUtensorMap* tma_k,
+                                        const CUtensorMap* tma_v, int n_k, Load load) {
+  using LK = Tile<HD, kBN>;
+  for (int j = 0; j <= n_k; ++j) {
+    if (j < n_k) {  // K_j
+      const int s = j % kStages;
+      mbar_wait(&r.empty_k[s], ((j / kStages) & 1) ^ 1);
+      mbar_expect_tx(&r.full_k[s], LK::kBytes);
+      load(tma_k, r.sk + s * LK::kBytes, &r.full_k[s], j);
+    }
+    if (j > 0) {  // V_{j-1}
+      const int i = j - 1, s = i % kStages;
+      mbar_wait(&r.empty_v[s], ((i / kStages) & 1) ^ 1);
+      mbar_expect_tx(&r.full_v[s], LK::kBytes);
+      load(tma_v, r.sv + s * LK::kBytes, &r.full_v[s], i);
+    }
+  }
+}
+
+// Arithmetic warpgroup wg (q rows 64 wg.. of the tile) over the k tiles
+// 0..n_k-1 (n_k >= 1) of the ring: S_j = Q K_j^T, tile j's online-softmax
+// step, O += P_j V_j, in the ping-pong order of the file's note.
+// softmax(j, s, alpha) runs the step on S_j with the caller's mask
+// (softmax_step on the caller's m and l) and leaves alpha. Leaves the
+// unnormalised O in o.
+template <int HD, int kBN, typename Softmax>
+__device__ __forceinline__ void attend_kv(const KvRing<HD, kBN>& r, int n_k, int wg,
+                                          float (&o)[HD / 2], Softmax softmax) {
+  using LK = Tile<HD, kBN>;
+  const int lane = threadIdx.x & 31;
+  float s[kBN / 2];         // S: m64n{kBN} accumulator
+  uint32_t p[kBN / 16][4];  // P: kBN / 16 k16 A fragments
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+
+  auto issue_s = [&](int j) {
+    const int st = j % kStages;
+    mbar_wait(&r.full_k[st], (j / kStages) & 1);
+    const uint8_t* kt = r.sk + st * LK::kBytes;
+    wgmma_fence();
+    if constexpr (kBN == 128) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n128k16_ss(s, desc_kmajor<HD, kBM>(r.sq, wg * 64, kk),
+                            desc_kmajor<HD, kBN>(kt, 0, kk), kk != 0);
+    } else {
+      wgmma_scores<kBN, HD, kBM, kBN>(s, r.sq, wg * 64, kt);
+    }
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int j) {
+    const int st = j % kStages;
+    mbar_wait(&r.full_v[st], (j / kStages) & 1);
+    const uint8_t* vt = r.sv + st * LK::kBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      wgmma_rs<HD>(o, p[kk], desc_mn<HD, kBN>(vt, kk));
+    wgmma_commit();
+  };
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // Ping-pong: the two warpgroups take turns issuing their products, so
+  // that one's softmax runs under the other's wgmma. Warpgroup wg issues
+  // once barrier 1 + wg has the other's arrival, then arrives on the
+  // other's. Warpgroup 0 goes first, and warpgroup 1 leaves out its last
+  // arrival, so both barriers end balanced.
+  auto my_turn = [&] { named_sync(1 + wg, 256); };
+  auto their_turn = [&] { named_arrive(2 - wg, 256); };
+  if (wg == 1) their_turn();
+
+  mbar_wait(r.full_q, 0);
+  my_turn();
+  issue_s(0);
+  their_turn();
+  wgmma_wait<0>();
+  fence_operands(s);
+  release(&r.empty_k[0]);
+  softmax(0, s, alpha);
+  pack_frags<kBN>(p, s);  // O is 0: nothing to rescale
+  for (int j = 1; j < n_k; ++j) {
+    my_turn();
+    issue_s(j);
+    issue_pv(j - 1);
+    their_turn();
+    wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may be in flight
+    fence_operands(s);
+    release(&r.empty_k[j % kStages]);
+    softmax(j, s, alpha);
+    wgmma_wait<0>();
+    fence_operands(o);
+    release(&r.empty_v[(j - 1) % kStages]);
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[4 * jj + 2 * i] *= alpha[i];
+        o[4 * jj + 2 * i + 1] *= alpha[i];
+      }
+    pack_frags<kBN>(p, s);
+  }
+  my_turn();
+  issue_pv(n_k - 1);
+  if (wg == 0) their_turn();
+  wgmma_wait<0>();
+  fence_operands(o);
+  release(&r.empty_v[(n_k - 1) % kStages]);
+}
+
 // grid (ceil(T / 128), BH), 384 threads; tma_q maps [BH, T, HD] bf16 in
-// 128-row boxes, tma_k and tma_v in k_rows-row boxes. Stage s of a ring is
-// used by tiles s, s + kStages, ...: tile j waits on parity (j / kStages) & 1.
+// 128-row boxes, tma_k and tma_v in k_rows-row boxes.
 template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
@@ -362,16 +527,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
                        float* __restrict__ lse, int t, float scale_log2) {
   constexpr int kBN = k_rows<HD>();
   using LQ = Tile<HD, kBM>;
-  using LK = Tile<HD, kBN>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sq = align1024(smem_raw);
-  uint8_t* sk = sq + LQ::kBytes;
-  uint8_t* sv = sk + kStages * LK::kBytes;
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + kStages * LK::kBytes);
-  uint64_t* full_k = full_q + 1;
-  uint64_t* empty_k = full_k + kStages;
-  uint64_t* full_v = empty_k + kStages;
-  uint64_t* empty_v = full_v + kStages;
+  const auto ring = kv_ring_init<HD, kBN>(smem_raw);
 
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // longest rows first
@@ -383,91 +540,28 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
                                : min((q0 + kBM) / kBN, tiles);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (threadIdx.x == 0) {
-    mbar_init(full_q, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full_k[s], 1);
-      mbar_init(&full_v[s], 1);
-      mbar_init(&empty_k[s], 8);  // lane 0 of each arithmetic warp
-      mbar_init(&empty_v[s], 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
   if (warp < 4) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoadRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(full_q, LQ::kBytes);
-      load_tile<HD, kBM>(sq, &tma_q, full_q, q0, bh);
-      for (int j = 0; j <= n_k; ++j) {
-        if (j < n_k) {  // K_j
-          const int s = j % kStages;
-          mbar_wait(&empty_k[s], ((j / kStages) & 1) ^ 1);
-          mbar_expect_tx(&full_k[s], LK::kBytes);
-          load_tile<HD, kBN>(sk + s * LK::kBytes, &tma_k, &full_k[s], j * kBN, bh);
-        }
-        if (j > 0) {  // V_{j-1}
-          const int i = j - 1, s = i % kStages;
-          mbar_wait(&empty_v[s], ((i / kStages) & 1) ^ 1);
-          mbar_expect_tx(&full_v[s], LK::kBytes);
-          load_tile<HD, kBN>(sv + s * LK::kBytes, &tma_v, &full_v[s], i * kBN, bh);
-        }
-      }
+      mbar_expect_tx(ring.full_q, LQ::kBytes);
+      load_tile<HD, kBM>(ring.sq, &tma_q, ring.full_q, q0, bh);
+      load_kv(ring, &tma_k, &tma_v, n_k,
+              [&](const CUtensorMap* map, uint8_t* dst, uint64_t* bar, int j) {
+                load_tile<HD, kBN>(dst, map, bar, j * kBN, bh);
+              });
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kMathRegs));
     const int wg = (warp >> 2) - 1;  // 64-row half of the q tile
     const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // this thread's first row
     const int tq = lane & 3;
-    float s[kBN / 2];        // S: m64n{kBN} accumulator
-    float o[HD / 2];         // O: m64n{HD} accumulator
-    uint32_t p[kBN / 16][4];  // P: kBN / 16 k16 A fragments
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-
-    auto issue_s = [&](int j) {
-      const int st = j % kStages;
-      mbar_wait(&full_k[st], (j / kStages) & 1);
-      const uint8_t* kt = sk + st * LK::kBytes;
-      wgmma_fence();
-      if constexpr (kBN == 128) {
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          wgmma_m64n128k16_ss(s, desc_kmajor<HD, kBM>(sq, wg * 64, kk),
-                              desc_kmajor<HD, kBN>(kt, 0, kk), kk != 0);
-      } else {
-        wgmma_scores<kBN, HD, kBM, kBN>(s, sq, wg * 64, kt);
-      }
-      wgmma_commit();
-    };
-    auto issue_pv = [&](int j) {
-      const int st = j % kStages;
-      mbar_wait(&full_v[st], (j / kStages) & 1);
-      const uint8_t* vt = sv + st * LK::kBytes;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_rs<HD>(o, p[kk], desc_mn<HD, kBN>(vt, kk));
-      wgmma_commit();
-    };
-    auto release = [&](uint64_t* bar) {
-      if (lane == 0) mbar_arrive(bar);
-    };
-    // Ping-pong: the two warpgroups take turns issuing their products, so
-    // that one's softmax runs under the other's wgmma. Warpgroup wg issues
-    // once barrier 1 + wg has the other's arrival, then arrives on the
-    // other's. Warpgroup 0 goes first, and warpgroup 1 leaves out its last
-    // arrival, so both barriers end balanced.
-    auto my_turn = [&] { named_sync(1 + wg, 256); };
-    auto their_turn = [&] { named_arrive(2 - wg, 256); };
-    if (wg == 1) their_turn();
+    float o[HD / 2];  // O: m64n{HD} accumulator
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     // Tile j holds masked keys for this warpgroup if it reaches past the
     // warpgroup's first row (causal) or past T: at kBN 128 only the last
     // (the diagonal one, or the one that reaches past T).
     const int last_keys = t - (n_k - 1) * kBN;
-    auto softmax = [&](int j) {
+    attend_kv(ring, n_k, wg, o, [&](int j, float (&s)[kBN / 2], float (&alpha)[2]) {
       if constexpr (kBN == kBM) {
         if (j == n_k - 1)
           softmax_step<CAUSAL, true, kBN>(s, m, l, alpha, scale_log2, row, tq, last_keys);
@@ -481,44 +575,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tma_q,
         else
           softmax_step<CAUSAL, false, kBN>(s, m, l, alpha, scale_log2, row, tq, kBN);
       }
-    };
-
-    mbar_wait(full_q, 0);
-    my_turn();
-    issue_s(0);
-    their_turn();
-    wgmma_wait<0>();
-    fence_operands(s);
-    release(&empty_k[0]);
-    softmax(0);
-    pack_frags<kBN>(p, s);  // O is 0: nothing to rescale
-    for (int j = 1; j < n_k; ++j) {
-      my_turn();
-      issue_s(j);
-      issue_pv(j - 1);
-      their_turn();
-      wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may be in flight
-      fence_operands(s);
-      release(&empty_k[j % kStages]);
-      softmax(j);
-      wgmma_wait<0>();
-      fence_operands(o);
-      release(&empty_v[(j - 1) % kStages]);
-#pragma unroll
-      for (int jj = 0; jj < HD / 8; ++jj)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          o[4 * jj + 2 * i] *= alpha[i];
-          o[4 * jj + 2 * i + 1] *= alpha[i];
-        }
-      pack_frags<kBN>(p, s);
-    }
-    my_turn();
-    issue_pv(n_k - 1);
-    if (wg == 0) their_turn();
-    wgmma_wait<0>();
-    fence_operands(o);
-    release(&empty_v[(n_k - 1) % kStages]);
+    });
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {

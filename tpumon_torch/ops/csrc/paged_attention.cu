@@ -669,7 +669,15 @@ __device__ __forceinline__ void consume_f32_wide(const Params& p, const uint8_t*
 #pragma unroll
         for (int kk = 0; kk < kKeys; ++kk) {
           float x[kCols];
-          if (kk < n) load(tile, key0 + kk, x);
+          if (kk < n) {
+            load(tile, key0 + kk, x);
+            // A box wholly past the head dim is not loaded, so its columns
+            // hold what an earlier item or launch left there: 0 x NaN is
+            // NaN, so they are zeroed, not only multiplied by q's zeros.
+#pragma unroll
+            for (int j = 0; j < kCols; ++j)
+              if (c + j >= hd) x[j] = 0.f;
+          }
 #pragma unroll
           for (int g = 0; g < kG; ++g) {
             float acc = it == 0 ? 0.f : d[kk][g];
