@@ -13,6 +13,9 @@ a gap of norms over the reference's norm of that leaf or of the median
 leaf, whichever is larger; the worst leaf counts. Leaves whose reference
 gradient is under a thousandth of the median leaf's are left out (they
 move by round-off alone).
+
+Both sides' weights, the reference and its settings come from the
+configuration's family (``families.of(cfg)``).
 """
 
 from __future__ import annotations
@@ -21,15 +24,10 @@ import statistics
 
 import torch
 
-from portbench.models import Sizes, initial_leaves, make_params
-from portbench.reference import llama
+from portbench import families
+from portbench.counts import Sizes
 
 TINY_LEAF = 1e-3  # of the median leaf's gradient norm
-
-
-def ref_cfg(s: Sizes, cfg: dict) -> dict:
-    return {"head_dim": s.head_dim, "eps": float(cfg["rms_norm_eps"]),
-            "theta": float(cfg["rope_theta"])}
 
 
 @torch.no_grad()
@@ -39,24 +37,27 @@ def served_gaps(s: Sizes, cfg: dict, seed: int, dtype, device,
     ``prompt`` and ``output`` token lists) under the float32 reference,
     whose weights it draws again from the seed; with ``control``, also
     the widest gap of the tokens the fp8 reference puts first."""
-    llama.strict_f32()
-    params = make_params(s, seed, device, dtype)
-    rc = ref_cfg(s, cfg)
+    fam = families.of(cfg)
+    ref_model = fam.reference
+    ref_model.strict_f32()
+    params = fam.make_params(s, seed, device, dtype)
+    rc = fam.ref_cfg(s, cfg)
     worst, worst_ctl = 0.0, 0.0
     for req in requests:
         prompt, out = list(req["prompt"]), list(req["output"])
         seq = torch.tensor(prompt + out[:-1], device=device)[None]
         rows = torch.arange(len(prompt) - 1, len(prompt) - 1 + len(out),
                             device=device)
-        ref = llama.logits(params, llama.hidden(params, seq, rc)[0, rows])
+        ref = ref_model.logits(params,
+                               ref_model.hidden(params, seq, rc)[0, rows])
         served = torch.tensor(out, device=device)
         best = ref.max(dim=-1).values
         gap = best - ref.gather(1, served[:, None])[:, 0]
         worst = max(worst, float(gap.max()))
         if control:
-            lp = llama.Precision("fp8")
-            low = llama.logits(
-                params, llama.hidden(params, seq, rc, lp)[0, rows], lp)
+            lp = ref_model.Precision("fp8")
+            low = ref_model.logits(
+                params, ref_model.hidden(params, seq, rc, lp)[0, rows], lp)
             pick = low.argmax(dim=-1)
             gap = best - ref.gather(1, pick[:, None])[:, 0]
             worst_ctl = max(worst_ctl, float(gap.max()))
@@ -88,25 +89,28 @@ def reference_steps(s: Sizes, cfg: dict, seed: int, batches: list,
     first-gradient norm and each leaf's change norm after the steps.
     ``prec`` and ``half_batch`` put a lower-precision or planted-fault
     version of it in the program's place."""
-    llama.strict_f32()
-    params = make_params(s, seed, device, torch.float32)
-    rc = ref_cfg(s, cfg)
-    p = llama.Precision(prec)
+    fam = families.of(cfg)
+    ref_model = fam.reference
+    ref_model.strict_f32()
+    params = fam.make_params(s, seed, device, torch.float32)
+    rc = fam.ref_cfg(s, cfg)
+    p = ref_model.Precision(prec)
     losses, grad_norms = [], {}
     for i, tokens in enumerate(batches):
         if half_batch:
             tokens = tokens[: max(1, tokens.shape[0] // 2)]
-        value, grads = llama.value_and_grad(params, tokens, rc, p, q_block)
+        value, grads = ref_model.value_and_grad(params, tokens, rc, p,
+                                                q_block)
         losses.append(float(value))
         if i == 0:
             grad_norms = {n: float(g.norm()) for n, g in grads.items()}
         with torch.no_grad():
-            for name, leaf in llama.leaves(params):
+            for name, leaf in ref_model.leaves(params):
                 leaf.sub_(lr * grads[name])
         del grads
-    named = dict(llama.leaves(params))
-    change = {n: float((named[n] - p0).norm())
-              for n, p0 in initial_leaves(s, seed, device, torch.float32)}
+    named = dict(ref_model.leaves(params))
+    change = {n: float((named[n] - p0).norm()) for n, p0 in
+              fam.initial_leaves(s, seed, device, torch.float32)}
     return {"loss": losses, "grad_norms": grad_norms, "change_norms": change}
 
 

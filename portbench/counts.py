@@ -9,7 +9,9 @@ bytes rule of ``time_paged_case``). Every bound counts each input byte
 read once and each output byte written once.
 
 Sizes come in as a ``Sizes`` tuple, built from a configuration file by
-``portbench.models.sizes``; nothing here imports the program.
+its family's ``sizes`` (``portbench.models.sizes`` for Llama's); the
+FLOP counts here are the Llama family's. Nothing here imports the
+program.
 """
 
 from __future__ import annotations

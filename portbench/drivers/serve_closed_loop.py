@@ -2,15 +2,16 @@
 as its last one completes.
 
 Set-up builds the kernels, draws the weights on the device from the seed
-(in the compute dtype), builds the port's ``ServingEngine`` with them,
-and runs the mix's own traffic until as many requests have completed as
-there are clients, so the window starts with the loop turned over once
-(waiting for every client's first request would wait for the longest
-output in the table, a minute in a chat mix). The window then runs
-``engine.step()`` with the clients' submissions between steps, on one
-host thread, for the given seconds. Per request it keeps the submission
-time, the engine's time to first token, the completion time (the end of
-the step that completed it) and the tokens.
+(in the compute dtype, as the configuration's family draws them), builds
+the port's ``ServingEngine`` with them, and runs the mix's own traffic
+until as many requests have completed as there are clients, so the
+window starts with the loop turned over once (waiting for every client's
+first request would wait for the longest output in the table, a minute
+in a chat mix). The window then runs ``engine.step()`` with the clients'
+submissions between steps, on one host thread, for the given seconds.
+Per request it keeps the submission time, the engine's time to first
+token, the completion time (the end of the step that completed it) and
+the tokens.
 
 With ``trace`` a slice in the middle of the window runs under the
 profiler, with host spans around the engine's step, prefill chunk,
@@ -26,7 +27,7 @@ import time
 
 import torch
 
-from portbench import compare, models, program, trace
+from portbench import compare, families, program, trace
 from portbench.loadmix import Mix
 
 WARMUP_LIMIT_S = 600.0
@@ -38,7 +39,8 @@ class Bench:
     def __init__(self, cfg: dict, mix: dict, seed: int, device):
         self.cfg, self.mix, self.seed = cfg, mix, seed
         self.device = torch.device(device)
-        self.sizes = models.sizes(cfg)
+        self.fam = families.of(cfg)
+        self.sizes = self.fam.sizes(cfg)
         self.check_s = 0.0  # set-up time spent only on the check
 
     # -- set-up ---------------------------------------------------------
@@ -48,12 +50,12 @@ class Bench:
         program.build_kernels(self.device)
         mark("build")
         serving = self.cfg.get("serving", {})
-        model = program.model_config(self.cfg, serving.get("model", {}))
+        model = self.fam.model_config(self.cfg, serving.get("model", {}))
         settings = {**serving.get("engine", {}), **self.mix.get("engine", {})}
         self.scfg = program.serve_config(model, settings)
         self.dtype = model.torch_dtype
-        params = models.make_params(self.sizes, self.seed, self.device,
-                                    self.dtype)
+        params = self.fam.make_params(self.sizes, self.seed, self.device,
+                                      self.dtype)
         self.loads = Mix(self.mix, self.seed, model.vocab)
         self.engine = ServingEngine(self.scfg, params=params,
                                     seed=self.seed & 0x7FFFFFFF,
@@ -144,8 +146,8 @@ class Bench:
         out = {"kind": self.kind, "window_s": t1 - t0, "tokens": tokens,
                "ttft_ms": ttft, "tpot_ms": tpot, "steps_ms": steps_ms,
                "attempted": len(window_reqs), "failed": failed,
-               "sizes": self.sizes, "elem": torch.tensor(
-                   [], dtype=self.dtype).element_size(),
+               "family": families.name(self.cfg), "sizes": self.sizes,
+               "elem": torch.tensor([], dtype=self.dtype).element_size(),
                "max_pages": -(-self.scfg.model.max_seq
                               // self.scfg.prefill_len)}
         if rec_work is not None:

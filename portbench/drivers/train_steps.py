@@ -2,15 +2,16 @@
 batches.
 
 Set-up builds the kernels and draws the float32 master weights on the
-device from the seed, then drives that one parameter tree through the
-window's own step and feed for its first three steps, which also warm
-every shape up. It reads each step's loss, each leaf's first gradient
-(its change after one step over the learning rate) and each leaf's
-change after three (the initial values drawn again from the seed, one
-kind at a time); those readings are the check's and are not counted as
-set-up. The window continues the same tree from step 3 and ends in a
-``synchronize``. Every step's tokens are drawn on the device from the
-seed and the step's index, so all rows differ.
+device from the seed, as the configuration's family draws them, then
+drives that one parameter tree through the window's own step and feed
+for its first three steps, which also warm every shape up. It reads each
+step's loss, each leaf's first gradient (its change after one step over
+the learning rate) and each leaf's change after three (the initial
+values drawn again from the seed, one kind at a time); those readings
+are the check's and are not counted as set-up. The window continues the
+same tree from step 3 and ends in a ``synchronize``. Every step's tokens
+are drawn on the device from the seed and the step's index, so all rows
+differ.
 
 With ``trace`` a slice in the middle of the window runs under the
 profiler, with host spans around each step and its feed.
@@ -22,8 +23,7 @@ import time
 
 import torch
 
-from portbench import compare, models, program, trace
-from portbench.reference.llama import leaves
+from portbench import compare, families, models, program, trace
 
 CHECK_STEPS = 3
 
@@ -34,7 +34,8 @@ class Bench:
     def __init__(self, cfg: dict, mix: dict, seed: int, device):
         self.cfg, self.mix, self.seed = cfg, mix, seed
         self.device = torch.device(device)
-        self.sizes = models.sizes(cfg)
+        self.fam = families.of(cfg)
+        self.sizes = self.fam.sizes(cfg)
         self.batch, self.seq = int(mix["batch"]), int(mix["seq"])
         self.lr = float(cfg.get("training", {}).get("lr", 1e-3))
         self.check_s = 0.0
@@ -57,19 +58,19 @@ class Bench:
                                          lr=self.lr)[1]
 
     def _norms_from_start(self, scale: float) -> dict:
-        named = dict(leaves(self.params))
+        named = dict(self.fam.reference.leaves(self.params))
         return {n: float((named[n] - p0).norm()) / scale
-                for n, p0 in models.initial_leaves(
+                for n, p0 in self.fam.initial_leaves(
                     self.sizes, self.seed, self.device, torch.float32)}
 
     def setup(self, mark=lambda name: None) -> None:
         program.build_kernels(self.device)
         mark("build")
         train = self.cfg.get("training", {})
-        self.model = program.model_config(
+        self.model = self.fam.model_config(
             self.cfg, {"max_seq": self.seq, **train.get("model", {})})
-        self.params = models.make_params(self.sizes, self.seed, self.device,
-                                         torch.float32)
+        self.params = self.fam.make_params(self.sizes, self.seed,
+                                           self.device, torch.float32)
         self._sync()
         mark("weights")
         self.readings = {"loss": []}
@@ -117,7 +118,8 @@ class Bench:
         out = {"kind": self.kind, "window_s": t1 - t0, "steps": steps,
                "tokens": steps * self.batch * self.seq,
                "attempted": steps, "failed": int((~finite).sum()),
-               "sizes": self.sizes, "seq": self.seq, "batch": self.batch,
+               "family": families.name(self.cfg), "sizes": self.sizes,
+               "seq": self.seq, "batch": self.batch,
                "elem": torch.tensor([], dtype=self.model.torch_dtype
                                     ).element_size()}
         if sl is not None:

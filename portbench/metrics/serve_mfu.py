@@ -1,8 +1,8 @@
 """serve_mfu: model FLOPs of the tokens prefilled (at their true
-lengths) and emitted in the traced slice (counts.serve_flops) over the
-slice times the card's bf16 peak (%)."""
+lengths) and emitted in the traced slice (the record's family's
+serve_flops) over the slice times the card's bf16 peak (%)."""
 
-from portbench.counts import serve_flops
+from portbench import families
 from portbench.kernels import decode_rounds
 
 
@@ -17,5 +17,6 @@ def read(rec):
     ctx = [c for step in work["steps"] for calls in decode_rounds(step)
            for c in calls]
     emitted = sum(o2 - o for step in work["steps"] for _, o, o2 in step)
-    flops = serve_flops(rec["sizes"], work["chunks"], ctx, emitted)
+    flops = families.of(rec).serve_flops(rec["sizes"], work["chunks"], ctx,
+                                         emitted)
     return 100.0 * flops / (sl["window_s"] * peaks.bf16)

@@ -4,7 +4,8 @@ A configuration file (``configs/<name>.json``) holds the model's
 published ``config.json`` keys as the benchmark runs them, plus
 ``published`` (the source's values of the keys it changed), ``assumed``
 (sizes the source does not fix) and per-use groups (``serving``,
-``training``). ``sizes`` reads the widths from it.
+``training``). ``sizes`` reads the widths from it; the Llama family
+(``families/llama.py``) names it and the weights below.
 
 Weights are drawn on the device from the seed, one ``torch.randn`` per
 kind of tensor over all layers (a ``[layers, in, out]`` block sliced into

@@ -27,9 +27,9 @@ def _fields(cls) -> set:
 
 
 def model_config(cfg: dict, extra: dict):
-    """The port's ``ModelConfig`` for a configuration file, with
-    ``extra`` (ModelConfig field names: ``max_seq``, ``attention``, ...)
-    on top."""
+    """The port's ``ModelConfig`` for a configuration file of the Llama
+    family, with ``extra`` (ModelConfig field names: ``max_seq``,
+    ``attention``, ...) on top."""
     from tpumon_torch.loadgen.model import ModelConfig
 
     names = _fields(ModelConfig)

@@ -5,6 +5,7 @@ import json
 import shutil
 
 import pytest
+import torch
 
 from portbench import run, trace
 
@@ -63,4 +64,11 @@ def make_tiny(tmp_path, serve_cell="mistral7b.serve.chat",
 @pytest.fixture
 def tiny(tmp_path, monkeypatch):
     monkeypatch.setattr(trace, "SLICE_S", 0.3)
-    return make_tiny(tmp_path)
+    # One thread for the tiny products: on shared cores a pool of threads
+    # slows a tiny step enough that a short window completes no request.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield make_tiny(tmp_path)
+    finally:
+        torch.set_num_threads(threads)

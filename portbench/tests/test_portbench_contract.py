@@ -6,43 +6,50 @@ import re
 
 import pytest
 
-from portbench import models, run
+from portbench import families, run
 
 BENCH = run.load_json(run.ROOT / "BENCHMARK.json")
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
-# Published config.json values (Hugging Face), the widths never cut.
+# Published config.json values (Hugging Face) of the configurations
+# there now, the widths never cut, and the head width the harness reads.
 PUBLISHED = {
-    "mistral-7b-v0.3": dict(hidden_size=4096, intermediate_size=14336,
-                            num_attention_heads=32, num_key_value_heads=8,
-                            vocab_size=32768, rope_theta=1e6,
-                            num_hidden_layers=32, rms_norm_eps=1e-5,
-                            tie_word_embeddings=False,
-                            torch_dtype="bfloat16"),
-    "deepseek-llm-7b-base": dict(hidden_size=4096, intermediate_size=11008,
-                                 num_attention_heads=32,
-                                 num_key_value_heads=32, vocab_size=102400,
-                                 rope_theta=1e4, num_hidden_layers=30,
-                                 rms_norm_eps=1e-6,
-                                 tie_word_embeddings=False,
-                                 torch_dtype="bfloat16"),
+    "mistral-7b-v0.3": (dict(hidden_size=4096, intermediate_size=14336,
+                             num_attention_heads=32, num_key_value_heads=8,
+                             vocab_size=32768, rope_theta=1e6,
+                             num_hidden_layers=32, rms_norm_eps=1e-5,
+                             tie_word_embeddings=False,
+                             torch_dtype="bfloat16"), 128),
+    "deepseek-llm-7b-base": (dict(hidden_size=4096, intermediate_size=11008,
+                                  num_attention_heads=32,
+                                  num_key_value_heads=32, vocab_size=102400,
+                                  rope_theta=1e4, num_hidden_layers=30,
+                                  rms_norm_eps=1e-6,
+                                  tie_word_embeddings=False,
+                                  torch_dtype="bfloat16"), 128),
 }
 
 
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_widths_are_published(entry):
+    """Every configuration, of any family, against its own file: the
+    keys it reduced are those it records as published, each changed;
+    its source is named; its widths build through its family. The
+    configurations above also against their published values."""
     cfg = json.loads((run.ROOT / entry["file"]).read_text())
-    for key, value in PUBLISHED[entry["name"]].items():
-        want = cfg.get("published", {}).get(key, cfg[key])
-        assert want == value, key
-        if key in entry["reduced"]:
-            assert cfg[key] != value and cfg["published"][key] == value
-        else:
+    published = cfg.get("published", {})
+    assert set(entry["reduced"]) == set(published)
+    for key, value in published.items():
+        assert cfg[key] != value, key
+    assert entry["source"] and cfg["source"] == entry["source"]
+    s = families.of(cfg).sizes(cfg)
+    known, head_dim = PUBLISHED.get(entry["name"], ({}, s.head_dim))
+    for key, value in known.items():
+        assert published.get(key, cfg[key]) == value, key
+        if key not in entry["reduced"]:
             assert cfg[key] == value, key
-    assert set(entry["reduced"]) == set(cfg.get("published", {}))
-    s = models.sizes(cfg)
-    assert s.head_dim == 128 and s.d_model == 4096
+    assert s.head_dim == head_dim
 
 
 def test_top_level_keys_and_limits():

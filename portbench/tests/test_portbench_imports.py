@@ -63,8 +63,34 @@ def test_reference_imports_torch_only():
 
 
 def test_yardstick_imports_nothing_of_the_program():
-    for name in ("counts", "stats", "models", "compare", "loadmix",
-                 "kernels", "trace"):
-        for imp in _imports(run.PKG / f"{name}.py"):
+    paths = [run.PKG / f"{name}.py" for name in (
+        "counts", "stats", "models", "compare", "loadmix", "kernels",
+        "trace")] + sorted((run.PKG / "families").glob("*.py"))
+    for path in paths:
+        for imp in _imports(path):
             assert imp.split(".")[0] not in ("tpumon_torch", "tpumon",
-                                             "jax"), (name, imp)
+                                             "jax"), (path, imp)
+
+
+READERS_PROBE = r"""
+import sys
+sys.path.insert(0, {root!r})
+import portbench.metrics.serve_mfu, portbench.metrics.train_mfu
+from portbench import families
+families.of({{}})
+print(sorted(m for m in sys.modules if m.split(".")[0] in
+             ("portbench", "tpumon_torch")))
+"""
+
+
+def test_mfu_readers_load_no_program_code_nor_the_comparison():
+    """The MFU readers reach the FLOP counts through the family, which
+    loads neither the comparison nor anything of the program."""
+    out = subprocess.run(
+        [sys.executable, "-c", READERS_PROBE.format(root=str(run.ROOT))],
+        capture_output=True, text=True, timeout=300, cwd=run.ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    loaded = set(eval(out.stdout.strip().splitlines()[-1]))
+    assert "portbench.families.llama" in loaded
+    assert "portbench.compare" not in loaded
+    assert not {m for m in loaded if m.split(".")[0] == "tpumon_torch"}

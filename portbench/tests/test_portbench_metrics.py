@@ -159,3 +159,26 @@ def test_readers_on_a_made_serve_record():
     rec["slice_work"]["chunks"] = []
     assert run.reader("serve_mfu")(rec) is None
     assert CardPeaks  # the peaks type is what the record carries
+
+
+@pytest.mark.parametrize("family", [None, "llama"])
+def test_mfu_readers_read_todays_values(family):
+    """serve_mfu and train_mfu take their FLOPs from the record's family;
+    on the made records they read exactly what the Llama counts give,
+    with the record's ``family`` or without it."""
+    s = Sizes(vocab=102400, d_model=4096, n_layers=8, n_heads=32,
+              n_kv_heads=32, head_dim=128, d_ff=11008)
+    train = {"kind": "train", "on_card": True, "peaks": H100, "sizes": s,
+             "seq": 4096, "tokens": 8192 * 10, "window_s": 4.0}
+    steps = [[(1000, 5, 6), (2000, 9, 10)], [(1000, 6, 7), (3000, 0, 2)]]
+    serve = {"kind": "serve", "on_card": True, "peaks": H100,
+             "sizes": MISTRAL8, "slice": _slice({}),
+             "slice_work": {"chunks": [(2048, 952)], "steps": steps,
+                            "prefill_seen": True}}
+    if family:
+        train["family"] = serve["family"] = family
+    flops = counts.flops_per_token(s, 4096) * 81920
+    assert run.reader("train_mfu")(train) == 100.0 * flops / (4.0 * H100.bf16)
+    assert run.reader("serve_mfu")(serve) == 100.0 * counts.serve_flops(
+        MISTRAL8, [(2048, 952)], [1005, 2009, 1006, 3001], 5) / (
+        2.0 * H100.bf16)

@@ -6,7 +6,7 @@ path broken underneath where a test plants a fault."""
 import pytest
 import torch
 
-from portbench import compare, run
+from portbench import families, run
 from portbench.drivers import serve_closed_loop, train_steps
 from portbench.models import make_params, sizes
 
@@ -127,7 +127,7 @@ def test_reference_agrees_with_itself_and_sees_one_token(tiny):
     cfg = run.load_json(root / "serve.json")
     s = sizes(cfg)
     params = make_params(s, 3, "cpu", torch.bfloat16)
-    rc = compare.ref_cfg(s, cfg)
+    rc = families.of(cfg).ref_cfg(s, cfg)
     from portbench.reference import llama
 
     toks = torch.arange(1, 41)[None]
