@@ -931,3 +931,108 @@ def test_kernel_f32_sliced_route_reads_no_stale_columns_on_card(cuda_device):
     assert torch.isfinite(out).all()
     ref = paged_attention_reference(*args)
     assert rows_rel_err(out, ref, args[4]) <= PAGED_TOL["float32"]
+
+
+def test_kernel_at_the_latent_decode_shape_on_card(cuda_device):
+    """DeepSeek-V2-Lite's absorbed decode (dsv2lite.serve.sharegpt): 256
+    slots, 16 query heads on the one 576-wide latent row (a group of 16
+    on the sliced route), page 1,024, two pages a table over the cell's
+    513-page pool, mixed lengths, one tensor passed as K and as V."""
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    pool = torch.randn((1, 513, 1024, 576), generator=gen,
+                       device=cuda_device, dtype=torch.bfloat16)
+    q = torch.randn((256, 16, 576), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    cpu = torch.Generator().manual_seed(26)
+    lengths = torch.randint(1, 2049, (256,), generator=cpu)
+    lengths[:5] = torch.tensor([1, 1023, 1024, 1025, 2048])
+    table = (torch.randperm(512, generator=cpu) + 1).view(256, 2)
+    lengths = lengths.to(cuda_device, torch.int32)
+    table = table.to(cuda_device, torch.int32)
+    before = paged_attention.launches
+    out = paged_attention(q, pool, pool, table, lengths)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    ref = paged_attention_reference(q, pool, pool, table, lengths)
+    assert rows_rel_err(out, ref, lengths) <= PAGED_TOL["bfloat16"]
+
+
+# The grouped expert products of bf16 against f32 products over the same
+# bf16 weights, worst token row by norm: bf16 operands and outputs with
+# f32 accumulation read ~4e-3 a group on the card (PERF.md §6).
+GROUPED_TOL = 2e-2
+
+
+def test_grouped_expert_ffn_makes_no_sync_on_card(cuda_device):
+    """DeepSeek-V2-Lite's routed layer at its widths (top 6 of 64 experts
+    of 1,408, 2 shared) over a decode step's 256 tokens: no device→host
+    read (torch's sync debug mode raises on one), every expert counted,
+    and each token's output as a loop over its experts in f32 gives it."""
+    import torch.nn.functional as F
+
+    from tpumon_torch.loadgen.moe import (
+        TopKConfig,
+        init_topk_params,
+        topk_ffn,
+    )
+
+    cfg = TopKConfig(d_model=2048, d_ff=1408, n_experts=64, top_k=6,
+                     n_shared=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    params = {k: v if k == "router" else v.bfloat16()
+              for k, v in init_topk_params(cfg, gen).items()}
+    x = torch.randn((256, 2048), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    counts = torch.zeros((2, 64), dtype=torch.int64, device=cuda_device)
+    topk_ffn(cfg, params, x)  # warm: first calls may set up libraries
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = topk_ffn(cfg, params, x, counts=counts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(counts[0].sum()) == 256 * 6 and int(counts[1].min()) == 1
+    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+    gates, experts = torch.topk(probs, 6, dim=-1)
+    want = torch.zeros((256, 2048), device=cuda_device)
+    picks = [(experts[:, j], gates[:, j]) for j in range(6)] + [
+        (torch.full((256,), 64 + i, device=cuda_device),
+         torch.ones(256, device=cuda_device)) for i in range(2)]
+    for e in range(66):
+        for ids, g in picks:
+            tok = (ids == e).nonzero()[:, 0]
+            if tok.numel():
+                h = x[tok].float() @ params["w_gate_up"][e].float()
+                a = F.silu(h[:, :1408]) * h[:, 1408:]
+                want.index_add_(0, tok, (a @ params["w_down"][e].float())
+                                * g[tok, None])
+    err = (y.float() - want).norm(dim=-1) / want.norm(dim=-1)
+    assert float(err.max()) <= GROUPED_TOL
+
+
+def test_latent_engine_decodes_through_the_kernel_on_card(cuda_device):
+    """A small latent model served by the paged engine in bf16: every
+    decode step launches the paged kernel once a layer."""
+    from tpumon_torch.loadgen.model import LatentModelConfig, init_params
+    from tpumon_torch.loadgen.serving import ServeConfig, ServingEngine
+
+    model = LatentModelConfig(
+        vocab=256, d_model=128, n_layers=3, n_heads=4, n_kv_heads=4,
+        d_ff=192, max_seq=256, kv_lora_rank=64, qk_nope_head_dim=32,
+        qk_rope_head_dim=16, v_head_dim=32, yarn_factor=40,
+        yarn_original_max_pos=4096, yarn_mscale=0.707,
+        yarn_mscale_all_dim=0.707, routed_experts=8, experts_per_token=2,
+        expert_d_ff=64, shared_experts=2, first_dense_layers=1)
+    params = init_params(model, torch.Generator().manual_seed(4))
+    eng = ServingEngine(cfg=ServeConfig(
+        model=model, slots=3, prefill_len=128, kv_layout="paged",
+        paged_attn="kernel"), params=params, seed=7, device=cuda_device)
+    before = paged_attention.launches
+    reqs = [eng.submit(p, max_new=9) for p in
+            ([5] * 200, list(range(1, 40)), [9])]
+    eng.drain()
+    torch.cuda.synchronize()
+    assert all(r.status == "completed" for r in reqs)
+    assert paged_attention.launches - before == (
+        model.n_layers * eng.decode_steps_total)

@@ -13,7 +13,12 @@ CUDA kernels of ``tpumon_torch.ops.flash_attention``) and per-layer
 family (``n_experts > 0``: each layer's SwiGLU becomes the routed expert
 FFN of ``tpumon_torch.loadgen.moe``). Params are a plain dict of tensors
 (the JAX pytree's exact structure), so the code reads
-``params["layers"][li]["wq"]`` in both packages.
+``params["layers"][li]["wq"]`` in both packages. ``LatentModelConfig``
+(DeepSeek-V2: latent attention, YaRN, the routed top-k FFN; no
+counterpart in the reference package) has a tree of its own
+(``init_params``), its rotary frequencies and score scale
+(``rope_inv_freq``, ``latent_softmax_scale``), and is served only
+(``serving.latent_forward``): the training paths refuse it.
 
 The mesh: ``Mesh`` names a set of devices over named axes ("data",
 "model", "seq", "pipe", "expert"), as ``jax.sharding.Mesh`` does, for ONE
@@ -42,6 +47,7 @@ sharded MoE step (``moe.make_sharded_moe_step``) run on the same pieces.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,8 +57,10 @@ from torch.utils.checkpoint import checkpoint
 
 from tpumon_torch.loadgen.moe import (
     MoEConfig,
+    TopKConfig,
     expert_block_outputs,
     init_moe_params,
+    init_topk_params,
     moe_ffn,
     route,
 )
@@ -91,6 +99,10 @@ class ModelConfig:
     # dense Llama-style family.
     n_experts: int = 0
     moe_capacity_factor: float = 1.25
+    # Latent attention and the routed top-k FFN are LatentModelConfig's
+    # (DeepSeek-V2); a config of this class has neither.
+    kv_lora_rank = 0
+    routed_experts = 0
 
     def __post_init__(self) -> None:
         if self.attention not in ("naive", "chunked", "flash"):
@@ -117,6 +129,72 @@ class ModelConfig:
         return getattr(torch, self.compute_dtype)
 
 
+@dataclass(frozen=True)
+class LatentModelConfig(ModelConfig):
+    """DeepSeek-V2's model, served only: latent attention (MLA) in place
+    of the GQA projections, YaRN on its rope dims, and the routed top-k
+    FFN (DeepSeekMoE). ``n_kv_heads`` is ``n_heads``; ``d_ff`` the width
+    of the dense layers before ``first_dense_layers``."""
+
+    # Latent attention (MLA): a query head is [nope ‖ rope] wide; the
+    # cache holds one [kv_lora_rank ‖ rope] row a token and layer (the
+    # normed latent and the roped key part every head shares), from which
+    # W_kvb gives each head its nope key and its v_head_dim value.
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN on the latent model's rope dims (yarn_factor > 1; 1 = plain
+    # RoPE): the blend of interpolated and original frequencies between
+    # the correction dims of beta_fast and beta_slow rotations over
+    # yarn_original_max_pos, and the attention scale's mscale².
+    yarn_factor: float = 1.0
+    yarn_original_max_pos: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+    # Routed FFN (DeepSeekMoE): routed_experts > 0 gives
+    # every layer from first_dense_layers on a dropless softmax top-k of
+    # SwiGLU experts of width expert_d_ff plus shared_experts more that
+    # every token takes at gate 1 (moe.TopKConfig); the layers before
+    # keep the SwiGLU of width d_ff.
+    routed_experts: int = 0
+    experts_per_token: int = 0
+    expert_d_ff: int = 0
+    shared_experts: int = 0
+    first_dense_layers: int = 0
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if min(self.kv_lora_rank, self.qk_nope_head_dim,
+               self.qk_rope_head_dim, self.v_head_dim) < 1:
+            raise ValueError("latent attention needs kv_lora_rank, "
+                             "qk_nope_head_dim, qk_rope_head_dim and "
+                             "v_head_dim")
+        if self.qk_rope_head_dim % 2:
+            raise ValueError("qk_rope_head_dim must be even (rotate-half)")
+        if self.routed_experts:
+            if self.n_experts:
+                raise ValueError("routed_experts (top-k) and n_experts "
+                                 "(top-1) are two FFN families; set one")
+            if not (1 <= self.experts_per_token <= self.routed_experts
+                    and self.expert_d_ff >= 1 and self.shared_experts >= 0
+                    and 0 <= self.first_dense_layers <= self.n_layers):
+                raise ValueError(
+                    f"routed FFN: experts_per_token="
+                    f"{self.experts_per_token} of routed_experts="
+                    f"{self.routed_experts}, expert_d_ff="
+                    f"{self.expert_d_ff}, shared_experts="
+                    f"{self.shared_experts}, first_dense_layers="
+                    f"{self.first_dense_layers} of {self.n_layers}")
+
+    @property
+    def latent_width(self) -> int:
+        """Width of a latent cache row: kv_lora_rank + qk_rope_head_dim."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Initialize a param dict (float32 master weights) on
     ``generator.device`` — the reference's tree and shapes, the same
@@ -130,6 +208,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
         return torch.randn(shape, generator=generator, device=dev,
                            dtype=torch.float32) * scale
 
+    if cfg.kv_lora_rank:
+        return _init_latent_params(cfg, dense, generator)
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     layers = []
     for _ in range(cfg.n_layers):
@@ -156,6 +236,117 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
         "final_norm": torch.ones((cfg.d_model,), device=dev),
         "lm_head": dense((cfg.d_model, cfg.vocab)),
     }
+
+
+def _init_latent_params(cfg: LatentModelConfig, dense, generator) -> dict:
+    """The latent model's tree (DeepSeek-V2): per layer ``wq`` [d, nh ×
+    (nope + rope)], ``wkv_a`` [d, rank + rope], ``kv_a_norm`` [rank],
+    ``wkv_b`` [rank, nh × (nope + v)] (each head's nope key columns, then
+    its value columns), ``wo`` [nh × v, d], the two norms, and either the
+    dense SwiGLU (``w_gate``, ``w_up``, ``w_down``) or ``experts``
+    (``moe.init_topk_params``)."""
+    dev = generator.device
+    d, nh, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    layers = []
+    for li in range(cfg.n_layers):
+        layer = {
+            "attn_norm": torch.ones((d,), device=dev),
+            "wq": dense((d, nh * (dn + dr))),
+            "wkv_a": dense((d, r + dr)),
+            "kv_a_norm": torch.ones((r,), device=dev),
+            "wkv_b": dense((r, nh * (dn + dv))),
+            "wo": dense((nh * dv, d)),
+            "mlp_norm": torch.ones((d,), device=dev),
+        }
+        if routed_layer(cfg, li):
+            layer["experts"] = init_topk_params(topk_config(cfg), generator)
+        else:
+            layer.update({"w_gate": dense((d, cfg.d_ff)),
+                          "w_up": dense((d, cfg.d_ff)),
+                          "w_down": dense((cfg.d_ff, d))})
+        layers.append(layer)
+    return {
+        "embed": dense((cfg.vocab, d), scale=0.02),
+        "layers": layers,
+        "final_norm": torch.ones((d,), device=dev),
+        "lm_head": dense((d, cfg.vocab)),
+    }
+
+
+def routed_layer(cfg: LatentModelConfig, li: int) -> bool:
+    """Whether layer ``li`` of a routed-FFN model has experts."""
+    return bool(cfg.routed_experts) and li >= cfg.first_dense_layers
+
+
+def topk_config(cfg: LatentModelConfig) -> TopKConfig:
+    """The routed FFN's settings of a model config."""
+    return TopKConfig(d_model=cfg.d_model, d_ff=cfg.expert_d_ff,
+                      n_experts=cfg.routed_experts,
+                      top_k=cfg.experts_per_token,
+                      n_shared=cfg.shared_experts)
+
+
+def yarn_get_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: 0.1 · mscale · ln(factor) + 1 (1 at
+    factor 1)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_correction_range(cfg: LatentModelConfig) -> tuple[int, int]:
+    """(low, high): the rope frequency indices between which YaRN blends
+    the original frequencies into the interpolated ones, floor and ceil
+    of dim · ln(original / (beta · 2π)) / (2 ln theta) at beta_fast and
+    beta_slow, clamped to the dims."""
+    dim = cfg.qk_rope_head_dim
+
+    def at(beta):
+        return dim * math.log(cfg.yarn_original_max_pos / (
+            beta * 2 * math.pi)) / (2 * math.log(cfg.rope_theta))
+
+    return (max(math.floor(at(cfg.yarn_beta_fast)), 0),
+            min(math.ceil(at(cfg.yarn_beta_slow)), dim - 1))
+
+
+def rope_inv_freq(cfg: LatentModelConfig, device) -> torch.Tensor:
+    """f32 [rope dims / 2]: the latent model's rotary frequencies, theta's
+    alone or (YaRN) blended by a linear ramp over the correction range:
+    the original frequency below ``low``, the interpolated one (over the
+    factor) above ``high``."""
+    dim = cfg.qk_rope_head_dim
+    extra = 1.0 / (cfg.rope_theta ** (torch.arange(
+        0, dim, 2, dtype=torch.float32, device=device) / dim))
+    if cfg.yarn_factor <= 1.0:
+        return extra
+    low, high = yarn_correction_range(cfg)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low)
+                       / max(high - low, 1e-3), 0.0, 1.0)
+    return extra / cfg.yarn_factor * ramp + extra * (1.0 - ramp)
+
+
+def rope_cos_sin_scale(cfg: LatentModelConfig) -> float:
+    """YaRN's factor on cos and sin: mscale(mscale) / mscale(all dims)."""
+    return (yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale)
+            / yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim))
+
+
+def latent_softmax_scale(cfg: LatentModelConfig) -> float:
+    """The latent attention's score scale s: (nope + rope)^-1/2, times
+    mscale(all dims)² under YaRN."""
+    m = yarn_get_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+    return (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5 * m * m
+
+
+def refuse_latent(cfg: ModelConfig, what: str) -> None:
+    """Raise ValueError where ``what`` (a training path) meets a model it
+    does not run: latent attention or the routed top-k FFN."""
+    if cfg.kv_lora_rank:
+        raise ValueError(
+            f"{what} does not run latent attention (kv_lora_rank="
+            f"{cfg.kv_lora_rank}) or the routed top-k FFN (routed_experts="
+            f"{cfg.routed_experts}): such a model (DeepSeek-V2) is served "
+            "only, on the paged layout")
 
 
 def map_params(params, fn):
@@ -543,6 +734,7 @@ def _layer_block(cfg: ModelConfig, x: torch.Tensor,
 def forward(cfg: ModelConfig, params: dict,
             tokens: torch.Tensor) -> torch.Tensor:
     """tokens [B, T] int -> logits [B, T, vocab] float32."""
+    refuse_latent(cfg, "the training forward")
     dt = cfg.torch_dtype
     x = params["embed"].to(dt)[tokens.long()]
     for layer in params["layers"]:
@@ -594,6 +786,7 @@ def sgd_train_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     returns new arrays, it updates the f32 master params IN PLACE (under
     ``torch.no_grad()``), so no second copy of the weights is live; the
     returned dict is ``params`` itself."""
+    refuse_latent(cfg, "sgd_train_step")
     loss, grads = value_and_grad(cfg, params, tokens)
     with torch.no_grad(), profiler_span("train.update"):
         for p, g in zip(param_leaves(params), grads):
@@ -991,6 +1184,7 @@ def make_sharded_train_step(cfg: ModelConfig, mesh: Mesh, params: dict):
     over "data", runs ``mesh_loss`` and updates every copy in place by its
     block's gradient summed over "data" (``mesh_sgd_step``); it returns
     (placed, loss). ``step_fn.specs`` is the spec tree of ``placed``."""
+    refuse_latent(cfg, "make_sharded_train_step")
     _check_moe_tp(cfg, mesh)
     specs = param_shardings(mesh, params)
     placed = shard_params(mesh, params, specs=specs)

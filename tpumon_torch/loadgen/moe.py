@@ -35,6 +35,16 @@ expert-parallel FFN step over a ("data", "expert") mesh
 reference's global computation is (``route``: capacity from the global
 token count), and device (d, e) runs expert block e over data row d's
 tokens (``expert_block_outputs``).
+
+The routed FFN of DeepSeekMoE (``TopKConfig``, ``init_topk_params``,
+``topk_ffn``) has no counterpart in the reference package: a softmax over
+the experts, each token's top k at their probabilities (not
+renormalised), SwiGLU experts, and shared experts that every token takes
+at gate 1. It drops nothing and computes each (token, expert) pair once:
+the pairs are sorted by expert and run as grouped products
+(``torch._grouped_mm``, one group per expert, the group ends on the
+device), so no device→host read is made and no expert computes rows for
+tokens it was not given.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 
 @dataclass(frozen=True)
@@ -243,3 +254,95 @@ def _combine(expert_out: torch.Tensor, slot: torch.Tensor,
     by its gate; zeros for a dropped token."""
     back = expert_out.index_select(0, torch.where(kept, slot, 0))
     return back * torch.where(kept, gate, 0.0)[:, None]
+
+
+@dataclass(frozen=True)
+class TopKConfig:
+    """The routed FFN: ``n_experts`` routed SwiGLU experts of width
+    ``d_ff``, ``top_k`` a token, and ``n_shared`` shared experts of the
+    same width that every token takes."""
+
+    d_model: int = 64
+    d_ff: int = 32
+    n_experts: int = 8
+    top_k: int = 2
+    n_shared: int = 0
+
+
+def init_topk_params(cfg: TopKConfig, generator: torch.Generator) -> dict:
+    """f32 ``router`` [d, E] and the expert groups: ``w_gate_up`` [G, d,
+    2·ff] (gate columns, then up) and ``w_down`` [G, ff, d], G = E +
+    n_shared, the shared experts last; fan-in scaled, on
+    ``generator.device``."""
+    dev = generator.device
+    g, d, ff = cfg.n_experts + cfg.n_shared, cfg.d_model, cfg.d_ff
+
+    def normal(shape, fan_in):
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32) * fan_in ** -0.5
+
+    return {"router": normal((d, cfg.n_experts), d),
+            "w_gate_up": normal((g, d, 2 * ff), d),
+            "w_down": normal((g, ff, d), ff)}
+
+
+def topk_gates(cfg: TopKConfig, router_w: torch.Tensor,
+               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(gates [N, k] f32, experts [N, k]): each token's top k of the
+    softmax over every expert, computed in f32, the gates not
+    renormalised."""
+    probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+    return torch.topk(probs, cfg.top_k, dim=-1)
+
+
+def topk_ffn(cfg: TopKConfig, params: dict, x: torch.Tensor,
+             n_shared: int | None = None, expert_offset: int = 0,
+             counts: torch.Tensor | None = None) -> torch.Tensor:
+    """x [N, d] -> [N, d] in x's dtype: the sum over each token's top-k
+    experts of gate · SwiGLU_e(x), plus its shared experts' outputs.
+
+    ``params`` holds the router over all ``cfg.n_experts`` and a block of
+    expert groups (``init_topk_params``'s layout): routed experts
+    ``expert_offset``.. first, then ``n_shared`` shared ones
+    (``cfg.n_shared`` unless given; a shard but one passes 0, so the sum
+    over shards counts them once). A pair routed outside the block gives
+    nothing. The pairs are sorted by group (stably: the order of a
+    group's rows is the tokens') and run as two grouped products in x's
+    dtype, gate and up in one; the gates weigh them in f32. ``counts``
+    [2, routed experts of the block], when given, gains each expert's
+    rows and, where it had any, one call."""
+    n_shared = cfg.n_shared if n_shared is None else n_shared
+    n, d = x.shape
+    w_gu, w_down = params["w_gate_up"], params["w_down"]
+    groups = w_gu.shape[0]
+    routed = groups - n_shared
+    ff = w_down.shape[1]
+    wts, ids = topk_gates(cfg, params["router"], x)
+    partial = bool(expert_offset) or routed != cfg.n_experts
+    if partial:  # a pair past every group is dropped
+        local = ids - expert_offset
+        inside = (local >= 0) & (local < routed)
+        ids = torch.where(inside, local, groups)
+        wts = torch.where(inside, wts, 0.0)
+    width = cfg.top_k + n_shared
+    if n_shared:
+        shared = torch.arange(routed, groups, device=x.device)
+        ids = torch.cat([ids, shared.expand(n, n_shared)], dim=1)
+        wts = torch.cat([wts, wts.new_ones(n, n_shared)], dim=1)
+    sorted_ids, order = torch.sort(ids.flatten(), stable=True)
+    ends = torch.searchsorted(
+        sorted_ids, torch.arange(1, groups + 1, device=x.device),
+        out_int32=True)
+    if counts is not None:
+        rows = torch.diff(ends[:routed], prepend=ends.new_zeros(1))
+        counts[0] += rows
+        counts[1] += rows.clamp(max=1)
+    xs = x.index_select(0, order // width)
+    h = torch._grouped_mm(xs, w_gu.to(x.dtype), offs=ends)
+    act = F.silu(h[:, :ff]) * h[:, ff:]
+    out = torch._grouped_mm(act, w_down.to(x.dtype), offs=ends)
+    out = out.float() * wts.flatten()[order][:, None]
+    if partial:  # rows past the last group are not computed
+        out = torch.where((sorted_ids < groups)[:, None], out, 0.0)
+    pairs = torch.empty_like(out).index_copy_(0, order, out)
+    return pairs.view(n, width, d).sum(dim=1).to(x.dtype)

@@ -28,6 +28,14 @@ write and dequantized on the gather read; the kernel read path refuses it,
 as the reference's does. ``PagePrefixCache`` shares a cached prompt
 prefix's pages into new requests' tables, refcounted, with no copy.
 
+A latent model (``LatentModelConfig``, DeepSeek-V2) keeps one pool
+``{"kv": [layers, 1, num_pages, page, rank + rope]}``: a token's row per
+layer is its normed latent and its roped shared key part, read as K and
+as V at once. Its prefill chunk attends in the expanded form over the
+gathered pages through its own (``_latent_prefill_attend``); its decode
+step in the absorbed form through ``paged_attention`` with that one pool
+as K and V and the latent as a single kv head (``_latent_decode_attend``).
+
 JAX donates the pool to each jitted call and gets it back; here the pool
 dict's tensors are updated IN PLACE, so the paged functions return only
 their logits.
@@ -39,6 +47,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from tpumon_torch.loadgen.model import latent_softmax_scale
 from tpumon_torch.ops import prefill_attention as chunk_attention
 from tpumon_torch.ops.paged_attention import paged_attention
 
@@ -98,8 +107,13 @@ def init_pool(cfg, num_pages: int, device: str | torch.device,
     page, hd]`` on ``device``: the compute dtype, or (``kv_dtype="int8"``)
     int8 rows plus f32 scales ``{"ks", "vs"}`` of shape ``[layers,
     kv_heads, num_pages, page]``. ``kv_heads`` overrides the config's for
-    one shard of a mesh."""
+    one shard of a mesh. A latent model's pool is ``{"kv"}``, ``[layers,
+    1, num_pages, page, rank + rope]``."""
     m = cfg.model
+    if m.kv_lora_rank:
+        return {"kv": torch.zeros(
+            (m.n_layers, 1, num_pages, cfg.prefill_len, m.latent_width),
+            dtype=m.torch_dtype, device=device)}
     shape = (m.n_layers, kv_heads or m.n_kv_heads, num_pages,
              cfg.prefill_len, m.head_dim)
     if cfg.kv_dtype == "int8":
@@ -125,17 +139,18 @@ def prefill_reads_kernel(cfg, pool) -> bool:
 
 def prefill_rows(cfg, pool, table_row: torch.Tensor, start: int) -> int:
     """Rows of its sequence that one ``paged_prefill`` chunk at ``start``
-    reads and attends over: the pages through its own on the kernel route
-    (``start + page``), every page of the table on the gather route."""
+    reads and attends over: the pages through its own (``start + page``)
+    on the kernel route and in a latent pool, every page of the table on
+    the gather route."""
     page = cfg.prefill_len
-    if prefill_reads_kernel(cfg, pool):
+    if cfg.model.kv_lora_rank or prefill_reads_kernel(cfg, pool):
         return start + page
     return table_row.shape[0] * page
 
 
 def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
                   length: int, page_id: int, table_row: torch.Tensor,
-                  start: int) -> torch.Tensor:
+                  start: int, moe_rows=None) -> torch.Tensor:
     """One prompt chunk into fresh page ``page_id`` of one sequence.
 
     tokens: [page_size] int32 padded chunk; length: true tokens in this
@@ -149,7 +164,10 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
     Where ``prefill_reads_kernel`` holds, each layer writes its page and
     calls ``ops.prefill_attention`` over the pages through the chunk's
     own (no mask is built); else it gathers every page of the table and
-    attends densely under the causal mask.
+    attends densely under the causal mask. A latent model runs
+    ``serving.latent_forward`` over the chunk's ``length`` tokens alone
+    (no padded row is computed or written) and the pages through its own
+    (``moe_rows``: its routed layers' counters).
     """
     from tpumon_torch.loadgen.serving import (
         _kv_dequant,
@@ -157,10 +175,18 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
         _logits,
         _per_store,
         decoder_forward,
+        latent_forward,
     )
 
     p = cfg.prefill_len  # == page_size
     dev = tokens.device
+    if cfg.model.kv_lora_rank:
+        pos = start + torch.arange(length, dtype=torch.int32, device=dev)
+        x = latent_forward(cfg, params, tokens[None, :length], pos[None],
+                           _latent_prefill_attend(cfg, pool, table_row,
+                                                  page_id, start, length),
+                           moe_rows)
+        return _logits(cfg, params, x, (0, length - 1))
     s_max = table_row.shape[0] * p
     kernel = prefill_reads_kernel(cfg, pool)
 
@@ -223,7 +249,7 @@ def paged_prefill(cfg, params: dict, pool: dict, tokens: torch.Tensor,
 
 def paged_decode_step(cfg, params: dict, pool: dict,
                       last_tokens: torch.Tensor, positions: torch.Tensor,
-                      tables: torch.Tensor) -> torch.Tensor:
+                      tables: torch.Tensor, moe_rows=None) -> torch.Tensor:
     """Advance every slot one token over the paged pool.
 
     last_tokens/positions: [B] int32; tables: [B, max_pages] int32
@@ -234,7 +260,10 @@ def paged_decode_step(cfg, params: dict, pool: dict,
     ``cfg.paged_attn="kernel"`` swaps the gather read for the paged
     attention kernel, ``"ring"`` for the page-at-a-time online softmax of
     ``ring_attention.paged_ring_decode_attend``; the scatter-write is
-    identical either way. Neither reads an int8 pool.
+    identical either way. Neither reads an int8 pool. A latent model runs
+    ``serving.latent_forward`` with the absorbed read
+    (``_latent_decode_attend``; ``moe_rows``: its routed layers'
+    counters).
     """
     from tpumon_torch.loadgen.ring_attention import paged_ring_decode_attend
     from tpumon_torch.loadgen.serving import (
@@ -242,6 +271,7 @@ def paged_decode_step(cfg, params: dict, pool: dict,
         _logits,
         _per_store,
         decoder_forward,
+        latent_forward,
     )
 
     ps = cfg.prefill_len
@@ -254,6 +284,12 @@ def paged_decode_step(cfg, params: dict, pool: dict,
         raise ValueError(
             f"paged_attn={cfg.paged_attn!r} cannot read a quantized (int8) "
             "pool; use the gather path or a compute-dtype pool")
+    if cfg.model.kv_lora_rank:
+        x = latent_forward(cfg, params, last_tokens[:, None],
+                           positions[:, None],
+                           _latent_decode_attend(cfg, pool, tables,
+                                                 positions), moe_rows)
+        return _logits(cfg, params, x, (slice(None), 0))
 
     page_all = torch.gather(tables, 1,
                             (positions // ps)[:, None].long())[:, 0].long()
@@ -312,6 +348,78 @@ def paged_decode_step(cfg, params: dict, pool: dict,
     x = decoder_forward(cfg, params, last_tokens[:, None], pos, mask,
                         kv_update, attend=attend)
     return _logits(cfg, params, x, (slice(None), 0))
+
+
+def _latent_prefill_attend(cfg, pool: dict, table_row: torch.Tensor,
+                           page_id: int, start: int, length: int):
+    """The latent prefill chunk's ``attend``, in the expanded form, over
+    the chunk's ``length`` tokens: write their rows into page ``page_id``,
+    gather the pages through the chunk's own, up to its last row, give
+    each head its nope keys and values from the rows' latents (c′·W_kvb)
+    and its shared roped key part, and attend causally at the score scale
+    s (f32 softmax, as the gather route)."""
+    m = cfg.model
+    kv = pool["kv"]
+    page = kv.shape[3]
+    n = start // page + 1  # pages through the chunk's own
+    s_len = start + length  # context rows through the chunk's last
+    pages = table_row[:n].long().to(kv.device)
+    nh, dn, dr = m.n_heads, m.qk_nope_head_dim, m.qk_rope_head_dim
+    rank = m.kv_lora_rank
+    scale = latent_softmax_scale(m)
+    rows = torch.arange(s_len, dtype=torch.int32, device=kv.device)
+    at = start + torch.arange(length, dtype=torch.int32, device=kv.device)
+    causal = rows[None, :] <= at[:, None]  # [length, S]
+
+    def attend(li, layer, q_nope, q_pe, row):
+        store = kv[li, 0]  # [pages, page, rank + rope]
+        store[page_id, :length] = row[0]
+        ctx = store[pages].reshape(n * page, -1)[:s_len]
+        kvb = (ctx[:, :rank] @ layer["wkv_b"].to(ctx.dtype)).view(
+            s_len, nh, -1)
+        k = torch.cat([kvb[..., :dn],
+                       ctx[:, None, rank:].expand(-1, nh, dr)], dim=-1)
+        q = torch.cat([q_nope[0], q_pe[0]], dim=-1)
+        scores = torch.einsum("thd,shd->hts", q, k).float() * scale
+        scores = torch.where(causal[None], scores, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("hts,shv->thv", probs, kvb[..., dn:])[None]
+    return attend
+
+
+def _latent_decode_attend(cfg, pool: dict, tables: torch.Tensor,
+                          positions: torch.Tensor):
+    """The latent decode step's ``attend``, in the absorbed form: write
+    each slot's row at its (page, offset), fold W_kvb's nope key columns
+    into the queries (q_lat,h = q_nope,h·W_UK,hᵀ), read the pool once as
+    K and as V through ``paged_attention`` (off the card its plain
+    version) with q = [q_lat ‖ q_pe] · √(rank + rope) · s (the kernel
+    scales by (rank + rope)^-1/2), and take the first ``rank`` columns of
+    its output, Σ p·c′, through each head's value columns W_UV,h."""
+    m = cfg.model
+    kv = pool["kv"]
+    page = kv.shape[3]
+    nh, dn, rank = m.n_heads, m.qk_nope_head_dim, m.kv_lora_rank
+    tab = tables.to(kv.device)
+    at = positions.to(kv.device)
+    slot_page = torch.gather(tab, 1, (at // page)[:, None].long())[:, 0]
+    slot_page = slot_page.long()
+    slot_off = (at % page).long()
+    lengths = at + 1
+    scale = latent_softmax_scale(m) * m.latent_width ** 0.5
+
+    def attend(li, layer, q_nope, q_pe, row):
+        store = kv[li]  # [1, pages, page, rank + rope]
+        store[0, slot_page, slot_off] = row[:, 0]
+        w = layer["wkv_b"].to(row.dtype).view(rank, nh, -1)
+        q_lat = torch.bmm(q_nope[:, 0].transpose(0, 1),
+                          w[..., :dn].permute(1, 2, 0))  # [nh, B, rank]
+        q_abs = torch.cat([q_lat.transpose(0, 1), q_pe[:, 0]],
+                          dim=-1) * scale
+        lat = paged_attention(q_abs, store, store, tab, lengths)[..., :rank]
+        out = torch.bmm(lat.transpose(0, 1), w[..., dn:].transpose(0, 1))
+        return out.transpose(0, 1)[:, None]  # [B, 1, nh, v]
+    return attend
 
 
 def _gather_context(pool: dict, li: int, tables: torch.Tensor, dt):

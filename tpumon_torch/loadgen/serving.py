@@ -65,6 +65,7 @@ from tpumon_torch.loadgen.checkpoint import (
     saved_model_config,
 )
 from tpumon_torch.loadgen.model import (
+    LatentModelConfig,
     ModelConfig,
     _check_moe_tp,
     _moe_mlp,
@@ -77,9 +78,14 @@ from tpumon_torch.loadgen.model import (
     param_leaves,
     replica_meshes,
     resolve_device,
+    rope_cos_sin_scale,
+    rope_inv_freq,
+    routed_layer,
     shard_params,
+    topk_config,
     visible_devices,
 )
+from tpumon_torch.loadgen.moe import topk_ffn
 from tpumon_torch.loadgen.paged_kv import (
     PageAllocator,
     PagePrefixCache,
@@ -323,6 +329,86 @@ def decoder_forward(cfg: ServeConfig, params: dict, tokens: torch.Tensor,
         xs = [x + a for x, a in zip(xs, all_reduce_sum(parts))]
     out = [_rms_norm(x, sh["final_norm"]) for x, sh in zip(xs, shards)]
     return out if sharded else out[0]
+
+
+_INV_FREQ: dict = {}
+
+
+def _rotate_half(x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding of x [..., D] by halves, in f32, given cos and sin
+    [..., D/2] broadcast against x's halves."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _latent_cos_sin(m: LatentModelConfig, pos: torch.Tensor) -> tuple:
+    """cos and sin [B, T, 1, rope dims / 2] at positions [B, T] under the
+    model's rotary frequencies (YaRN's where it has them) and YaRN's
+    factor on both."""
+    key = (m, pos.device)
+    inv = _INV_FREQ.get(key)
+    if inv is None:
+        inv = _INV_FREQ[key] = rope_inv_freq(m, pos.device)
+    angles = (pos.float()[..., None] * inv)[:, :, None, :]
+    scale = rope_cos_sin_scale(m)
+    if scale != 1.0:
+        return torch.cos(angles) * scale, torch.sin(angles) * scale
+    return torch.cos(angles), torch.sin(angles)
+
+
+def latent_forward(cfg: ServeConfig, params: dict, tokens: torch.Tensor,
+                   pos: torch.Tensor, attend,
+                   moe_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """The latent model's body (DeepSeek-V2: MLA, the routed top-k FFN),
+    on one device; returns the final-norm hidden states [B, T, D].
+
+    tokens, pos: [B, T]. Per layer h = RMSNorm(x); q = h·W_q, per head
+    [nope ‖ rope]; h·W_kva = [c ‖ k_pe], and the store's row is
+    [RMSNorm(c; kv_a_norm) ‖ k_pe] with q's and k_pe's rope parts rotated
+    (by halves) at each token's position. ``attend(li, layer, q_nope,
+    q_pe, row)`` writes ``row`` [B, T, rank + rope] into layer li's store
+    and returns the heads' outputs [B, T, heads, v] (the paged functions:
+    expanded over the chunk's pages in prefill, absorbed through the paged
+    kernel in decode); W_o takes them back to the residual. The FFN is the
+    dense SwiGLU or, from ``first_dense_layers`` on, ``moe.topk_ffn``,
+    which adds each expert's rows and calls to ``moe_rows[i]`` [2,
+    experts] of the i-th routed layer when given. Spans:
+    ``serve.latent_attn`` around ``attend``, ``serve.moe`` around the
+    routed FFN."""
+    m = cfg.model
+    dt = m.torch_dtype
+    b, t = tokens.shape
+    nh, dn, rank = m.n_heads, m.qk_nope_head_dim, m.kv_lora_rank
+    cos, sin = _latent_cos_sin(m, pos)
+    topk = topk_config(m)
+    x = params["embed"].to(dt)[tokens.long()]
+    routed = 0
+    for li, layer in enumerate(params["layers"]):
+        h = _rms_norm(x, layer["attn_norm"])
+        q = (h @ layer["wq"].to(dt)).view(b, t, nh, -1)
+        ckv = h @ layer["wkv_a"].to(dt)
+        k_pe = _rotate_half(ckv[:, :, None, rank:], cos, sin)
+        row = torch.cat([_rms_norm(ckv[..., :rank], layer["kv_a_norm"]),
+                         k_pe[:, :, 0]], dim=-1)
+        q_pe = _rotate_half(q[..., dn:], cos, sin)
+        with profiler_span("serve.latent_attn"):
+            att = attend(li, layer, q[..., :dn], q_pe, row)
+        x = x + att.reshape(b, t, -1) @ layer["wo"].to(dt)
+        h = _rms_norm(x, layer["mlp_norm"])
+        if routed_layer(m, li):
+            with profiler_span("serve.moe"):
+                y = topk_ffn(topk, layer["experts"], h.view(b * t, -1),
+                             counts=None if moe_rows is None
+                             else moe_rows[routed])
+            routed += 1
+            x = x + y.view(b, t, -1)
+        else:
+            gate = F.silu(h @ layer["w_gate"].to(dt))
+            x = x + (gate * (h @ layer["w_up"].to(dt))) @ layer[
+                "w_down"].to(dt)
+    return _rms_norm(x, params["final_norm"])
 
 
 def _logits(cfg: ServeConfig, params, x, index=()) -> torch.Tensor:
@@ -822,6 +908,17 @@ class ServingEngine:
         self.prefill_rows_needed = 0
         self.decode_rows_read = 0
         self.decode_rows_live = 0
+        # The routed FFN's (token, expert) pairs (rows computed x top k,
+        # summed over the routed layers) and, on the device, each routed
+        # layer's rows per expert and the calls that reached each expert
+        # ([routed layers, 2, experts], moe.topk_ffn's counts), added to
+        # in the step and read by no step.
+        self.moe_pairs_routed = 0
+        self.moe_rows = None
+        if m.routed_experts:
+            self.moe_rows = torch.zeros(
+                (sum(routed_layer(m, li) for li in range(m.n_layers)), 2,
+                 m.routed_experts), dtype=torch.int64, device=dev)
         # This step's start, and the requests one of whose prefill chunks
         # ran in it (id -> Request): Request.queue_wait_s's accounting.
         self._step_t0 = time.monotonic()
@@ -867,6 +964,8 @@ class ServingEngine:
             raise ValueError(
                 "pool_pages requires kv_layout='paged' (a dense cache "
                 "has no page pool to size)")
+        if cfg.model.kv_lora_rank:
+            self._validate_latent(mesh)
         if mesh is not None:
             self._validate_mesh(mesh)
         if cfg.model.n_experts and cfg.prefill_len > cfg.moe_prefill_max_chunk:
@@ -953,6 +1052,28 @@ class ServingEngine:
                 "engine (incl. prefix caching and speculative "
                 "decoding) — not with a mesh, or with the DENSE "
                 "layout's speculative/prefix cache surgery")
+
+    def _validate_latent(self, mesh) -> None:
+        """A latent model (DeepSeek-V2) is served by one device's paged
+        engine, a step at a time, its decode read by ``paged_attention``
+        (``paged_attn="kernel"``; its plain version off the card)."""
+        cfg = self.cfg
+        bad = [what for what, on in (
+            (f"kv_layout={cfg.kv_layout!r}", cfg.kv_layout != "paged"),
+            (f"paged_attn={cfg.paged_attn!r}", cfg.paged_attn != "kernel"),
+            ("ring_stripes", bool(cfg.ring_stripes)),
+            ("speculative decoding", bool(cfg.spec_len)),
+            ("decode_block > 1", cfg.decode_block > 1),
+            ("prefix caching", bool(cfg.prefix_cache_entries)),
+            ("kv_dtype='int8'", cfg.kv_dtype == "int8"),
+            (f"quantize={cfg.quantize!r}", cfg.quantize is not None),
+            ("a mesh", mesh is not None)) if on]
+        if bad:
+            raise ValueError(
+                "latent attention and the routed top-k FFN (DeepSeek-V2) "
+                "are served on one device's paged layout with "
+                "paged_attn='kernel', a step at a time: not with "
+                + ", ".join(bad))
 
     def _validate_mesh(self, mesh) -> None:
         """The reference's rules for a tensor-parallel engine."""
@@ -1433,7 +1554,9 @@ class ServingEngine:
                                             work.table_row, c0)
                     work.logits = paged_prefill(
                         self.cfg, self.params, self.pool, toks, ln,
-                        work.pages[c0 // p], work.table_row, c0)
+                        work.pages[c0 // p], work.table_row, c0,
+                        moe_rows=self.moe_rows)
+                    self._count_routed(ln)
                 else:
                     gathered = self.cfg.model.max_seq  # the slot's cache
                     work.logits = self._prefill(self.params, self.cache,
@@ -1642,6 +1765,14 @@ class ServingEngine:
                           if self.paged else self.cfg.model.max_seq)
         return width * self.cfg.slots, width * len(active)
 
+    def _count_routed(self, rows: int) -> None:
+        """Count the (token, expert) pairs of ``rows`` tokens through every
+        routed layer (``moe_pairs_routed``)."""
+        if self.moe_rows is not None:
+            with self._lock:
+                self.moe_pairs_routed += (rows * self.moe_rows.shape[0]
+                                          * self.cfg.model.experts_per_token)
+
     def _plain_step(self, active: list[int]) -> None:
         # Fused block decode when configured and every active slot has
         # cache room for the whole block (else the single step below).
@@ -1656,7 +1787,8 @@ class ServingEngine:
                 self._sync_tables()
                 logits = paged_decode_step(
                     self.cfg, self.params, self.pool, self.last_tokens,
-                    self.positions, self._tables_dev)
+                    self.positions, self._tables_dev, moe_rows=self.moe_rows)
+                self._count_routed(self.cfg.slots)
             else:
                 logits = self._decode(self.params, self.cache,
                                       self.last_tokens, self.positions)
